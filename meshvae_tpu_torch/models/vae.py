@@ -1,0 +1,203 @@
+"""Disentangled, label-conditioned mesh VAE (counterpart of
+meshvae_tpu/models/vae.py), eval-mode forward.
+
+  encoder   : n_layers x (ChebConv -> ReLU -> down-pool), flatten,
+              ReLU(enc_lin)                                        -> h [B, H]
+  classifier: softmax(classifier_layer(h))                         -> y_hat
+  posterior : z_mean / z_log_var(concat[y, h])                     -> mu, logvar
+  decoder   : ReLU(dec_lin(concat[y, z])), ReLU(dec_lin_2), reshape to
+              [B, n_coarse, F_last], n_layers x (up-pool -> ChebConv -> ReLU),
+              final bias-free ChebConv on ops.lap_final             -> recon
+
+Parameter names match the flax tree one to one (``cheb_enc_i``,
+``cheb_dec_i``, ``enc_lin``, ...); ``params_from_flax`` converts a flax tree
+into this module's state_dict. Init distributions match the JAX package:
+Chebyshev weights and biases ~ N(0, 0.1), enc_lin/dec_lin weights
+~ N(0, 0.1), every other weight and every Linear bias
+U(+-1/sqrt(fan_in)). Eval mode uses z = mu and no dropout; dropout and the
+reparameterisation arrive with the training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.cheb import cheb_conv, resolve_precision
+from ..ops.graph import GraphOperator
+from ..ops.pool import pool_apply
+from .operators import ModelOperators
+
+
+class ChebConvLayer(nn.Module):
+    """One Chebyshev graph convolution; the operator is passed at call time."""
+
+    def __init__(self, in_features: int, out_features: int, k: int,
+                 use_bias: bool = True, precision: str | None = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(k, in_features, out_features))
+        self.bias = (nn.Parameter(torch.empty(out_features)) if use_bias
+                     else None)
+        self.precision = precision
+
+    def forward(self, x: torch.Tensor, op: GraphOperator) -> torch.Tensor:
+        return cheb_conv(x, op, self.weight, self.bias,
+                         precision=self.precision)
+
+
+@dataclasses.dataclass(frozen=True)
+class VAEConfig:
+    num_features: int          # per-vertex feature dim (3)
+    filters: tuple             # conv filter widths, e.g. (16, 16, 16, 32, 32)
+    polygon_order: tuple       # Chebyshev order per layer
+    n_layers: int
+    num_hidden: int
+    latent: int                # z dim ("num_style")
+    num_classes: int
+    dropout: float
+    coarse_verts: int          # vertex count at the coarsest level
+    precision: str | None = None
+
+    @staticmethod
+    def from_config(cfg: dict, coarse_verts: int,
+                    num_features: int = 3) -> "VAEConfig":
+        compute_dtype = str(cfg.get("compute_dtype", "float32") or "float32")
+        if compute_dtype != "float32":
+            raise ValueError(f"compute_dtype {compute_dtype!r} is not ported "
+                             "yet; the port computes in float32")
+        return VAEConfig(
+            num_features=num_features,
+            filters=tuple(cfg["num_conv_filters"]),
+            polygon_order=tuple(cfg["polygon_order"]),
+            n_layers=int(cfg["n_layers"]),
+            num_hidden=int(cfg["num_hidden"]),
+            latent=int(cfg["num_style"]),
+            num_classes=int(cfg["num_classes"]),
+            dropout=float(cfg["dropout"]),
+            coarse_verts=coarse_verts,
+            precision=resolve_precision(cfg.get("matmul_precision")),
+        )
+
+
+class MeshVAE(nn.Module):
+    def __init__(self, cfg: VAEConfig,
+                 generator: torch.Generator | None = None):
+        """Weights are drawn on the CPU from `generator` (a fresh one seeded
+        0 when None); move the module with `.to(device)`."""
+        super().__init__()
+        self.cfg = c = cfg
+        # filter chain with input features prepended: [F_in, f1, ..., fL]
+        self.filters = filters = (c.num_features,) + tuple(c.filters)
+        enc_specs = [(filters[i], filters[i + 1], c.polygon_order[i])
+                     for i in range(len(filters) - 2)]
+        dec_specs = [(filters[-i - 1], filters[-i - 2], c.polygon_order[i])
+                     for i in range(len(filters) - 1)]
+        for n, (i, o, k) in enumerate(enc_specs):
+            setattr(self, f"cheb_enc_{n}",
+                    ChebConvLayer(i, o, k, precision=c.precision))
+        for n, (i, o, k) in enumerate(dec_specs):
+            setattr(self, f"cheb_dec_{n}",
+                    ChebConvLayer(i, o, k, use_bias=(n != len(dec_specs) - 1),
+                                  precision=c.precision))
+
+        flat = c.coarse_verts * filters[-1]
+        self.enc_lin = nn.Linear(flat, c.num_hidden)
+        self.dec_lin = nn.Linear(c.latent + c.num_classes, c.num_hidden)
+        self.dec_lin_2 = nn.Linear(c.num_hidden, flat)
+        self.classifier_layer = nn.Linear(c.num_hidden, c.num_classes)
+        self.z_mean = nn.Linear(c.num_hidden + c.num_classes, c.latent)
+        self.z_log_var = nn.Linear(c.num_hidden + c.num_classes, c.latent)
+        self._init_weights(generator or torch.Generator().manual_seed(0))
+
+    @torch.no_grad()
+    def _init_weights(self, gen: torch.Generator) -> None:
+        for name, mod in self.named_children():
+            if isinstance(mod, ChebConvLayer):
+                mod.weight.normal_(0.0, 0.1, generator=gen)
+                if mod.bias is not None:
+                    mod.bias.normal_(0.0, 0.1, generator=gen)
+            elif isinstance(mod, nn.Linear):
+                bound = 1.0 / math.sqrt(mod.in_features)
+                if name in ("enc_lin", "dec_lin"):
+                    mod.weight.normal_(0.0, 0.1, generator=gen)
+                else:
+                    mod.weight.uniform_(-bound, bound, generator=gen)
+                mod.bias.uniform_(-bound, bound, generator=gen)
+
+    def cheb_enc(self, i: int) -> ChebConvLayer:
+        return getattr(self, f"cheb_enc_{i}")
+
+    def cheb_dec(self, i: int) -> ChebConvLayer:
+        return getattr(self, f"cheb_dec_{i}")
+
+    def encode(self, x: torch.Tensor, ops: ModelOperators) -> torch.Tensor:
+        """x: [B, N, F_in] -> h: [B, num_hidden]."""
+        for i in range(self.cfg.n_layers):
+            x = torch.relu(self.cheb_enc(i)(x, ops.lap[i]))
+            x = pool_apply(x, ops.down[i])
+        return torch.relu(self.enc_lin(x.reshape(x.shape[0], -1)))
+
+    def classify(self, h: torch.Tensor) -> torch.Tensor:
+        """h: [B, num_hidden] -> y_hat: [B, C] (softmax)."""
+        return torch.softmax(self.classifier_layer(h), dim=-1)
+
+    def decode(self, z: torch.Tensor, ops: ModelOperators) -> torch.Tensor:
+        """z: [B, latent + C] (label-conditioned) -> recon: [B, N, F_in]."""
+        c = self.cfg
+        x = torch.relu(self.dec_lin(z))
+        x = torch.relu(self.dec_lin_2(x))
+        x = x.reshape(x.shape[0], c.coarse_verts, self.filters[-1])
+        for i in range(c.n_layers):
+            x = pool_apply(x, ops.up[-i - 1])
+            x = torch.relu(self.cheb_dec(i)(x, ops.lap[c.n_layers - i - 1]))
+        return self.cheb_dec(len(c.filters) - 1)(x, ops.lap_final)
+
+    def sample(self, y: torch.Tensor, z: torch.Tensor,
+               ops: ModelOperators) -> torch.Tensor:
+        """Label-conditioned decode of concat[y, z]."""
+        return self.decode(torch.cat([y, z], dim=-1), ops)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor,
+                ops: ModelOperators) -> dict:
+        """Eval forward: x [B, N, F_in] normalized vertices, y [B, C]
+        one-hot labels -> dict(recon, y_hat, mu, logvar, z = mu)."""
+        h = self.encode(x, ops)
+        y_hat = self.classify(h)
+        hy = torch.cat([y.to(h.dtype), h], dim=-1)
+        mu = self.z_mean(hy)
+        logvar = self.z_log_var(hy)
+        recon = self.sample(y, mu, ops)
+        return {"recon": recon, "y_hat": y_hat, "mu": mu, "logvar": logvar,
+                "z": mu}
+
+
+def params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """flax param tree (``{"params": {...}}`` or its inner dict, leaves as
+    numpy arrays) -> MeshVAE state_dict. Chebyshev ``weight [K, F_in,
+    F_out]`` and ``bias`` keep their shapes; a Dense ``kernel [in, out]``
+    becomes ``nn.Linear.weight [out, in]``."""
+    params = tree.get("params", tree)
+    arr = lambda v: torch.from_numpy(np.array(v, dtype=np.float32))
+    out = {}
+    for name, leaves in params.items():
+        if "kernel" in leaves:
+            out[f"{name}.weight"] = arr(np.asarray(leaves["kernel"]).T)
+        else:
+            out[f"{name}.weight"] = arr(leaves["weight"])
+        if "bias" in leaves:
+            out[f"{name}.bias"] = arr(leaves["bias"])
+    return out
+
+
+def save_params_npz(path: str, state_dict: dict) -> None:
+    """Write a flat name -> array map (the state_dict) as .npz."""
+    np.savez(path, **{k: v.detach().cpu().numpy()
+                      for k, v in state_dict.items()})
+
+
+def load_params_npz(path: str) -> dict[str, torch.Tensor]:
+    with np.load(path) as z:
+        return {k: torch.from_numpy(z[k]) for k in z.files}

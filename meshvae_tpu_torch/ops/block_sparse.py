@@ -1,0 +1,126 @@
+"""Host-side block-CSR (BSR) conversion for the block-sparse SpMM kernel
+(counterpart of meshvae_tpu/ops/block_sparse.py, same layout).
+
+Occupied 128x128 blocks are sorted by (block_row, block_col); every block-row
+is present (absent rows get an explicit zero block); the row count is padded
+to a multiple of 8 when that adds at most 5% rows. The row-grouped view
+``g_idx [nR, G]`` / ``g_bcol [nR * G]`` lists each row's blocks, with padded
+slots set to ``num_blocks`` (a zero block that is never stored) and their
+``g_bcol`` aliasing the row's last real column.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+BLOCK = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSparseOperator:
+    """BSR operator: [nb, BLOCK, BLOCK] float32 blocks + coordinates, as
+    tensors on one device. `n` is the true row count, `n_pad` the padded
+    one; rectangular operators carry n_pad_cols != n_pad."""
+
+    blocks: torch.Tensor      # [nb, BLOCK, BLOCK] float32
+    block_row: torch.Tensor   # [nb] int32
+    block_col: torch.Tensor   # [nb] int32
+    g_idx: torch.Tensor       # [nR, G] int32 into blocks (num_blocks = pad)
+    g_bcol: torch.Tensor      # [nR * G] int32 column block of each slot
+    n: int
+    n_pad: int
+    n_pad_cols: int
+    g_width: int
+
+    @property
+    def num_blocks(self) -> int:
+        return self.blocks.shape[0]
+
+
+def block_sparse_arrays(mat: sp.spmatrix, block: int = BLOCK,
+                        allow_rect: bool = False) -> dict:
+    """The BSR layout of `mat` as numpy arrays (see the module docstring)."""
+    coo = sp.coo_matrix(mat)
+    n = coo.shape[0]
+    if not allow_rect and coo.shape[0] != coo.shape[1]:
+        raise ValueError(f"square operators only, got {coo.shape}")
+    n_pad = -(-n // block) * block
+    # pad the row count to a multiple of 8 when the overhead is <= 5%
+    nr = n_pad // block
+    nr8 = -(-nr // 8) * 8
+    if nr8 > nr and (nr8 - nr) * 20 <= nr:
+        n_pad = nr8 * block
+
+    keys = {}
+    for r, c, v in zip(coo.row, coo.col, coo.data):
+        br, bc = int(r // block), int(c // block)
+        blk = keys.setdefault((br, bc), np.zeros((block, block), np.float32))
+        blk[r - br * block, c - bc * block] += v
+
+    order = sorted(keys)
+    if not order:  # degenerate: one explicit zero block keeps shapes static
+        order = [(0, 0)]
+        keys[(0, 0)] = np.zeros((block, block), np.float32)
+
+    blocks = np.stack([keys[k] for k in order])
+    block_row = np.array([k[0] for k in order], np.int32)
+    block_col = np.array([k[1] for k in order], np.int32)
+
+    # every block-row must appear (empty output rows need zeroing): insert an
+    # explicit zero block for absent rows
+    present = set(block_row.tolist())
+    missing = [r for r in range(n_pad // block) if r not in present]
+    if missing:
+        zb = np.zeros((len(missing), block, block), np.float32)
+        blocks = np.concatenate([blocks, zb])
+        block_row = np.concatenate([block_row, np.array(missing, np.int32)])
+        block_col = np.concatenate([block_col,
+                                    np.zeros(len(missing), np.int32)])
+        reorder = np.lexsort((block_col, block_row))
+        blocks, block_row, block_col = (blocks[reorder], block_row[reorder],
+                                        block_col[reorder])
+
+    nb = len(block_row)
+    n_rows = n_pad // block
+    per_row = [[] for _ in range(n_rows)]
+    for i in range(nb):
+        per_row[int(block_row[i])].append(i)
+    g = max(len(v) for v in per_row)
+    g_idx = np.full((n_rows, g), nb, np.int32)
+    g_bcol = np.zeros((n_rows, g), np.int32)
+    for r, idxs in enumerate(per_row):
+        for i, bi in enumerate(idxs):
+            g_idx[r, i] = bi
+            g_bcol[r, i] = block_col[bi]
+        g_bcol[r, len(idxs):] = block_col[idxs[-1]]
+
+    return dict(blocks=blocks, block_row=block_row, block_col=block_col,
+                g_idx=g_idx, g_bcol=g_bcol.reshape(-1), n=n, n_pad=n_pad,
+                n_pad_cols=(-(-coo.shape[1] // block) * block if allow_rect
+                            else n_pad),
+                g_width=g)
+
+
+def to_block_sparse(mat: sp.spmatrix, device, block: int = BLOCK,
+                    allow_rect: bool = False) -> BlockSparseOperator:
+    a = block_sparse_arrays(mat, block=block, allow_rect=allow_rect)
+    t = lambda arr: torch.from_numpy(arr).to(device)
+    return BlockSparseOperator(
+        blocks=t(a["blocks"]), block_row=t(a["block_row"]),
+        block_col=t(a["block_col"]), g_idx=t(a["g_idx"]),
+        g_bcol=t(a["g_bcol"]), n=a["n"], n_pad=a["n_pad"],
+        n_pad_cols=a["n_pad_cols"], g_width=a["g_width"])
+
+
+def bsr_to_dense(bsr: BlockSparseOperator) -> np.ndarray:
+    out = np.zeros((bsr.n_pad, bsr.n_pad_cols), np.float32)
+    blocks = bsr.blocks.cpu().numpy()
+    rows = bsr.block_row.cpu().numpy()
+    cols = bsr.block_col.cpu().numpy()
+    for i in range(bsr.num_blocks):
+        r, c = int(rows[i]) * BLOCK, int(cols[i]) * BLOCK
+        out[r:r + BLOCK, c:c + BLOCK] += blocks[i]
+    return out[:bsr.n]

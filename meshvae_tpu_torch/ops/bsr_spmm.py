@@ -1,0 +1,139 @@
+"""Row-grouped block-sparse SpMM: y = alpha * (L @ x) + t_plus - t_prev.
+
+``bsr_grouped_spmm`` launches the hand-written CUDA kernel
+(``csrc/bsr_spmm.cu``) for CUDA tensors and runs the plain PyTorch twin
+``bsr_grouped_spmm_reference`` for CPU tensors. It replaces the TPU kernels
+that meshvae_tpu/ops/pallas_cheb.py ``_grouped_matmul`` launches:
+
+  mode "fp32"   (matmul_precision highest): ``_make_multirow_kernel`` and
+                its R=1 case ``_make_grouped_kernel`` — IEEE fp32 products;
+  mode "bf16x3" (matmul_precision high): ``_make_multirow_kernel_bf16x3``
+                and ``_make_grouped_kernel_bf16x3`` — both operands split
+                into a bf16 hi part and a bf16 residual (round to nearest
+                even), hi*hi + (hi*lo + lo*hi) accumulated in fp32.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .block_sparse import BLOCK, BlockSparseOperator
+
+MODES = ("fp32", "bf16x3")
+
+# Launches of the CUDA kernel per mode, counted where the wrapper launches
+# it (never on the CPU twin path). Readers reset and read them around a run.
+LAUNCHES = {mode: 0 for mode in MODES}
+
+_TILE_COLS = 64  # the kernel's column tile (BN in csrc/bsr_spmm.cu)
+
+
+@functools.cache
+def _lib():
+    from ._build import load_library
+
+    lib = load_library("bsr_spmm")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bsr_grouped_spmm.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+                                     ctypes.c_float, i, p]
+    lib.bsr_grouped_spmm.restype = ctypes.c_int
+    return lib
+
+
+def _split_bf16(t: torch.Tensor):
+    """fp32 -> (hi, lo) with hi = bf16(t) and lo = bf16(t - hi), both
+    returned as fp32 (round to nearest even, as astype(bfloat16))."""
+    hi = t.to(torch.bfloat16).to(torch.float32)
+    lo = (t - hi).to(torch.bfloat16).to(torch.float32)
+    return hi, lo
+
+
+def bsr_grouped_spmm_reference(bsr: BlockSparseOperator, x: torch.Tensor,
+                               mode: str = "fp32", alpha: float = 1.0,
+                               t_plus: torch.Tensor | None = None,
+                               t_prev: torch.Tensor | None = None
+                               ) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel: gather the [nR, G, 128, 128]
+    blocks through g_idx (index num_blocks selects an appended zero block),
+    one batched product per slot, a sum over slots, then alpha and seeds."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+    n_rows, g = bsr.g_idx.shape
+    c = x.shape[1]
+    zero = bsr.blocks.new_zeros((1, BLOCK, BLOCK))
+    lg = torch.cat([bsr.blocks, zero])[bsr.g_idx.long()]
+    xg = x.reshape(-1, BLOCK, c)[bsr.g_bcol.long()].reshape(
+        n_rows, g, BLOCK, c)
+    if mode == "fp32":
+        prod = torch.matmul(lg, xg)
+    else:
+        lh, ll = _split_bf16(lg)
+        xh, xl = _split_bf16(xg)
+        prod = torch.matmul(lh, xh) + (torch.matmul(lh, xl)
+                                       + torch.matmul(ll, xh))
+    y = alpha * prod.sum(dim=1).reshape(n_rows * BLOCK, c)
+    if t_plus is not None:
+        y = y + t_plus
+    if t_prev is not None:
+        y = y - t_prev
+    return y
+
+
+def _check(name: str, t: torch.Tensor, shape, device,
+           dtype=torch.float32) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def bsr_grouped_spmm(bsr: BlockSparseOperator, x: torch.Tensor,
+                     mode: str = "fp32", alpha: float = 1.0,
+                     t_plus: torch.Tensor | None = None,
+                     t_prev: torch.Tensor | None = None) -> torch.Tensor:
+    """y [n_pad, C] = alpha * (L @ x) + t_plus - t_prev, fp32.
+
+    x is [n_pad_cols, C]; the seeds, when given, are [n_pad, C]. A CPU
+    tensor runs the plain twin; a CUDA tensor launches the kernel (C must be
+    a multiple of 64) or raises."""
+    if x.device.type == "cpu":
+        return bsr_grouped_spmm_reference(bsr, x, mode, alpha, t_plus,
+                                          t_prev)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+    n_rows, g = bsr.g_idx.shape
+    c = x.shape[1] if x.dim() == 2 else -1
+    if c % _TILE_COLS or c <= 0:
+        raise ValueError(f"x must be [n_pad_cols, C] with C a positive "
+                         f"multiple of {_TILE_COLS}, got {tuple(x.shape)}")
+    dev = x.device
+    _check("x", x, (bsr.n_pad_cols, c), dev)
+    _check("blocks", bsr.blocks, (bsr.num_blocks, BLOCK, BLOCK), dev)
+    _check("g_idx", bsr.g_idx, (bsr.n_pad // BLOCK, g), dev, torch.int32)
+    _check("g_bcol", bsr.g_bcol, (n_rows * g,), dev, torch.int32)
+    for name, seed in (("t_plus", t_plus), ("t_prev", t_prev)):
+        if seed is not None:
+            _check(name, seed, (bsr.n_pad, c), dev)
+    y = torch.empty((bsr.n_pad, c), dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib().bsr_grouped_spmm(
+            ptr(bsr.blocks), ptr(bsr.g_idx), ptr(bsr.g_bcol), ptr(x),
+            ptr(t_plus), ptr(t_prev), ptr(y), bsr.num_blocks, n_rows, g,
+            bsr.n_pad_cols // BLOCK, c, float(alpha),
+            int(mode == "bf16x3"), stream)
+    if rc != 0:
+        raise RuntimeError(f"bsr_grouped_spmm[{mode}] launch failed: "
+                           f"CUDA error {rc}")
+    LAUNCHES[mode] += 1
+    return y

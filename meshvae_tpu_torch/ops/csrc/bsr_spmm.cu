@@ -1,0 +1,195 @@
+// Row-grouped block-sparse SpMM for Hopper (sm_90a):
+//
+//     y[n_pad, C] = alpha * (L @ x) + p_plus - p_minus        (fp32 out)
+//
+// L is stored as `blocks` [nb, 128, 128] fp32 plus the row-grouped view
+// `g_idx` [nR, G] (index into blocks; nb marks a padded slot) and `g_bcol`
+// [nR * G] (column block of each slot). x is [n_pad_cols, C] and may have
+// more rows than y (rectangular operators).
+//
+// Replaces the TPU kernels launched by meshvae_tpu/ops/pallas_cheb.py
+// `_grouped_matmul`: `_make_multirow_kernel` / `_make_grouped_kernel`
+// (mode FP32: IEEE fp32 FMAs, no TF32) and `_make_multirow_kernel_bf16x3` /
+// `_make_grouped_kernel_bf16x3` (mode BF16X3: both operands rounded to a
+// bf16 `hi` and a bf16 residual `lo`, round-to-nearest-even, and
+// hi*hi + hi*lo + lo*hi accumulated in fp32; each product of two bf16
+// values is exact in fp32).
+//
+// What bounds it: at the serving shapes (C = 128..512) the occupied blocks
+// plus x, the seeds and y are 5-40 MB per call, so the floor is HBM bytes;
+// but this kernel runs every FMA of each dense 128x128 block on the CUDA
+// cores (the blocks are ~1.5% nonzero), so the FMAs (three per pair in
+// BF16X3) and the latency of staging each K chunk set its time.
+//
+// Design: one CTA per (64-row half of an output row-block, 64-column tile);
+// it walks the row's G slots through g_idx, stages 16-deep K chunks of the
+// block and the matching x rows in shared memory (split into hi/lo there in
+// BF16X3, so each element is rounded once), accumulates 4x4 outputs per
+// thread in registers, applies alpha and the seeds, and writes each output
+// once. Padded slots are skipped and the padded [nR, G, 128, 128] gather
+// is never materialised. Tensor-core MMAs, TMA and a pipelined ring of
+// tiles are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int BLOCK = 128;       // operator block edge
+constexpr int BM = 64;           // output rows per CTA
+constexpr int BN = 64;           // output columns per CTA
+constexpr int BK = 16;           // K depth staged per shared-memory chunk
+constexpr int THREADS = 256;     // 16 x 16 threads, 4 x 4 outputs each
+constexpr int APAD = BM + 4;     // padded row of the transposed A tile
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <bool SPLIT>
+__global__ void __launch_bounds__(THREADS)
+bsr_grouped_spmm_kernel(const float* __restrict__ blocks,
+                        const int* __restrict__ g_idx,
+                        const int* __restrict__ g_bcol,
+                        const float* __restrict__ x,
+                        const float* __restrict__ p_plus,
+                        const float* __restrict__ p_minus,
+                        float* __restrict__ y,
+                        int nb, int g, int n_col_blocks, int c, float alpha) {
+  // k-major tiles: each thread reads 4 consecutive rows (A) or columns (B)
+  // of one k as a float4
+  __shared__ __align__(16) float a_hi[BK][APAD];
+  __shared__ __align__(16) float b_hi[BK][BN];
+  __shared__ __align__(16) float a_lo[SPLIT ? BK : 1][APAD];
+  __shared__ __align__(16) float b_lo[SPLIT ? BK : 1][BN];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int col0 = blockIdx.x * BN;
+  const int row_block = blockIdx.y / (BLOCK / BM);
+  const int m0 = (blockIdx.y % (BLOCK / BM)) * BM;
+
+  // loader coordinates: A chunk is BM x BK, B chunk is BK x BN, one float4
+  // of each per thread
+  const int a_row = tid / (BK / 4);
+  const int a_k = (tid % (BK / 4)) * 4;
+  const int b_k = tid / (BN / 4);
+  const int b_col = (tid % (BN / 4)) * 4;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int s = 0; s < g; ++s) {
+    const int bi = g_idx[row_block * g + s];
+    const int bc = g_bcol[row_block * g + s];
+    // padded slot (the zero block), or a column outside x: nothing to add.
+    // Uniform across the CTA, so the barriers below stay matched.
+    if (bi < 0 || bi >= nb || bc < 0 || bc >= n_col_blocks) continue;
+    const float* blk = blocks + (size_t)bi * BLOCK * BLOCK + (size_t)m0 * BLOCK;
+    const float* xs = x + (size_t)bc * BLOCK * c + col0;
+
+    for (int k0 = 0; k0 < BLOCK; k0 += BK) {
+      const float4 av = *reinterpret_cast<const float4*>(
+          blk + (size_t)a_row * BLOCK + k0 + a_k);
+      const float4 bv = *reinterpret_cast<const float4*>(
+          xs + (size_t)(k0 + b_k) * c + b_col);
+      __syncthreads();  // the previous chunk has been consumed
+      const float a4[4] = {av.x, av.y, av.z, av.w};
+      if constexpr (SPLIT) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float hi = bf16_round(a4[j]);
+          a_hi[a_k + j][a_row] = hi;
+          a_lo[a_k + j][a_row] = bf16_round(a4[j] - hi);
+        }
+        const float4 bh = make_float4(bf16_round(bv.x), bf16_round(bv.y),
+                                      bf16_round(bv.z), bf16_round(bv.w));
+        *reinterpret_cast<float4*>(&b_hi[b_k][b_col]) = bh;
+        *reinterpret_cast<float4*>(&b_lo[b_k][b_col]) =
+            make_float4(bf16_round(bv.x - bh.x), bf16_round(bv.y - bh.y),
+                        bf16_round(bv.z - bh.z), bf16_round(bv.w - bh.w));
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) a_hi[a_k + j][a_row] = a4[j];
+        *reinterpret_cast<float4*>(&b_hi[b_k][b_col]) = bv;
+      }
+      __syncthreads();
+
+#pragma unroll
+      for (int k = 0; k < BK; ++k) {
+        const float4 a = *reinterpret_cast<const float4*>(&a_hi[k][ty * 4]);
+        const float4 b = *reinterpret_cast<const float4*>(&b_hi[k][tx * 4]);
+        const float ar[4] = {a.x, a.y, a.z, a.w};
+        const float br[4] = {b.x, b.y, b.z, b.w};
+        if constexpr (SPLIT) {
+          const float4 al4 = *reinterpret_cast<const float4*>(&a_lo[k][ty * 4]);
+          const float4 bl4 = *reinterpret_cast<const float4*>(&b_lo[k][tx * 4]);
+          const float al[4] = {al4.x, al4.y, al4.z, al4.w};
+          const float bl[4] = {bl4.x, bl4.y, bl4.z, bl4.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+              acc[i][j] = fmaf(ar[i], bl[j], acc[i][j]);
+              acc[i][j] = fmaf(al[i], br[j], acc[i][j]);
+            }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+        }
+      }
+    }
+  }
+
+  // epilogue: alpha, seeds, one write per output
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const size_t off = (size_t)(row_block * BLOCK + m0 + ty * 4 + i) * c
+                       + col0 + tx * 4;
+    float4 out = make_float4(alpha * acc[i][0], alpha * acc[i][1],
+                             alpha * acc[i][2], alpha * acc[i][3]);
+    if (p_plus != nullptr) {
+      const float4 p = *reinterpret_cast<const float4*>(p_plus + off);
+      out.x += p.x; out.y += p.y; out.z += p.z; out.w += p.w;
+    }
+    if (p_minus != nullptr) {
+      const float4 p = *reinterpret_cast<const float4*>(p_minus + off);
+      out.x -= p.x; out.y -= p.y; out.z -= p.z; out.w -= p.w;
+    }
+    *reinterpret_cast<float4*>(y + off) = out;
+  }
+}
+
+}  // namespace
+
+// Plain C entry point (loaded with ctypes). Shapes and alignment are
+// checked by the Python wrapper: c % 64 == 0, every pointer 16-byte
+// aligned, y and the seeds [n_rows * 128, c], x [n_col_blocks * 128, c].
+// Launches on `stream` and returns cudaGetLastError() of the launch.
+extern "C" int bsr_grouped_spmm(const float* blocks, const int* g_idx,
+                                const int* g_bcol, const float* x,
+                                const float* p_plus, const float* p_minus,
+                                float* y, int nb, int n_rows, int g,
+                                int n_col_blocks, int c, float alpha,
+                                int split, void* stream) {
+  const dim3 grid(c / BN, n_rows * (BLOCK / BM));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (split) {
+    bsr_grouped_spmm_kernel<true><<<grid, THREADS, 0, st>>>(
+        blocks, g_idx, g_bcol, x, p_plus, p_minus, y, nb, g, n_col_blocks, c,
+        alpha);
+  } else {
+    bsr_grouped_spmm_kernel<false><<<grid, THREADS, 0, st>>>(
+        blocks, g_idx, g_bcol, x, p_plus, p_minus, y, nb, g, n_col_blocks, c,
+        alpha);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

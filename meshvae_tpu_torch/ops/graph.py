@@ -1,0 +1,118 @@
+"""Static graph operands (counterpart of meshvae_tpu/ops/graph.py, forward
+layouts only).
+
+  * the scaled Laplacian L_hat = -D^{-1/2} A D^{-1/2} (self-loops removed),
+    dense [N, N] below the hybrid cutoff and block-sparse at or above it;
+  * pool/unpool sampling matrices as gather indices + weights (rows of D are
+    one-hot selections, rows of U have <= 3 barycentric entries).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from .block_sparse import BlockSparseOperator, to_block_sparse
+
+# Hybrid cutoff of cheb_method="pallas": levels with fewer vertices use a
+# dense operator (the whole operator is tiny and one dense product beats a
+# kernel launch that pads the level to 128-row blocks).
+BSR_MIN_N = 1024
+
+
+def normalized_neg_adjacency(adjacency: sp.spmatrix) -> sp.csr_matrix:
+    """-D^{-1/2} A D^{-1/2} with unit edge weights and self-loops removed;
+    the degree counts edges, ignoring the adjacency's stored values."""
+    coo = sp.coo_matrix(adjacency)
+    mask = coo.row != coo.col
+    row, col = coo.row[mask], coo.col[mask]
+    n = adjacency.shape[0]
+    ones = np.ones(row.shape[0], dtype=np.float64)
+    deg = np.zeros(n, dtype=np.float64)
+    np.add.at(deg, row, ones)
+    with np.errstate(divide="ignore"):
+        dis = np.power(deg, -0.5)
+    dis[~np.isfinite(dis)] = 0.0
+    vals = -dis[row] * dis[col]
+    return sp.csr_matrix((vals, (row, col)), shape=(n, n))
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphOperator:
+    """The Chebyshev propagation operator at one hierarchy level: exactly
+    one of `dense` [active_n, active_n] and `bsr` is set.
+
+    `active_n` < `n` marks the embedded final-conv operator: rows/columns
+    at or beyond active_n are empty, and only the corner is stored."""
+
+    dense: torch.Tensor | None
+    bsr: BlockSparseOperator | None
+    n: int
+    active_n: int
+
+
+def _operator_from_laplacian(lap: sp.csr_matrix, device, n: int,
+                             bsr_min_n: int | None) -> GraphOperator:
+    active_n = lap.shape[0]
+    if bsr_min_n is not None and active_n >= bsr_min_n:
+        return GraphOperator(dense=None, bsr=to_block_sparse(lap, device),
+                             n=n, active_n=active_n)
+    dense = torch.from_numpy(lap.toarray().astype(np.float32)).to(device)
+    return GraphOperator(dense=dense, bsr=None, n=n, active_n=active_n)
+
+
+def cheb_operator(adjacency: sp.spmatrix, device,
+                  bsr_min_n: int | None = BSR_MIN_N) -> GraphOperator:
+    """Block-sparse at or above bsr_min_n vertices, dense below; None keeps
+    the operator dense (cheb_method="dense")."""
+    lap = normalized_neg_adjacency(adjacency)
+    return _operator_from_laplacian(lap, device, n=lap.shape[0],
+                                    bsr_min_n=bsr_min_n)
+
+
+def embed_operator(op_coarse: sp.spmatrix, n_full: int, device,
+                   bsr_min_n: int | None = BSR_MIN_N) -> GraphOperator:
+    """A coarse-level operator acting on the top-left corner of an
+    [n_full, n_full] index space: the reference's final-decoder-conv quirk
+    (the last ChebConv sees the coarsest level's adjacency at full
+    resolution). Only the corner is stored; cheb_conv runs the recurrence
+    on it and one closed-form product on the rest."""
+    lap = normalized_neg_adjacency(op_coarse)
+    return _operator_from_laplacian(lap, device, n=n_full,
+                                    bsr_min_n=bsr_min_n)
+
+
+@dataclasses.dataclass(frozen=True)
+class PoolOperator:
+    """A sampling matrix P applied as out = P @ x per batch item, stored as
+    padded per-row gathers: out[m] = sum_k w[m, k] * x[idx[m, k]]."""
+
+    idx: torch.Tensor     # [M, R] int64
+    w: torch.Tensor       # [M, R] float32 (0 on padding)
+    n_in: int
+    n_out: int
+
+
+def _to_ell(mat: sp.csr_matrix) -> tuple[np.ndarray, np.ndarray]:
+    """CSR -> padded neighbor list; padding carries weight 0 and index 0."""
+    n = mat.shape[0]
+    mat = mat.tocsr()
+    counts = np.diff(mat.indptr)
+    max_deg = max(int(counts.max()) if n else 0, 1)
+    idx = np.zeros((n, max_deg), dtype=np.int64)
+    w = np.zeros((n, max_deg), dtype=np.float32)
+    for i in range(n):
+        lo, hi = mat.indptr[i], mat.indptr[i + 1]
+        idx[i, :hi - lo] = mat.indices[lo:hi]
+        w[i, :hi - lo] = mat.data[lo:hi]
+    return idx, w
+
+
+def pool_operator(mat: sp.spmatrix, device) -> PoolOperator:
+    csr = sp.csr_matrix(mat)
+    idx, w = _to_ell(csr)
+    return PoolOperator(idx=torch.from_numpy(idx).to(device),
+                        w=torch.from_numpy(w).to(device),
+                        n_in=csr.shape[1], n_out=csr.shape[0])

@@ -10,10 +10,13 @@ Phases, one block of output lines each; any failed check exits non-zero:
             the build seconds and ptxas' register/shared-memory report.
  3. kernel  bsr_grouped_spmm in both modes (fp32, bf16x3) against its plain
             PyTorch twin on the card: the real template5k level-0 and
-            level-1 Laplacians, C in {128, 256, 512}, alpha in {1, 2}, with
-            and without t_prev, plus one rectangular operator (the level-0
-            up-pool transpose, x of 5120 rows for 1280 output rows). Fails
-            above 1e-5 of max |y|.
+            level-1 Laplacians at C in {128, 256, 512}, alpha in {1, 2}, with
+            and without t_prev; at C = 256 also the backward's calls (t_plus
+            alone, t_plus and t_prev together); and the pool backward's
+            rectangular P^T of up-pools 0-2 at their training widths
+            ([1280, 5120] and [384, 1280] at C = 256, [128, 384] at C = 512;
+            the first also at C = 512 with every seed case). Fails above
+            1e-5 of max |y|.
  4. serve   BASELINE config 1 at full width (template5k, factors 4,4,4,4,
             K=6, filters 16/16/16/32/32, hidden 512, latent 16, batch 16,
             cheb_method pallas), weights from a fixed seed. The main path:
@@ -25,20 +28,37 @@ Phases, one block of output lines each; any failed check exits non-zero:
             on the card and on the CPU with the same weights and inputs:
             pred equal, recon_orig within 1e-4 of the mesh scale, err_mean
             within 1e-4 of the mesh scale.
- 5. times   CUDA events, median of 25 runs, L2 warm (as inside the serving
-            step). Device time alone (a sleep kernel holds the device while
-            the host queues the runs): the kernel at the four path shapes in
-            both modes, unseeded (alpha 1) and seeded (alpha 2, t_prev), its
-            plain twin, and torch.sparse on the same L in CSR form (the
-            library yardstick, never used by the port). The serving step in
+ 5. times   CUDA events, median of 25 runs, L2 warm (as inside the steps).
+            Device time alone (a sleep kernel holds the device while the
+            host queues the runs): the kernel at every shape and call kind
+            of the serving step and of the train step, in the modes each
+            runs, its plain twin, and torch.sparse on the same operator in
+            CSR form (the library yardstick, never used by the port), each
+            beside its bound; then the sums per step. The serving step in
             meshes/sec at B=16 as served (the device waits on the host; 50
             runs); its peak device memory; a torch.profiler window for the
             device busy time per step and the idle share.
+ 6. train   the training main path at config 1, full width, dropout 0.2,
+            lr 1e-3, weight decay 5e-4: a MeshDataset over 40 synthetic
+            meshes (3 batches of 16 per epoch, the last padded), three
+            train_epochs at high and three at highest from the same seeded
+            weights, the counts reset just before and read just after each.
+            Per train step: 35 bf16x3 + 3 fp32 launches at high, 38 fp32 at
+            highest, and each of the three P^T once. The eval loss of a fixed
+            batch must fall; evaluate() gives finite averages and a
+            sex-change rate in [0, 1]. One deterministic step (no dropout,
+            z = mu) on the card and on the CPU from the same weights: loss
+            within 1e-5 relative, every gradient within 1e-4 (highest) or
+            1e-3 (high) of its layer's max|g|, and params after the card's
+            Adam steps from the CPU's gradients within 1e-2 lr of the CPU's
+            (the whole step's param delta is printed, not held). Then the host-paced train step (CUDA events, median of
+            25), its peak memory, and its device busy time and idle share.
 
-The line before the last is {"kernels": [...]}, with per-serving-step
-numbers (ms, plain_ms, bound_ms, library_ms summed over the step's 20
-calls: at each of the 4 shapes one alpha-1 call and four seeded calls). The
-last line is {"ok": true, "device": {...}}.
+The line before the last is {"kernels": [...]}: per serving step (the two
+bsr_grouped_spmm[mode] entries, summed over the step's 20 calls) and per
+train step (the Laplacian calls in each mode, the column-major-class P^T
+of up-pools 0-1 and the grouped P^T of up-pool 2), with the launches of
+the main-path runs. The last line is {"ok": true, "device": {...}}.
 """
 import dataclasses
 import json
@@ -58,9 +78,17 @@ PEAK_OPS = {"fp32": 67e12,  # fp32 FMA outside the tensor cores
 RUNS = 25
 BATCH = 16
 LAUNCHES_PER_STEP = 20  # 4 block-sparse convs x (K - 1) at K = 6
+TRAIN_MESHES = 40       # 3 batches of 16 per epoch, the last one padded
+TRAIN_EPOCHS = 3
+# per train step: 4 block-sparse convs x 5 forward calls, 3 x 5 backward
+# (cheb_enc_0's input is data), and the pool backward P^T of up-pools 0-2
+TRAIN_LAP_LAUNCHES = 35
+TRAIN_POOL_LAUNCHES = 3
 SOURCE = "meshvae_tpu_torch/ops/csrc/bsr_spmm.cu"
 REPLACES = {"fp32": "meshvae_tpu/ops/pallas_cheb.py:434",
-            "bf16x3": "meshvae_tpu/ops/pallas_cheb.py:462"}
+            "bf16x3": "meshvae_tpu/ops/pallas_cheb.py:462",
+            "colmajor": "meshvae_tpu/ops/pallas_cheb.py:208",
+            "grouped": "meshvae_tpu/ops/pallas_cheb.py:395"}
 
 
 def fail(msg: str):
@@ -123,46 +151,69 @@ def phase_build():
             say(f"  ptxas: {line.strip()}")
 
 
-def phase_kernel(torch, ops, hier, dev):
-    say("== phase 3: kernel vs plain twin on the card")
-    import scipy.sparse as sp
+def _seed_args(kind: str, seeds: dict) -> tuple:
+    """(alpha, kwargs) of one call kind: "a1" or "a2" (alpha 1 or 2), then
+    the seeds it adds, "plus" (t_plus) and "prev" (t_prev)."""
+    alpha = 2.0 if kind.startswith("a2") else 1.0
+    kw = {}
+    if "plus" in kind:
+        kw["t_plus"] = seeds["t_plus"]
+    if "prev" in kind:
+        kw["t_prev"] = seeds["t_prev"]
+    return alpha, kw
 
-    from meshvae_tpu_torch.ops.block_sparse import to_block_sparse
+
+def phase_kernel(torch, ops, dev):
+    """The kernel against its twin at every shape and call kind the serving
+    and training paths give it. Returns the worst absolute error per
+    entry group: "fp32" and "bf16x3" over the Laplacian cases, "pool" over
+    the fp32 P^T cases."""
+    say("== phase 3: kernel vs plain twin on the card")
     from meshvae_tpu_torch.ops.bsr_spmm import (MODES, bsr_grouped_spmm,
                                                 bsr_grouped_spmm_reference)
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    rect = to_block_sparse(sp.csr_matrix(hier.upsample[0].T), dev,
-                           allow_rect=True)
-    operands = [("L0", ops.lap[0].bsr, (128, 256, 512)),
-                ("L1", ops.lap[1].bsr, (128, 256, 512)),
-                ("P0T", rect, (512,))]
+    t_bsr = [p.t_bsr for p in ops.up]
+    if [t is not None for t in t_bsr] != [True, True, True, False]:
+        fail("config 1 should give up-pools 0-2 a block-sparse P^T and "
+             "up-pool 3 gathers")
+    fwd = ("a1", "a2 prev", "a1 prev", "a2")
+    bwd = ("a2 plus", "a2 plus prev", "a1 plus prev")
+    cases = [("L0", ops.lap[0].bsr, c, fwd) for c in (128, 512)]
+    cases += [("L1", ops.lap[1].bsr, c, fwd) for c in (128, 512)]
+    cases += [(name, ops.lap[i].bsr, 256, fwd + bwd)
+              for i, name in enumerate(("L0", "L1"))]
+    cases += [("P0T", t_bsr[0], 256, ("a1",)), ("P0T", t_bsr[0], 512, fwd),
+              ("P1T", t_bsr[1], 256, ("a1",)), ("P2T", t_bsr[2], 512, ("a1",))]
     worst = {m: 0.0 for m in MODES}
-    worst_abs = {m: 0.0 for m in MODES}
-    for name, bsr, widths in operands:
-        say(f"{name}: n_pad {bsr.n_pad} x {bsr.n_pad_cols}, "
-            f"{bsr.num_blocks} blocks, G {bsr.g_width}, padded slots "
-            f"{int((bsr.g_idx == bsr.num_blocks).sum())}")
-        for c in widths:
-            x = torch.randn(bsr.n_pad_cols, c, device=dev, generator=gen)
-            tp = torch.randn(bsr.n_pad, c, device=dev, generator=gen)
-            for mode in MODES:
-                for alpha in (1.0, 2.0):
-                    for prev in (None, tp):
-                        y = bsr_grouped_spmm(bsr, x, mode, alpha, t_prev=prev)
-                        torch.cuda.synchronize()
-                        ref = bsr_grouped_spmm_reference(bsr, x, mode, alpha,
-                                                         t_prev=prev)
-                        err_abs = (y - ref).abs().max().item()
-                        err = err_abs / ref.abs().max().item()
-                        worst[mode] = max(worst[mode], err)
-                        worst_abs[mode] = max(worst_abs[mode], err_abs)
-                        tag = (f"{name} C={c} {mode} alpha={alpha:g} "
-                               f"t_prev={prev is not None}")
-                        say(f"  {tag}: max_err/max|y| {err:.3e}")
-                        if not err <= TOL_KERNEL:
-                            fail(f"kernel disagrees with its twin: {tag} "
-                                 f"{err:.3e} > {TOL_KERNEL}")
+    worst_abs = {"fp32": 0.0, "bf16x3": 0.0, "pool": 0.0}
+    described = set()
+    for name, bsr, c, kinds in cases:
+        if name not in described:
+            described.add(name)
+            say(f"{name}: n_pad {bsr.n_pad} x {bsr.n_pad_cols}, "
+                f"{bsr.num_blocks} blocks, G {bsr.g_width}, padded slots "
+                f"{int((bsr.g_idx == bsr.num_blocks).sum())}")
+        x = torch.randn(bsr.n_pad_cols, c, device=dev, generator=gen)
+        seeds = {k: torch.randn(bsr.n_pad, c, device=dev, generator=gen)
+                 for k in ("t_plus", "t_prev")}
+        for mode in MODES:
+            for kind in kinds:
+                alpha, kw = _seed_args(kind, seeds)
+                y = bsr_grouped_spmm(bsr, x, mode, alpha, **kw)
+                torch.cuda.synchronize()
+                ref = bsr_grouped_spmm_reference(bsr, x, mode, alpha, **kw)
+                err_abs = (y - ref).abs().max().item()
+                err = err_abs / ref.abs().max().item()
+                worst[mode] = max(worst[mode], err)
+                group = ("pool" if name.startswith("P") and mode == "fp32"
+                         else mode)
+                worst_abs[group] = max(worst_abs[group], err_abs)
+                tag = f"{name} C={c} {mode} {kind}"
+                say(f"  {tag}: max_err/max|y| {err:.3e}")
+                if not err <= TOL_KERNEL:
+                    fail(f"kernel disagrees with its twin: {tag} "
+                         f"{err:.3e} > {TOL_KERNEL}")
     say("checked kernels: " + ", ".join(
         f"bsr_grouped_spmm[{m}] (worst {worst[m]:.2e} of max|y|)"
         for m in MODES))
@@ -260,8 +311,7 @@ def phase_serve(torch, dev, servers, models, ops, hier, single, many_dir,
         say(f"warmup[{p}] {server.warmup():.2f}s")
     request = f"{single}\n{many_dir}\n{os.path.join(tmp, 'missing.obj')}\n"
     # --- the main path: counts reset just before, read just after -------
-    for mode in bsr_spmm.LAUNCHES:
-        bsr_spmm.LAUNCHES[mode] = 0
+    bsr_spmm.reset_launches()
     outs = {}
     for p, server in servers.items():
         fout = io.StringIO()
@@ -323,86 +373,199 @@ def phase_serve(torch, dev, servers, models, ops, hier, single, many_dir,
     return launches, host
 
 
-def _csr(torch, lap, n_pad, dev):
-    """L (scipy CSR, n x n) padded to [n_pad, n_pad] as a torch CSR tensor."""
-    n = lap.shape[0]
-    indptr = list(lap.indptr) + [lap.indptr[-1]] * (n_pad - n)
+def _csr(torch, mat, n_pad, n_pad_cols, dev):
+    """mat (scipy, n x m) padded to [n_pad, n_pad_cols] as a torch CSR
+    tensor."""
+    import scipy.sparse as sp
+
+    mat = sp.csr_matrix(mat)
+    n = mat.shape[0]
+    indptr = list(mat.indptr) + [mat.indptr[-1]] * (n_pad - n)
     return torch.sparse_csr_tensor(
         torch.tensor(indptr, dtype=torch.int64),
-        torch.from_numpy(lap.indices.astype("int64")),
-        torch.from_numpy(lap.data.astype("float32")),
-        size=(n_pad, n_pad), check_invariants=True).to(dev)
+        torch.from_numpy(mat.indices.astype("int64")),
+        torch.from_numpy(mat.data.astype("float32")),
+        size=(n_pad, n_pad_cols), check_invariants=True).to(dev)
+
+
+def _library_call(torch, csr, x, kind, alpha, kw):
+    """The torch.sparse (cuSPARSE) yardstick of one call kind: one call,
+    or two where the kernel folds both seeds (addmm, then sub_)."""
+    if "plus" in kind:
+        y = torch.addmm(kw["t_plus"], csr, x, alpha=alpha)
+        return y.sub_(kw["t_prev"]) if "prev" in kind else y
+    if "prev" in kind:
+        return torch.addmm(kw["t_prev"], csr, x, beta=-1.0, alpha=alpha)
+    return torch.sparse.mm(csr, x)
+
+
+def _time_kind(torch, bsr, csr, c, kind, modes, gen, dev):
+    """Kernel, twin and library times of one call kind at one shape, with
+    its bound: bytes (blocks, g_idx, g_bcol, x, seeds, y, each once) over
+    the HBM rate against the operations the data needs (2 per nonzero per
+    column, 6 in bf16x3) over the peak rate of their type."""
+    from meshvae_tpu_torch.ops.bsr_spmm import (bsr_grouped_spmm,
+                                                bsr_grouped_spmm_reference)
+
+    x = torch.randn(bsr.n_pad_cols, c, device=dev, generator=gen)
+    seeds = {k: torch.randn(bsr.n_pad, c, device=dev, generator=gen)
+             for k in ("t_plus", "t_prev")}
+    alpha, kw = _seed_args(kind, seeds)
+    lib_ms = time_ms(torch, lambda: _library_call(torch, csr, x, kind, alpha,
+                                                  kw))
+    want = bsr_grouped_spmm_reference(bsr, x, "fp32", alpha, **kw)
+    lib_err = ((_library_call(torch, csr, x, kind, alpha, kw) - want)
+               .abs().max() / want.abs().max()).item()
+    act = 4 * c * (bsr.n_pad_cols + bsr.n_pad * (1 + len(kw)))
+    blk_bytes = 4 * (bsr.blocks.numel() + bsr.g_idx.numel()
+                     + bsr.g_bcol.numel())
+    nnz = int((bsr.blocks != 0).sum())
+    nnz_bytes = 8 * nnz + 4 * (bsr.n_pad + 1)  # CSR value + col, row ptr
+    out = {}
+    for mode in modes:
+        k_ms = time_ms(torch, lambda: bsr_grouped_spmm(bsr, x, mode, alpha,
+                                                       **kw))
+        p_ms = time_ms(torch, lambda: bsr_grouped_spmm_reference(
+            bsr, x, mode, alpha, **kw))
+        ops_n = (6 if mode == "bf16x3" else 2) * nnz * c
+        bytes_ms = 1e3 * (blk_bytes + act) / HBM_BYTES_PER_S
+        ops_ms = 1e3 * ops_n / PEAK_OPS[mode]
+        bound_nnz = 1e3 * max((nnz_bytes + act) / HBM_BYTES_PER_S,
+                              ops_n / PEAK_OPS[mode])
+        out[mode] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                         bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
+                         ops_ms=ops_ms)
+        say(f"  {c=} {mode} {kind}: kernel {1e3 * k_ms:.1f} us, twin "
+            f"{1e3 * p_ms:.1f} us, torch.sparse {1e3 * lib_ms:.1f} us (rel "
+            f"err {lib_err:.1e}), bound {1e3 * max(bytes_ms, ops_ms):.2f} us "
+            f"(bytes; {1e3 * bound_nnz:.2f} us with CSR storage)")
+        out[mode]["row"] = dict(
+            n_pad=bsr.n_pad, n_pad_cols=bsr.n_pad_cols, C=c,
+            blocks=bsr.num_blocks, nnz=nnz, mode=mode, kind=kind,
+            kernel_us=1e3 * k_ms, plain_us=1e3 * p_ms,
+            library_us=1e3 * lib_ms, library_rel_err=lib_err,
+            bound_us=1e3 * max(bytes_ms, ops_ms), bound_nnz_us=1e3 * bound_nnz,
+            bytes=blk_bytes + act, ops=ops_n)
+    return out
+
+
+# calls per step at config 1 (K = 6), by (label, operand, C, kind counts).
+# Serving: per conv one alpha-1 call and four seeded ones; the decoder runs
+# at 2B (the counterfactual rides along), hence C = 512 there.
+SERVE_CALLS = [("enc L0", "L0", 128, {"a1": 1, "a2 prev": 4}),
+               ("enc L1", "L1", 256, {"a1": 1, "a2 prev": 4}),
+               ("dec L1", "L1", 512, {"a1": 1, "a2 prev": 4}),
+               ("dec L0", "L0", 512, {"a1": 1, "a2 prev": 4})]
+# Training at B: the same forward per conv; the backward of a conv whose
+# input needs a gradient (all but cheb_enc_0) runs the reverse recurrence
+# as one t_plus call, three with both seeds and the final alpha-1 call.
+_BWD = {"a2 plus": 1, "a2 plus prev": 3, "a1 plus prev": 1}
+TRAIN_CALLS = {
+    "lap": [("enc L0", "L0", 128, {"a1": 1, "a2 prev": 4}),
+            ("dec L0", "L0", 256, {"a1": 1, "a2 prev": 4, **_BWD}),
+            ("enc+dec L1", "L1", 256,
+             {k: 2 * v for k, v in {"a1": 1, "a2 prev": 4, **_BWD}.items()})],
+    "pool_colmajor": [("up-pool 0 P^T", "P0T", 256, {"a1": 1}),
+                      ("up-pool 1 P^T", "P1T", 256, {"a1": 1})],
+    "pool_grouped": [("up-pool 2 P^T", "P2T", 512, {"a1": 1})],
+}
+
+
+def _per_step(torch, calls, operands, modes, gen, dev, rows):
+    """Sums over one step's calls: per mode, ms / plain_ms / library_ms /
+    bound_ms and the bytes and operations parts of the bound."""
+    acc = {m: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
+                             "bytes_ms", "ops_ms"), 0.0) for m in modes}
+    for label, key, c, kinds in calls:
+        bsr, csr = operands[key]
+        say(f" {label} ({key}, n_pad {bsr.n_pad} x {bsr.n_pad_cols}):")
+        for kind, count in kinds.items():
+            got = _time_kind(torch, bsr, csr, c, kind, modes, gen, dev)
+            for mode in modes:
+                for k in acc[mode]:
+                    acc[mode][k] += count * got[mode][k]
+                rows.append(dict(got[mode]["row"], shape=label, per_step=count))
+    return acc
+
+
+def _bound_by(entry: dict) -> str:
+    return "bytes" if entry["bytes_ms"] >= entry["ops_ms"] else "operations"
+
+
+def _profile(torch, fn, label, step_ms, n=5):
+    """torch.profiler over n runs of fn: device busy time per run, the idle
+    share against step_ms, the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6 / n
+    # device-side kernel events only: an aten op's entry repeats its
+    # kernels, and a user annotation (Optimizer.step#Adam.step) spans them
+    kern = []
+    for evt in prof.key_averages():
+        if ("CUDA" not in str(getattr(evt, "device_type", ""))
+                or getattr(evt, "is_user_annotation", False)):
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0)
+        if dev_us:
+            kern.append((dev_us / n, evt.key))
+    kern.sort(reverse=True)
+    busy = sum(t for t, _ in kern)
+    if not busy:
+        say(f"profile [{label}]: no device time recorded (not measured)")
+        return None
+    say(f"profile [{label}]: device busy {busy:.0f} us/step "
+        f"({BATCH / busy * 1e6:.1f} meshes/sec of device time); idle share "
+        f"{1 - busy / (1e3 * step_ms):.2f} of the unprofiled step "
+        f"({1e3 * step_ms:.0f} us; {wall_us:.0f} us/step under the profiler)")
+    for t, name in kern[:8]:
+        say(f"  {t:8.1f} us/step  {name[:90]}")
+    return busy
 
 
 def phase_times(torch, servers, ops, hier, dev, host):
+    """Per-call times at every shape and call kind of the serving step and
+    the train step, summed per step; the serving step itself."""
     say("== phase 5: times (median of %d, CUDA events)" % RUNS)
-    from meshvae_tpu_torch.ops.bsr_spmm import (MODES, bsr_grouped_spmm,
-                                                bsr_grouped_spmm_reference)
+    from meshvae_tpu_torch.ops.bsr_spmm import MODES
     from meshvae_tpu_torch.ops.graph import normalized_neg_adjacency
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    shapes = [("enc L0", 0, 128), ("enc L1", 1, 256), ("dec L1", 1, 512),
-              ("dec L0", 0, 512)]
-    per_step = {m: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                    "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
-                for m in MODES}
+    operands = {}
+    for i in (0, 1):
+        bsr = ops.lap[i].bsr
+        operands[f"L{i}"] = (bsr, _csr(torch, normalized_neg_adjacency(
+            hier.adjacency[i]), bsr.n_pad, bsr.n_pad_cols, dev))
+    for i in (0, 1, 2):
+        bsr = ops.up[i].t_bsr
+        operands[f"P{i}T"] = (bsr, _csr(torch, hier.upsample[i].T,
+                                        bsr.n_pad, bsr.n_pad_cols, dev))
     rows = []
-    for label, lvl, c in shapes:
-        bsr = ops.lap[lvl].bsr
-        lap_csr = _csr(torch, normalized_neg_adjacency(
-            hier.adjacency[lvl]), bsr.n_pad, dev)
-        nnz = int((bsr.blocks != 0).sum())
-        x = torch.randn(bsr.n_pad, c, device=dev, generator=gen)
-        tp = torch.randn(bsr.n_pad, c, device=dev, generator=gen)
-        lib = {False: lambda: torch.sparse.mm(lap_csr, x),
-               True: lambda: torch.addmm(tp, lap_csr, x, beta=-1.0,
-                                         alpha=2.0)}
-        for seeded in (False, True):
-            alpha, prev = (2.0, tp) if seeded else (1.0, None)
-            lib_ms = time_ms(torch, lib[seeded])
-            want = bsr_grouped_spmm_reference(bsr, x, "fp32", alpha,
-                                              t_prev=prev)
-            lib_err = ((lib[seeded]() - want).abs().max()
-                       / want.abs().max()).item()
-            act = 4 * c * bsr.n_pad * (3 if seeded else 2)  # x, seed, y
-            blk_bytes = 4 * (bsr.blocks.numel() + bsr.g_idx.numel()
-                             + bsr.g_bcol.numel())
-            nnz_bytes = 8 * nnz + 4 * (bsr.n_pad + 1)  # CSR value+col, rows
-            for mode in MODES:
-                k_ms = time_ms(torch, lambda: bsr_grouped_spmm(
-                    bsr, x, mode, alpha, t_prev=prev))
-                p_ms = time_ms(torch, lambda: bsr_grouped_spmm_reference(
-                    bsr, x, mode, alpha, t_prev=prev))
-                ops_n = (6 if mode == "bf16x3" else 2) * nnz * c
-                bytes_ms = 1e3 * (blk_bytes + act) / HBM_BYTES_PER_S
-                ops_ms = 1e3 * ops_n / PEAK_OPS[mode]
-                bound = max(bytes_ms, ops_ms)
-                bound_nnz = 1e3 * max((nnz_bytes + act) / HBM_BYTES_PER_S,
-                                      ops_n / PEAK_OPS[mode])
-                weight = 4 if seeded else 1  # calls of this kind per conv
-                acc = per_step[mode]
-                acc["ms"] += weight * k_ms
-                acc["plain_ms"] += weight * p_ms
-                acc["bound_ms"] += weight * bound
-                acc["library_ms"] += weight * lib_ms
-                acc["bytes_ms"] += weight * bytes_ms
-                acc["ops_ms"] += weight * ops_ms
-                rows.append(dict(shape=label, n_pad=bsr.n_pad, C=c,
-                                 blocks=bsr.num_blocks, nnz=nnz, mode=mode,
-                                 seeded=seeded, kernel_us=1e3 * k_ms,
-                                 plain_us=1e3 * p_ms,
-                                 library_us=1e3 * lib_ms,
-                                 library_rel_err=lib_err,
-                                 bound_us=1e3 * bound,
-                                 bound_nnz_us=1e3 * bound_nnz,
-                                 bytes=blk_bytes + act, ops=ops_n))
-                say(f"  {label} C={c} {mode} "
-                    f"{'alpha=2 t_prev' if seeded else 'alpha=1'}: kernel "
-                    f"{1e3 * k_ms:.1f} us, twin {1e3 * p_ms:.1f} us, "
-                    f"torch.sparse {1e3 * lib_ms:.1f} us (rel err "
-                    f"{lib_err:.1e}), bound {1e3 * bound:.2f} us (bytes; "
-                    f"{1e3 * bound_nnz:.2f} us with CSR storage)")
+    say("serving step, per call:")
+    per_step = {f"serve_{m}": acc for m, acc in _per_step(
+        torch, SERVE_CALLS, operands, MODES, gen, dev, rows).items()}
+    say("train step, per call:")
+    for name, calls in TRAIN_CALLS.items():
+        modes = MODES if name == "lap" else ("fp32",)  # P^T runs fp32 only
+        for m, acc in _per_step(torch, calls, operands, modes, gen, dev,
+                                rows).items():
+            per_step[f"train_{name}_{m}" if name == "lap"
+                     else f"train_{name}"] = acc
     say("shape_rows " + json.dumps(rows))
+    for name, acc in per_step.items():
+        say(f"per step {name}: kernel {acc['ms']:.3f} ms, twin "
+            f"{acc['plain_ms']:.3f} ms, torch.sparse {acc['library_ms']:.3f}"
+            f" ms, bound {acc['bound_ms']:.3f} ms ({_bound_by(acc)})")
 
     # --- the serving step, device side, B = 16 --------------------------
     batch = {"x": torch.from_numpy(host["x"]).to(dev),
@@ -418,48 +581,171 @@ def phase_times(torch, servers, ops, hier, dev, host):
         server.serve_step(batch)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
+        mode = "bf16x3" if p == "high" else "fp32"
         say(f"serving step [{p}]: {ms:.3f} ms, {BATCH / ms * 1e3:.1f} "
             f"meshes/sec at B={BATCH} as served; kernel share "
-            f"{per_step['bf16x3' if p == 'high' else 'fp32']['ms'] / ms:.2f};"
+            f"{per_step[f'serve_{mode}']['ms'] / ms:.2f};"
             f" peak memory {peak / 2**20:.1f} MiB, of which the step's own "
             f"{(peak - base) / 2**20:.1f} MiB ({(peak - base) / peak:.2f})")
-
-    # --- device busy share of the serving step (torch.profiler) ---------
-    from torch.profiler import ProfilerActivity, profile
-
-    server = servers["high"]
-    for _ in range(3):
-        server.serve_step(batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(5):
-            server.serve_step(batch)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6 / 5
-    kern = []  # device-side events only: an aten op's entry repeats its kernels
-    for evt in prof.key_averages():
-        if "CUDA" not in str(getattr(evt, "device_type", "")):
-            continue
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "self_cuda_time_total", 0)
-        if dev_us:
-            kern.append((dev_us / 5, evt.key))
-    kern.sort(reverse=True)
-    busy = sum(t for t, _ in kern)
-    if busy:
-        say(f"profile [high]: device busy {busy:.0f} us/step "
-            f"({BATCH / busy * 1e6:.1f} meshes/sec of device time); idle share "
-            f"{1 - busy / (1e3 * step_ms['high']):.2f} of the unprofiled "
-            f"step ({1e3 * step_ms['high']:.0f} us; {wall_us:.0f} us/step "
-            f"under the profiler)")
-        for t, name in kern[:8]:
-            say(f"  {t:8.1f} us/step  {name[:90]}")
-    else:
-        say("profile [high]: no device time recorded (not measured)")
+    _profile(torch, lambda: servers["high"].serve_step(batch), "serve high",
+             step_ms["high"])
     return per_step
+
+
+def _layer_scale(named: dict, name: str) -> float:
+    """max |g| over a layer's weight and bias: a bias gradient can cancel
+    to far below its layer's terms (the 2-class classifier bias), where
+    float32 rounding of the terms sets its error."""
+    layer = name.rsplit(".", 1)[0]
+    return max(v.abs().max().item() for k, v in named.items()
+               if k.rsplit(".", 1)[0] == layer)
+
+
+def phase_train(torch, dev, models, ops, hier, tmpl, tmp):
+    """The training main path: config 1 at full width, a MeshDataset over
+    synthetic meshes, TRAIN_EPOCHS train_epochs at each precision with the
+    launch counts reset just before and read just after; then the loss of
+    a fixed batch, evaluate(), card vs CPU on one deterministic step, and
+    the train step's time, peak memory and device busy share."""
+    say(f"== phase 6: train (config 1, {TRAIN_MESHES} synthetic meshes, "
+        f"batch {BATCH}, {TRAIN_EPOCHS} epochs per precision)")
+    import numpy as np
+
+    from meshvae_tpu_torch.data import (BatchIterator, MeshDataset,
+                                        generate_synthetic_dataset,
+                                        list_meshes)
+    from meshvae_tpu_torch.models import MeshVAE, build_operators
+    from meshvae_tpu_torch.ops import bsr_spmm
+    from meshvae_tpu_torch.train import Trainer
+
+    config = config_1(tmp)
+    data_dir = os.path.join(tmp, "train_data")
+    generate_synthetic_dataset(tmpl, data_dir, n_samples=TRAIN_MESHES,
+                               seed=11)
+    dcfg = {"root_dir": data_dir, "checkpoint_dir": os.path.join(tmp, "ckpt")}
+    index, labels = list_meshes(dcfg)
+    ds = MeshDataset(index, dcfg, labels, tmpl.v)
+    loader = BatchIterator(ds, BATCH, shuffle=True, seed=0)
+    steps = TRAIN_EPOCHS * len(loader)
+    fixed = next(iter(BatchIterator(ds, BATCH)))
+    weights = {k: v.cpu() for k, v in models["highest"].state_dict().items()}
+    lr = float(config["learning_rate"])
+
+    def trainer_for(p, device, operators):
+        model = MeshVAE(models[p].cfg)
+        model.load_state_dict(weights)
+        return Trainer(model, operators, config, device=device)
+
+    pool_keys = [("fp32", up.t_bsr.n_pad, up.t_bsr.n_pad_cols)
+                 for up in ops.up[:3]]
+    trainers, launches, by_shape = {}, {}, {}
+    for p in models:
+        tr = trainer_for(p, dev, ops)
+        norm = tr.norm_to_device(ds.mean, ds.std)
+        fixed_dev = tr.to_device(fixed)
+        before = tr.eval_step(fixed_dev, *norm)["scalars"][0].item()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.synchronize()
+        # --- the main path: counts reset just before, read just after ---
+        bsr_spmm.reset_launches()
+        t0 = time.perf_counter()
+        epochs = [tr.train_epoch(loader, gen, ds.mean, ds.std)
+                  for _ in range(TRAIN_EPOCHS)]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[p] = dict(bsr_spmm.LAUNCHES)
+        by_shape[p] = dict(bsr_spmm.LAUNCHES_BY_SHAPE)
+        # ----------------------------------------------------------------
+        after = tr.eval_step(fixed_dev, *norm)["scalars"][0].item()
+        avg, errors = tr.evaluate(BatchIterator(ds, BATCH), ds.mean, ds.std)
+        say(f"train[{p}]: {steps} steps in {secs:.2f}s (first steps "
+            f"included); epoch losses "
+            f"{[round(float(e['loss']), 2) for e in epochs]}; fixed-batch eval "
+            f"loss {before:.2f} -> {after:.2f}")
+        say(f"  evaluate: " + ", ".join(f"{k} {v:.4g}" for k, v in
+                                         avg.items()))
+        say(f"  launches {launches[p]}; by (mode, n_pad, n_pad_cols) "
+            f"{sorted(by_shape[p].items())}")
+        lap, pool = TRAIN_LAP_LAUNCHES * steps, TRAIN_POOL_LAUNCHES * steps
+        want = ({"bf16x3": lap, "fp32": pool} if p == "high"
+                else {"bf16x3": 0, "fp32": lap + pool})
+        if launches[p] != want:
+            fail(f"train[{p}] launched {launches[p]}, expected {want} "
+                 f"({steps} steps)")
+        for key in pool_keys:
+            if by_shape[p].get(key) != steps:
+                fail(f"train[{p}]: the pool P^T {key} launched "
+                     f"{by_shape[p].get(key)} times, expected {steps}")
+        if not after < before:
+            fail(f"train[{p}]: the fixed batch's loss did not fall "
+                 f"({before} -> {after})")
+        finite = [e[k] for e in epochs for k in e] + list(avg.values())
+        if not (all(np.isfinite(finite)) and np.isfinite(errors).all()):
+            fail(f"train[{p}]: non-finite epoch or eval averages")
+        if not 0.0 <= avg["sex_change_success_rate"] <= 1.0:
+            fail(f"train[{p}]: sex-change rate {avg['sex_change_success_rate']}")
+        if errors.shape != (TRAIN_MESHES, hier.levels[0]):
+            fail(f"train[{p}]: per-vertex errors {errors.shape}")
+        trainers[p] = tr
+
+    # --- card vs CPU: one deterministic step from the same weights -------
+    ops_cpu = build_operators(hier, "cpu", cheb_method="pallas")
+    for p, bar in (("highest", 1e-4), ("high", 1e-3)):
+        pair = {"card": trainer_for(p, dev, ops),
+                "cpu": trainer_for(p, "cpu", ops_cpu)}
+        loss = {}
+        for side, tr in pair.items():
+            packed = tr.train_step(tr.to_device(fixed), None,
+                                   *tr.norm_to_device(ds.mean, ds.std))
+            loss[side] = packed[0].item()
+        rel = abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"])
+        named = {s: dict(tr.model.named_parameters()) for s, tr in
+                 pair.items()}
+        grads = {s: {k: v.grad.cpu() for k, v in named[s].items()}
+                 for s in named}
+        g_worst = max((grads["card"][k] - g).abs().max().item()
+                      / _layer_scale(grads["cpu"], k)
+                      for k, g in grads["cpu"].items())
+        # Adam alone, apart from gradient rounding (held just above): the
+        # card's optimizer steps from the CPU's gradients. The whole step's
+        # params are printed too, but not held: where |g + wd p| is near
+        # eps, a first Adam step follows the gradient's last bits.
+        adam = trainer_for(p, dev, ops)
+        for k, v in adam.model.named_parameters():
+            v.grad = grads["cpu"][k].to(dev)
+        adam.optimizer.step()
+        p_adam = max((v.detach().cpu() - named["cpu"][k].detach()).abs()
+                     .max().item()
+                     for k, v in adam.model.named_parameters())
+        p_step = max((named["card"][k].detach().cpu() - v.detach()).abs()
+                     .max().item() for k, v in named["cpu"].items())
+        say(f"card vs cpu train step [{p}]: loss rel {rel:.2e} (bar 1e-5); "
+            f"worst gradient delta {g_worst:.2e} of its layer's max|g| (bar "
+            f"{bar:g}); params after Adam on the same gradients: max delta "
+            f"{p_adam / lr:.2e} lr (bar 1e-2 lr); after the whole step "
+            f"{p_step / lr:.2e} lr (not held)")
+        if not (rel <= 1e-5 and g_worst <= bar and p_adam <= 1e-2 * lr):
+            fail(f"card and CPU train steps disagree at {p}")
+
+    # --- the train step: host-paced time, peak memory, device busy ------
+    for p, tr in trainers.items():
+        batch = tr.to_device(fixed)
+        norm = tr.norm_to_device(ds.mean, ds.std)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        step = lambda: tr.train_step(batch, gen, *norm)
+        ms = time_ms(torch, step, backlog=False)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        say(f"train step [{p}]: {ms:.3f} ms, {BATCH / ms * 1e3:.1f} "
+            f"meshes/sec at B={BATCH}, host-paced; peak memory "
+            f"{peak / 2**20:.1f} MiB, of which the step's own "
+            f"{(peak - base) / 2**20:.1f} MiB")
+        _profile(torch, step, f"train {p}", ms)
+    return launches, by_shape
 
 
 def main() -> int:
@@ -481,7 +767,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         models, ops, hier, tmpl, single, many_dir, (mean, std) = \
             setup_config_1(torch, dev, tmp)
-        worst_abs = phase_kernel(torch, ops, hier, dev)
+        worst_abs = phase_kernel(torch, ops, dev)
         servers = {p: MeshServer(m, ops, mean, std, template=tmpl.v,
                                  faces=tmpl.f, batch_size=BATCH,
                                  output_path=os.path.join(tmp, f"out_{p}"),
@@ -494,16 +780,38 @@ def main() -> int:
         finally:
             for server in servers.values():
                 server.close()
-    kernels = [dict(name=f"bsr_grouped_spmm[{mode}]", route="cuda",
-                    source=SOURCE, replaces=REPLACES[mode],
-                    launches=launches[mode], max_abs_err=worst_abs[mode],
-                    ms=per_step[mode]["ms"],
-                    plain_ms=per_step[mode]["plain_ms"],
-                    bound_ms=per_step[mode]["bound_ms"],
-                    bound_by=("bytes" if per_step[mode]["bytes_ms"]
-                              >= per_step[mode]["ops_ms"] else "operations"),
-                    library_ms=per_step[mode]["library_ms"])
-               for mode in ("fp32", "bf16x3")]
+        train_launches, by_shape = phase_train(torch, dev, models, ops, hier,
+                                               tmpl, tmp)
+
+    def entry(name, replaces, launched, err, acc):
+        return dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
+                    launches=launched, max_abs_err=err, ms=acc["ms"],
+                    plain_ms=acc["plain_ms"], bound_ms=acc["bound_ms"],
+                    bound_by=_bound_by(acc), library_ms=acc["library_ms"])
+
+    pool_keys = [("fp32", up.t_bsr.n_pad, up.t_bsr.n_pad_cols)
+                 for up in ops.up[:3]]
+    pool_launches = [sum(by_shape[p].get(k, 0) for p in by_shape)
+                     for k in pool_keys]
+    lap_fp32 = train_launches["highest"]["fp32"] - sum(
+        by_shape["highest"].get(k, 0) for k in pool_keys)
+    kernels = [entry(f"bsr_grouped_spmm[{m}]", REPLACES[m], launches[m],
+                     worst_abs[m], per_step[f"serve_{m}"])
+               for m in ("fp32", "bf16x3")]
+    kernels += [
+        entry("bsr_grouped_spmm[bf16x3] train step: Laplacian",
+              REPLACES["bf16x3"], train_launches["high"]["bf16x3"],
+              worst_abs["bf16x3"], per_step["train_lap_bf16x3"]),
+        entry("bsr_grouped_spmm[fp32] train step: Laplacian",
+              REPLACES["fp32"], lap_fp32, worst_abs["fp32"],
+              per_step["train_lap_fp32"]),
+        entry("bsr_grouped_spmm[fp32] train step: pool P^T, column-major",
+              REPLACES["colmajor"], pool_launches[0] + pool_launches[1],
+              worst_abs["pool"], per_step["train_pool_colmajor"]),
+        entry("bsr_grouped_spmm[fp32] train step: pool P^T, grouped",
+              REPLACES["grouped"], pool_launches[2], worst_abs["pool"],
+              per_step["train_pool_grouped"]),
+    ]
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -1,21 +1,27 @@
 """Disentangled, label-conditioned mesh VAE (counterpart of
-meshvae_tpu/models/vae.py), eval-mode forward.
+meshvae_tpu/models/vae.py).
 
   encoder   : n_layers x (ChebConv -> ReLU -> down-pool), flatten,
-              ReLU(enc_lin)                                        -> h [B, H]
-  classifier: softmax(classifier_layer(h))                         -> y_hat
+              ReLU(enc_lin), dropout                               -> h [B, H]
+  classifier: softmax(classifier_layer(dropout(h)))                -> y_hat
   posterior : z_mean / z_log_var(concat[y, h])                     -> mu, logvar
-  decoder   : ReLU(dec_lin(concat[y, z])), ReLU(dec_lin_2), reshape to
-              [B, n_coarse, F_last], n_layers x (up-pool -> ChebConv -> ReLU),
-              final bias-free ChebConv on ops.lap_final             -> recon
+  decoder   : ReLU(dec_lin(concat[y, z])), dropout, ReLU(dec_lin_2), dropout,
+              reshape to [B, n_coarse, F_last], n_layers x (up-pool ->
+              ChebConv -> ReLU), final bias-free ChebConv on ops.lap_final
+                                                                   -> recon
 
 Parameter names match the flax tree one to one (``cheb_enc_i``,
 ``cheb_dec_i``, ``enc_lin``, ...); ``params_from_flax`` converts a flax tree
 into this module's state_dict. Init distributions match the JAX package:
 Chebyshev weights and biases ~ N(0, 0.1), enc_lin/dec_lin weights
 ~ N(0, 0.1), every other weight and every Linear bias
-U(+-1/sqrt(fan_in)). Eval mode uses z = mu and no dropout; dropout and the
-reparameterisation arrive with the training slice.
+U(+-1/sqrt(fan_in)).
+
+Eval mode (``train=False``) uses z = mu and no dropout. Train mode draws the
+dropout masks and the reparameterisation noise from an explicit
+``torch.Generator`` on the tensors' device. As in the reference, train mode
+drops the classifier's input out twice: once at the end of ``encode`` and
+again in ``classify``; the posterior sees h after the first.
 """
 from __future__ import annotations
 
@@ -30,6 +36,17 @@ from ..ops.cheb import cheb_conv, resolve_precision
 from ..ops.graph import GraphOperator
 from ..ops.pool import pool_apply
 from .operators import ModelOperators
+
+
+def _dropout(x: torch.Tensor, rate: float, train: bool,
+             generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability 1 - rate and
+    scale the kept ones by 1 / (1 - rate); identity unless training."""
+    if not train or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
+    return x * mask / keep
 
 
 class ChebConvLayer(nn.Module):
@@ -133,45 +150,62 @@ class MeshVAE(nn.Module):
     def cheb_dec(self, i: int) -> ChebConvLayer:
         return getattr(self, f"cheb_dec_{i}")
 
-    def encode(self, x: torch.Tensor, ops: ModelOperators) -> torch.Tensor:
+    def encode(self, x: torch.Tensor, ops: ModelOperators,
+               train: bool = False,
+               generator: torch.Generator | None = None) -> torch.Tensor:
         """x: [B, N, F_in] -> h: [B, num_hidden]."""
         for i in range(self.cfg.n_layers):
             x = torch.relu(self.cheb_enc(i)(x, ops.lap[i]))
             x = pool_apply(x, ops.down[i])
-        return torch.relu(self.enc_lin(x.reshape(x.shape[0], -1)))
+        h = torch.relu(self.enc_lin(x.reshape(x.shape[0], -1)))
+        return _dropout(h, self.cfg.dropout, train, generator)
 
-    def classify(self, h: torch.Tensor) -> torch.Tensor:
+    def classify(self, h: torch.Tensor, train: bool = False,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
         """h: [B, num_hidden] -> y_hat: [B, C] (softmax)."""
+        h = _dropout(h, self.cfg.dropout, train, generator)
         return torch.softmax(self.classifier_layer(h), dim=-1)
 
-    def decode(self, z: torch.Tensor, ops: ModelOperators) -> torch.Tensor:
+    def decode(self, z: torch.Tensor, ops: ModelOperators,
+               train: bool = False,
+               generator: torch.Generator | None = None) -> torch.Tensor:
         """z: [B, latent + C] (label-conditioned) -> recon: [B, N, F_in]."""
         c = self.cfg
-        x = torch.relu(self.dec_lin(z))
-        x = torch.relu(self.dec_lin_2(x))
+        x = _dropout(torch.relu(self.dec_lin(z)), c.dropout, train, generator)
+        x = _dropout(torch.relu(self.dec_lin_2(x)), c.dropout, train,
+                     generator)
         x = x.reshape(x.shape[0], c.coarse_verts, self.filters[-1])
         for i in range(c.n_layers):
             x = pool_apply(x, ops.up[-i - 1])
             x = torch.relu(self.cheb_dec(i)(x, ops.lap[c.n_layers - i - 1]))
         return self.cheb_dec(len(c.filters) - 1)(x, ops.lap_final)
 
-    def sample(self, y: torch.Tensor, z: torch.Tensor,
-               ops: ModelOperators) -> torch.Tensor:
+    def sample(self, y: torch.Tensor, z: torch.Tensor, ops: ModelOperators,
+               train: bool = False,
+               generator: torch.Generator | None = None) -> torch.Tensor:
         """Label-conditioned decode of concat[y, z]."""
-        return self.decode(torch.cat([y, z], dim=-1), ops)
+        return self.decode(torch.cat([y, z], dim=-1), ops, train, generator)
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor,
-                ops: ModelOperators) -> dict:
-        """Eval forward: x [B, N, F_in] normalized vertices, y [B, C]
-        one-hot labels -> dict(recon, y_hat, mu, logvar, z = mu)."""
-        h = self.encode(x, ops)
-        y_hat = self.classify(h)
+    def reparameterize(self, mu: torch.Tensor, logvar: torch.Tensor,
+                       generator: torch.Generator | None) -> torch.Tensor:
+        eps = torch.randn(mu.shape, generator=generator, device=mu.device,
+                          dtype=mu.dtype)
+        return eps * torch.exp(0.5 * logvar) + mu
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor, ops: ModelOperators,
+                train: bool = False,
+                generator: torch.Generator | None = None) -> dict:
+        """x [B, N, F_in] normalized vertices, y [B, C] one-hot labels ->
+        dict(recon, y_hat, mu, logvar, z); z = mu unless training."""
+        h = self.encode(x, ops, train, generator)
+        y_hat = self.classify(h, train, generator)
         hy = torch.cat([y.to(h.dtype), h], dim=-1)
         mu = self.z_mean(hy)
         logvar = self.z_log_var(hy)
-        recon = self.sample(y, mu, ops)
+        z = self.reparameterize(mu, logvar, generator) if train else mu
+        recon = self.sample(y, z, ops, train, generator)
         return {"recon": recon, "y_hat": y_hat, "mu": mu, "logvar": logvar,
-                "z": mu}
+                "z": z}
 
 
 def params_from_flax(tree: dict) -> dict[str, torch.Tensor]:

@@ -11,6 +11,14 @@ that meshvae_tpu/ops/pallas_cheb.py ``_grouped_matmul`` launches:
                 and ``_make_grouped_kernel_bf16x3`` — both operands split
                 into a bf16 hi part and a bf16 residual (round to nearest
                 even), hi*hi + (hi*lo + lo*hi) accumulated in fp32.
+
+It also stands in for the TPU kernels that ``_bsr_matmul_impl`` takes when
+a row spans more than 8 column blocks or grouping is off: the column-major
+``_make_colmajor_kernel`` (fp32; the pool backward's rectangular P^T of
+the two finest up-pools) and ``_make_colmajor_kernel_bf16x3``, and the
+per-block ``_make_spmm_kernel`` / ``_make_spmm_kernel_bf16x3``. The row-
+grouped layout keeps any number of slots per row, so one kernel covers
+them; tests/test_torch_grad.py holds the twin against each.
 """
 from __future__ import annotations
 
@@ -23,11 +31,29 @@ from .block_sparse import BLOCK, BlockSparseOperator
 
 MODES = ("fp32", "bf16x3")
 
-# Launches of the CUDA kernel per mode, counted where the wrapper launches
-# it (never on the CPU twin path). Readers reset and read them around a run.
+# Launches of the CUDA kernel per mode, and per (mode, n_pad, n_pad_cols)
+# of the operator, counted where the wrapper launches it (never on the CPU
+# twin path). Readers reset and read them around a run.
 LAUNCHES = {mode: 0 for mode in MODES}
+LAUNCHES_BY_SHAPE: dict[tuple[str, int, int], int] = {}
+
+
+def reset_launches() -> None:
+    for mode in MODES:
+        LAUNCHES[mode] = 0
+    LAUNCHES_BY_SHAPE.clear()
+
 
 _TILE_COLS = 64  # the kernel's column tile (BN in csrc/bsr_spmm.cu)
+COL_PANEL = 128  # callers pad B * F_pad to a multiple of this column panel
+
+
+def pad_features(b: int, f: int) -> int:
+    """Smallest f_pad >= f with b * f_pad a multiple of the column panel."""
+    f_pad = f
+    while (b * f_pad) % COL_PANEL != 0:
+        f_pad += 1
+    return f_pad
 
 
 @functools.cache
@@ -136,4 +162,6 @@ def bsr_grouped_spmm(bsr: BlockSparseOperator, x: torch.Tensor,
         raise RuntimeError(f"bsr_grouped_spmm[{mode}] launch failed: "
                            f"CUDA error {rc}")
     LAUNCHES[mode] += 1
+    key = (mode, bsr.n_pad, bsr.n_pad_cols)
+    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
     return y

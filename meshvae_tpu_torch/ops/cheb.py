@@ -1,5 +1,5 @@
 """Chebyshev spectral graph convolution (counterpart of
-meshvae_tpu/ops/cheb.py and the forward of ``cheb_conv_pallas`` in
+meshvae_tpu/ops/cheb.py and of ``cheb_conv_pallas`` / ``_basis_mix`` in
 meshvae_tpu/ops/pallas_cheb.py).
 
 out = sum_k T_k(L_hat) x @ W_k (+ bias), with T_0 = x, T_1 = L_hat x,
@@ -16,14 +16,12 @@ import torch
 import torch.nn.functional as F
 
 from .block_sparse import BlockSparseOperator
-from .bsr_spmm import bsr_grouped_spmm
+from .bsr_spmm import bsr_grouped_spmm, pad_features
 from .graph import GraphOperator
 
 # matmul_precision -> block-sparse kernel mode. Dense products always run
 # in full fp32 (TF32 is switched off on CUDA, device.resolve_device).
 _KERNEL_MODE = {"highest": "fp32", "high": "bf16x3"}
-
-_COL_PANEL = 128  # the kernel layout pads B * F_pad to a multiple of this
 
 
 def resolve_precision(precision) -> str:
@@ -75,12 +73,67 @@ def cheb_conv(x: torch.Tensor, op: GraphOperator, weight: torch.Tensor,
     return out
 
 
-def _pad_features(b: int, f: int) -> int:
-    """Smallest f_pad >= f with b * f_pad a multiple of the column panel."""
-    f_pad = f
-    while (b * f_pad) % _COL_PANEL != 0:
-        f_pad += 1
-    return f_pad
+class _BasisMix(torch.autograd.Function):
+    """Chebyshev basis + stacked mix on the padded [n_pad, B, F_pad] layout
+    with a fused backward (counterpart of pallas_cheb._basis_mix).
+
+    Forward: T_0 = x, T_1 = L x, T_k = 2 L T_{k-1} - T_{k-2} (the seed
+    folds into the kernel), then one [.., K*F_pad] @ [K*F_pad, F_out] mix.
+
+    Backward, with c_j = g @ W_j^T the mix cotangent of T_j: dW is one
+    contraction of the saved basis with g over (rows, batch); dx runs the
+    reverse recurrence u_{j-1} = 2 L u_j + c_{j-1} - u_{j+1} (L symmetric)
+    as two-seed kernel calls, ending with dx = L u_1 + c_0 - u_2. It is
+    skipped when x needs no gradient (the first encoder conv on data)."""
+
+    @staticmethod
+    def forward(ctx, xt, w, bsr, mode):
+        n_pad, b, f_pad = xt.shape
+        k, _, f_out = w.shape
+        c = b * f_pad
+
+        def mm(t, alpha, t_prev=None):
+            prev = None if t_prev is None else t_prev.reshape(n_pad, c)
+            return bsr_grouped_spmm(bsr, t.reshape(n_pad, c), mode, alpha,
+                                    t_prev=prev).reshape(n_pad, b, f_pad)
+
+        txs = [xt.contiguous()]
+        if k > 1:
+            txs.append(mm(txs[0], 1.0))
+        for _ in range(2, k):
+            txs.append(mm(txs[-1], 2.0, txs[-2]))
+        txcat = torch.cat(txs, dim=-1)  # [n_pad, B, K * F_pad]
+        ctx.save_for_backward(txcat, w)
+        ctx.bsr, ctx.mode = bsr, mode
+        return torch.matmul(txcat, w.reshape(k * f_pad, f_out))
+
+    @staticmethod
+    def backward(ctx, g):
+        txcat, w = ctx.saved_tensors
+        bsr, mode = ctx.bsr, ctx.mode
+        n_pad, b, kf = txcat.shape
+        k, f_pad, f_out = w.shape
+        c = b * f_pad
+        gm = g.reshape(n_pad * b, f_out)
+        dw = torch.matmul(txcat.reshape(n_pad * b, kf).t(), gm).reshape(
+            k, f_pad, f_out)
+        if not ctx.needs_input_grad[0]:
+            return None, dw, None, None
+        # per-order cotangents, each [n_pad, C] and contiguous: kernel seeds
+        cs = [torch.matmul(gm, w[j].t()).reshape(n_pad, c) for j in range(k)]
+
+        def mm(u, alpha, t_plus, t_prev):
+            return bsr_grouped_spmm(bsr, u, mode, alpha, t_plus=t_plus,
+                                    t_prev=t_prev)
+
+        if k == 1:
+            dx = cs[0]
+        else:
+            u, prev_u = cs[k - 1], None
+            for j in range(k - 1, 1, -1):
+                u, prev_u = mm(u, 2.0, cs[j - 1], prev_u), u
+            dx = mm(u, 1.0, cs[0], prev_u)
+        return dx.reshape(n_pad, b, f_pad), dw, None, None
 
 
 def cheb_conv_bsr(x: torch.Tensor, bsr: BlockSparseOperator,
@@ -89,28 +142,14 @@ def cheb_conv_bsr(x: torch.Tensor, bsr: BlockSparseOperator,
     """Chebyshev conv through the block-sparse kernel, in the padded
     [N_pad, B, F_pad] layout of cheb_conv_pallas: transpose in, pad, K-1
     kernel calls (orders >= 2 fuse 2 L T_{k-1} - T_{k-2} into the kernel),
-    one wide channel mix, transpose out."""
+    one wide channel mix, transpose out. Differentiable in x and weight
+    (the backward is _BasisMix's)."""
     mode = _KERNEL_MODE[resolve_precision(precision)]
     b, n, f_in = x.shape
-    k, _, f_out = weight.shape
-    n_pad = bsr.n_pad
-    f_pad = _pad_features(b, f_in)
-    c = b * f_pad
-    xt = F.pad(x.transpose(0, 1), (0, f_pad - f_in, 0, 0, 0, n_pad - n))
+    f_pad = pad_features(b, f_in)
+    xt = F.pad(x.transpose(0, 1), (0, f_pad - f_in, 0, 0, 0, bsr.n_pad - n))
     w = F.pad(weight, (0, 0, 0, f_pad - f_in))  # [K, F_pad, F_out]
-
-    def mm(t, alpha, t_prev=None):
-        prev = None if t_prev is None else t_prev.reshape(n_pad, c)
-        return bsr_grouped_spmm(bsr, t.reshape(n_pad, c), mode, alpha,
-                                t_prev=prev).reshape(n_pad, b, f_pad)
-
-    txs = [xt]
-    if k > 1:
-        txs.append(mm(xt, 1.0))
-    for _ in range(2, k):
-        txs.append(mm(txs[-1], 2.0, txs[-2]))
-    out = torch.matmul(torch.cat(txs, dim=-1), w.reshape(k * f_pad, f_out))
-    out = out[:n].transpose(0, 1)
+    out = _BasisMix.apply(xt, w, bsr, mode)[:n].transpose(0, 1)
     if bias is not None:
         out = out + bias
     return out

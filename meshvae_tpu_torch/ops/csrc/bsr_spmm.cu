@@ -13,7 +13,13 @@
 // `_make_grouped_kernel_bf16x3` (mode BF16X3: both operands rounded to a
 // bf16 `hi` and a bf16 residual `lo`, round-to-nearest-even, and
 // hi*hi + hi*lo + lo*hi accumulated in fp32; each product of two bf16
-// values is exact in fp32).
+// values is exact in fp32). In mode FP32 on a rectangular operator with
+// rows wider than 8 column blocks it also replaces the column-major
+// `_make_colmajor_kernel` (via `_colmajor_matmul`), which the pool
+// backward runs on P^T: that kernel keeps the whole [n_pad, panel] output
+// resident in VMEM while blocks stream in column order; here each CTA owns
+// its output tile and loops over the row's G slots, so every output is
+// written once and no CTA needs another's partial sums.
 //
 // What bounds it: at the serving shapes (C = 128..512) the occupied blocks
 // plus x, the seeds and y are 5-40 MB per call, so the floor is HBM bytes;

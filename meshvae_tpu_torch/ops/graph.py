@@ -1,10 +1,11 @@
-"""Static graph operands (counterpart of meshvae_tpu/ops/graph.py, forward
-layouts only).
+"""Static graph operands (counterpart of meshvae_tpu/ops/graph.py).
 
   * the scaled Laplacian L_hat = -D^{-1/2} A D^{-1/2} (self-loops removed),
     dense [N, N] below the hybrid cutoff and block-sparse at or above it;
   * pool/unpool sampling matrices as gather indices + weights (rows of D are
-    one-hot selections, rows of U have <= 3 barycentric entries).
+    one-hot selections, rows of U have <= 3 barycentric entries), with the
+    transpose P^T for the pool backward: always as gathers, and above a
+    fan-in cutoff also as a rectangular block-sparse operator.
 """
 from __future__ import annotations
 
@@ -20,6 +21,12 @@ from .block_sparse import BlockSparseOperator, to_block_sparse
 # dense operator (the whole operator is tiny and one dense product beats a
 # kernel launch that pads the level to 128-row blocks).
 BSR_MIN_N = 1024
+
+# Pool-backward layout cutoff: P^T fan-ins at or below this run as unrolled
+# weighted gathers; above it (hub coarse vertices: config 1's three finest
+# up-pools reach 51, 28 and 19) the backward runs P^T through the
+# block-sparse kernel. Read when a PoolOperator is built.
+TGRAD_ELL_MAX = 16
 
 
 def normalized_neg_adjacency(adjacency: sp.spmatrix) -> sp.csr_matrix:
@@ -87,12 +94,20 @@ def embed_operator(op_coarse: sp.spmatrix, n_full: int, device,
 @dataclasses.dataclass(frozen=True)
 class PoolOperator:
     """A sampling matrix P applied as out = P @ x per batch item, stored as
-    padded per-row gathers: out[m] = sum_k w[m, k] * x[idx[m, k]]."""
+    padded per-row gathers: out[m] = sum_k w[m, k] * x[idx[m, k]].
+
+    The backward dx = P^T @ g reads the transpose: `t_idx`/`t_w`, the same
+    gathers over P^T, always; `t_bsr`, P^T as a rectangular block-sparse
+    operator (rows = pool inputs, columns = pool outputs), only when the
+    largest fan-in exceeds TGRAD_ELL_MAX."""
 
     idx: torch.Tensor     # [M, R] int64
     w: torch.Tensor       # [M, R] float32 (0 on padding)
     n_in: int
     n_out: int
+    t_idx: torch.Tensor   # [N, T] int64 into output rows
+    t_w: torch.Tensor     # [N, T] float32 (0 on padding)
+    t_bsr: BlockSparseOperator | None = None
 
 
 def _to_ell(mat: sp.csr_matrix) -> tuple[np.ndarray, np.ndarray]:
@@ -112,7 +127,13 @@ def _to_ell(mat: sp.csr_matrix) -> tuple[np.ndarray, np.ndarray]:
 
 def pool_operator(mat: sp.spmatrix, device) -> PoolOperator:
     csr = sp.csr_matrix(mat)
+    csr_t = sp.csr_matrix(csr.T)
     idx, w = _to_ell(csr)
-    return PoolOperator(idx=torch.from_numpy(idx).to(device),
-                        w=torch.from_numpy(w).to(device),
-                        n_in=csr.shape[1], n_out=csr.shape[0])
+    t_idx, t_w = _to_ell(csr_t)
+    fan_in = int(np.diff(csr_t.indptr).max()) if csr_t.shape[0] else 0
+    t = lambda a: torch.from_numpy(a).to(device)
+    return PoolOperator(
+        idx=t(idx), w=t(w), n_in=csr.shape[1], n_out=csr.shape[0],
+        t_idx=t(t_idx), t_w=t(t_w),
+        t_bsr=(to_block_sparse(csr_t, device, allow_rect=True)
+               if fan_in > TGRAD_ELL_MAX else None))

@@ -1,17 +1,25 @@
-"""Mesh pool/unpool forward (counterpart of the gather path of
-meshvae_tpu/ops/pool.py): out = P @ x per batch item as weighted gathers;
-down-pool rows are one-hot selections, barycentric up-pool rows have <= 3
-entries."""
+"""Mesh pool/unpool (counterpart of the gather path of meshvae_tpu/ops/pool.py):
+out = P @ x per batch item as weighted gathers; down-pool rows are one-hot
+selections, barycentric up-pool rows have <= 3 entries.
+
+The backward dx = P^T @ g never scatters: autograd's transpose of a gather
+is an atomic index_add, whose sums depend on thread order. It applies the
+precomputed transpose instead (PoolOperator.t_idx/t_w/t_bsr): through the
+block-sparse kernel in fp32 when P^T has a block-sparse form and B * F
+fills a column panel, else as weighted gathers over P^T.
+"""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from .bsr_spmm import COL_PANEL, bsr_grouped_spmm, pad_features
 from .graph import PoolOperator
 
 
-def pool_apply(x: torch.Tensor, pool: PoolOperator) -> torch.Tensor:
-    """x: [B, N_in, F] -> [B, N_out, F]; padded slots carry weight 0."""
-    idx, w = pool.idx, pool.w
+def _gather_apply(x: torch.Tensor, idx: torch.Tensor,
+                  w: torch.Tensor) -> torch.Tensor:
+    """sum_d w[:, d] * x[:, idx[:, d]]; padded slots carry weight 0."""
     if idx.shape[1] == 1:
         return x[:, idx[:, 0]] * w[None, :, 0, None]
     acc = None
@@ -19,3 +27,40 @@ def pool_apply(x: torch.Tensor, pool: PoolOperator) -> torch.Tensor:
         term = w[None, :, d, None] * x[:, idx[:, d]]
         acc = term if acc is None else acc + term
     return acc
+
+
+def _bsr_transpose_apply(g: torch.Tensor, pool: PoolOperator) -> torch.Tensor:
+    """dx = P^T @ g through the kernel in fp32 (the JAX package pins
+    HIGHEST here at every matmul_precision): [B, N_out, F] ->
+    [N_out(pad), B * F_pad] -> kernel -> [B, N_in, F]."""
+    t_bsr = pool.t_bsr
+    b, n_out, f = g.shape
+    f_pad = pad_features(b, f)
+    gt = F.pad(g.transpose(0, 1),
+               (0, f_pad - f, 0, 0, 0, t_bsr.n_pad_cols - n_out))
+    y = bsr_grouped_spmm(
+        t_bsr, gt.reshape(t_bsr.n_pad_cols, b * f_pad).contiguous(), "fp32")
+    return y.reshape(t_bsr.n_pad, b, f_pad)[:pool.n_in, :, :f].transpose(0, 1)
+
+
+class _PoolApply(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pool):
+        ctx.pool = pool
+        return _gather_apply(x, pool.idx, pool.w)
+
+    @staticmethod
+    def backward(ctx, g):
+        pool = ctx.pool
+        # below one column panel of B * F the kernel would pad most of its
+        # work away
+        if pool.t_bsr is not None and g.shape[0] * g.shape[2] >= COL_PANEL:
+            dx = _bsr_transpose_apply(g, pool)
+        else:
+            dx = _gather_apply(g, pool.t_idx, pool.t_w)
+        return dx, None
+
+
+def pool_apply(x: torch.Tensor, pool: PoolOperator) -> torch.Tensor:
+    """x: [B, N_in, F] -> [B, N_out, F]."""
+    return _PoolApply.apply(x, pool)

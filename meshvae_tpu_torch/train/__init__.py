@@ -1,0 +1,5 @@
+from .loop import (METRIC_NAMES, Trainer, lr_for_epoch, make_optimizer,
+                   set_learning_rate, unpack_metrics)
+
+__all__ = ["METRIC_NAMES", "Trainer", "lr_for_epoch", "make_optimizer",
+           "set_learning_rate", "unpack_metrics"]

@@ -62,8 +62,10 @@ _SCHEMA: dict[str, tuple[Callable, Any]] = {
     "cls_weight": (float, 1.0),
     "cheb_method": (str, "dense"),       # dense | pallas (block-sparse kernel)
     "pool_method": (str, "gather"),      # gather
-    "compute_dtype": (str, "float32"),
-    "matmul_precision": (str, ""),       # "" | high | highest
+    "compute_dtype": (str, "float32"),   # float32 | bfloat16
+    # "" | high | highest on float32; bfloat16 clamps every value to
+    # default (ops/cheb.py resolve_precision)
+    "matmul_precision": (str, ""),
     "final_conv_adjacency": (str, "reference_quirk"),  # reference_quirk | finest
     "hierarchy_mode": (str, "fast"),
     "data_parallel": (int, 1),

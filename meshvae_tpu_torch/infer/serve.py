@@ -41,11 +41,10 @@ import torch
 
 from ..config import apply_overrides, read_config
 from ..device import resolve_device
-from ..mesh.hierarchy import load_or_build_hierarchy
 from ..mesh.io import load_obj, save_obj
 from ..mesh.procrustes import apply_inverse_similarity, procrustes_align
-from ..models.operators import build_operators
-from ..models.vae import MeshVAE, VAEConfig, load_params_npz
+from ..models.vae import load_params_npz
+from ..train.driver import build_model_and_ops
 from .driver import InferenceEngine
 
 
@@ -69,6 +68,9 @@ class MeshServer:
                  batch_size: int, output_path: str = ".",
                  save_meshes: bool = False, wire_dtype=np.float16,
                  device="cuda"):
+        if model.cfg.compute_dtype != "float32":
+            raise ValueError("serving with compute_dtype bfloat16 is not "
+                             "ported yet; serve in float32")
         self.device = resolve_device(device)
         self.engine = InferenceEngine(model, ops)
         self.mean_dev = torch.as_tensor(np.asarray(norm_mean, np.float32),
@@ -236,25 +238,6 @@ class MeshServer:
                 {"done": len(results),
                  "sec": round(time.perf_counter() - t0, 4)}) + "\n")
             fout.flush()
-
-
-def build_model_and_ops(config: dict, device="cuda",
-                        generator: torch.Generator | None = None):
-    """Template -> hierarchy -> operators -> eval-mode MeshVAE on `device`,
-    weights drawn from `generator`. Returns (model, ops, hier, template)."""
-    device = resolve_device(device)
-    template = load_obj(config["template"])
-    hier = load_or_build_hierarchy(template, config["downsampling_factors"],
-                                   cache_dir=config.get("hierarchy_cache_dir")
-                                   or None)
-    ops = build_operators(
-        hier, device, cheb_method=config.get("cheb_method", "dense"),
-        final_conv_adjacency=config.get("final_conv_adjacency",
-                                        "reference_quirk"))
-    cfg = VAEConfig.from_config(config, coarse_verts=hier.levels[-1],
-                                num_features=template.v.shape[1])
-    model = MeshVAE(cfg, generator=generator).to(device).eval()
-    return model, ops, hier, template
 
 
 def main(argv=None) -> int:

@@ -1,5 +1,5 @@
-"""Pure-python triangle-mesh OBJ I/O (counterpart of meshvae_tpu/mesh/io.py,
-Python parsers only)."""
+"""Triangle-mesh OBJ I/O (counterpart of meshvae_tpu/mesh/io.py): the
+native parser when the library can be built, then the Python parsers."""
 from __future__ import annotations
 
 import dataclasses
@@ -57,8 +57,14 @@ def _parse_obj_fast(text: str):
 
 def load_obj(path: str) -> TriMesh:
     """Parse a Wavefront OBJ file (v/f lines; polygonal faces are
-    fan-triangulated): the vectorized parser for the plain-triangle
-    dialect, the general per-token parser for anything else."""
+    fan-triangulated). Three tiers, same result: the native parser, the
+    vectorized parser for the plain-triangle dialect, the general per-token
+    parser for anything else."""
+    from ..native import obj_parse_native
+
+    native = obj_parse_native(path)
+    if native is not None:
+        return TriMesh(native[0], native[1])
     with open(path, "r") as fp:
         text = fp.read()
     fast_v, fast_f = _parse_obj_fast(text)

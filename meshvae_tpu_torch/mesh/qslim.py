@@ -1,5 +1,6 @@
 """Quadric-error-metric (QSlim) mesh decimation — host-side preprocessing
-(counterpart of meshvae_tpu/mesh/qslim.py, "fast" mode).
+(counterpart of meshvae_tpu/mesh/qslim.py, "fast" mode; the native library
+runs the same algorithm when it can be built).
 
 Collapse edges onto an existing endpoint (no new vertex positions),
 minimizing summed quadric error, until the number of vertices referenced by
@@ -51,13 +52,23 @@ def _vertex_cost(q_sum: np.ndarray, p: np.ndarray) -> float:
 def qslim_decimate(vertices: np.ndarray, faces: np.ndarray,
                    target_vertices: int):
     """Decimate to <= target_vertices (counted as vertices referenced by the
-    remaining faces).
+    remaining faces). The C++ copy of the same algorithm
+    (meshvae_tpu_torch/native) runs when it can be built.
 
     Returns:
       new_faces: [F', 3] int64 faces re-indexed into the kept-vertex space.
       down_mtx:  scipy CSR [n_kept, n_parent] binary selection matrix with
                  down_mtx @ parent_vertices == kept_vertices.
     """
+    from ..native import qslim_decimate_native
+
+    native = qslim_decimate_native(vertices, faces, target_vertices)
+    if native is not None:
+        new_faces, kept = native
+        down = sp.csr_matrix(
+            (np.ones(kept.shape[0]), (np.arange(kept.shape[0]), kept)),
+            shape=(kept.shape[0], np.asarray(vertices).shape[0]))
+        return new_faces, down
     v = np.asarray(vertices, dtype=np.float64)
     f = np.asarray(faces, dtype=np.int64).copy()
     n = v.shape[0]

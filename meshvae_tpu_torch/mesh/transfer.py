@@ -1,5 +1,6 @@
 """Barycentric upsampling-matrix construction, coarse -> fine (counterpart
-of meshvae_tpu/mesh/transfer.py, "barycentric" mode, numpy path).
+of meshvae_tpu/mesh/transfer.py, "barycentric" mode; the native library
+runs the same projection when it can be built).
 
 Candidate triangles come from a cKDTree over face centroids plus every face
 incident to the nearest source vertex; the exact closest point on each
@@ -65,7 +66,21 @@ def barycentric_transfer(source_v: np.ndarray, source_f: np.ndarray,
                          n_candidates: int = 16) -> sp.csr_matrix:
     """Build U [n_target, n_source] with U @ source_vertices approximating
     target_vertices via nearest-surface-point barycentric interpolation
-    (affine rows that sum to 1)."""
+    (affine rows that sum to 1). The C++ uniform-grid implementation
+    (meshvae_tpu_torch/native) runs when it can be built."""
+    from ..native import barycentric_transfer_native
+
+    native = barycentric_transfer_native(source_v, source_f, target_v)
+    if native is not None:
+        cols, weights = native
+        t = np.asarray(target_v).shape[0]
+        rows = np.repeat(np.arange(t), 3)
+        mask = cols.ravel() >= 0
+        u = sp.csr_matrix(
+            (weights.ravel()[mask], (rows[mask], cols.ravel()[mask])),
+            shape=(t, np.asarray(source_v).shape[0]))
+        u.sum_duplicates()
+        return u
     source_v = np.asarray(source_v, dtype=np.float64)
     source_f = np.asarray(source_f, dtype=np.int64)
     target_v = np.asarray(target_v, dtype=np.float64)

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from ..device import resolve_device
 from ..mesh.hierarchy import MeshHierarchy
 from ..ops.graph import (BSR_MIN_N, GraphOperator, PoolOperator,
@@ -24,10 +26,13 @@ class ModelOperators:
 def build_operators(hier: MeshHierarchy, device="cuda",
                     cheb_method: str = "pallas",
                     final_conv_adjacency: str = "reference_quirk",
-                    bsr_min_n: int = BSR_MIN_N) -> ModelOperators:
+                    bsr_min_n: int = BSR_MIN_N,
+                    dtype: torch.dtype = torch.float32) -> ModelOperators:
     """cheb_method "pallas" (the config name of the block-sparse kernel
     path) stores levels with at least bsr_min_n vertices block-sparse and
-    smaller ones dense; "dense" stores every level dense.
+    smaller ones dense; "dense" stores every level dense. `dtype` is the
+    operands' storage type: float32, or bfloat16 for
+    compute_dtype=bfloat16 (``VAEConfig.dtype``).
 
     final_conv_adjacency:
     - "reference_quirk": the last decoder conv sees the coarsest level's
@@ -38,13 +43,13 @@ def build_operators(hier: MeshHierarchy, device="cuda",
                          f"supports {CHEB_METHODS}")
     device = resolve_device(device)
     min_n = bsr_min_n if cheb_method == "pallas" else None
-    lap = tuple(cheb_operator(a, device, bsr_min_n=min_n)
+    lap = tuple(cheb_operator(a, device, bsr_min_n=min_n, dtype=dtype)
                 for a in hier.adjacency)
-    down = tuple(pool_operator(d, device) for d in hier.downsample)
-    up = tuple(pool_operator(u, device) for u in hier.upsample)
+    down = tuple(pool_operator(d, device, dtype) for d in hier.downsample)
+    up = tuple(pool_operator(u, device, dtype) for u in hier.upsample)
     if final_conv_adjacency == "reference_quirk":
         lap_final = embed_operator(hier.adjacency[-1], hier.levels[0], device,
-                                   bsr_min_n=min_n)
+                                   bsr_min_n=min_n, dtype=dtype)
     elif final_conv_adjacency == "finest":
         lap_final = lap[0]
     else:

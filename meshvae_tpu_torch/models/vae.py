@@ -22,6 +22,14 @@ dropout masks and the reparameterisation noise from an explicit
 ``torch.Generator`` on the tensors' device. As in the reference, train mode
 drops the classifier's input out twice: once at the end of ``encode`` and
 again in ``classify``; the posterior sees h after the first.
+
+compute_dtype=bfloat16 follows the JAX package's bf16 mode: parameters stay
+float32 (the master weights) and are cast to bf16 at use; every product
+takes bf16 operands with fp32 accumulation and a bf16 result (a linear
+head's bias is added after that rounding, in bf16, as flax's Dense does);
+the logits, mu and logvar (so z), and recon go to float32, so the loss and
+the pose error are float32. The operators must be built in bf16
+(``build_operators(..., dtype=VAEConfig.dtype)``).
 """
 from __future__ import annotations
 
@@ -37,6 +45,8 @@ from ..ops.graph import GraphOperator
 from ..ops.pool import pool_apply
 from .operators import ModelOperators
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
 
 def _dropout(x: torch.Tensor, rate: float, train: bool,
              generator: torch.Generator | None) -> torch.Tensor:
@@ -50,18 +60,24 @@ def _dropout(x: torch.Tensor, rate: float, train: bool,
 
 
 class ChebConvLayer(nn.Module):
-    """One Chebyshev graph convolution; the operator is passed at call time."""
+    """One Chebyshev graph convolution; the operator is passed at call time.
+    x, the weight and the bias are cast to `dtype` (the computation dtype)
+    at use."""
 
     def __init__(self, in_features: int, out_features: int, k: int,
-                 use_bias: bool = True, precision: str | None = None):
+                 use_bias: bool = True, precision: str | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(k, in_features, out_features))
         self.bias = (nn.Parameter(torch.empty(out_features)) if use_bias
                      else None)
         self.precision = precision
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor, op: GraphOperator) -> torch.Tensor:
-        return cheb_conv(x, op, self.weight, self.bias,
+        dt = self.dtype
+        return cheb_conv(x.to(dt), op, self.weight.to(dt),
+                         None if self.bias is None else self.bias.to(dt),
                          precision=self.precision)
 
 
@@ -77,14 +93,21 @@ class VAEConfig:
     dropout: float
     coarse_verts: int          # vertex count at the coarsest level
     precision: str | None = None
+    compute_dtype: str = "float32"   # float32 | bfloat16 (fp32 accumulation)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return COMPUTE_DTYPES[self.compute_dtype]
 
     @staticmethod
     def from_config(cfg: dict, coarse_verts: int,
                     num_features: int = 3) -> "VAEConfig":
+        """compute_dtype bfloat16 clamps matmul_precision to "default"
+        (resolve_precision); "default" on float32 raises."""
         compute_dtype = str(cfg.get("compute_dtype", "float32") or "float32")
-        if compute_dtype != "float32":
-            raise ValueError(f"compute_dtype {compute_dtype!r} is not ported "
-                             "yet; the port computes in float32")
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {compute_dtype!r}: expected one "
+                             f"of {sorted(COMPUTE_DTYPES)}")
         return VAEConfig(
             num_features=num_features,
             filters=tuple(cfg["num_conv_filters"]),
@@ -95,7 +118,9 @@ class VAEConfig:
             num_classes=int(cfg["num_classes"]),
             dropout=float(cfg["dropout"]),
             coarse_verts=coarse_verts,
-            precision=resolve_precision(cfg.get("matmul_precision")),
+            precision=resolve_precision(cfg.get("matmul_precision"),
+                                        COMPUTE_DTYPES[compute_dtype]),
+            compute_dtype=compute_dtype,
         )
 
 
@@ -112,13 +137,13 @@ class MeshVAE(nn.Module):
                      for i in range(len(filters) - 2)]
         dec_specs = [(filters[-i - 1], filters[-i - 2], c.polygon_order[i])
                      for i in range(len(filters) - 1)]
+        kw = dict(precision=c.precision, dtype=c.dtype)
         for n, (i, o, k) in enumerate(enc_specs):
-            setattr(self, f"cheb_enc_{n}",
-                    ChebConvLayer(i, o, k, precision=c.precision))
+            setattr(self, f"cheb_enc_{n}", ChebConvLayer(i, o, k, **kw))
         for n, (i, o, k) in enumerate(dec_specs):
             setattr(self, f"cheb_dec_{n}",
                     ChebConvLayer(i, o, k, use_bias=(n != len(dec_specs) - 1),
-                                  precision=c.precision))
+                                  **kw))
 
         flat = c.coarse_verts * filters[-1]
         self.enc_lin = nn.Linear(flat, c.num_hidden)
@@ -150,35 +175,48 @@ class MeshVAE(nn.Module):
     def cheb_dec(self, i: int) -> ChebConvLayer:
         return getattr(self, f"cheb_dec_{i}")
 
+    def _linear(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        """A head in the computation dtype: in bf16, x @ W^T rounded to
+        bf16, then + b in bf16 (flax Dense's two roundings)."""
+        dt = self.cfg.dtype
+        if dt == torch.float32:
+            return layer(x)
+        return (torch.matmul(x.to(dt), layer.weight.to(dt).t())
+                + layer.bias.to(dt))
+
     def encode(self, x: torch.Tensor, ops: ModelOperators,
                train: bool = False,
                generator: torch.Generator | None = None) -> torch.Tensor:
-        """x: [B, N, F_in] -> h: [B, num_hidden]."""
+        """x: [B, N, F_in] -> h: [B, num_hidden] (computation dtype)."""
+        x = x.to(self.cfg.dtype)
         for i in range(self.cfg.n_layers):
             x = torch.relu(self.cheb_enc(i)(x, ops.lap[i]))
             x = pool_apply(x, ops.down[i])
-        h = torch.relu(self.enc_lin(x.reshape(x.shape[0], -1)))
+        h = torch.relu(self._linear(self.enc_lin, x.reshape(x.shape[0], -1)))
         return _dropout(h, self.cfg.dropout, train, generator)
 
     def classify(self, h: torch.Tensor, train: bool = False,
                  generator: torch.Generator | None = None) -> torch.Tensor:
-        """h: [B, num_hidden] -> y_hat: [B, C] (softmax)."""
+        """h: [B, num_hidden] -> y_hat: [B, C] (softmax, in float32)."""
         h = _dropout(h, self.cfg.dropout, train, generator)
-        return torch.softmax(self.classifier_layer(h), dim=-1)
+        logits = self._linear(self.classifier_layer, h).float()
+        return torch.softmax(logits, dim=-1)
 
     def decode(self, z: torch.Tensor, ops: ModelOperators,
                train: bool = False,
                generator: torch.Generator | None = None) -> torch.Tensor:
-        """z: [B, latent + C] (label-conditioned) -> recon: [B, N, F_in]."""
+        """z: [B, latent + C] (label-conditioned) -> recon: [B, N, F_in]
+        (float32)."""
         c = self.cfg
-        x = _dropout(torch.relu(self.dec_lin(z)), c.dropout, train, generator)
-        x = _dropout(torch.relu(self.dec_lin_2(x)), c.dropout, train,
-                     generator)
+        x = _dropout(torch.relu(self._linear(self.dec_lin, z)), c.dropout,
+                     train, generator)
+        x = _dropout(torch.relu(self._linear(self.dec_lin_2, x)), c.dropout,
+                     train, generator)
         x = x.reshape(x.shape[0], c.coarse_verts, self.filters[-1])
         for i in range(c.n_layers):
             x = pool_apply(x, ops.up[-i - 1])
             x = torch.relu(self.cheb_dec(i)(x, ops.lap[c.n_layers - i - 1]))
-        return self.cheb_dec(len(c.filters) - 1)(x, ops.lap_final)
+        return self.cheb_dec(len(c.filters) - 1)(x, ops.lap_final).float()
 
     def sample(self, y: torch.Tensor, z: torch.Tensor, ops: ModelOperators,
                train: bool = False,
@@ -200,8 +238,8 @@ class MeshVAE(nn.Module):
         h = self.encode(x, ops, train, generator)
         y_hat = self.classify(h, train, generator)
         hy = torch.cat([y.to(h.dtype), h], dim=-1)
-        mu = self.z_mean(hy)
-        logvar = self.z_log_var(hy)
+        mu = self._linear(self.z_mean, hy).float()
+        logvar = self._linear(self.z_log_var, hy).float()
         z = self.reparameterize(mu, logvar, generator) if train else mu
         recon = self.sample(y, z, ops, train, generator)
         return {"recon": recon, "y_hat": y_hat, "mu": mu, "logvar": logvar,

@@ -21,11 +21,12 @@ BLOCK = 128
 
 @dataclasses.dataclass(frozen=True)
 class BlockSparseOperator:
-    """BSR operator: [nb, BLOCK, BLOCK] float32 blocks + coordinates, as
-    tensors on one device. `n` is the true row count, `n_pad` the padded
-    one; rectangular operators carry n_pad_cols != n_pad."""
+    """BSR operator: [nb, BLOCK, BLOCK] blocks (float32, or bfloat16 under
+    compute_dtype=bfloat16) + coordinates, as tensors on one device. `n` is
+    the true row count, `n_pad` the padded one; rectangular operators carry
+    n_pad_cols != n_pad."""
 
-    blocks: torch.Tensor      # [nb, BLOCK, BLOCK] float32
+    blocks: torch.Tensor      # [nb, BLOCK, BLOCK] float32 or bfloat16
     block_row: torch.Tensor   # [nb] int32
     block_col: torch.Tensor   # [nb] int32
     g_idx: torch.Tensor       # [nR, G] int32 into blocks (num_blocks = pad)
@@ -105,11 +106,14 @@ def block_sparse_arrays(mat: sp.spmatrix, block: int = BLOCK,
 
 
 def to_block_sparse(mat: sp.spmatrix, device, block: int = BLOCK,
-                    allow_rect: bool = False) -> BlockSparseOperator:
+                    allow_rect: bool = False,
+                    dtype: torch.dtype = torch.float32) -> BlockSparseOperator:
+    """The blocks are summed in float32 and stored in `dtype` (bfloat16
+    rounds each value to nearest even, as jnp.asarray(..., bfloat16))."""
     a = block_sparse_arrays(mat, block=block, allow_rect=allow_rect)
     t = lambda arr: torch.from_numpy(arr).to(device)
     return BlockSparseOperator(
-        blocks=t(a["blocks"]), block_row=t(a["block_row"]),
+        blocks=t(a["blocks"]).to(dtype), block_row=t(a["block_row"]),
         block_col=t(a["block_col"]), g_idx=t(a["g_idx"]),
         g_bcol=t(a["g_bcol"]), n=a["n"], n_pad=a["n_pad"],
         n_pad_cols=a["n_pad_cols"], g_width=a["g_width"])
@@ -117,7 +121,7 @@ def to_block_sparse(mat: sp.spmatrix, device, block: int = BLOCK,
 
 def bsr_to_dense(bsr: BlockSparseOperator) -> np.ndarray:
     out = np.zeros((bsr.n_pad, bsr.n_pad_cols), np.float32)
-    blocks = bsr.blocks.cpu().numpy()
+    blocks = bsr.blocks.cpu().float().numpy()
     rows = bsr.block_row.cpu().numpy()
     cols = bsr.block_col.cpu().numpy()
     for i in range(bsr.num_blocks):

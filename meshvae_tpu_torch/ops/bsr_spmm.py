@@ -10,15 +10,22 @@ that meshvae_tpu/ops/pallas_cheb.py ``_grouped_matmul`` launches:
   mode "bf16x3" (matmul_precision high): ``_make_multirow_kernel_bf16x3``
                 and ``_make_grouped_kernel_bf16x3`` — both operands split
                 into a bf16 hi part and a bf16 residual (round to nearest
-                even), hi*hi + (hi*lo + lo*hi) accumulated in fp32.
+                even), hi*hi + (hi*lo + lo*hi) accumulated in fp32;
+  mode "bf16"   (compute_dtype bfloat16): the same two kernels with bf16
+                blocks, x and seeds and a bf16 output (pallas_cheb.py
+                ``:682-688``, BF16_STATE) — exact fp32 products of the bf16
+                values, fp32 accumulation, alpha and the seeds applied in
+                fp32, one round-to-nearest-even to bf16 per output.
 
 It also stands in for the TPU kernels that ``_bsr_matmul_impl`` takes when
 a row spans more than 8 column blocks or grouping is off: the column-major
-``_make_colmajor_kernel`` (fp32; the pool backward's rectangular P^T of
-the two finest up-pools) and ``_make_colmajor_kernel_bf16x3``, and the
+``_make_colmajor_kernel`` (the pool backward's rectangular P^T of the wide
+up-pools, fp32 or bf16) and ``_make_colmajor_kernel_bf16x3``, and the
 per-block ``_make_spmm_kernel`` / ``_make_spmm_kernel_bf16x3``. The row-
 grouped layout keeps any number of slots per row, so one kernel covers
-them; tests/test_torch_grad.py holds the twin against each.
+them; tests/test_torch_grad.py and tests/test_torch_bf16.py hold the twin
+against each. In bf16 those TPU kernels round their output block after
+every slot; this kernel, like ``_make_grouped_kernel``, rounds once.
 """
 from __future__ import annotations
 
@@ -29,7 +36,10 @@ import torch
 
 from .block_sparse import BLOCK, BlockSparseOperator
 
-MODES = ("fp32", "bf16x3")
+MODES = ("fp32", "bf16x3", "bf16")
+# storage dtype of blocks, x, seeds and y in each mode
+MODE_DTYPE = {"fp32": torch.float32, "bf16x3": torch.float32,
+              "bf16": torch.bfloat16}
 
 # Launches of the CUDA kernel per mode, and per (mode, n_pad, n_pad_cols)
 # of the operator, counted where the wrapper launches it (never on the CPU
@@ -83,32 +93,34 @@ def bsr_grouped_spmm_reference(bsr: BlockSparseOperator, x: torch.Tensor,
                                ) -> torch.Tensor:
     """Plain PyTorch twin of the kernel: gather the [nR, G, 128, 128]
     blocks through g_idx (index num_blocks selects an appended zero block),
-    one batched product per slot, a sum over slots, then alpha and seeds."""
+    one batched fp32 product per slot, a sum over slots, then alpha and the
+    seeds in fp32; mode "bf16" widens its bf16 operands to fp32 first (each
+    product of two bf16 values is exact in fp32) and rounds the result to
+    bf16 once."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
     n_rows, g = bsr.g_idx.shape
     c = x.shape[1]
     zero = bsr.blocks.new_zeros((1, BLOCK, BLOCK))
-    lg = torch.cat([bsr.blocks, zero])[bsr.g_idx.long()]
+    lg = torch.cat([bsr.blocks, zero])[bsr.g_idx.long()].float()
     xg = x.reshape(-1, BLOCK, c)[bsr.g_bcol.long()].reshape(
-        n_rows, g, BLOCK, c)
-    if mode == "fp32":
-        prod = torch.matmul(lg, xg)
-    else:
+        n_rows, g, BLOCK, c).float()
+    if mode == "bf16x3":
         lh, ll = _split_bf16(lg)
         xh, xl = _split_bf16(xg)
         prod = torch.matmul(lh, xh) + (torch.matmul(lh, xl)
                                        + torch.matmul(ll, xh))
+    else:
+        prod = torch.matmul(lg, xg)
     y = alpha * prod.sum(dim=1).reshape(n_rows * BLOCK, c)
     if t_plus is not None:
-        y = y + t_plus
+        y = y + t_plus.float()
     if t_prev is not None:
-        y = y - t_prev
-    return y
+        y = y - t_prev.float()
+    return y.to(MODE_DTYPE[mode])
 
 
-def _check(name: str, t: torch.Tensor, shape, device,
-           dtype=torch.float32) -> None:
+def _check(name: str, t: torch.Tensor, shape, device, dtype) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -124,40 +136,46 @@ def bsr_grouped_spmm(bsr: BlockSparseOperator, x: torch.Tensor,
                      mode: str = "fp32", alpha: float = 1.0,
                      t_plus: torch.Tensor | None = None,
                      t_prev: torch.Tensor | None = None) -> torch.Tensor:
-    """y [n_pad, C] = alpha * (L @ x) + t_plus - t_prev, fp32.
+    """y [n_pad, C] = alpha * (L @ x) + t_plus - t_prev, in the mode's
+    dtype (MODE_DTYPE: fp32, or bf16 in mode "bf16"; blocks, x and the
+    seeds must have it too).
 
     x is [n_pad_cols, C]; the seeds, when given, are [n_pad, C]. A CPU
     tensor runs the plain twin; a CUDA tensor launches the kernel (C must be
     a multiple of 64) or raises."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+    dt = MODE_DTYPE[mode]
+    if bsr.blocks.dtype != dt or x.dtype != dt:
+        raise TypeError(f"mode {mode} takes {dt} blocks and x, got "
+                        f"{bsr.blocks.dtype} and {x.dtype}")
     if x.device.type == "cpu":
         return bsr_grouped_spmm_reference(bsr, x, mode, alpha, t_plus,
                                           t_prev)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if mode not in MODES:
-        raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
     n_rows, g = bsr.g_idx.shape
     c = x.shape[1] if x.dim() == 2 else -1
     if c % _TILE_COLS or c <= 0:
         raise ValueError(f"x must be [n_pad_cols, C] with C a positive "
                          f"multiple of {_TILE_COLS}, got {tuple(x.shape)}")
     dev = x.device
-    _check("x", x, (bsr.n_pad_cols, c), dev)
-    _check("blocks", bsr.blocks, (bsr.num_blocks, BLOCK, BLOCK), dev)
+    _check("x", x, (bsr.n_pad_cols, c), dev, dt)
+    _check("blocks", bsr.blocks, (bsr.num_blocks, BLOCK, BLOCK), dev, dt)
     _check("g_idx", bsr.g_idx, (bsr.n_pad // BLOCK, g), dev, torch.int32)
     _check("g_bcol", bsr.g_bcol, (n_rows * g,), dev, torch.int32)
     for name, seed in (("t_plus", t_plus), ("t_prev", t_prev)):
         if seed is not None:
-            _check(name, seed, (bsr.n_pad, c), dev)
-    y = torch.empty((bsr.n_pad, c), dtype=torch.float32, device=dev)
+            _check(name, seed, (bsr.n_pad, c), dev, dt)
+    y = torch.empty((bsr.n_pad, c), dtype=dt, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib().bsr_grouped_spmm(
             ptr(bsr.blocks), ptr(bsr.g_idx), ptr(bsr.g_bcol), ptr(x),
             ptr(t_plus), ptr(t_prev), ptr(y), bsr.num_blocks, n_rows, g,
-            bsr.n_pad_cols // BLOCK, c, float(alpha),
-            int(mode == "bf16x3"), stream)
+            bsr.n_pad_cols // BLOCK, c, float(alpha), MODES.index(mode),
+            stream)
     if rc != 0:
         raise RuntimeError(f"bsr_grouped_spmm[{mode}] launch failed: "
                            f"CUDA error {rc}")

@@ -19,26 +19,44 @@ from .block_sparse import BlockSparseOperator
 from .bsr_spmm import bsr_grouped_spmm, pad_features
 from .graph import GraphOperator
 
-# matmul_precision -> block-sparse kernel mode. Dense products always run
-# in full fp32 (TF32 is switched off on CUDA, device.resolve_device).
-_KERNEL_MODE = {"highest": "fp32", "high": "bf16x3"}
+# matmul_precision -> block-sparse kernel mode on float32 operators; bf16
+# operators always run the kernel's "bf16" mode ("default": one bf16 x bf16
+# pass, fp32 accumulation). Dense products on float32 operands run in full
+# fp32 (TF32 is switched off on CUDA, device.resolve_device).
+_KERNEL_MODE = {"highest": "fp32", "high": "bf16x3", "default": "bf16"}
 
 
-def resolve_precision(precision) -> str:
-    """None / "" -> "highest" (true fp32, the parity default); "high" runs
-    the kernel's bf16x3 split. Other values are not supported by the port."""
-    if precision is None or precision == "":
-        return "highest"
-    name = str(precision).lower()
-    if name not in _KERNEL_MODE:
+def resolve_precision(precision, dtype: torch.dtype = torch.float32) -> str:
+    """matmul_precision for operands of `dtype`.
+
+    float32: None / "" -> "highest" (true fp32, the parity default); "high"
+    runs the kernel's bf16x3 split; "default" is not supported (XLA's
+    DEFAULT on f32 operands truncates them to bf16, which the port does
+    not reproduce).
+    bfloat16: every value clamps to "default", as the JAX package's
+    _clamp_bf16_precision does (HIGH's residual is zero on bf16 values and
+    HIGHEST does not lower on bf16 operands)."""
+    name = "" if precision is None else str(precision).lower()
+    if name not in ("", *_KERNEL_MODE):
         raise ValueError(f"matmul_precision {precision!r} is not supported "
                          f"by the port; use one of {sorted(_KERNEL_MODE)}")
-    return name
+    if dtype == torch.bfloat16:
+        return "default"
+    if dtype != torch.float32:
+        raise ValueError(f"operands of {dtype} are not supported")
+    if name == "default":
+        raise ValueError("matmul_precision 'default' is not supported by "
+                         "the port on float32 operands; it runs only with "
+                         "compute_dtype bfloat16")
+    return name or "highest"
 
 
 def cheb_conv(x: torch.Tensor, op: GraphOperator, weight: torch.Tensor,
               bias: torch.Tensor | None = None,
               precision=None) -> torch.Tensor:
+    """x, weight and bias in the operator's dtype (the model casts them):
+    float32, or bfloat16, where every product takes bf16 operands with
+    fp32 accumulation and a bf16 result, as the JAX package's bf16 mode."""
     k = weight.shape[0]
     if op.active_n < op.n:
         # Rows/columns beyond active_n are empty (the embedded final-conv
@@ -59,7 +77,7 @@ def cheb_conv(x: torch.Tensor, op: GraphOperator, weight: torch.Tensor,
     if op.bsr is not None:
         return cheb_conv_bsr(x, op.bsr, weight, bias, precision=precision)
 
-    resolve_precision(precision)  # validate; the dense path is plain fp32
+    resolve_precision(precision, op.dtype)  # validate; dense runs plain
     txs = [x]
     if k > 1:
         txs.append(torch.matmul(op.dense, x))
@@ -75,7 +93,10 @@ def cheb_conv(x: torch.Tensor, op: GraphOperator, weight: torch.Tensor,
 
 class _BasisMix(torch.autograd.Function):
     """Chebyshev basis + stacked mix on the padded [n_pad, B, F_pad] layout
-    with a fused backward (counterpart of pallas_cheb._basis_mix).
+    with a fused backward (counterpart of pallas_cheb._basis_mix). Every
+    tensor is in the operator's dtype: in bf16 the recurrence state, the
+    basis, the mix output, the cotangents c_j and dx, and dW are bf16, each
+    product accumulated in fp32 and rounded once (BF16_STATE).
 
     Forward: T_0 = x, T_1 = L x, T_k = 2 L T_{k-1} - T_{k-2} (the seed
     folds into the kernel), then one [.., K*F_pad] @ [K*F_pad, F_out] mix.
@@ -144,7 +165,7 @@ def cheb_conv_bsr(x: torch.Tensor, bsr: BlockSparseOperator,
     kernel calls (orders >= 2 fuse 2 L T_{k-1} - T_{k-2} into the kernel),
     one wide channel mix, transpose out. Differentiable in x and weight
     (the backward is _BasisMix's)."""
-    mode = _KERNEL_MODE[resolve_precision(precision)]
+    mode = _KERNEL_MODE[resolve_precision(precision, bsr.blocks.dtype)]
     b, n, f_in = x.shape
     f_pad = pad_features(b, f_in)
     xt = F.pad(x.transpose(0, 1), (0, f_pad - f_in, 0, 0, 0, bsr.n_pad - n))

@@ -6,6 +6,11 @@
     one-hot selections, rows of U have <= 3 barycentric entries), with the
     transpose P^T for the pool backward: always as gathers, and above a
     fan-in cutoff also as a rectangular block-sparse operator.
+
+Every value (dense operator, BSR blocks, pool weights w / t_w, P^T blocks)
+is stored in the operator dtype: float32, or bfloat16 under
+compute_dtype=bfloat16, rounded to nearest even from float32 as the JAX
+package stores them. Indices stay integer.
 """
 from __future__ import annotations
 
@@ -59,28 +64,37 @@ class GraphOperator:
     n: int
     active_n: int
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return (self.dense if self.bsr is None else self.bsr.blocks).dtype
+
 
 def _operator_from_laplacian(lap: sp.csr_matrix, device, n: int,
-                             bsr_min_n: int | None) -> GraphOperator:
+                             bsr_min_n: int | None,
+                             dtype: torch.dtype) -> GraphOperator:
     active_n = lap.shape[0]
     if bsr_min_n is not None and active_n >= bsr_min_n:
-        return GraphOperator(dense=None, bsr=to_block_sparse(lap, device),
+        return GraphOperator(dense=None,
+                             bsr=to_block_sparse(lap, device, dtype=dtype),
                              n=n, active_n=active_n)
     dense = torch.from_numpy(lap.toarray().astype(np.float32)).to(device)
-    return GraphOperator(dense=dense, bsr=None, n=n, active_n=active_n)
+    return GraphOperator(dense=dense.to(dtype), bsr=None, n=n,
+                         active_n=active_n)
 
 
 def cheb_operator(adjacency: sp.spmatrix, device,
-                  bsr_min_n: int | None = BSR_MIN_N) -> GraphOperator:
+                  bsr_min_n: int | None = BSR_MIN_N,
+                  dtype: torch.dtype = torch.float32) -> GraphOperator:
     """Block-sparse at or above bsr_min_n vertices, dense below; None keeps
     the operator dense (cheb_method="dense")."""
     lap = normalized_neg_adjacency(adjacency)
     return _operator_from_laplacian(lap, device, n=lap.shape[0],
-                                    bsr_min_n=bsr_min_n)
+                                    bsr_min_n=bsr_min_n, dtype=dtype)
 
 
 def embed_operator(op_coarse: sp.spmatrix, n_full: int, device,
-                   bsr_min_n: int | None = BSR_MIN_N) -> GraphOperator:
+                   bsr_min_n: int | None = BSR_MIN_N,
+                   dtype: torch.dtype = torch.float32) -> GraphOperator:
     """A coarse-level operator acting on the top-left corner of an
     [n_full, n_full] index space: the reference's final-decoder-conv quirk
     (the last ChebConv sees the coarsest level's adjacency at full
@@ -88,7 +102,7 @@ def embed_operator(op_coarse: sp.spmatrix, n_full: int, device,
     on it and one closed-form product on the rest."""
     lap = normalized_neg_adjacency(op_coarse)
     return _operator_from_laplacian(lap, device, n=n_full,
-                                    bsr_min_n=bsr_min_n)
+                                    bsr_min_n=bsr_min_n, dtype=dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,11 +116,11 @@ class PoolOperator:
     largest fan-in exceeds TGRAD_ELL_MAX."""
 
     idx: torch.Tensor     # [M, R] int64
-    w: torch.Tensor       # [M, R] float32 (0 on padding)
+    w: torch.Tensor       # [M, R] operator dtype (0 on padding)
     n_in: int
     n_out: int
     t_idx: torch.Tensor   # [N, T] int64 into output rows
-    t_w: torch.Tensor     # [N, T] float32 (0 on padding)
+    t_w: torch.Tensor     # [N, T] operator dtype (0 on padding)
     t_bsr: BlockSparseOperator | None = None
 
 
@@ -125,7 +139,8 @@ def _to_ell(mat: sp.csr_matrix) -> tuple[np.ndarray, np.ndarray]:
     return idx, w
 
 
-def pool_operator(mat: sp.spmatrix, device) -> PoolOperator:
+def pool_operator(mat: sp.spmatrix, device,
+                  dtype: torch.dtype = torch.float32) -> PoolOperator:
     csr = sp.csr_matrix(mat)
     csr_t = sp.csr_matrix(csr.T)
     idx, w = _to_ell(csr)
@@ -133,7 +148,7 @@ def pool_operator(mat: sp.spmatrix, device) -> PoolOperator:
     fan_in = int(np.diff(csr_t.indptr).max()) if csr_t.shape[0] else 0
     t = lambda a: torch.from_numpy(a).to(device)
     return PoolOperator(
-        idx=t(idx), w=t(w), n_in=csr.shape[1], n_out=csr.shape[0],
-        t_idx=t(t_idx), t_w=t(t_w),
-        t_bsr=(to_block_sparse(csr_t, device, allow_rect=True)
+        idx=t(idx), w=t(w).to(dtype), n_in=csr.shape[1], n_out=csr.shape[0],
+        t_idx=t(t_idx), t_w=t(t_w).to(dtype),
+        t_bsr=(to_block_sparse(csr_t, device, allow_rect=True, dtype=dtype)
                if fan_in > TGRAD_ELL_MAX else None))

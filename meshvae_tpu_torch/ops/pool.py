@@ -5,8 +5,14 @@ selections, barycentric up-pool rows have <= 3 entries.
 The backward dx = P^T @ g never scatters: autograd's transpose of a gather
 is an atomic index_add, whose sums depend on thread order. It applies the
 precomputed transpose instead (PoolOperator.t_idx/t_w/t_bsr): through the
-block-sparse kernel in fp32 when P^T has a block-sparse form and B * F
-fills a column panel, else as weighted gathers over P^T.
+block-sparse kernel when P^T has a block-sparse form and B * F fills a
+column panel, else as weighted gathers over P^T.
+
+The operator's dtype sets the arithmetic: with float32 weights the kernel
+runs fp32 (the JAX package pins HIGHEST there at every matmul_precision);
+with bfloat16 weights (compute_dtype=bfloat16) the gathers multiply and add
+in bf16 and the kernel runs its "bf16" mode, as the JAX package's bf16
+blocks run DEFAULT with a bf16 result.
 """
 from __future__ import annotations
 
@@ -30,16 +36,17 @@ def _gather_apply(x: torch.Tensor, idx: torch.Tensor,
 
 
 def _bsr_transpose_apply(g: torch.Tensor, pool: PoolOperator) -> torch.Tensor:
-    """dx = P^T @ g through the kernel in fp32 (the JAX package pins
-    HIGHEST here at every matmul_precision): [B, N_out, F] ->
-    [N_out(pad), B * F_pad] -> kernel -> [B, N_in, F]."""
+    """dx = P^T @ g through the kernel, in fp32 or bf16 as P^T is stored:
+    [B, N_out, F] -> [N_out(pad), B * F_pad] -> kernel -> [B, N_in, F]."""
     t_bsr = pool.t_bsr
+    dtype = t_bsr.blocks.dtype
     b, n_out, f = g.shape
     f_pad = pad_features(b, f)
     gt = F.pad(g.transpose(0, 1),
                (0, f_pad - f, 0, 0, 0, t_bsr.n_pad_cols - n_out))
     y = bsr_grouped_spmm(
-        t_bsr, gt.reshape(t_bsr.n_pad_cols, b * f_pad).contiguous(), "fp32")
+        t_bsr, gt.reshape(t_bsr.n_pad_cols, b * f_pad).contiguous(),
+        "bf16" if dtype == torch.bfloat16 else "fp32")
     return y.reshape(t_bsr.n_pad, b, f_pad)[:pool.n_in, :, :f].transpose(0, 1)
 
 

@@ -10,6 +10,10 @@ meshvae_tpu/train/loop.py, one process, eager).
     latent with the opposite label, re-encode, re-classify;
   * the epoch-granular step LR schedule is ``lr_for_epoch`` +
     ``set_learning_rate``.
+
+With compute_dtype=bfloat16 the model computes in bf16 (models/vae.py)
+while the parameters, their gradients and Adam's moments stay float32, and
+the loss, the metrics and the pose error are float32.
 """
 from __future__ import annotations
 
@@ -204,12 +208,18 @@ class Trainer:
         avg["count"] = count
         return avg
 
-    def evaluate(self, loader, norm_mean, norm_std):
+    def evaluate(self, loader, norm_mean, norm_std,
+                 collect_meshes: bool = False):
         """Whole-loader eval: averages (with sex_change_success_rate and
-        the mean pose error) and the [valid, N] per-vertex errors."""
+        the mean pose error) and the [valid, N] per-vertex errors; with
+        collect_meshes also the original-pose reconstructions and
+        counterfactuals, their predicted and target labels and the
+        dataset indices, valid rows only (the test path's mesh dumps)."""
         totals = {"loss": 0.0, "kld": 0.0, "rec_loss": 0.0}
         correct = sc_correct = count = err_sum = 0.0
         errors = []
+        meshes = {"recon": [], "oppo": [], "oppo_pred": [], "oppo_label": [],
+                  "index": []}
         norm_mean, norm_std = self.norm_to_device(norm_mean, norm_std)
         for batch in loader:
             out = self.eval_step(self.to_device(batch), norm_mean, norm_std)
@@ -223,6 +233,12 @@ class Trainer:
             count += n
             keep = np.asarray(batch["mask"]) > 0
             errors.append(out["errors"].cpu().numpy()[keep])
+            if collect_meshes:
+                for k, src in (("recon", "recon_orig"), ("oppo", "oppo_orig"),
+                               ("oppo_pred", "oppo_pred"),
+                               ("oppo_label", "oppo_label")):
+                    meshes[k].append(out[src].cpu().numpy()[keep])
+                meshes["index"].append(np.asarray(batch["index"])[keep])
         avg = {k: v / max(count, 1.0) for k, v in totals.items()}
         avg["accuracy"] = correct / max(count, 1.0)
         avg["sex_change_success_rate"] = sc_correct / max(count, 1.0)
@@ -230,4 +246,8 @@ class Trainer:
         avg["count"] = count
         errors = (np.concatenate(errors, axis=0) if errors
                   else np.zeros((0, 1)))
+        if collect_meshes:
+            meshes = {k: (np.concatenate(v) if v else np.zeros((0,)))
+                      for k, v in meshes.items()}
+            return avg, errors, meshes
         return avg, errors

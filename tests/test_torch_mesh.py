@@ -13,6 +13,7 @@ from meshvae_tpu.mesh import hierarchy as jax_hierarchy
 from meshvae_tpu.mesh import io as jax_io
 from meshvae_tpu.mesh import procrustes as jax_procrustes
 
+from meshvae_tpu_torch import native as port_native
 from meshvae_tpu_torch.mesh import hierarchy, io, procrustes
 
 from conftest import make_grid_mesh
@@ -20,12 +21,14 @@ from conftest import make_grid_mesh
 
 @pytest.fixture
 def numpy_jax_mesh(monkeypatch):
-    """The JAX package's host paths without the optional C++ library."""
-    monkeypatch.setattr(jax_native, "qslim_decimate_native",
-                        lambda *a, **k: None)
-    monkeypatch.setattr(jax_native, "barycentric_transfer_native",
-                        lambda *a, **k: None)
-    monkeypatch.setattr(jax_native, "obj_parse_native", lambda *a, **k: None)
+    """Both packages' numpy host paths, without their optional C++
+    libraries (tests/test_torch_scaled.py holds the native ones)."""
+    for lib in (jax_native, port_native):
+        monkeypatch.setattr(lib, "qslim_decimate_native",
+                            lambda *a, **k: None)
+        monkeypatch.setattr(lib, "barycentric_transfer_native",
+                            lambda *a, **k: None)
+        monkeypatch.setattr(lib, "obj_parse_native", lambda *a, **k: None)
 
 
 def _assert_same_hierarchy(port, ref):

@@ -192,15 +192,23 @@ def test_cli_entry_point(env, tmp_path):
 
 
 def test_package_imports_no_jax():
-    """Importing every module of the port leaves jax, flax and meshvae_tpu
-    out of sys.modules."""
+    """Importing every module of the port (train/__main__.py included, whose
+    CLI runs only as a script) leaves jax, flax, optax, scikit-learn,
+    msgpack and meshvae_tpu out of sys.modules, and builds nothing."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import meshvae_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'meshvae_tpu'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'sklearn',\n"
+        "              'msgpack', 'meshvae_tpu'))\n"
+        "from meshvae_tpu_torch import native\n"
+        "from meshvae_tpu_torch.ops import bsr_spmm\n"
+        "for name, fn in (('native', native.library),\n"
+        "                 ('kernel', bsr_spmm._lib)):\n"
+        "    if fn.cache_info().currsize:\n"
+        "        bad.append(name + ' loaded at import')\n"
         "print(len([k for k in sys.modules\n"
         "           if k.startswith('meshvae_tpu_torch.')]), bad)\n"
         "sys.exit(1 if bad else 0)\n")

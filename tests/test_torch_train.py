@@ -18,7 +18,6 @@ import numpy as np
 import pytest
 import torch
 
-import flax.linen as flax_nn
 import jax
 import jax.numpy as jnp
 
@@ -27,12 +26,11 @@ from meshvae_tpu.data.dataset import BatchIterator as JaxBatchIterator
 from meshvae_tpu.data.dataset import MeshDataset as JaxMeshDataset
 from meshvae_tpu.data.dataset import list_meshes as jax_list_meshes
 from meshvae_tpu.models import losses as jax_losses
-from meshvae_tpu.models.vae import MeshVAE as JaxMeshVAE
 from meshvae_tpu.train import loop as jax_loop
 
 from meshvae_tpu_torch.data import BatchIterator, MeshDataset, list_meshes
 from meshvae_tpu_torch.mesh import TriMesh
-from meshvae_tpu_torch.models import MeshVAE, params_from_flax
+from meshvae_tpu_torch.models import params_from_flax
 from meshvae_tpu_torch.models import losses
 from meshvae_tpu_torch.models import vae as port_vae
 from meshvae_tpu_torch.ops import cheb as port_cheb
@@ -40,8 +38,8 @@ from meshvae_tpu_torch.ops import pool as port_pool
 from meshvae_tpu_torch.train import (Trainer, lr_for_epoch, set_learning_rate,
                                      unpack_metrics)
 
-from torch_port_utils import (count_kernel_calls, grid_hierarchy,
-                              paired_models, write_requests)
+from torch_port_utils import (FedNoise, count_kernel_calls, feed_noise,
+                              grid_hierarchy, paired_models, write_requests)
 
 BATCH = 16      # B * F = 128 at F = 8: the pool backward takes P^T's kernel
 TGRAD = 6       # grid up-pool fan-ins 9/7/7/5: three block-sparse P^T
@@ -149,52 +147,6 @@ def test_dropout_and_reparameterize_follow_the_generator(data):
     torch.testing.assert_close(ev["z"], ev["mu"], rtol=0, atol=0)
 
 
-class _FedNoise:
-    """numpy dropout masks (in call order) and reparameterisation noise,
-    fed to both packages."""
-
-    def __init__(self, b, hidden, flat, latent, seed=0):
-        rng = np.random.default_rng(seed)
-        keep = lambda shape: (rng.random(shape) >= DROPOUT).astype(np.float32)
-        # encode's h, classify's input, dec_lin, dec_lin_2
-        self.masks = [keep((b, hidden)), keep((b, hidden)),
-                      keep((b, hidden)), keep((b, flat))]
-        self.eps = rng.standard_normal((b, latent)).astype(np.float32)
-        self.i = 0
-
-    def next_mask(self, shape):
-        mask = self.masks[self.i % len(self.masks)]
-        assert tuple(shape) == mask.shape, (shape, mask.shape, self.i)
-        self.i += 1
-        return mask
-
-
-def _feed_noise(monkeypatch, noise):
-    class FedDropout(flax_nn.Module):
-        rate: float
-
-        def __call__(self, x, deterministic=False):
-            if deterministic or self.rate == 0.0:
-                return x
-            return x * jnp.asarray(noise.next_mask(x.shape)) / (1 - self.rate)
-
-    def port_dropout(x, rate, train, generator):
-        if not train or rate == 0.0:
-            return x
-        return x * torch.from_numpy(noise.next_mask(x.shape)) / (1 - rate)
-
-    monkeypatch.setattr(flax_nn, "Dropout", FedDropout)
-    monkeypatch.setattr(
-        JaxMeshVAE, "reparameterize",
-        lambda self, mu, logvar: jnp.asarray(noise.eps)
-        * jnp.exp(0.5 * logvar) + mu)
-    monkeypatch.setattr(port_vae, "_dropout", port_dropout)
-    monkeypatch.setattr(
-        MeshVAE, "reparameterize",
-        lambda self, mu, logvar, generator: torch.from_numpy(noise.eps)
-        * torch.exp(0.5 * logvar) + mu)
-
-
 def _paired_trainers(hier, precision):
     jmodel, jops, params, pmodel, pops = paired_models(
         hier, precision, dropout=DROPOUT, tgrad_ell_max=TGRAD)
@@ -232,9 +184,9 @@ def test_train_forward_matches_flax(data, monkeypatch, precision):
     jmodel, jops, params, pmodel, pops = paired_models(hier, precision,
                                                        dropout=DROPOUT)
     cfg = pmodel.cfg
-    noise = _FedNoise(BATCH, cfg.num_hidden,
+    noise = FedNoise(BATCH, cfg.num_hidden,
                       cfg.coarse_verts * cfg.filters[-1], cfg.latent, seed=1)
-    _feed_noise(monkeypatch, noise)
+    feed_noise(monkeypatch, noise)
     batch = _batches(data)[0][0]
     x, y = batch["x"], np.eye(2, dtype=np.float32)[batch["label"]]
     ref = jax.jit(lambda p: jmodel.apply(p, jnp.asarray(x), jnp.asarray(y),
@@ -264,9 +216,9 @@ def test_train_step_matches_jax(data, monkeypatch, precision):
     batch = batches[0]
     jtrainer, params, ptrainer = _paired_trainers(hier, precision)
     cfg = ptrainer.model.cfg
-    noise = _FedNoise(BATCH, cfg.num_hidden,
+    noise = FedNoise(BATCH, cfg.num_hidden,
                       cfg.coarse_verts * cfg.filters[-1], cfg.latent)
-    _feed_noise(monkeypatch, noise)
+    feed_noise(monkeypatch, noise)
 
     jbatch = {k: jnp.asarray(batch[k])
               for k in ("x", "label", "r", "s", "m", "mask")}

@@ -6,9 +6,12 @@ import dataclasses
 import os
 
 import numpy as np
+import torch
 
 import jax
 import jax.numpy as jnp
+
+import flax.linen as flax_nn
 
 import meshvae_tpu.ops.graph as jax_graph
 from meshvae_tpu.mesh.hierarchy import MeshHierarchy as JaxHierarchy
@@ -19,6 +22,7 @@ from meshvae_tpu.models.vae import VAEConfig as JaxVAEConfig
 from meshvae_tpu_torch.mesh import TriMesh, build_hierarchy
 from meshvae_tpu_torch.models import (MeshVAE, VAEConfig, build_operators,
                                       params_from_flax)
+from meshvae_tpu_torch.models import vae as port_vae
 from meshvae_tpu_torch.ops import graph as port_graph
 
 from conftest import make_grid_mesh
@@ -40,17 +44,23 @@ def jax_hierarchy(h):
                         h.upsample)
 
 
-def paired_models(hier, precision, dropout=0.2, tgrad_ell_max=None):
+def paired_models(hier, precision, dropout=0.2, tgrad_ell_max=None,
+                  compute_dtype="float32"):
     """(jax_model, jax_ops, flax params as numpy, port_model, port_ops) with
     identical weights. The JAX side takes the Pallas path (run it under
     pallas_cheb.INTERPRET = True). tgrad_ell_max, when given, is the
     pool-backward fan-in cutoff on both sides while the operators are
     built (6 on the grid gives up-pools 0-2 a block-sparse P^T and up-pool
-    3 gathers, as config 1 has)."""
+    3 gathers, as config 1 has). compute_dtype "bfloat16" builds both
+    models and both operator sets in bf16."""
+    jdtype, pdtype = {"float32": (jnp.float32, torch.float32),
+                      "bfloat16": (jnp.bfloat16, torch.bfloat16)}[
+                          compute_dtype]
     jcfg = JaxVAEConfig(num_features=3, filters=FILTERS, polygon_order=ORDERS,
                         n_layers=4, num_hidden=32, latent=6, num_classes=2,
                         dropout=dropout, coarse_verts=hier.levels[-1],
-                        cheb_method="pallas", precision=precision)
+                        cheb_method="pallas", precision=precision,
+                        compute_dtype=compute_dtype)
     old = (jax_graph.PALLAS_MIN_N, jax_graph.TGRAD_ELL_MAX,
            port_graph.TGRAD_ELL_MAX)
     jax_graph.PALLAS_MIN_N = BSR_MIN_N
@@ -58,16 +68,17 @@ def paired_models(hier, precision, dropout=0.2, tgrad_ell_max=None):
         jax_graph.TGRAD_ELL_MAX = port_graph.TGRAD_ELL_MAX = tgrad_ell_max
     try:
         jops = jax_build_ops(jax_hierarchy(hier), cheb_method="pallas",
-                             pool_method="gather")
+                             pool_method="gather", dtype=jdtype)
         pops = build_operators(hier, "cpu", cheb_method="pallas",
-                               bsr_min_n=BSR_MIN_N)
+                               bsr_min_n=BSR_MIN_N, dtype=pdtype)
     finally:
         (jax_graph.PALLAS_MIN_N, jax_graph.TGRAD_ELL_MAX,
          port_graph.TGRAD_ELL_MAX) = old
     # params do not depend on the operator layout: init on the dense path
     dense_ops = jax_build_ops(jax_hierarchy(hier), cheb_method="dense",
                               pool_method="gather")
-    params = JaxMeshVAE(dataclasses.replace(jcfg, cheb_method="dense")).init(
+    params = JaxMeshVAE(dataclasses.replace(
+        jcfg, cheb_method="dense", compute_dtype="float32")).init(
         {"params": jax.random.key(0)},
         jnp.zeros((1, hier.levels[0], 3), jnp.float32),
         jnp.zeros((1, 2), jnp.float32), dense_ops, train=False)
@@ -76,7 +87,7 @@ def paired_models(hier, precision, dropout=0.2, tgrad_ell_max=None):
     pcfg = VAEConfig(num_features=3, filters=FILTERS, polygon_order=ORDERS,
                      n_layers=4, num_hidden=32, latent=6, num_classes=2,
                      dropout=dropout, coarse_verts=hier.levels[-1],
-                     precision=precision)
+                     precision=precision, compute_dtype=compute_dtype)
     pmodel = MeshVAE(pcfg)
     pmodel.load_state_dict(params_from_flax(params))
     pmodel.eval()
@@ -106,3 +117,54 @@ def count_kernel_calls(monkeypatch, **modules):
 
         monkeypatch.setattr(module, "bsr_grouped_spmm", counted)
     return calls
+
+
+class FedNoise:
+    """numpy dropout masks (in call order) and reparameterisation noise,
+    fed to both packages (feed_noise)."""
+
+    def __init__(self, b, hidden, flat, latent, seed=0, rate=0.2):
+        rng = np.random.default_rng(seed)
+        keep = lambda shape: (rng.random(shape) >= rate).astype(np.float32)
+        # encode's h, classify's input, dec_lin, dec_lin_2
+        self.masks = [keep((b, hidden)), keep((b, hidden)),
+                      keep((b, hidden)), keep((b, flat))]
+        self.eps = rng.standard_normal((b, latent)).astype(np.float32)
+        self.i = 0
+
+    def next_mask(self, shape):
+        mask = self.masks[self.i % len(self.masks)]
+        assert tuple(shape) == mask.shape, (shape, mask.shape, self.i)
+        self.i += 1
+        return mask
+
+
+def feed_noise(monkeypatch, noise):
+    """Patch flax's Dropout and the JAX reparameterize, and the port's
+    _dropout and reparameterize, to apply `noise`'s masks (in the
+    activation's dtype) and eps."""
+    class FedDropout(flax_nn.Module):
+        rate: float
+
+        def __call__(self, x, deterministic=False):
+            if deterministic or self.rate == 0.0:
+                return x
+            mask = jnp.asarray(noise.next_mask(x.shape), x.dtype)
+            return x * mask / (1 - self.rate)
+
+    def port_dropout(x, rate, train, generator):
+        if not train or rate == 0.0:
+            return x
+        mask = torch.from_numpy(noise.next_mask(x.shape)).to(x.dtype)
+        return x * mask / (1 - rate)
+
+    monkeypatch.setattr(flax_nn, "Dropout", FedDropout)
+    monkeypatch.setattr(
+        JaxMeshVAE, "reparameterize",
+        lambda self, mu, logvar: jnp.asarray(noise.eps)
+        * jnp.exp(0.5 * logvar) + mu)
+    monkeypatch.setattr(port_vae, "_dropout", port_dropout)
+    monkeypatch.setattr(
+        MeshVAE, "reparameterize",
+        lambda self, mu, logvar, generator: torch.from_numpy(noise.eps)
+        * torch.exp(0.5 * logvar) + mu)

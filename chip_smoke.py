@@ -6,8 +6,9 @@
 Phases, one block of output lines each; any failed check exits non-zero:
 
  1. device  the card's name and power limit (nvidia-smi).
- 2. build   compile the CUDA kernel from ops/csrc (nvcc, sm_90a) and print
-            the build seconds and ptxas' register/shared-memory report.
+ 2. build   compile both CUDA kernels from ops/csrc (nvcc, sm_90a, one
+            process per source, started together) and print the build
+            seconds and ptxas' register/shared-memory report.
  3. kernel  bsr_grouped_spmm in both modes (fp32, bf16x3) against its plain
             PyTorch twin on the card: the real template5k level-0 and
             level-1 Laplacians at C in {128, 256, 512}, alpha in {1, 2}, with
@@ -16,7 +17,11 @@ Phases, one block of output lines each; any failed check exits non-zero:
             rectangular P^T of up-pools 0-2 at their training widths
             ([1280, 5120] and [384, 1280] at C = 256, [128, 384] at C = 512;
             the first also at C = 512 with every seed case). Fails above
-            1e-5 of max |y|.
+            1e-5 of max |y|. The lazy seed (#4b, t_plus_dot) in mode fp32 at
+            the config-1 L0/L1 Laplacians (C = 256, f = 16; L0 also at
+            f = 128) and the scaled20k L0/L1 (C = 1024, f = 16), alpha 1
+            and 2, with and without t_prev; each call must take the kernel's
+            lazy seed (LAUNCHES_SEED_DOT).
  4. serve   BASELINE config 1 at full width (template5k, factors 4,4,4,4,
             K=6, filters 16/16/16/32/32, hidden 512, latent 16, batch 16,
             cheb_method pallas), weights from a fixed seed. The main path:
@@ -51,8 +56,13 @@ Phases, one block of output lines each; any failed check exits non-zero:
             within 1e-5 relative, every gradient within 1e-4 (highest) or
             1e-3 (high) of its layer's max|g|, and params after the card's
             Adam steps from the CPU's gradients within 1e-2 lr of the CPU's
-            (the whole step's param delta is printed, not held). Then the host-paced train step (CUDA events, median of
-            25), its peak memory, and its device busy time and idle share.
+            (the whole step's param delta is printed, not held). The lazy
+            seed: one deterministic step at highest with
+            FUSED_SEED_DOT on, on the card and on the CPU (gradients within
+            1e-4 of the layer's max|g|), and on the card flag on vs flag off
+            (the same bar); exactly 15 lazy-seed launches in the 38. Then
+            the host-paced train step (CUDA events, median of 25), its peak
+            memory, and its device busy time and idle share.
 
  7. scaled80k bf16 training, the main path of files/scaled80k.cfg
             (compute_dtype bfloat16, K=10, batch 32, full width) at its real
@@ -68,16 +78,45 @@ Phases, one block of output lines each; any failed check exits non-zero:
             reload, finite test averages and a sex-change rate in [0, 1] are
             checked; the loss of a fixed batch falls over 5 more steps. Then
             the host-paced train step (CUDA events, median of 25),
-            meshes/sec, peak memory, device busy and idle share, and the
-            bf16 kernel per 80k shape and call kind beside its twin,
-            torch.sparse on the same operator in CSR (bf16 where cuSPARSE
-            takes it) and its byte bound.
+            meshes/sec, peak memory, device busy and idle share. Three
+            train steps with FUSED_SEED_DOT on: 139 launches per step, 45
+            of them lazy-seed (enc_1, enc_2, dec_0, dec_2, dec_3 x 9), and
+            the host-paced step beside the flag-off one. Then the bf16
+            kernel per 80k shape and call kind (the lazy-seed kinds too)
+            beside its twin, torch.sparse on the same operator in CSR (bf16
+            where cuSPARSE takes it; plus the c_j GEMM for a lazy seed) and
+            its byte bound.
  8. bf16    card vs CPU in bf16 at config-1 size (template5k, K=6, B=16,
             compute_dtype bfloat16): one deterministic train step (no
             dropout, z = mu) and one eval step from the same weights; the
             card's loss, every gradient, the eval loss and recon_orig must
             be closer to the CPU's bf16 result than that is to the CPU's
             fp32 result (up to one bf16 ulp of the layer's scale).
+ 9. scaled20k fp32 training with the lazy seed, the main path of
+            files/scaled20k.cfg (fp32 at highest, K=10, batch 64, full
+            width): template20k.obj generated in the temporary directory,
+            its hierarchy through the native library, fp32 operators (the
+            block-sparse L0-L2 and P^T also feed phase 3), 40 synthetic 20k
+            meshes through train/driver.run() with FUSED_SEED_DOT on and
+            overrides for paths, folds 2 and epoch 2, the counts reset just
+            before and read just after: per train step 54 forward + 45
+            backward Laplacian calls + one P^T per block-sparse up-pool,
+            36 of them lazy-seed; 108 per eval step; history, finite test
+            averages, the loss of a fixed batch falling. Then the
+            host-paced step flag on and off (CUDA events, median of 25),
+            meshes/sec, peak memory beside the saved bases' size, device
+            busy and idle share, and the fp32 kernel per 20k shape and call
+            kind beside its twin, torch.sparse and its byte bound.
+10. fused   TPU kernel #9 (cheb_conv_fused, ops/csrc/cheb_fused.cu) on the
+            card against its plain twin at the config-1 L0 and L1 convs
+            (B=16, 16->16, K=6) and the scaled20k L0 conv (B=64, 16->16,
+            K=10): each step (T_k and acc within 1e-5 of their max), the
+            conv forward (1e-5) and its gradients (1e-4 of max|g|), at
+            highest (and the bf16x3 split at config-1 L1). The launch count
+            is reset before and read after these runs. Then the step per
+            call beside its twin, torch.sparse + torch.matmul and its
+            bound, and the conv forward and forward+backward beside the
+            main-path cheb_conv_bsr at the same shapes.
 
 Phase 3 also holds the bf16 mode on the card at every 80k Laplacian (its C
 values, alpha 1 and 2, no seed, t_prev, t_plus, both) and the four P^T:
@@ -87,11 +126,15 @@ and prints the share of bit-equal outputs.
 The line before the last is {"kernels": [...]}: per serving step (the two
 bsr_grouped_spmm[mode] entries, summed over the step's 20 calls), per
 config-1 train step (the Laplacian calls in each mode, the
-column-major-class P^T of up-pools 0-1 and the grouped P^T of up-pool 2)
-and per 80k bf16 train step (the Laplacian calls, #3b; the P^T of up-pool
-0, which the JAX package runs per block, #5; those of up-pools 1-3, which
-it runs column-major, #7), with the launches of the main-path runs. The
-last line is {"ok": true, "device": {...}}.
+column-major-class P^T of up-pools 0-1 and the grouped P^T of up-pool 2),
+per 80k bf16 train step (the Laplacian calls, #3b; the P^T of up-pool 0,
+which the JAX package runs per block, #5; those of up-pools 1-3, which it
+runs column-major, #7), the bf16x3 P^T at phase 3's shapes (#8, and #6 at
+the both-seed shape where the JAX package runs per block), per scaled20k
+train step (the plain Laplacian calls, the lazy-seed calls #4b in fp32,
+the P^T), the lazy-seed calls of an 80k bf16 step with the flag on (#4b in
+bf16), and the fused step (#9) per scaled20k L0 conv forward, with the
+launches of the main-path runs. The last line is {"ok": true, ...}.
 """
 import dataclasses
 import json
@@ -106,6 +149,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL_KERNEL = 1e-5       # max |kernel - twin| / max |twin|
 TOL_BF16 = 2.0 ** -8    # the same in bf16: one ulp, both round once
 MODES = ("fp32", "bf16x3")  # the kernel's modes on fp32 operators
+SEED_DOT_KINDS = ("a1 dot", "a2 dot", "a1 dot prev", "a2 dot prev")
 TOL_STEP = 1e-4         # card vs CPU step, relative to the mesh scale
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 PEAK_OPS = {"fp32": 67e12,  # fp32 FMA outside the tensor cores
@@ -121,11 +165,20 @@ TRAIN_EPOCHS = 3
 TRAIN_LAP_LAUNCHES = 35
 TRAIN_POOL_LAUNCHES = 3
 SOURCE = "meshvae_tpu_torch/ops/csrc/bsr_spmm.cu"
+SOURCE_FUSED = "meshvae_tpu_torch/ops/csrc/cheb_fused.cu"
 REPLACES = {"fp32": "meshvae_tpu/ops/pallas_cheb.py:434",
             "bf16x3": "meshvae_tpu/ops/pallas_cheb.py:462",
             "colmajor": "meshvae_tpu/ops/pallas_cheb.py:208",
             "grouped": "meshvae_tpu/ops/pallas_cheb.py:395",
-            "perblock": "meshvae_tpu/ops/pallas_cheb.py:180"}
+            "perblock": "meshvae_tpu/ops/pallas_cheb.py:180",
+            "seed_dot": "meshvae_tpu/ops/pallas_cheb.py:161",
+            "perblock_bf16x3": "meshvae_tpu/ops/pallas_cheb.py:329",
+            "colmajor_bf16x3": "meshvae_tpu/ops/pallas_cheb.py:234",
+            "fused": "meshvae_tpu/ops/pallas_fused.py:51"}
+# config 1 at highest with FUSED_SEED_DOT: the square block-sparse convs
+# are cheb_enc_1 (L1), cheb_dec_2 (L1) and cheb_dec_3 (L0), 16 -> 16 at
+# f_pad 16; each backward runs K - 1 = 5 lazy-seed calls
+CONFIG1_SEED_DOT = 15
 # files/scaled80k.cfg: B = 32, K = 10 at every level
 SCALED_CFG = os.path.join("files", "scaled80k.cfg")
 SCALED_LEVELS = [79968, 19992, 4998, 1250, 313]
@@ -133,6 +186,24 @@ SCALED_BATCH = 32
 SCALED_MESHES = 40      # per fold: 14 train (1 step), 6 valid, 20 test
 SCALED_TRAIN_LAUNCHES = 139  # 8 convs x 9 forward, 7 x 9 backward, 4 P^T
 SCALED_EVAL_LAUNCHES = 144   # 72 forward + the counterfactual's 36 + 36
+# with FUSED_SEED_DOT: the square mixes cheb_enc_1 (L1), cheb_enc_2 (L2),
+# cheb_dec_0 (L3, 32 -> 32), cheb_dec_2 (L1) and cheb_dec_3 (L0) x 9;
+# cheb_enc_3 (16 -> 32) and cheb_dec_1 (32 -> 16) stay eager
+SCALED_SEED_DOT = 45
+FLAG_STEPS = 3
+# files/scaled20k.cfg: fp32 at highest, B = 64, K = 10; levels 0-2 are
+# block-sparse (bsr_min_n 1024), 3-4 dense
+SCALED20_CFG = os.path.join("files", "scaled20k.cfg")
+SCALED20_LEVELS = [19992, 4998, 1250, 313, 79]
+SCALED20_BATCH = 64
+SCALED20_MESHES = 40    # per fold: 14 train (1 step), 6 valid, 20 test
+# per train step: cheb_enc_0-2 and cheb_dec_1-3 x 9 forward; the same but
+# cheb_enc_0 (input is data) x 9 backward; plus each block-sparse P^T
+SCALED20_FWD, SCALED20_BWD = 54, 45
+SCALED20_EVAL = 108      # 54 forward + the counterfactual's 27 + 27
+# square 16 -> 16 mixes: cheb_enc_1, cheb_enc_2, cheb_dec_2, cheb_dec_3 x 9;
+# cheb_dec_1 (32 -> 16) stays eager
+SCALED20_SEED_DOT = 36
 
 
 def fail(msg: str):
@@ -189,14 +260,17 @@ def phase_build():
     say("== phase 2: build")
     from meshvae_tpu_torch.ops import _build
 
+    names = ["bsr_spmm", "cheb_fused"]
     t0 = time.perf_counter()
-    logs = _build.build_libraries(["bsr_spmm"])
-    _build.load_library("bsr_spmm")
+    logs = _build.build_libraries(names)
+    for name in names:
+        _build.load_library(name)
     say(f"build_sec {time.perf_counter() - t0:.2f} "
-        f"({'compiled' if logs else 'already built'})")
-    for line in logs.get("bsr_spmm", "").splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"  ptxas: {line.strip()}")
+        f"({'compiled ' + ', '.join(logs) if logs else 'already built'})")
+    for name in names:
+        for line in logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                say(f"  ptxas[{name}]: {line.strip()}")
     from meshvae_tpu_torch import native
 
     path, secs = native.build()
@@ -207,21 +281,62 @@ def phase_build():
 
 def _seed_args(kind: str, seeds: dict) -> tuple:
     """(alpha, kwargs) of one call kind: "a1" or "a2" (alpha 1 or 2), then
-    the seeds it adds, "plus" (t_plus) and "prev" (t_prev)."""
+    the seeds it adds, "plus" (t_plus), "dot" (the lazy seed t_plus_dot =
+    (gm, wt)) and "prev" (t_prev)."""
     alpha = 2.0 if kind.startswith("a2") else 1.0
     kw = {}
     if "plus" in kind:
         kw["t_plus"] = seeds["t_plus"]
+    if "dot" in kind:
+        kw["t_plus_dot"] = (seeds["gm"], seeds["wt"])
     if "prev" in kind:
         kw["t_prev"] = seeds["t_prev"]
     return alpha, kw
 
 
-def phase_kernel(torch, ops, dev):
+def _seeds(torch, bsr, c, gen, dev, dtype=None, f=16):
+    """Random seeds of one shape: t_plus, t_prev and gm [n_pad, c], and a
+    [f, f] wt (scaled 0.3, so the lazy seed is of the seeds' size)."""
+    dtype = dtype or torch.float32
+    out = {k: torch.randn(bsr.n_pad, c, device=dev, generator=gen).to(dtype)
+           for k in ("t_plus", "t_prev", "gm")}
+    out["wt"] = (0.3 * torch.randn(f, f, device=dev, generator=gen)).to(dtype)
+    return out
+
+
+def _hold(torch, bsr, x, mode, kind, seeds, bar, tag):
+    """One kernel call against its twin; with a lazy seed, the call must
+    have taken the kernel's (LAUNCHES_SEED_DOT). Returns (abs, rel) err."""
+    from meshvae_tpu_torch.ops import bsr_spmm
+
+    alpha, kw = _seed_args(kind, seeds)
+    before = dict(bsr_spmm.LAUNCHES_SEED_DOT)
+    y = bsr_spmm.bsr_grouped_spmm(bsr, x, mode, alpha, **kw)
+    torch.cuda.synchronize()
+    ref = bsr_spmm.bsr_grouped_spmm_reference(bsr, x, mode, alpha, **kw)
+    lazy = bsr_spmm.LAUNCHES_SEED_DOT[mode] - before[mode]
+    if lazy != ("dot" in kind):
+        fail(f"{tag}: {lazy} lazy-seed launches, expected "
+             f"{int('dot' in kind)}")
+    if y.dtype != ref.dtype:
+        fail(f"{tag}: kernel returned {y.dtype}, twin {ref.dtype}")
+    err_abs = (y.float() - ref.float()).abs().max().item()
+    err = err_abs / ref.float().abs().max().item()
+    say(f"  {tag}: max_err/max|y| {err:.3e} (bar {bar:.0e})"
+        + (f", bit-equal {(y == ref).float().mean().item():.5f}"
+           if y.dtype == torch.bfloat16 else ""))
+    if not err <= bar:
+        fail(f"kernel disagrees with its twin: {tag} {err:.3e} > {bar:.3e}")
+    return err_abs, err
+
+
+def phase_kernel(torch, ops, ops20, dev):
     """The kernel against its twin at every shape and call kind the serving
-    and training paths give it. Returns the worst absolute error per
-    entry group: "fp32" and "bf16x3" over the Laplacian cases, "pool" over
-    the fp32 P^T cases."""
+    and training paths give it, and the lazy seed at the config-1 and
+    scaled20k shapes. Returns the worst absolute error per entry group:
+    "fp32" and "bf16x3" over the Laplacian cases, "pool" over the fp32 P^T
+    cases, "pool_bf16x3" over the bf16x3 P^T cases, "seed_fp32" over the
+    lazy-seed cases."""
     say("== phase 3: kernel vs plain twin on the card")
     from meshvae_tpu_torch.ops.bsr_spmm import (bsr_grouped_spmm,
                                                 bsr_grouped_spmm_reference)
@@ -237,10 +352,12 @@ def phase_kernel(torch, ops, dev):
     cases += [("L1", ops.lap[1].bsr, c, fwd) for c in (128, 512)]
     cases += [(name, ops.lap[i].bsr, 256, fwd + bwd)
               for i, name in enumerate(("L0", "L1"))]
-    cases += [("P0T", t_bsr[0], 256, ("a1",)), ("P0T", t_bsr[0], 512, fwd),
+    cases += [("P0T", t_bsr[0], 256, ("a1",)),
+              ("P0T", t_bsr[0], 512, fwd + ("a2 plus prev",)),
               ("P1T", t_bsr[1], 256, ("a1",)), ("P2T", t_bsr[2], 512, ("a1",))]
     worst = {m: 0.0 for m in MODES}
-    worst_abs = {"fp32": 0.0, "bf16x3": 0.0, "pool": 0.0}
+    worst_abs = {"fp32": 0.0, "bf16x3": 0.0, "pool": 0.0,
+                 "pool_bf16x3": 0.0, "seed_fp32": 0.0}
     described = set()
     for name, bsr, c, kinds in cases:
         if name not in described:
@@ -260,17 +377,31 @@ def phase_kernel(torch, ops, dev):
                 err_abs = (y - ref).abs().max().item()
                 err = err_abs / ref.abs().max().item()
                 worst[mode] = max(worst[mode], err)
-                group = ("pool" if name.startswith("P") and mode == "fp32"
-                         else mode)
+                group = (("pool" if mode == "fp32" else "pool_bf16x3")
+                         if name.startswith("P") else mode)
                 worst_abs[group] = max(worst_abs[group], err_abs)
                 tag = f"{name} C={c} {mode} {kind}"
                 say(f"  {tag}: max_err/max|y| {err:.3e}")
                 if not err <= TOL_KERNEL:
                     fail(f"kernel disagrees with its twin: {tag} "
                          f"{err:.3e} > {TOL_KERNEL}")
+    # the lazy seed (#4b) in mode fp32, where the backward takes it
+    dot_cases = [("L0", ops.lap[0].bsr, 256, 16),
+                 ("L1", ops.lap[1].bsr, 256, 16),
+                 ("L0", ops.lap[0].bsr, 256, 128)]
+    dot_cases += [(f"20k L{i}", ops20.lap[i].bsr, 1024, 16) for i in (0, 1)]
+    seed_worst = 0.0
+    for name, bsr, c, f in dot_cases:
+        x = torch.randn(bsr.n_pad_cols, c, device=dev, generator=gen)
+        seeds = _seeds(torch, bsr, c, gen, dev, f=f)
+        for kind in SEED_DOT_KINDS:
+            err_abs, err = _hold(torch, bsr, x, "fp32", kind, seeds,
+                                 TOL_KERNEL, f"{name} C={c} f={f} fp32 {kind}")
+            worst_abs["seed_fp32"] = max(worst_abs["seed_fp32"], err_abs)
+            seed_worst = max(seed_worst, err)
     say("checked kernels: " + ", ".join(
         f"bsr_grouped_spmm[{m}] (worst {worst[m]:.2e} of max|y|)"
-        for m in MODES))
+        for m in MODES) + f", its lazy seed in fp32 (worst {seed_worst:.2e})")
     return worst_abs
 
 
@@ -445,7 +576,15 @@ def _csr(torch, mat, n_pad, n_pad_cols, dev):
 
 def _library_call(torch, csr, x, kind, alpha, kw):
     """The torch.sparse (cuSPARSE) yardstick of one call kind: one call,
-    or two where the kernel folds both seeds (addmm, then sub_)."""
+    or two where the kernel folds both seeds (addmm, then sub_); a lazy
+    seed adds the cuBLAS GEMM that computes c_j first."""
+    if "dot" in kind:
+        gm, wt = kw["t_plus_dot"]
+        n, c = gm.shape
+        f = wt.shape[0]
+        seed = torch.matmul(gm.reshape(n, c // f, f), wt).reshape(n, c)
+        kw = dict(kw, t_plus=seed)
+        kind = kind.replace("dot", "plus")
     if "plus" in kind:
         y = torch.addmm(kw["t_plus"], csr, x, alpha=alpha)
         return y.sub_(kw["t_prev"]) if "prev" in kind else y
@@ -454,17 +593,17 @@ def _library_call(torch, csr, x, kind, alpha, kw):
     return torch.sparse.mm(csr, x)
 
 
-def _time_kind(torch, bsr, csr, c, kind, modes, gen, dev):
+def _time_kind(torch, bsr, csr, c, kind, modes, gen, dev, f=16):
     """Kernel, twin and library times of one call kind at one shape, with
-    its bound: bytes (blocks, g_idx, g_bcol, x, seeds, y, each once) over
-    the HBM rate against the operations the data needs (2 per nonzero per
-    column, 6 in bf16x3) over the peak rate of their type."""
+    its bound: bytes (blocks, g_idx, g_bcol, x, seeds, y, each once; a lazy
+    seed's gm counts as one seed) over the HBM rate against the operations
+    the data needs (2 per nonzero per column, 6 in bf16x3, plus 2 f per
+    output for a lazy seed) over the peak rate of their type."""
     from meshvae_tpu_torch.ops.bsr_spmm import (bsr_grouped_spmm,
                                                 bsr_grouped_spmm_reference)
 
     x = torch.randn(bsr.n_pad_cols, c, device=dev, generator=gen)
-    seeds = {k: torch.randn(bsr.n_pad, c, device=dev, generator=gen)
-             for k in ("t_plus", "t_prev")}
+    seeds = _seeds(torch, bsr, c, gen, dev, f=f)
     alpha, kw = _seed_args(kind, seeds)
     lib_ms = time_ms(torch, lambda: _library_call(torch, csr, x, kind, alpha,
                                                   kw))
@@ -482,7 +621,8 @@ def _time_kind(torch, bsr, csr, c, kind, modes, gen, dev):
                                                        **kw))
         p_ms = time_ms(torch, lambda: bsr_grouped_spmm_reference(
             bsr, x, mode, alpha, **kw))
-        ops_n = (6 if mode == "bf16x3" else 2) * nnz * c
+        ops_n = ((6 if mode == "bf16x3" else 2) * nnz * c
+                 + (2 * f * bsr.n_pad * c if "dot" in kind else 0))
         bytes_ms = 1e3 * (blk_bytes + act) / HBM_BYTES_PER_S
         ops_ms = 1e3 * ops_n / PEAK_OPS[mode]
         bound_nnz = 1e3 * max((nnz_bytes + act) / HBM_BYTES_PER_S,
@@ -615,6 +755,17 @@ def phase_times(torch, servers, ops, hier, dev, host):
                                 rows).items():
             per_step[f"train_{name}_{m}" if name == "lap"
                      else f"train_{name}"] = acc
+    say("bf16x3 P^T at phase 3's shapes (off the train path, which pins the "
+        "pool backward to fp32): the JAX package's column-major #8, and its "
+        "per-block #6 where both seeds shrink the resident panel:")
+    for name, calls in (
+            ("pool_bf16x3_colmajor", [("up-pool 0 P^T", "P0T", 256, {"a1": 1}),
+                                      ("up-pool 1 P^T", "P1T", 256,
+                                       {"a1": 1})]),
+            ("pool_bf16x3_perblock", [("up-pool 0 P^T", "P0T", 512,
+                                       {"a2 plus prev": 1})])):
+        per_step[name] = _per_step(torch, calls, operands, ("bf16x3",), gen,
+                                   dev, rows)["bf16x3"]
     say("shape_rows " + json.dumps(rows))
     for name, acc in per_step.items():
         say(f"per step {name}: kernel {acc['ms']:.3f} ms, twin "
@@ -781,6 +932,42 @@ def phase_train(torch, dev, models, ops, hier, tmpl, tmp):
         if not (rel <= 1e-5 and g_worst <= bar and p_adam <= 1e-2 * lr):
             fail(f"card and CPU train steps disagree at {p}")
 
+    # --- the lazy seed (#4b): one deterministic step at highest ---------
+    from meshvae_tpu_torch.ops import cheb as port_cheb
+
+    grads, counts = {}, {}
+    for side, device, operators, flag in (("card", dev, ops, True),
+                                          ("cpu", "cpu", ops_cpu, True),
+                                          ("card, flag off", dev, ops, False)):
+        tr = trainer_for("highest", device, operators)
+        port_cheb.FUSED_SEED_DOT = flag
+        try:
+            bsr_spmm.reset_launches()
+            tr.train_step(tr.to_device(fixed), None,
+                          *tr.norm_to_device(ds.mean, ds.std))
+            torch.cuda.synchronize()
+            counts[side] = (bsr_spmm.LAUNCHES["fp32"],
+                            bsr_spmm.LAUNCHES_SEED_DOT["fp32"])
+        finally:
+            port_cheb.FUSED_SEED_DOT = False
+        grads[side] = {k: v.grad.cpu()
+                       for k, v in tr.model.named_parameters()}
+    worst = {other: max((grads["card"][k] - g).abs().max().item()
+                        / _layer_scale(grads[other], k)
+                        for k, g in grads[other].items())
+             for other in ("cpu", "card, flag off")}
+    say(f"lazy seed at config 1, highest: launches (all, lazy) {counts}; "
+        f"worst gradient delta vs the CPU {worst['cpu']:.2e}, vs the card "
+        f"with the flag off {worst['card, flag off']:.2e} of the layer's "
+        f"max|g| (bar 1e-4)")
+    want_all = TRAIN_LAP_LAUNCHES + TRAIN_POOL_LAUNCHES
+    if counts["card"] != (want_all, CONFIG1_SEED_DOT) or counts[
+            "card, flag off"] != (want_all, 0):
+        fail(f"config-1 lazy-seed step launched {counts}, expected "
+             f"({want_all}, {CONFIG1_SEED_DOT}) with the flag on")
+    if not max(worst.values()) <= 1e-4:
+        fail(f"config-1 lazy-seed gradients disagree: {worst}")
+
     # --- the train step: host-paced time, peak memory, device busy ------
     for p, tr in trainers.items():
         batch = tr.to_device(fixed)
@@ -802,10 +989,11 @@ def phase_train(torch, dev, models, ops, hier, tmpl, tmp):
     return launches, by_shape
 
 
-def setup_scaled80k(torch, dev, tmp):
-    """template80k.obj generated in tmp from template5k, its hierarchy
+def setup_scaled(torch, dev, tmp, k, levels, dtype):
+    """template{k}k.obj generated in tmp from template5k, its hierarchy
     built through the native library into tmp's cache (which run() reads
-    back), bf16 operators on the card."""
+    back), operators in `dtype` on the card. At 80k every P^T must be
+    block-sparse."""
     import shutil
 
     from meshvae_tpu_torch import native
@@ -813,47 +1001,51 @@ def setup_scaled80k(torch, dev, tmp):
     from meshvae_tpu_torch.models import build_operators
     from meshvae_tpu_torch.tools.make_scaled_template import ensure_template
 
+    label = f"scaled{k}k"
     tdir = os.path.join(tmp, "template")
-    os.makedirs(tdir)
+    os.makedirs(tdir, exist_ok=True)
     shutil.copy(os.path.join(ROOT, "template", "template5k.obj"), tdir)
-    path = os.path.join(tdir, "template80k.obj")
+    path = os.path.join(tdir, f"template{k}k.obj")
     t0 = time.perf_counter()
     ensure_template(path)
     tmpl = load_obj(path)
     import hashlib
 
     digest = hashlib.sha256(tmpl.v.tobytes() + tmpl.f.tobytes()).hexdigest()
-    say(f"scaled80k: template80k.obj {tmpl.num_vertices} vertices, "
+    say(f"{label}: template{k}k.obj {tmpl.num_vertices} vertices, "
         f"{tmpl.num_faces} faces in {time.perf_counter() - t0:.2f}s "
         f"(sha256 of v and f: {digest[:16]})")
     calls = dict(native.CALLS)
     t0 = time.perf_counter()
-    hier = load_or_build_hierarchy(tmpl, [4, 4, 4, 4],
-                                   cache_dir=os.path.join(tmp, "cache80"))
+    cache = os.path.join(tmp, f"cache{k}")
+    hier = load_or_build_hierarchy(tmpl, [4, 4, 4, 4], cache_dir=cache)
     secs = time.perf_counter() - t0
-    went = {k: native.CALLS[k] - calls[k] for k in ("qslim", "transfer")}
-    say(f"scaled80k: hierarchy {hier.levels} in {secs:.2f}s through the "
+    went = {key: native.CALLS[key] - calls[key]
+            for key in ("qslim", "transfer")}
+    say(f"{label}: hierarchy {hier.levels} in {secs:.2f}s through the "
         f"native library ({went})")
     if went != {"qslim": 4, "transfer": 4}:
-        fail(f"the 80k hierarchy did not go through the native library: "
+        fail(f"the {k}k hierarchy did not go through the native library: "
              f"{went}")
-    if hier.levels != SCALED_LEVELS:
-        fail(f"80k hierarchy levels {hier.levels}, expected {SCALED_LEVELS}")
+    if hier.levels != levels:
+        fail(f"{k}k hierarchy levels {hier.levels}, expected {levels}")
     t0 = time.perf_counter()
-    ops = build_operators(hier, dev, cheb_method="pallas",
-                          dtype=torch.bfloat16)
+    ops = build_operators(hier, dev, cheb_method="pallas", dtype=dtype)
     torch.cuda.synchronize()
-    say(f"scaled80k: bf16 operators in {time.perf_counter() - t0:.2f}s")
+    say(f"{label}: {dtype} operators in {time.perf_counter() - t0:.2f}s")
     for name, bsr in [(f"L{i}", op.bsr) for i, op in enumerate(ops.lap)
                       if op.bsr is not None] + [
             (f"P{i}T", up.t_bsr) for i, up in enumerate(ops.up)]:
         if bsr is None:
-            fail(f"{name} has no block-sparse form at 80k")
+            if k == 80:
+                fail(f"{name} has no block-sparse form at 80k")
+            say(f"  {name}: gathers (no block-sparse form)")
+            continue
         say(f"  {name}: n_pad {bsr.n_pad} x {bsr.n_pad_cols}, "
             f"{bsr.num_blocks} blocks, G {bsr.g_width}, "
             f"{bsr.blocks.dtype}")
     return {"path": path, "tmpl": tmpl, "hier": hier, "ops": ops,
-            "hier_sec": secs}
+            "hier_sec": secs, "cache": cache}
 
 
 # the 80k train step's block-sparse calls at B = 32, K = 10: per conv one
@@ -877,20 +1069,30 @@ SCALED_CALLS = {
                       ("up-pool 2 P^T", "P2T", 1024, {"a1": 1}),
                       ("up-pool 3 P^T", "P3T", 1024, {"a1": 1})],
 }
+# the same step with FUSED_SEED_DOT: the square convs' backward calls
+# become lazy-seed calls (label, operand, C, kinds, f)
+_DOT = {"a2 dot": 1, "a2 dot prev": 7, "a1 dot prev": 1}
+SCALED_DOT_CALLS = [("enc_1+dec_2 L1", "L1", 512,
+                     {k: 2 * v for k, v in _DOT.items()}, 16),
+                    ("enc_2 L2", "L2", 512, _DOT, 16),
+                    ("dec_0 L3", "L3", 1024, _DOT, 32),
+                    ("dec_3 L0", "L0", 512, _DOT, 16)]
 
 
 def _operands80(ops):
     out = {f"L{i}": op.bsr for i, op in enumerate(ops.lap)
            if op.bsr is not None}
-    out.update({f"P{i}T": up.t_bsr for i, up in enumerate(ops.up)})
+    out.update({f"P{i}T": up.t_bsr for i, up in enumerate(ops.up)
+                if up.t_bsr is not None})
     return out
 
 
 def phase_kernel_bf16(torch, ops80, dev):
     """The bf16 mode against its twin at every 80k Laplacian shape of the
-    train step (alpha 1 and 2, no seed, t_prev, t_plus, both) and the four
-    P^T (as called, plus one both-seed case on the widest). Returns the
-    worst absolute error, "lap" and "pool"."""
+    train step (alpha 1 and 2, no seed, t_prev, t_plus, both), the four
+    P^T (as called, plus one both-seed case on the widest) and the lazy
+    seed at the square convs' shapes (and L2 at C = 1024, f = 32). Returns
+    the worst absolute error, "lap", "pool" and "seed"."""
     from meshvae_tpu_torch.ops.bsr_spmm import (bsr_grouped_spmm,
                                                 bsr_grouped_spmm_reference)
 
@@ -930,28 +1132,41 @@ def phase_kernel_bf16(torch, ops80, dev):
             if not err <= TOL_BF16:
                 fail(f"bf16 kernel disagrees with its twin: {key} C={c} "
                      f"{kind} {err:.3e} > {TOL_BF16:.3e}")
-    say(f"checked kernels: bsr_grouped_spmm[bf16] (worst {rel_worst:.2e} "
-        f"of max|y|, bit-equal share {min(equal):.5f}..{max(equal):.5f})")
+    worst["seed"] = 0.0
+    for key, c, f in (("L0", 512, 16), ("L1", 512, 16), ("L2", 512, 16),
+                      ("L2", 1024, 32), ("L3", 1024, 32)):
+        bsr = operands[key]
+        x = torch.randn(bsr.n_pad_cols, c, device=dev, generator=gen).to(bf)
+        seeds = _seeds(torch, bsr, c, gen, dev, bf, f)
+        for kind in SEED_DOT_KINDS:
+            err_abs, err = _hold(torch, bsr, x, "bf16", kind, seeds, TOL_BF16,
+                                 f"80k {key} C={c} f={f} bf16 {kind}")
+            worst["seed"] = max(worst["seed"], err_abs)
+            rel_worst = max(rel_worst, err)
+    say(f"checked kernels: bsr_grouped_spmm[bf16] and its lazy seed (worst "
+        f"{rel_worst:.2e} of max|y|, bit-equal share of the plain calls "
+        f"{min(equal):.5f}..{max(equal):.5f})")
     return worst
 
 
-def _time_kind_bf16(torch, bsr, csr, c, kind, gen, dev):
+def _time_kind_bf16(torch, bsr, csr, c, kind, gen, dev, f=16):
     """Kernel, twin and torch.sparse times of one bf16 call kind at one 80k
     shape, with its bound: bytes (bf16 blocks, int32 g_idx / g_bcol, bf16
-    x, seeds and y, each once) over the HBM rate against 2 operations per
-    nonzero per column at the bf16 tensor-core rate."""
+    x, seeds or gm and y, each once) over the HBM rate against 2
+    operations per nonzero per column (plus 2 f per output for a lazy
+    seed) at the bf16 tensor-core rate."""
     from meshvae_tpu_torch.ops.bsr_spmm import (bsr_grouped_spmm,
                                                 bsr_grouped_spmm_reference)
 
     bf = torch.bfloat16
     x = torch.randn(bsr.n_pad_cols, c, device=dev, generator=gen).to(bf)
-    seeds = {k: torch.randn(bsr.n_pad, c, device=dev, generator=gen).to(bf)
-             for k in ("t_plus", "t_prev")}
+    seeds = _seeds(torch, bsr, c, gen, dev, bf, f)
     alpha, kw = _seed_args(kind, seeds)
     lib_csr, lib_kw, lib_x = csr["bf16"], kw, x
     if lib_csr is None:  # cuSPARSE refused bf16: the fp32 yardstick
         lib_csr, lib_x = csr["fp32"], x.float()
-        lib_kw = {k: v.float() for k, v in kw.items()}
+        lib_kw = {k: (tuple(t.float() for t in v) if isinstance(v, tuple)
+                      else v.float()) for k, v in kw.items()}
     lib_ms = time_ms(torch, lambda: _library_call(torch, lib_csr, lib_x,
                                                   kind, alpha, lib_kw))
     k_ms = time_ms(torch, lambda: bsr_grouped_spmm(bsr, x, "bf16", alpha,
@@ -962,7 +1177,7 @@ def _time_kind_bf16(torch, bsr, csr, c, kind, gen, dev):
     blk_bytes = 2 * bsr.blocks.numel() + 4 * (bsr.g_idx.numel()
                                               + bsr.g_bcol.numel())
     nnz = int((bsr.blocks != 0).sum())
-    ops_n = 2 * nnz * c
+    ops_n = 2 * nnz * c + (2 * f * bsr.n_pad * c if "dot" in kind else 0)
     bytes_ms = 1e3 * (blk_bytes + act) / HBM_BYTES_PER_S
     ops_ms = 1e3 * ops_n / PEAK_OPS["bf16"]
     say(f"  {c=} bf16 {kind}: kernel {1e3 * k_ms:.1f} us, twin "
@@ -979,9 +1194,10 @@ def _time_kind_bf16(torch, bsr, csr, c, kind, gen, dev):
                 ops_ms=ops_ms, row=row)
 
 
-def _csr80(torch, s80, dev):
-    """Every 80k operand as CSR, fp32 and (where cuSPARSE takes it) bf16,
-    for the torch.sparse yardstick."""
+def _csr80(torch, s80, dev, bf16=True):
+    """Every block-sparse operand of a scaled hierarchy as CSR, fp32 and
+    (bf16 True, where cuSPARSE takes it) bf16, for the torch.sparse
+    yardstick."""
     from meshvae_tpu_torch.ops.graph import normalized_neg_adjacency
 
     hier, out = s80["hier"], {}
@@ -994,6 +1210,8 @@ def _csr80(torch, s80, dev):
             f32.crow_indices(), f32.col_indices(),
             f32.values().to(torch.bfloat16), size=f32.shape,
             check_invariants=True)}
+    if not bf16:
+        return {k: e["fp32"] for k, e in out.items()}
     try:
         probe = min(out.values(), key=lambda e: e["fp32"].shape[1])["bf16"]
         torch.sparse.mm(probe, torch.ones(probe.shape[1], 128,
@@ -1016,18 +1234,9 @@ def phase_scaled80k(torch, dev, s80, tmp):
     checks and times."""
     say(f"== phase 7: scaled80k bf16 training ({SCALED_CFG}, "
         f"{SCALED_MESHES} synthetic 80k meshes, folds 2, epoch 2)")
-    import numpy as np
-
     from meshvae_tpu_torch.config import read_config
-    from meshvae_tpu_torch.data import (BatchIterator, MeshDataset,
-                                        generate_synthetic_dataset,
-                                        list_meshes)
-    from meshvae_tpu_torch.models import MeshVAE, VAEConfig
+    from meshvae_tpu_torch.data import generate_synthetic_dataset
     from meshvae_tpu_torch.ops import bsr_spmm
-    from meshvae_tpu_torch.train import Trainer
-    from meshvae_tpu_torch.train import driver
-    from meshvae_tpu_torch.train.checkpoint import (checkpoint_path,
-                                                    load_checkpoint)
 
     t0 = time.perf_counter()
     data_dir = os.path.join(tmp, "data80k")
@@ -1045,6 +1254,93 @@ def phase_scaled80k(torch, dev, s80, tmp):
     if (config["compute_dtype"], config["batch_size"],
             config["polygon_order"]) != ("bfloat16", SCALED_BATCH, [10] * 5):
         fail(f"{SCALED_CFG} no longer is bf16, B=32, K=10")
+
+    results, secs, steps, launches, _, by_shape = _run_driver(torch, config,
+                                                              dev)
+    want = {"fp32": 0, "bf16x3": 0,
+            "bf16": SCALED_TRAIN_LAUNCHES * steps["train"]
+            + SCALED_EVAL_LAUNCHES * steps["eval"]}
+    if steps["train"] < 1 or launches != want:
+        fail(f"scaled80k launched {launches}, expected {want} "
+             f"({steps['train']} train, {steps['eval']} eval steps)")
+    pool_keys = [("bf16", up.t_bsr.n_pad, up.t_bsr.n_pad_cols)
+                 for up in s80["ops"].up]
+    for key in pool_keys:
+        if by_shape.get(key) != steps["train"]:
+            fail(f"scaled80k P^T {key} launched {by_shape.get(key)} times, "
+                 f"expected once per train step ({steps['train']})")
+    _check_run(config, ckpt, results, s80["hier"])
+
+    # --- a fixed batch: the loss falls; then the step's time ------------
+    tr, batch, norm, gen = _fixed_batch_falls(torch, dev, s80, config,
+                                              data_dir, tmp, SCALED_BATCH)
+    step = lambda: tr.train_step(batch, gen, *norm)
+    ms = _step_report(torch, step, "scaled80k bf16", SCALED_BATCH)
+
+    # --- FLAG_STEPS train steps with the lazy seed ----------------------
+    from meshvae_tpu_torch.ops import cheb as port_cheb
+
+    port_cheb.FUSED_SEED_DOT = True
+    try:
+        torch.cuda.synchronize()
+        bsr_spmm.reset_launches()
+        for _ in range(FLAG_STEPS):
+            step()
+        torch.cuda.synchronize()
+        on = (dict(bsr_spmm.LAUNCHES), dict(bsr_spmm.LAUNCHES_SEED_DOT))
+        ms_on = time_ms(torch, step, backlog=False)
+    finally:
+        port_cheb.FUSED_SEED_DOT = False
+    say(f"train step [scaled80k bf16, FUSED_SEED_DOT]: {ms_on:.3f} ms "
+        f"host-paced ({ms:.3f} ms with the flag off, same call); "
+        f"launches over {FLAG_STEPS} steps {on[0]}, lazy seed {on[1]}")
+    want = ({"fp32": 0, "bf16x3": 0, "bf16": SCALED_TRAIN_LAUNCHES
+             * FLAG_STEPS}, {"fp32": 0, "bf16x3": 0,
+                             "bf16": SCALED_SEED_DOT * FLAG_STEPS})
+    if on != want:
+        fail(f"scaled80k with the lazy seed launched {on}, expected {want}")
+
+    # --- the bf16 kernel per 80k shape and call kind --------------------
+    say("80k bf16 train step, per call (median of %d, CUDA events):" % RUNS)
+    csr = _csr80(torch, s80, dev)
+    operands = _operands80(s80["ops"])
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows, per_step = [], {}
+    for name, calls in {**SCALED_CALLS,
+                        "lap_seed_dot": SCALED_DOT_CALLS}.items():
+        acc = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
+                             "bytes_ms", "ops_ms"), 0.0)
+        for label, key, c, kinds, *f in calls:
+            bsr = operands[key]
+            say(f" {label} ({key}, n_pad {bsr.n_pad} x {bsr.n_pad_cols}, "
+                f"G {bsr.g_width}):")
+            for kind, count in kinds.items():
+                got = _time_kind_bf16(torch, bsr, csr[key], c, kind, gen,
+                                      dev, *f)
+                for k in acc:
+                    acc[k] += count * got[k]
+                rows.append(dict(got["row"], shape=label, per_step=count))
+        per_step[name] = acc
+        say(f"per 80k train step {name}: kernel {acc['ms']:.3f} ms, twin "
+            f"{acc['plain_ms']:.3f} ms, torch.sparse {acc['library_ms']:.3f}"
+            f" ms, bound {acc['bound_ms']:.3f} ms ({_bound_by(acc)})")
+    say("shape_rows_80k " + json.dumps(rows))
+    lap = (launches["bf16"] - sum(by_shape.get(k, 0) for k in pool_keys))
+    counts = {"lap": lap, "pool_perblock": by_shape.get(pool_keys[0], 0),
+              "pool_colmajor": sum(by_shape.get(k, 0)
+                                   for k in pool_keys[1:]),
+              "seed_dot": on[1]["bf16"]}
+    return per_step, counts
+
+
+def _run_driver(torch, config, dev):
+    """train/driver.run(config) with train and test, the launch counts
+    reset just before and read just after, and the train and eval steps
+    counted. Returns (results, seconds, steps, launches, lazy-seed
+    launches, launches by shape)."""
+    from meshvae_tpu_torch.ops import bsr_spmm
+    from meshvae_tpu_torch.train import Trainer
+    from meshvae_tpu_torch.train import driver
 
     steps = {"train": 0, "eval": 0}
     real = {k: getattr(Trainer, f"{k}_step") for k in steps}
@@ -1066,6 +1362,7 @@ def phase_scaled80k(torch, dev, s80, tmp):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = dict(bsr_spmm.LAUNCHES)
+        seed_dot = dict(bsr_spmm.LAUNCHES_SEED_DOT)
         by_shape = dict(bsr_spmm.LAUNCHES_BY_SHAPE)
         # -----------------------------------------------------------------
     finally:
@@ -1073,21 +1370,22 @@ def phase_scaled80k(torch, dev, s80, tmp):
                                                  real["eval"])
     say(f"run(): {secs:.1f}s for {steps['train']} train and "
         f"{steps['eval']} eval steps (host work included: dataset loads, "
-        f"operators, checkpoints); launches {launches}")
-    want = {"fp32": 0, "bf16x3": 0,
-            "bf16": SCALED_TRAIN_LAUNCHES * steps["train"]
-            + SCALED_EVAL_LAUNCHES * steps["eval"]}
-    if steps["train"] < 1 or launches != want:
-        fail(f"scaled80k launched {launches}, expected {want} "
-             f"({steps['train']} train, {steps['eval']} eval steps)")
-    pool_keys = [("bf16", up.t_bsr.n_pad, up.t_bsr.n_pad_cols)
-                 for up in s80["ops"].up]
-    for key in pool_keys:
-        if by_shape.get(key) != steps["train"]:
-            fail(f"scaled80k P^T {key} launched {by_shape.get(key)} times, "
-                 f"expected once per train step ({steps['train']})")
-    model = MeshVAE(VAEConfig.from_config(
-        config, coarse_verts=s80["hier"].levels[-1]))
+        f"operators, checkpoints); launches {launches}, lazy seed "
+        f"{seed_dot}")
+    return results, secs, steps, launches, seed_dot, by_shape
+
+
+def _check_run(config, ckpt, results, hier):
+    """History schema and epochs per fold, checkpoints that reload, finite
+    test averages and sex-change rates in [0, 1]."""
+    import numpy as np
+
+    from meshvae_tpu_torch.models import MeshVAE, VAEConfig
+    from meshvae_tpu_torch.train.checkpoint import (checkpoint_path,
+                                                    load_checkpoint)
+
+    model = MeshVAE(VAEConfig.from_config(config,
+                                          coarse_verts=hier.levels[-1]))
     for fold in (1, 2):
         with open(os.path.join(ckpt, f"history{fold}.json")) as fp:
             hist = json.load(fp)
@@ -1109,13 +1407,22 @@ def phase_scaled80k(torch, dev, s80, tmp):
         f"{r['mean_error']:.4f} acc {r['accuracy']:.3f} sex change "
         f"{r['sex_change_success_rate']:.3f}" for r in results))
 
-    # --- a fixed batch: the loss falls; then the step's time ------------
+
+def _fixed_batch_falls(torch, dev, scaled, config, data_dir, tmp, batch_size):
+    """A Trainer on fresh seeded weights; its eval loss of the first batch
+    must fall over 5 train steps. Returns (trainer, batch, norm, gen)."""
+    from meshvae_tpu_torch.data import BatchIterator, MeshDataset, list_meshes
+    from meshvae_tpu_torch.models import MeshVAE, VAEConfig
+    from meshvae_tpu_torch.train import Trainer
+
     index, labels = list_meshes({"root_dir": data_dir})
-    dcfg = {"root_dir": data_dir, "checkpoint_dir": os.path.join(tmp, "n80")}
-    ds = MeshDataset(index[:SCALED_BATCH], dcfg, labels, s80["tmpl"].v)
-    tr = Trainer(MeshVAE(model.cfg, generator=torch.Generator().manual_seed(5)),
-                 s80["ops"], config, device=dev)
-    batch = tr.to_device(next(iter(BatchIterator(ds, SCALED_BATCH))))
+    dcfg = {"root_dir": data_dir,
+            "checkpoint_dir": os.path.join(tmp, f"norm_{batch_size}")}
+    ds = MeshDataset(index[:batch_size], dcfg, labels, scaled["tmpl"].v)
+    cfg = VAEConfig.from_config(config, coarse_verts=scaled["hier"].levels[-1])
+    tr = Trainer(MeshVAE(cfg, generator=torch.Generator().manual_seed(5)),
+                 scaled["ops"], config, device=dev)
+    batch = tr.to_device(next(iter(BatchIterator(ds, batch_size))))
     norm = tr.norm_to_device(ds.mean, ds.std)
     gen = torch.Generator(device=dev).manual_seed(0)
     before = tr.eval_step(batch, *norm)["scalars"][0].item()
@@ -1124,9 +1431,13 @@ def phase_scaled80k(torch, dev, s80, tmp):
     after = tr.eval_step(batch, *norm)["scalars"][0].item()
     say(f"fixed-batch eval loss {before:.2f} -> {after:.2f} over 5 steps")
     if not after < before:
-        fail(f"scaled80k: the fixed batch's loss did not fall "
-             f"({before} -> {after})")
-    step = lambda: tr.train_step(batch, gen, *norm)
+        fail(f"the fixed batch's loss did not fall ({before} -> {after})")
+    return tr, batch, norm, gen
+
+
+def _step_report(torch, step, label, batch_size):
+    """Host-paced step time (CUDA events, median of RUNS), peak memory and
+    the profiler's busy time and idle share; returns the step's ms."""
     ms = time_ms(torch, step, backlog=False)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -1134,41 +1445,12 @@ def phase_scaled80k(torch, dev, s80, tmp):
     step()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    say(f"train step [scaled80k bf16]: {ms:.3f} ms, "
-        f"{SCALED_BATCH / ms * 1e3:.1f} meshes/sec at B={SCALED_BATCH}, "
+    say(f"train step [{label}]: {ms:.3f} ms, "
+        f"{batch_size / ms * 1e3:.1f} meshes/sec at B={batch_size}, "
         f"host-paced; peak memory {peak / 2**30:.2f} GiB, of which the "
         f"step's own {(peak - base) / 2**30:.2f} GiB")
-    _profile(torch, step, "train scaled80k bf16", ms, batch=SCALED_BATCH)
-
-    # --- the bf16 kernel per 80k shape and call kind --------------------
-    say("80k bf16 train step, per call (median of %d, CUDA events):" % RUNS)
-    csr = _csr80(torch, s80, dev)
-    operands = _operands80(s80["ops"])
-    gen = torch.Generator(device=dev).manual_seed(3)
-    rows, per_step = [], {}
-    for name, calls in SCALED_CALLS.items():
-        acc = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
-                             "bytes_ms", "ops_ms"), 0.0)
-        for label, key, c, kinds in calls:
-            bsr = operands[key]
-            say(f" {label} ({key}, n_pad {bsr.n_pad} x {bsr.n_pad_cols}, "
-                f"G {bsr.g_width}):")
-            for kind, count in kinds.items():
-                got = _time_kind_bf16(torch, bsr, csr[key], c, kind, gen,
-                                      dev)
-                for k in acc:
-                    acc[k] += count * got[k]
-                rows.append(dict(got["row"], shape=label, per_step=count))
-        per_step[name] = acc
-        say(f"per 80k train step {name}: kernel {acc['ms']:.3f} ms, twin "
-            f"{acc['plain_ms']:.3f} ms, torch.sparse {acc['library_ms']:.3f}"
-            f" ms, bound {acc['bound_ms']:.3f} ms ({_bound_by(acc)})")
-    say("shape_rows_80k " + json.dumps(rows))
-    lap = (launches["bf16"] - sum(by_shape.get(k, 0) for k in pool_keys))
-    counts = {"lap": lap, "pool_perblock": by_shape.get(pool_keys[0], 0),
-              "pool_colmajor": sum(by_shape.get(k, 0)
-                                   for k in pool_keys[1:])}
-    return per_step, counts
+    _profile(torch, step, f"train {label}", ms, batch=batch_size)
+    return ms
 
 
 def phase_bf16_card_vs_cpu(torch, dev, hier, tmpl, tmp):
@@ -1241,6 +1523,302 @@ def phase_bf16_card_vs_cpu(torch, dev, hier, tmpl, tmp):
 
 
 
+# the scaled20k train step's block-sparse calls at B = 64, K = 10 with
+# FUSED_SEED_DOT (label, operand, C, kinds, f): forward per conv one
+# alpha-1 call and eight seeded ones; the backward of the square convs
+# (enc_1, enc_2, dec_2, dec_3: 16 -> 16, f_pad 16) runs lazy-seed calls,
+# cheb_dec_1's (32 -> 16, f_pad 32) eager ones; each block-sparse up-pool's
+# backward runs its P^T once
+_FWD20 = {"a1": 1, "a2 prev": 8}
+SCALED20_CALLS = {
+    "lap": [("enc_0 L0", "L0", 256, _FWD20, 16),
+            ("dec_3 L0", "L0", 1024, _FWD20, 16),
+            ("enc_1+dec_2 L1", "L1", 1024,
+             {k: 2 * v for k, v in _FWD20.items()}, 16),
+            ("enc_2 L2", "L2", 1024, _FWD20, 16),
+            ("dec_1 L2", "L2", 2048, {**_FWD20, **_BWD80}, 16)],
+    "lap_seed_dot": [("dec_3 L0", "L0", 1024, _DOT, 16),
+                     ("enc_1+dec_2 L1", "L1", 1024,
+                      {k: 2 * v for k, v in _DOT.items()}, 16),
+                     ("enc_2 L2", "L2", 1024, _DOT, 16)],
+}
+# up-pool i's P^T runs at B times the features entering it: 16, 16, 32, 32
+SCALED20_POOL_C = (1024, 1024, 2048, 2048)
+
+
+def phase_scaled20k(torch, dev, s20, tmp):
+    """The scaled20k fp32 main path with the lazy seed through
+    train/driver.run(), then its checks and times."""
+    say(f"== phase 9: scaled20k fp32 training with the lazy seed "
+        f"({SCALED20_CFG}, {SCALED20_MESHES} synthetic 20k meshes, folds 2, "
+        f"epoch 2)")
+    from meshvae_tpu_torch.config import read_config
+    from meshvae_tpu_torch.data import generate_synthetic_dataset
+    from meshvae_tpu_torch.ops import cheb as port_cheb
+    from meshvae_tpu_torch.ops.bsr_spmm import pad_features
+
+    t0 = time.perf_counter()
+    data_dir = os.path.join(tmp, "data20k")
+    generate_synthetic_dataset(s20["tmpl"], data_dir,
+                               n_samples=SCALED20_MESHES, seed=23)
+    say(f"{SCALED20_MESHES} synthetic 20k meshes in "
+        f"{time.perf_counter() - t0:.1f}s")
+    config = read_config(os.path.join(ROOT, SCALED20_CFG))
+    ckpt = os.path.join(tmp, "ckpt20k")
+    config.update({   # paths, folds and epochs only
+        "template": s20["path"], "root_dir": data_dir,
+        "checkpoint_dir": ckpt, "log_file": os.path.join(ckpt, "log.txt"),
+        "hierarchy_cache_dir": s20["cache"], "folds": 2, "epoch": 2})
+    if (config.get("compute_dtype", "float32"), config["matmul_precision"],
+            config["batch_size"], config["polygon_order"]) != (
+                "float32", "highest", SCALED20_BATCH, [10] * 5):
+        fail(f"{SCALED20_CFG} no longer is fp32 at highest, B=64, K=10")
+    ops = s20["ops"]
+    pools = [i for i, up in enumerate(ops.up) if up.t_bsr is not None]
+    pool_keys = [("fp32", ops.up[i].t_bsr.n_pad, ops.up[i].t_bsr.n_pad_cols)
+                 for i in pools]
+    per_train = SCALED20_FWD + SCALED20_BWD + len(pools)
+
+    port_cheb.FUSED_SEED_DOT = True
+    try:
+        results, secs, steps, launches, seed_dot, by_shape = _run_driver(
+            torch, config, dev)
+    finally:
+        port_cheb.FUSED_SEED_DOT = False
+    want = ({"fp32": per_train * steps["train"]
+             + SCALED20_EVAL * steps["eval"], "bf16x3": 0, "bf16": 0},
+            {"fp32": SCALED20_SEED_DOT * steps["train"], "bf16x3": 0,
+             "bf16": 0})
+    say(f"expected per train step {per_train} = {SCALED20_FWD} forward + "
+        f"{SCALED20_BWD} backward + {len(pools)} P^T (up-pools {pools}), "
+        f"{SCALED20_SEED_DOT} of them lazy-seed; {SCALED20_EVAL} per eval")
+    if steps["train"] < 1 or (launches, seed_dot) != want:
+        fail(f"scaled20k launched {launches}, lazy seed {seed_dot}, expected "
+             f"{want} ({steps['train']} train, {steps['eval']} eval steps)")
+    for key in pool_keys:
+        if by_shape.get(key) != steps["train"]:
+            fail(f"scaled20k P^T {key} launched {by_shape.get(key)} times, "
+                 f"expected once per train step ({steps['train']})")
+    _check_run(config, ckpt, results, s20["hier"])
+
+    # --- a fixed batch: the loss falls (flag on); the step's time --------
+    port_cheb.FUSED_SEED_DOT = True
+    try:
+        tr, batch, norm, gen = _fixed_batch_falls(
+            torch, dev, s20, config, data_dir, tmp, SCALED20_BATCH)
+        step = lambda: tr.train_step(batch, gen, *norm)
+        ms = _step_report(torch, step, "scaled20k fp32, FUSED_SEED_DOT",
+                          SCALED20_BATCH)
+    finally:
+        port_cheb.FUSED_SEED_DOT = False
+    ms_off = time_ms(torch, step, backlog=False)
+    bases = sum(4 * lap.bsr.n_pad * SCALED20_BATCH * 10 * pad_features(
+                    SCALED20_BATCH, f_in)
+                for lap, f_in in ((ops.lap[0], 3), (ops.lap[0], 16),
+                                  (ops.lap[1], 16), (ops.lap[1], 16),
+                                  (ops.lap[2], 16), (ops.lap[2], 32)))
+    say(f"train step [scaled20k fp32, flag off]: {ms_off:.3f} ms host-paced "
+        f"(same call); the six block-sparse convs' saved bases "
+        f"(n_pad x B x K x f_pad fp32) hold {bases / 2**30:.2f} GiB")
+
+    # --- the fp32 kernel per 20k shape and call kind --------------------
+    say("20k fp32 train step, per call (median of %d, CUDA events):" % RUNS)
+    csr = _csr80(torch, s20, dev, bf16=False)
+    operands = _operands80(ops)
+    calls = dict(SCALED20_CALLS, pool=[
+        (f"up-pool {i} P^T", f"P{i}T", SCALED20_POOL_C[i], {"a1": 1}, 16)
+        for i in pools])
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows, per_step = [], {}
+    for name, group in calls.items():
+        acc = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
+                             "bytes_ms", "ops_ms"), 0.0)
+        for label, key, c, kinds, f in group:
+            bsr = operands[key]
+            say(f" {label} ({key}, n_pad {bsr.n_pad} x {bsr.n_pad_cols}, "
+                f"G {bsr.g_width}):")
+            for kind, count in kinds.items():
+                got = _time_kind(torch, bsr, csr[key], c, kind, ("fp32",),
+                                 gen, dev, f)["fp32"]
+                for k in acc:
+                    acc[k] += count * got[k]
+                rows.append(dict(got["row"], shape=label, per_step=count))
+        per_step[name] = acc
+        say(f"per 20k train step {name}: kernel {acc['ms']:.3f} ms, twin "
+            f"{acc['plain_ms']:.3f} ms, torch.sparse {acc['library_ms']:.3f}"
+            f" ms, bound {acc['bound_ms']:.3f} ms ({_bound_by(acc)})")
+    say("shape_rows_20k " + json.dumps(rows))
+    pool_n = sum(by_shape.get(k, 0) for k in pool_keys)
+    counts = {"lap": launches["fp32"] - pool_n - seed_dot["fp32"],
+              "seed_dot": seed_dot["fp32"], "pool": pool_n}
+    return per_step, counts
+
+
+def _twins():
+    """Context: the fused step and every SpMM of the conv backward run
+    their plain twins, on whatever device the tensors are."""
+    import contextlib
+
+    from meshvae_tpu_torch.ops import bsr_spmm, cheb, cheb_fused
+
+    @contextlib.contextmanager
+    def ctx():
+        real = cheb_fused.cheb_fused_step, cheb.bsr_grouped_spmm
+        cheb_fused.cheb_fused_step = cheb_fused.cheb_fused_step_reference
+        cheb.bsr_grouped_spmm = bsr_spmm.bsr_grouped_spmm_reference
+        try:
+            yield
+        finally:
+            cheb_fused.cheb_fused_step, cheb.bsr_grouped_spmm = real
+
+    return ctx()
+
+
+def phase_fused(torch, dev, ops, hier, ops20, hier20):
+    """TPU kernel #9 on the card: the fused step and cheb_conv_fused
+    against their twins, then times beside the main-path conv."""
+    say("== phase 10: fused propagate + mix (cheb_conv_fused, #9)")
+    from meshvae_tpu_torch.ops import cheb_fused
+    from meshvae_tpu_torch.ops.cheb import cheb_conv_bsr
+    from meshvae_tpu_torch.ops.cheb_fused import (cheb_conv_fused,
+                                                  cheb_fused_step,
+                                                  cheb_fused_step_reference)
+    from meshvae_tpu_torch.ops.graph import normalized_neg_adjacency
+
+    shapes = [("config-1 L0", ops.lap[0], BATCH, 6),
+              ("config-1 L1", ops.lap[1], BATCH, 6),
+              ("scaled20k L0", ops20.lap[0], SCALED20_BATCH, 10)]
+    adjacency = {"config-1 L0": hier.adjacency[0],
+                 "config-1 L1": hier.adjacency[1],
+                 "scaled20k L0": hier20.adjacency[0]}
+    gen = torch.Generator(device=dev).manual_seed(9)
+    worst_abs = 0.0
+    # --- the convs: counts reset just before, read just after ------------
+    cheb_fused.reset_launches()
+    runs = []
+    for name, op, b, k in shapes:
+        for precision in (("highest", "high") if name == "config-1 L1"
+                          else ("highest",)):
+            x = torch.randn(b, op.n, 16, device=dev, generator=gen)
+            w = 0.1 * torch.randn(k, 16, 16, device=dev, generator=gen)
+            bias = 0.1 * torch.randn(16, device=dev, generator=gen)
+            g = torch.randn(b, op.n, 16, device=dev, generator=gen)
+            outs = {}
+            for side in ("kernel", "twin"):
+                leaves = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+                if side == "twin":
+                    with _twins():
+                        y = cheb_conv_fused(*leaves[:1], op, *leaves[1:],
+                                            precision=precision)
+                        (y * g).sum().backward()
+                else:
+                    y = cheb_conv_fused(*leaves[:1], op, *leaves[1:],
+                                        precision=precision)
+                    (y * g).sum().backward()
+                torch.cuda.synchronize()
+                outs[side] = (y.detach(), *(t.grad for t in leaves))
+            got, want = outs["kernel"], outs["twin"]
+            err = (got[0] - want[0]).abs().max().item()
+            rel = err / want[0].abs().max().item()
+            layer = max(want[2].abs().max().item(),
+                        want[3].abs().max().item())
+            g_rel = [(got[1] - want[1]).abs().max().item()
+                     / want[1].abs().max().item()] + [
+                (a - c).abs().max().item() / layer
+                for a, c in zip(got[2:], want[2:])]
+            # at high the in-kernel mix splits T_k, which kernel and twin
+            # hold to the last fp32 bit only: a one-bit change can move a
+            # bf16 split, and the dropped lo*lo term by 2^-17 |T W|
+            bar = 1e-5 if precision == "highest" else 1e-4
+            say(f"  {name} B={b} K={k} {precision}: forward {rel:.3e} of "
+                f"max|y| (bar {bar:.0e}); dx, dW, dbias {g_rel[0]:.2e}, "
+                f"{g_rel[1]:.2e}, {g_rel[2]:.2e} of max|g| (bar 1e-4)")
+            if not (rel <= bar and max(g_rel) <= 1e-4):
+                fail(f"cheb_conv_fused disagrees with its twin at {name} "
+                     f"{precision}")
+            runs.append((name, op, b, k))
+    launches = dict(cheb_fused.LAUNCHES)
+    # ----------------------------------------------------------------------
+    want_n = {"fp32": sum(k - 1 for _, _, _, k in shapes), "bf16x3": 6 - 1}
+    say(f"cheb_fused_step launches {launches} (expected {want_n}: K - 1 per "
+        f"kernel-side conv forward)")
+    if launches != want_n:
+        fail(f"cheb_fused_step launched {launches}, expected {want_n}")
+
+    # --- each step against its twin; per-call times and bounds -----------
+    per_call = {}
+    for name, op, b, k in shapes:
+        bsr, f = op.bsr, 16
+        c = b * f
+        t1, t2 = (torch.randn(bsr.n_pad, c, device=dev, generator=gen)
+                  for _ in range(2))
+        w = 0.1 * torch.randn(f, f, device=dev, generator=gen)
+        acc = torch.randn(bsr.n_pad, c, device=dev, generator=gen)
+        got_t, got_acc = cheb_fused_step(bsr, t1, t2, w, acc.clone(), 2.0)
+        torch.cuda.synchronize()
+        want_t, want_acc = cheb_fused_step_reference(bsr, t1, t2, w, acc, 2.0)
+        errs = [(a - r).abs().max().item() for a, r in
+                ((got_t, want_t), (got_acc, want_acc))]
+        rel = max(e / r.abs().max().item()
+                  for e, r in zip(errs, (want_t, want_acc)))
+        worst_abs = max(worst_abs, *errs)
+        if not rel <= TOL_KERNEL:
+            fail(f"cheb_fused_step disagrees with its twin at {name}: {rel}")
+        scratch = acc.clone()
+        k_ms = time_ms(torch, lambda: cheb_fused_step(bsr, t1, t2, w, scratch,
+                                                      2.0))
+        p_ms = time_ms(torch, lambda: cheb_fused_step_reference(
+            bsr, t1, t2, w, acc, 2.0))
+        csr = _csr(torch, normalized_neg_adjacency(adjacency[name]),
+                   bsr.n_pad, bsr.n_pad, dev)
+
+        def library():
+            t = torch.addmm(t2, csr, t1, beta=-1.0, alpha=2.0)
+            return t, acc + torch.matmul(t.reshape(bsr.n_pad, b, f), w
+                                         ).reshape(bsr.n_pad, c)
+
+        l_ms = time_ms(torch, library)
+        nnz = int((bsr.blocks != 0).sum())
+        byts = (4 * (bsr.blocks.numel() + bsr.g_idx.numel()
+                     + bsr.g_bcol.numel()) + 4 * c * bsr.n_pad * 3
+                + 2 * 4 * bsr.n_pad * c + 4 * f * f)
+        ops_n = 2 * nnz * c + 2 * bsr.n_pad * c * f
+        bytes_ms = 1e3 * byts / HBM_BYTES_PER_S
+        ops_ms = 1e3 * ops_n / PEAK_OPS["fp32"]
+        per_call[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                              bound_ms=max(bytes_ms, ops_ms),
+                              bytes_ms=bytes_ms, ops_ms=ops_ms, k=k)
+        say(f"  step {name} C={c}: max_err/max {rel:.3e}; kernel "
+            f"{1e3 * k_ms:.1f} us, twin {1e3 * p_ms:.1f} us, torch.sparse + "
+            f"torch.matmul {1e3 * l_ms:.1f} us, bound "
+            f"{1e3 * max(bytes_ms, ops_ms):.2f} us")
+
+    # --- the conv beside the main path's, forward and forward+backward ---
+    for name, op, b, k in shapes:
+        x = torch.randn(b, op.n, 16, device=dev, generator=gen)
+        w = (0.1 * torch.randn(k, 16, 16, device=dev, generator=gen)
+             ).requires_grad_(True)
+        bias = torch.zeros(16, device=dev, requires_grad=True)
+        xg = x.clone().requires_grad_(True)
+        row = {}
+        for label, conv in (("fused", cheb_conv_fused),
+                            ("cheb_conv_bsr", lambda a, o, *r, **kw:
+                             cheb_conv_bsr(a, o.bsr, *r, **kw))):
+            with torch.no_grad():
+                row[f"{label} fwd"] = time_ms(
+                    torch, lambda: conv(x, op, w, bias, precision="highest"))
+            row[f"{label} fwd+bwd"] = time_ms(
+                torch, lambda: conv(xg, op, w, bias,
+                                    precision="highest").sum().backward(),
+                backlog=False)
+        say(f"  conv {name} B={b} K={k} (ms): " + ", ".join(
+            f"{key} {v:.3f}" for key, v in row.items()))
+    name = "scaled20k L0"
+    entry = {key: v * (per_call[name]["k"] - 1) if key.endswith("ms") else v
+             for key, v in per_call[name].items()}
+    return entry, launches, worst_abs
+
+
 def main() -> int:
     import torch
 
@@ -1254,18 +1832,25 @@ def main() -> int:
     from meshvae_tpu_torch.device import resolve_device
     from meshvae_tpu_torch.infer.serve import MeshServer
 
+    from meshvae_tpu_torch.ops import cheb as port_cheb
+
+    port_cheb.FUSED_SEED_DOT = False  # each phase that wants it says so
     dev = resolve_device("cuda:0")
     card = phase_device(torch)
+    t0 = time.perf_counter()
     phase_build()
-    seconds = {}
+    seconds = {"build": time.perf_counter() - t0}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         models, ops, hier, tmpl, single, many_dir, (mean, std) = \
             setup_config_1(torch, dev, tmp)
-        s80 = setup_scaled80k(torch, dev, tmp)
+        s80 = setup_scaled(torch, dev, tmp, 80, SCALED_LEVELS,
+                           torch.bfloat16)
+        s20 = setup_scaled(torch, dev, tmp, 20, SCALED20_LEVELS,
+                           torch.float32)
         seconds["setup"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        worst_abs = phase_kernel(torch, ops, dev)
+        worst_abs = phase_kernel(torch, ops, s20["ops"], dev)
         worst80 = phase_kernel_bf16(torch, s80["ops"], dev)
         seconds["kernel"] = time.perf_counter() - t0
         servers = {p: MeshServer(m, ops, mean, std, template=tmpl.v,
@@ -1294,11 +1879,18 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_bf16_card_vs_cpu(torch, dev, hier, tmpl, tmp)
         seconds["bf16_card_vs_cpu"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        per_step20, launches20 = phase_scaled20k(torch, dev, s20, tmp)
+        seconds["scaled20k"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fused, fused_launches, fused_err = phase_fused(
+            torch, dev, ops, hier, s20["ops"], s20["hier"])
+        seconds["fused"] = time.perf_counter() - t0
     say("phase seconds " + json.dumps({k: round(v, 1)
                                        for k, v in seconds.items()}))
 
-    def entry(name, replaces, launched, err, acc):
-        return dict(name=name, route="cuda", source=SOURCE, replaces=replaces,
+    def entry(name, replaces, launched, err, acc, source=SOURCE):
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=launched, max_abs_err=err, ms=acc["ms"],
                     plain_ms=acc["plain_ms"], bound_ms=acc["bound_ms"],
                     bound_by=_bound_by(acc), library_ms=acc["library_ms"])
@@ -1335,6 +1927,31 @@ def main() -> int:
               "P^T, column-major", REPLACES["colmajor"],
               launches80["pool_colmajor"], worst80["pool"],
               per_step80["pool_colmajor"]),
+        # the bf16x3 mode's launches on the main path (serving); the P^T
+        # case itself runs on no main path (the pool backward is fp32)
+        entry("bsr_grouped_spmm[bf16x3] pool P^T, column-major form "
+              "(phase 3 shapes, off the main path)",
+              REPLACES["colmajor_bf16x3"], launches["bf16x3"],
+              worst_abs["pool_bf16x3"], per_step["pool_bf16x3_colmajor"]),
+        entry("bsr_grouped_spmm[bf16x3] pool P^T, per-block form (phase 3 "
+              "both-seed shape, off the main path)",
+              REPLACES["perblock_bf16x3"], launches["bf16x3"],
+              worst_abs["pool_bf16x3"], per_step["pool_bf16x3_perblock"]),
+        entry("bsr_grouped_spmm[fp32] scaled20k train step: Laplacian",
+              REPLACES["fp32"], launches20["lap"], worst_abs["fp32"],
+              per_step20["lap"]),
+        entry("bsr_grouped_spmm[fp32] scaled20k train step: lazy seed",
+              REPLACES["seed_dot"], launches20["seed_dot"],
+              worst_abs["seed_fp32"], per_step20["lap_seed_dot"]),
+        entry("bsr_grouped_spmm[fp32] scaled20k train step: pool P^T",
+              REPLACES["colmajor"], launches20["pool"], worst_abs["pool"],
+              per_step20["pool"]),
+        entry("bsr_grouped_spmm[bf16] scaled80k train step (FUSED_SEED_DOT):"
+              " lazy seed", REPLACES["seed_dot"], launches80["seed_dot"],
+              worst80["seed"], per_step80["lap_seed_dot"]),
+        entry("cheb_fused_step[fp32] per scaled20k L0 conv forward",
+              REPLACES["fused"], fused_launches["fp32"], fused_err, fused,
+              source=SOURCE_FUSED),
     ]
     say(card)
     say(json.dumps({"kernels": kernels}))

@@ -3,12 +3,14 @@
 Each source in ``ops/csrc/`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library under ``ops/_build/`` (not
 committed), then loaded with ctypes. The library name carries a hash of the
-source and the flags, so an edited source rebuilds. Building happens at
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds. Building happens at
 first use; ``build_libraries`` starts one ``nvcc`` per source at once.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -32,8 +34,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as fp:
-        digest = hashlib.sha256(fp.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    sources = [os.path.join(CSRC_DIR, f"{name}.cu")]
+    for path in sources + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as fp:
+            digest.update(fp.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 

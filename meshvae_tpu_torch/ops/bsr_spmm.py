@@ -26,6 +26,14 @@ grouped layout keeps any number of slots per row, so one kernel covers
 them; tests/test_torch_grad.py and tests/test_torch_bf16.py hold the twin
 against each. In bf16 those TPU kernels round their output block after
 every slot; this kernel, like ``_make_grouped_kernel``, rounds once.
+
+``t_plus_dot=(gm, wt)`` is the lazy form of t_plus (TPU kernel #4b,
+``_seed_dot_fn``): the seed c = gm @ kron(I, wt), the backward's mix
+cotangent, is computed inside the kernel in fp32 and added before the one
+rounding, so no c_j goes through HBM. Modes fp32 and bf16 take it in the
+kernel; mode bf16x3, and any f that does not divide the 128-column panel,
+compute c here, round it to the mode's dtype and pass it as t_plus (the
+JAX package's eager fallback, pallas_cheb.py:669-677).
 """
 from __future__ import annotations
 
@@ -46,11 +54,14 @@ MODE_DTYPE = {"fp32": torch.float32, "bf16x3": torch.float32,
 # twin path). Readers reset and read them around a run.
 LAUNCHES = {mode: 0 for mode in MODES}
 LAUNCHES_BY_SHAPE: dict[tuple[str, int, int], int] = {}
+# the launches among LAUNCHES that computed the lazy seed in the kernel
+LAUNCHES_SEED_DOT = {mode: 0 for mode in MODES}
 
 
 def reset_launches() -> None:
     for mode in MODES:
         LAUNCHES[mode] = 0
+        LAUNCHES_SEED_DOT[mode] = 0
     LAUNCHES_BY_SHAPE.clear()
 
 
@@ -72,8 +83,8 @@ def _lib():
 
     lib = load_library("bsr_spmm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bsr_grouped_spmm.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
-                                     ctypes.c_float, i, p]
+    lib.bsr_grouped_spmm.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i,
+                                     i, i, ctypes.c_float, i, p]
     lib.bsr_grouped_spmm.restype = ctypes.c_int
     return lib
 
@@ -86,19 +97,48 @@ def _split_bf16(t: torch.Tensor):
     return hi, lo
 
 
+def _seed_dot(gm: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
+    """c[r, i*f + o] = sum_e gm[r, i*f + e] wt[e, o], in the operands'
+    dtype (a bf16 product accumulates in fp32 and rounds once)."""
+    n, c = gm.shape
+    f = wt.shape[0]
+    return torch.matmul(gm.reshape(n, c // f, f), wt).reshape(n, c)
+
+
+def _lazy_or_eager(mode: str, t_plus, t_plus_dot):
+    """(t_plus, t_plus_dot) as the kernel takes them: the lazy seed stays
+    lazy in modes fp32 and bf16 when f divides the column panel; otherwise
+    it becomes an eager t_plus in the mode's dtype."""
+    if t_plus_dot is None:
+        return t_plus, None
+    if t_plus is not None:
+        raise ValueError("t_plus and t_plus_dot are exclusive")
+    gm, wt = t_plus_dot
+    f = wt.shape[0]
+    if wt.dim() != 2 or wt.shape[1] != f or gm.dim() != 2 or gm.shape[1] % f:
+        raise ValueError(f"t_plus_dot takes gm [n_pad, C] and a square wt "
+                         f"[f, f] with f | C, got {tuple(gm.shape)} and "
+                         f"{tuple(wt.shape)}")
+    if mode == "bf16x3" or COL_PANEL % f:
+        return _seed_dot(gm, wt).to(MODE_DTYPE[mode]), None
+    return None, t_plus_dot
+
+
 def bsr_grouped_spmm_reference(bsr: BlockSparseOperator, x: torch.Tensor,
                                mode: str = "fp32", alpha: float = 1.0,
                                t_plus: torch.Tensor | None = None,
-                               t_prev: torch.Tensor | None = None
+                               t_prev: torch.Tensor | None = None,
+                               t_plus_dot: tuple | None = None
                                ) -> torch.Tensor:
     """Plain PyTorch twin of the kernel: gather the [nR, G, 128, 128]
     blocks through g_idx (index num_blocks selects an appended zero block),
-    one batched fp32 product per slot, a sum over slots, then alpha and the
-    seeds in fp32; mode "bf16" widens its bf16 operands to fp32 first (each
-    product of two bf16 values is exact in fp32) and rounds the result to
-    bf16 once."""
+    one batched fp32 product per slot, a sum over slots, then alpha, the
+    seeds and the lazy seed in fp32; mode "bf16" widens its bf16 operands
+    to fp32 first (each product of two bf16 values is exact in fp32) and
+    rounds the result to bf16 once."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+    t_plus, t_plus_dot = _lazy_or_eager(mode, t_plus, t_plus_dot)
     n_rows, g = bsr.g_idx.shape
     c = x.shape[1]
     zero = bsr.blocks.new_zeros((1, BLOCK, BLOCK))
@@ -117,6 +157,8 @@ def bsr_grouped_spmm_reference(bsr: BlockSparseOperator, x: torch.Tensor,
         y = y + t_plus.float()
     if t_prev is not None:
         y = y - t_prev.float()
+    if t_plus_dot is not None:
+        y = y + _seed_dot(t_plus_dot[0].float(), t_plus_dot[1].float())
     return y.to(MODE_DTYPE[mode])
 
 
@@ -135,14 +177,17 @@ def _check(name: str, t: torch.Tensor, shape, device, dtype) -> None:
 def bsr_grouped_spmm(bsr: BlockSparseOperator, x: torch.Tensor,
                      mode: str = "fp32", alpha: float = 1.0,
                      t_plus: torch.Tensor | None = None,
-                     t_prev: torch.Tensor | None = None) -> torch.Tensor:
+                     t_prev: torch.Tensor | None = None,
+                     t_plus_dot: tuple | None = None) -> torch.Tensor:
     """y [n_pad, C] = alpha * (L @ x) + t_plus - t_prev, in the mode's
     dtype (MODE_DTYPE: fp32, or bf16 in mode "bf16"; blocks, x and the
     seeds must have it too).
 
-    x is [n_pad_cols, C]; the seeds, when given, are [n_pad, C]. A CPU
-    tensor runs the plain twin; a CUDA tensor launches the kernel (C must be
-    a multiple of 64) or raises."""
+    x is [n_pad_cols, C]; the seeds, when given, are [n_pad, C].
+    t_plus_dot = (gm [n_pad, C], wt [f, f]) replaces t_plus by
+    c = gm @ kron(I, wt), f | C (see the module docstring). A CPU tensor
+    runs the plain twin; a CUDA tensor launches the kernel (C must be a
+    multiple of 64) or raises."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
     dt = MODE_DTYPE[mode]
@@ -151,7 +196,8 @@ def bsr_grouped_spmm(bsr: BlockSparseOperator, x: torch.Tensor,
                         f"{bsr.blocks.dtype} and {x.dtype}")
     if x.device.type == "cpu":
         return bsr_grouped_spmm_reference(bsr, x, mode, alpha, t_plus,
-                                          t_prev)
+                                          t_prev, t_plus_dot)
+    t_plus, t_plus_dot = _lazy_or_eager(mode, t_plus, t_plus_dot)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     n_rows, g = bsr.g_idx.shape
@@ -164,22 +210,29 @@ def bsr_grouped_spmm(bsr: BlockSparseOperator, x: torch.Tensor,
     _check("blocks", bsr.blocks, (bsr.num_blocks, BLOCK, BLOCK), dev, dt)
     _check("g_idx", bsr.g_idx, (bsr.n_pad // BLOCK, g), dev, torch.int32)
     _check("g_bcol", bsr.g_bcol, (n_rows * g,), dev, torch.int32)
-    for name, seed in (("t_plus", t_plus), ("t_prev", t_prev)):
+    gm, wt = t_plus_dot if t_plus_dot is not None else (None, None)
+    for name, seed in (("t_plus", t_plus), ("t_prev", t_prev), ("gm", gm)):
         if seed is not None:
             _check(name, seed, (bsr.n_pad, c), dev, dt)
+    f = 0
+    if wt is not None:
+        f = wt.shape[0]
+        _check("wt", wt, (f, f), dev, dt)
     y = torch.empty((bsr.n_pad, c), dtype=dt, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib().bsr_grouped_spmm(
             ptr(bsr.blocks), ptr(bsr.g_idx), ptr(bsr.g_bcol), ptr(x),
-            ptr(t_plus), ptr(t_prev), ptr(y), bsr.num_blocks, n_rows, g,
-            bsr.n_pad_cols // BLOCK, c, float(alpha), MODES.index(mode),
-            stream)
+            ptr(t_plus), ptr(t_prev), ptr(gm), ptr(wt), ptr(y),
+            bsr.num_blocks, n_rows, g, bsr.n_pad_cols // BLOCK, c, f,
+            float(alpha), MODES.index(mode), stream)
     if rc != 0:
         raise RuntimeError(f"bsr_grouped_spmm[{mode}] launch failed: "
                            f"CUDA error {rc}")
     LAUNCHES[mode] += 1
+    if gm is not None:
+        LAUNCHES_SEED_DOT[mode] += 1
     key = (mode, bsr.n_pad, bsr.n_pad_cols)
     LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
     return y

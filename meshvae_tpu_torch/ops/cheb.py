@@ -11,6 +11,7 @@ x: [B, N, F_in]; weight: [K, F_in, F_out]; bias: [F_out] or None.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +25,12 @@ from .graph import GraphOperator
 # pass, fp32 accumulation). Dense products on float32 operands run in full
 # fp32 (TF32 is switched off on CUDA, device.resolve_device).
 _KERNEL_MODE = {"highest": "fp32", "high": "bf16x3", "default": "bf16"}
+
+# The lazy mix-cotangent seed (the JAX package's switch of the same name,
+# pallas_cheb.FUSED_SEED_DOT, off by default): square mixes (f_pad ==
+# f_out) outside mode bf16x3 pass c_j = g @ W_j^T to the kernel as
+# t_plus_dot instead of computing it first. Read at each backward.
+FUSED_SEED_DOT = bool(int(os.environ.get("MESHVAE_FUSED_SEED_DOT", "0")))
 
 
 def resolve_precision(precision, dtype: torch.dtype = torch.float32) -> str:
@@ -105,7 +112,10 @@ class _BasisMix(torch.autograd.Function):
     contraction of the saved basis with g over (rows, batch); dx runs the
     reverse recurrence u_{j-1} = 2 L u_j + c_{j-1} - u_{j+1} (L symmetric)
     as two-seed kernel calls, ending with dx = L u_1 + c_0 - u_2. It is
-    skipped when x needs no gradient (the first encoder conv on data)."""
+    skipped when x needs no gradient (the first encoder conv on data).
+    With FUSED_SEED_DOT on a square mix outside mode bf16x3, only
+    c_{K-1} is computed here; every kernel call gets (g, W_{j-1}^T) and
+    computes c_{j-1} itself (t_plus_dot), as _basis_mix's lazy branch."""
 
     @staticmethod
     def forward(ctx, xt, w, bsr, mode):
@@ -140,21 +150,32 @@ class _BasisMix(torch.autograd.Function):
             k, f_pad, f_out)
         if not ctx.needs_input_grad[0]:
             return None, dw, None, None
-        # per-order cotangents, each [n_pad, C] and contiguous: kernel seeds
-        cs = [torch.matmul(gm, w[j].t()).reshape(n_pad, c) for j in range(k)]
-
-        def mm(u, alpha, t_plus, t_prev):
-            return bsr_grouped_spmm(bsr, u, mode, alpha, t_plus=t_plus,
-                                    t_prev=t_prev)
-
+        c_of = lambda j: torch.matmul(gm, w[j].t()).reshape(n_pad, c)
         if k == 1:
-            dx = cs[0]
+            dx = c_of(0)
+        elif FUSED_SEED_DOT and f_pad == f_out and mode != "bf16x3":
+            gm2 = gm.reshape(n_pad, c).contiguous()
+            seeds = [{"t_plus_dot": (gm2, w[j].t().contiguous())}
+                     for j in range(k - 1)]
+            dx = reverse_recurrence(bsr, mode, c_of(k - 1), seeds)
         else:
-            u, prev_u = cs[k - 1], None
-            for j in range(k - 1, 1, -1):
-                u, prev_u = mm(u, 2.0, cs[j - 1], prev_u), u
-            dx = mm(u, 1.0, cs[0], prev_u)
+            # per-order cotangents, each [n_pad, C] and contiguous
+            seeds = [{"t_plus": c_of(j)} for j in range(k - 1)]
+            dx = reverse_recurrence(bsr, mode, c_of(k - 1), seeds)
         return dx.reshape(n_pad, b, f_pad), dw, None, None
+
+
+def reverse_recurrence(bsr: BlockSparseOperator, mode: str,
+                       top: torch.Tensor, seeds: list[dict]) -> torch.Tensor:
+    """The Chebyshev basis backward (L symmetric): u = top (the cotangent
+    of T_{K-1}), u_{j-1} = 2 L u_j + s_{j-1} - u_{j+1} for j = K-1..2, then
+    dx = L u_1 + s_0 - u_2, as K-1 two-seed kernel calls; seeds[j] gives
+    s_j as the kernel's t_plus or t_plus_dot argument."""
+    u, prev_u = top, None
+    for j in range(len(seeds), 1, -1):
+        u, prev_u = bsr_grouped_spmm(bsr, u, mode, 2.0, t_prev=prev_u,
+                                     **seeds[j - 1]), u
+    return bsr_grouped_spmm(bsr, u, mode, 1.0, t_prev=prev_u, **seeds[0])
 
 
 def cheb_conv_bsr(x: torch.Tensor, bsr: BlockSparseOperator,

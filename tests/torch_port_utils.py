@@ -45,18 +45,18 @@ def jax_hierarchy(h):
 
 
 def paired_models(hier, precision, dropout=0.2, tgrad_ell_max=None,
-                  compute_dtype="float32"):
+                  compute_dtype="float32", orders=ORDERS):
     """(jax_model, jax_ops, flax params as numpy, port_model, port_ops) with
     identical weights. The JAX side takes the Pallas path (run it under
     pallas_cheb.INTERPRET = True). tgrad_ell_max, when given, is the
     pool-backward fan-in cutoff on both sides while the operators are
     built (6 on the grid gives up-pools 0-2 a block-sparse P^T and up-pool
     3 gathers, as config 1 has). compute_dtype "bfloat16" builds both
-    models and both operator sets in bf16."""
+    models and both operator sets in bf16; orders sets K per layer."""
     jdtype, pdtype = {"float32": (jnp.float32, torch.float32),
                       "bfloat16": (jnp.bfloat16, torch.bfloat16)}[
                           compute_dtype]
-    jcfg = JaxVAEConfig(num_features=3, filters=FILTERS, polygon_order=ORDERS,
+    jcfg = JaxVAEConfig(num_features=3, filters=FILTERS, polygon_order=orders,
                         n_layers=4, num_hidden=32, latent=6, num_classes=2,
                         dropout=dropout, coarse_verts=hier.levels[-1],
                         cheb_method="pallas", precision=precision,
@@ -84,7 +84,7 @@ def paired_models(hier, precision, dropout=0.2, tgrad_ell_max=None,
         jnp.zeros((1, 2), jnp.float32), dense_ops, train=False)
     params = jax.tree_util.tree_map(np.asarray, params)
 
-    pcfg = VAEConfig(num_features=3, filters=FILTERS, polygon_order=ORDERS,
+    pcfg = VAEConfig(num_features=3, filters=FILTERS, polygon_order=orders,
                      n_layers=4, num_hidden=32, latent=6, num_classes=2,
                      dropout=dropout, coarse_verts=hier.levels[-1],
                      precision=precision, compute_dtype=compute_dtype)

@@ -6,7 +6,7 @@
 Phases, one block of output lines each; any failed check exits non-zero:
 
  1. device  the card's name and power limit (nvidia-smi).
- 2. build   compile both CUDA kernels from ops/csrc (nvcc, sm_90a, one
+ 2. build   compile the three CUDA kernels from ops/csrc (nvcc, sm_90a, one
             process per source, started together) and print the build
             seconds and ptxas' register/shared-memory report.
  3. kernel  bsr_grouped_spmm in both modes (fp32, bf16x3) against its plain
@@ -117,6 +117,31 @@ Phases, one block of output lines each; any failed check exits non-zero:
             call beside its twin, torch.sparse + torch.matmul and its
             bound, and the conv forward and forward+backward beside the
             main-path cheb_conv_bsr at the same shapes.
+11. emitted TPU kernel #10 (emitted_spmm, ops/csrc/emitted_spmm.cu: a
+            persistent grid walking work items through a cp.async ring) on
+            the card against its plain twin and against bsr_grouped_spmm:
+            fp32 at the config-1 L0 (C = 256) and the scaled20k L0 (C =
+            1024), bf16 at the scaled80k L0 (B = 32, f = 16, C = 512; phase
+            7's operators), 1e-5 of max |y| in fp32 and one bf16 ulp; and on
+            synthetic operators with G = 1..9 and padded slots at 1, 2 and
+            the resident CTAs per SM (bit-equal to bsr_grouped_spmm
+            expected; the bf16 twin held to the ulp of max |y| itself,
+            since a dense random block row cancels more than a
+            Laplacian's). Then its path, the probe
+            (bench/emitted_probe.py main) at --workload 80k (bf16) and
+            --workload 20k --compute-dtype float32, the launch counts reset
+            just before and read just after: emitted, grouped, torch.sparse
+            and bound ms, the kernel's registers and shared memory; and the
+            twin's time at the probe's shapes.
+12. infer   the batch-inference entry point at config 1: 32 synthetic
+            meshes, a checkpoint_1.pt of the seeded weights and their
+            norm.npz; ``python -m meshvae_tpu_torch.infer``'s main on the
+            card (counts reset just before, read just after: 20 launches
+            per batch of 16, bf16x3 at high, fp32 at highest) and with
+            --device cpu: pred.json equal, inference.json's errors and
+            every sex_change/ .obj within 1e-4 of the mesh scale; then the
+            warm card pass in meshes/sec with and without --no-meshes
+            (through run_inference, the device pass alone, the whole CLI).
 
 Phase 3 also holds the bf16 mode on the card at every 80k Laplacian (its C
 values, alpha 1 and 2, no seed, t_prev, t_plus, both) and the four P^T:
@@ -133,11 +158,14 @@ runs column-major, #7), the bf16x3 P^T at phase 3's shapes (#8, and #6 at
 the both-seed shape where the JAX package runs per block), per scaled20k
 train step (the plain Laplacian calls, the lazy-seed calls #4b in fp32,
 the P^T), the lazy-seed calls of an 80k bf16 step with the flag on (#4b in
-bf16), and the fused step (#9) per scaled20k L0 conv forward, with the
-launches of the main-path runs. The last line is {"ok": true, ...}.
+bf16), the fused step (#9) per scaled20k L0 conv forward, the inference
+CLI's calls per batch (the serving step's shapes), and emitted_spmm (#10)
+per call at the probe's two shapes, with the launches of the main-path
+runs (the probe runs for #10). The last line is {"ok": true, ...}.
 """
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -166,6 +194,7 @@ TRAIN_LAP_LAUNCHES = 35
 TRAIN_POOL_LAUNCHES = 3
 SOURCE = "meshvae_tpu_torch/ops/csrc/bsr_spmm.cu"
 SOURCE_FUSED = "meshvae_tpu_torch/ops/csrc/cheb_fused.cu"
+SOURCE_EMITTED = "meshvae_tpu_torch/ops/csrc/emitted_spmm.cu"
 REPLACES = {"fp32": "meshvae_tpu/ops/pallas_cheb.py:434",
             "bf16x3": "meshvae_tpu/ops/pallas_cheb.py:462",
             "colmajor": "meshvae_tpu/ops/pallas_cheb.py:208",
@@ -174,7 +203,8 @@ REPLACES = {"fp32": "meshvae_tpu/ops/pallas_cheb.py:434",
             "seed_dot": "meshvae_tpu/ops/pallas_cheb.py:161",
             "perblock_bf16x3": "meshvae_tpu/ops/pallas_cheb.py:329",
             "colmajor_bf16x3": "meshvae_tpu/ops/pallas_cheb.py:234",
-            "fused": "meshvae_tpu/ops/pallas_fused.py:51"}
+            "fused": "meshvae_tpu/ops/pallas_fused.py:51",
+            "emitted": "benchmarks/emitted_probe.py:45"}
 # config 1 at highest with FUSED_SEED_DOT: the square block-sparse convs
 # are cheb_enc_1 (L1), cheb_dec_2 (L1) and cheb_dec_3 (L0), 16 -> 16 at
 # f_pad 16; each backward runs K - 1 = 5 lazy-seed calls
@@ -260,7 +290,7 @@ def phase_build():
     say("== phase 2: build")
     from meshvae_tpu_torch.ops import _build
 
-    names = ["bsr_spmm", "cheb_fused"]
+    names = ["bsr_spmm", "cheb_fused", "emitted_spmm"]
     t0 = time.perf_counter()
     logs = _build.build_libraries(names)
     for name in names:
@@ -1819,6 +1849,284 @@ def phase_fused(torch, dev, ops, hier, ops20, hier20):
     return entry, launches, worst_abs
 
 
+def _synthetic_bsr(torch, dev, g, dtype, seed):
+    """A random row-grouped operator with G slots per row (a third of them
+    padded after the first), 13 + G row blocks over 11 column blocks of 17
+    dense random blocks: the ring's chunk count and item stride vary with
+    G."""
+    from meshvae_tpu_torch.ops.block_sparse import BLOCK, BlockSparseOperator
+
+    gen = torch.Generator().manual_seed(seed)
+    nb, n_rows, ncb = 17, 13 + g, 11
+    blocks = (0.1 * torch.randn(nb, BLOCK, BLOCK, generator=gen)).to(dtype)
+    g_idx = torch.randint(0, nb, (n_rows, g), generator=gen,
+                          dtype=torch.int32)
+    g_idx[:, 1:][torch.rand(n_rows, g - 1, generator=gen) < 0.3] = nb
+    g_bcol = torch.randint(0, ncb, (n_rows * g,), generator=gen,
+                           dtype=torch.int32)
+    zero = torch.zeros(nb, dtype=torch.int32, device=dev)
+    return BlockSparseOperator(blocks.to(dev), zero, zero, g_idx.to(dev),
+                               g_bcol.to(dev), n_rows * BLOCK,
+                               n_rows * BLOCK, ncb * BLOCK, g)
+
+
+def phase_emitted(torch, dev, ops, s20, s80):
+    """TPU kernel #10 on the card: emitted_spmm against its twin and
+    bsr_grouped_spmm at the level-0 shapes and over G = 1..9 with padded
+    slots, then the probe (bench/emitted_probe.py) at the 80k bf16 and 20k
+    fp32 level 0, its launches counted, and the twin's time. Returns the
+    kernels-line entries' numbers per probe run and the launches."""
+    say("== phase 11: emitted-pipeline SpMM (emitted_spmm, #10)")
+    from meshvae_tpu_torch.bench import emitted_probe
+    from meshvae_tpu_torch.ops import emitted_spmm as em
+    from meshvae_tpu_torch.ops.bsr_spmm import bsr_grouped_spmm
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bf, f32 = torch.bfloat16, torch.float32
+    bar = {f32: TOL_KERNEL, bf: TOL_BF16}
+    mode_of = {f32: "fp32", bf: "bf16"}
+    worst = {f32: 0.0, bf: 0.0}
+    shapes = [("config-1 L0", ops.lap[0].bsr, 256, f32),
+              ("scaled20k L0", s20["ops"].lap[0].bsr, 1024, f32),
+              ("scaled80k L0", s80["ops"].lap[0].bsr, 512, bf)]
+    for name, bsr, c, dt in shapes:
+        x = torch.randn(bsr.n_pad_cols, c, device=dev, generator=gen).to(dt)
+        y = em.emitted_spmm(bsr, x)
+        torch.cuda.synchronize()
+        twin = em.emitted_spmm_reference(bsr, x)
+        grouped = bsr_grouped_spmm(bsr, x, mode_of[dt])
+        errs = [((y.float() - r.float()).abs().max().item(),
+                 r.float().abs().max().item()) for r in (twin, grouped)]
+        rel = [e / m for e, m in errs]
+        worst[dt] = max(worst[dt], errs[0][0], errs[1][0])
+        say(f"  {name} C={c} {str(dt)[6:]} G={bsr.g_width}: vs twin "
+            f"{rel[0]:.3e}, vs bsr_grouped_spmm {rel[1]:.3e} of max|y| (bar "
+            f"{bar[dt]:.1e}); bit-equal to bsr_grouped_spmm "
+            f"{(y == grouped).float().mean().item():.5f}")
+        if not max(rel) <= bar[dt]:
+            fail(f"emitted_spmm disagrees at {name}: {rel}")
+    # the ring across G = 1..9 (the 80k level 0 has G = 8), padded slots and
+    # 1, 2 or the resident CTAs per SM, against bsr_grouped_spmm (the same
+    # inner product: bit-equal expected) and the twin. Dense random blocks
+    # sum 128 G terms per output, so the twin's cuBLAS order can move a
+    # bf16 rounding of an output near max|y|: one ulp there is up to 2^-7
+    # of max|y|, and the bf16 twin bar is that ulp, exactly
+    sweep = 0.0
+    for g in range(1, 10):
+        for dt in (f32, bf):
+            bsr = _synthetic_bsr(torch, dev, g, dt, seed=g)
+            x = torch.randn(bsr.n_pad_cols, 512, device=dev,
+                            generator=gen).to(dt)
+            grouped = bsr_grouped_spmm(bsr, x, mode_of[dt])
+            twin = em.emitted_spmm_reference(bsr, x).float()
+            top = twin.abs().max().item()
+            bars = [(grouped, bar[dt]),
+                    (twin, bar[dt] if dt == f32
+                     else 2.0 ** (math.floor(math.log2(top)) - 7) / top)]
+            for ctas in (0, 1, 2):
+                y = em.emitted_spmm(bsr, x, ctas)
+                torch.cuda.synchronize()
+                for ref, lim in bars:
+                    err = ((y.float() - ref.float()).abs().max()
+                           / ref.float().abs().max()).item()
+                    sweep = max(sweep, err / lim)
+                    if not err <= lim:
+                        fail(f"emitted_spmm at G={g} {dt} ctas {ctas}: "
+                             f"{err:.3e} > {lim:.3e}")
+    say(f"  G = 1..9 with padded slots, 0/1/2 CTAs per SM cap, vs twin and "
+        f"bsr_grouped_spmm: worst {sweep:.3f} of the bar")
+
+    # --- the probe: counts reset just before, read just after ------------
+    tdir = os.path.dirname(s80["path"])
+    runs = {"bf16": ["--workload", "80k", "--cache-dir", s80["cache"]],
+            "fp32": ["--workload", "20k", "--compute-dtype", "float32",
+                     "--cache-dir", s20["cache"]]}
+    em.reset_launches()
+    reports = {}
+    for key, argv in runs.items():
+        say(f"probe: python -m meshvae_tpu_torch.bench.emitted_probe "
+            + " ".join(argv[:-2] + ["--template-dir", "<tmp>"]))
+        try:
+            reports[key] = emitted_probe.main(argv + ["--template-dir", tdir])
+        except SystemExit as exc:
+            fail(f"the emitted probe failed: {exc}")
+    launches = dict(em.LAUNCHES)
+    # -----------------------------------------------------------------------
+    out = {}
+    for key, rep in reports.items():
+        dt = bf if key == "bf16" else f32
+        bsr = (s80 if key == "bf16" else s20)["ops"].lap[0].bsr
+        x = torch.randn(bsr.n_pad_cols, rep["c"], device=dev,
+                        generator=gen).to(dt)
+        plain = time_ms(torch, lambda: em.emitted_spmm_reference(bsr, x))
+        info = rep["kernel"]
+        say(f"probe {rep['workload']} {key} C={rep['c']} G={rep['g']}: "
+            f"emitted {rep['emitted_ms']:.4f} ms (CTAs/SM "
+            f"{rep['emitted_ms_by_ctas_per_sm']}), grouped "
+            f"{rep['grouped_ms']:.4f} ms, torch.sparse[{rep['library_dtype']}]"
+            f" {rep['library_ms']:.4f} ms, twin {plain:.4f} ms, bound "
+            f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}; x per item "
+            f"{rep['bound_ms_x_per_item']:.4f}); emitted/grouped "
+            f"{rep['emitted_ms'] / rep['grouped_ms']:.3f}; kernel "
+            f"{info['registers']} registers, {info['dynamic_smem']} B shared,"
+            f" {info['local_bytes']} B local, {info['ctas_per_sm']} CTAs/SM")
+        out[key] = dict(ms=rep["emitted_ms"], plain_ms=plain,
+                        library_ms=rep["library_ms"],
+                        bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
+                        grouped_ms=rep["grouped_ms"])
+    say(f"emitted_spmm launches in the probe runs {launches}")
+    if not (launches["bf16"] > 0 and launches["fp32"] > 0):
+        fail(f"the probe did not launch emitted_spmm in both dtypes: "
+             f"{launches}")
+    return out, launches, worst
+
+
+INFER_MESHES = 32   # two batches of 16
+
+
+def phase_infer(torch, dev, models, hier, tmpl, tmp):
+    """The batch-inference entry point at config 1:
+    ``python -m meshvae_tpu_torch.infer``'s main on a checkpoint_1.pt of the
+    seeded weights and the data's norm.npz, on the card (launch counts reset
+    just before, read just after) and with --device cpu, at high and
+    highest: pred.json equal, errors and every .obj within 1e-4 of the mesh
+    scale; then the card pass's meshes/sec with and without --no-meshes.
+    Returns the card's launches per precision."""
+    say(f"== phase 12: batch inference (python -m meshvae_tpu_torch.infer, "
+        f"config 1, {INFER_MESHES} synthetic meshes, batch {BATCH})")
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from meshvae_tpu_torch.data import (MeshDataset, generate_synthetic_dataset,
+                                        list_meshes)
+    from meshvae_tpu_torch.infer import driver as infer_driver
+    from meshvae_tpu_torch.infer.__main__ import main as infer_main
+    from meshvae_tpu_torch.mesh import load_obj
+    from meshvae_tpu_torch.ops import bsr_spmm
+    from meshvae_tpu_torch.train.checkpoint import save_checkpoint
+    from meshvae_tpu_torch.train.loop import make_optimizer
+
+    root = os.path.join(tmp, "infer")
+    data_dir = os.path.join(root, "data")
+    generate_synthetic_dataset(tmpl, data_dir, n_samples=INFER_MESHES,
+                               seed=12)
+    ckpt = os.path.join(root, "ckpt")
+    weights = models["high"].state_dict()
+    save_checkpoint(os.path.join(ckpt, "checkpoint_1.pt"), weights,
+                    make_optimizer(models["high"].parameters(), 1e-3,
+                                   5e-4).state_dict(), 1, 0.0, 0.0)
+    dcfg = {"root_dir": data_dir, "checkpoint_dir": ckpt}
+    index, labels = list_meshes(dcfg)
+    ds = MeshDataset(index, dcfg, labels, tmpl.v)  # writes norm.npz
+    scale = float(np.abs(ds.original).max())
+    config = config_1(tmp)
+    cfg_path = os.path.join(root, "infer.cfg")
+    with open(cfg_path, "w") as fp:
+        fp.write("[All]\ncheckpoint_dir = ckpt/\n")
+        for k in ("template", "hierarchy_cache_dir", "downsampling_factors",
+                  "num_conv_filters", "polygon_order", "num_hidden",
+                  "num_style", "batch_size", "cheb_method"):
+            v = config[k]
+            fp.write(f"{k} = "
+                     f"{', '.join(map(str, v)) if isinstance(v, list) else v}"
+                     "\n")
+    batches = -(-INFER_MESHES // BATCH)
+    timed = {}
+    real = {"run": infer_driver.run_inference,
+            "device": infer_driver.InferenceEngine.run_dataset}
+
+    def timer(key, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            res = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            timed[key] = time.perf_counter() - t0
+            return res
+        return run
+
+    def cli(out, device, precision, *flags):
+        """main(argv) of the CLI; returns its seconds, run_inference's and
+        InferenceEngine.run_dataset's (the device pass and its one pull)."""
+        argv = ["-c", cfg_path, "-d", data_dir, "-o", out, "-n", "1",
+                "-p", "matmul_precision", precision, "--device", device,
+                *flags]
+        infer_driver.run_inference = timer("run", real["run"])
+        infer_driver.InferenceEngine.run_dataset = timer("device",
+                                                         real["device"])
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                t0 = time.perf_counter()
+                rc = infer_main(argv)
+                secs = time.perf_counter() - t0
+        finally:
+            infer_driver.run_inference = real["run"]
+            infer_driver.InferenceEngine.run_dataset = real["device"]
+        if rc != 0:
+            fail(f"python -m meshvae_tpu_torch.infer {' '.join(argv)}: rc "
+                 f"{rc}")
+        return secs, timed["run"], timed["device"]
+
+    def outputs(out):
+        with open(os.path.join(out, "pred.json")) as fp:
+            pred = json.load(fp)
+        with open(os.path.join(out, "inference.json")) as fp:
+            inf = json.load(fp)
+        mdir = os.path.join(out, "sex_change")
+        objs = {f: load_obj(os.path.join(mdir, f)).v
+                for f in sorted(os.listdir(mdir))}
+        return pred, inf, objs
+
+    launches = {}
+    for p, mode in (("high", "bf16x3"), ("highest", "fp32")):
+        card_out = os.path.join(root, f"card_{p}")
+        torch.cuda.synchronize()
+        # --- the main path: counts reset just before, read just after ----
+        bsr_spmm.reset_launches()
+        secs, pass_secs, _ = cli(card_out, "cuda", p)
+        launches[p] = dict(bsr_spmm.LAUNCHES)
+        # -----------------------------------------------------------------
+        cpu_secs, _, _ = cli(os.path.join(root, f"cpu_{p}"), "cpu", p)
+        (pred, inf, objs), (pred_c, inf_c, objs_c) = (
+            outputs(card_out), outputs(os.path.join(root, f"cpu_{p}")))
+        if len(pred) != INFER_MESHES or pred != pred_c:
+            fail(f"infer[{p}]: pred.json differs between card and CPU")
+        err = max(abs(inf[n]["reconstruction_error"][k]
+                      - inf_c[n]["reconstruction_error"][k])
+                  for n in inf for k in ("mean", "max"))
+        if list(objs) != list(objs_c) or len(objs) != 3 * INFER_MESHES:
+            fail(f"infer[{p}]: the sex_change/ triples differ: "
+                 f"{len(objs)} vs {len(objs_c)} files")
+        mesh_err = max(float(np.abs(objs[f] - objs_c[f]).max())
+                       for f in objs)
+        per_batch = launches[p][mode] / batches
+        say(f"infer[{p}]: card {secs:.2f}s CLI ({pass_secs:.2f}s "
+            f"run_inference), CPU {cpu_secs:.2f}s; pred equal, "
+            f"{sum(int(v) for v in pred.values())} of {len(pred)} predicted "
+            f"1; errors within {err:.3e}, .obj within {mesh_err:.3e} (bar "
+            f"{TOL_STEP * scale:.3e}); launches {launches[p]}, "
+            f"{per_batch:g} per batch")
+        if not (err <= TOL_STEP * scale and mesh_err <= TOL_STEP * scale):
+            fail(f"infer[{p}]: card vs CPU beyond {TOL_STEP} of the scale")
+        want = {m: (LAUNCHES_PER_STEP * batches if m == mode else 0)
+                for m in bsr_spmm.MODES}
+        if launches[p] != want:
+            fail(f"infer[{p}] launched {launches[p]}, expected {want}")
+    # the card pass, warm, with and without the mesh triples
+    for flags in ((), ("--no-meshes",)):
+        secs, pass_secs, dev_secs = cli(os.path.join(root, "timed"), "cuda",
+                                        "high", *flags)
+        say(f"infer[high{' ' if flags else ''}{' '.join(flags)}]: "
+            f"{INFER_MESHES / pass_secs:.1f} meshes/sec through "
+            f"run_inference ({pass_secs:.3f}s: dataset load, device pass, "
+            f"JSON and .obj writes); {INFER_MESHES / dev_secs:.1f} through "
+            f"the device pass alone ({dev_secs:.4f}s: {batches} steps, upload "
+            f"and the one pull); {INFER_MESHES / secs:.1f} through the whole "
+            f"CLI ({secs:.2f}s with model, operators and checkpoint)")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1886,6 +2194,13 @@ def main() -> int:
         fused, fused_launches, fused_err = phase_fused(
             torch, dev, ops, hier, s20["ops"], s20["hier"])
         seconds["fused"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        emitted, emitted_launches, emitted_err = phase_emitted(
+            torch, dev, ops, s20, s80)
+        seconds["emitted"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        infer_launches = phase_infer(torch, dev, models, hier, tmpl, tmp)
+        seconds["infer"] = time.perf_counter() - t0
     say("phase seconds " + json.dumps({k: round(v, 1)
                                        for k, v in seconds.items()}))
 
@@ -1952,7 +2267,26 @@ def main() -> int:
         entry("cheb_fused_step[fp32] per scaled20k L0 conv forward",
               REPLACES["fused"], fused_launches["fp32"], fused_err, fused,
               source=SOURCE_FUSED),
+        # the batch-inference CLI (phase 12): the serving step's calls
+        entry("bsr_grouped_spmm[bf16x3] inference CLI at high, per batch",
+              REPLACES["bf16x3"], infer_launches["high"]["bf16x3"],
+              worst_abs["bf16x3"], per_step["serve_bf16x3"]),
+        entry("bsr_grouped_spmm[fp32] inference CLI at highest, per batch",
+              REPLACES["fp32"], infer_launches["highest"]["fp32"],
+              worst_abs["fp32"], per_step["serve_fp32"]),
     ]
+    # TPU kernel #10: the probe runs of phase 11 (its path)
+    for key, label in (("bf16", "scaled80k L0 bf16 C=512"),
+                       ("fp32", "scaled20k L0 fp32 C=512")):
+        e = emitted[key]
+        kernels.append(dict(
+            name=f"emitted_spmm[{key}] probe, {label}", route="cuda",
+            source=SOURCE_EMITTED, replaces=REPLACES["emitted"],
+            launches=emitted_launches[key],
+            max_abs_err=emitted_err[torch.bfloat16 if key == "bf16"
+                                    else torch.float32],
+            ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
+            bound_by=e["bound_by"], library_ms=e["library_ms"]))
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -23,8 +23,10 @@ from ..mesh.io import load_obj
 from ..mesh.procrustes import procrustes_align
 
 
-def list_meshes(config: dict):
-    """Returns (dataset_index: list[str], labels: dict[str, int])."""
+def list_meshes(config: dict, sex_from_filename: bool = True):
+    """Returns (dataset_index: list[str], labels: dict[str, int]). With
+    sex_from_filename False (unlabelled data, as batch inference reads it)
+    every label is -1."""
     labels: dict[str, int] = {}
     dataset_index: list[str] = []
     root_dir = config.get("root_dir", "")
@@ -49,7 +51,10 @@ def list_meshes(config: dict):
             n_rejected += 1
             continue
         dataset_index.append(name)
-        labels[name] = 0 if name.split("_")[1] == "f" else 1
+        if sex_from_filename:
+            labels[name] = 0 if name.split("_")[1] == "f" else 1
+        else:
+            labels[name] = -1
     print(f"Dataset : {n_meshes} meshes, {n_rejected} rejected meshes, "
           f"{len(dataset_index)} remaining meshes")
     return dataset_index, labels

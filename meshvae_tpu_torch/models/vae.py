@@ -246,6 +246,25 @@ class MeshVAE(nn.Module):
                 "z": z}
 
 
+_HEADS = ("enc_lin", "dec_lin", "dec_lin_2", "classifier_layer", "z_mean",
+          "z_log_var")
+
+
+def parameter_order(names) -> list[str]:
+    """state_dict names in the order MeshVAE registers its parameters (the
+    order of ``model.parameters()``, which torch optimizer state follows):
+    the encoder convs, the decoder convs, then the heads as ``_HEADS``
+    lists them; weight before bias."""
+    def key(name: str):
+        layer, leaf = name.rsplit(".", 1)
+        for group, prefix in enumerate(("cheb_enc_", "cheb_dec_")):
+            if layer.startswith(prefix):
+                return group, int(layer[len(prefix):]), leaf != "weight"
+        return 2, _HEADS.index(layer), leaf != "weight"
+
+    return sorted(names, key=key)
+
+
 def params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
     """flax param tree (``{"params": {...}}`` or its inner dict, leaves as
     numpy arrays) -> MeshVAE state_dict. Chebyshev ``weight [K, F_in,

@@ -87,6 +87,17 @@ __device__ __forceinline__ Coords coords(int tid) {
                 tid / (BN / 4), (tid % (BN / 4)) * 4};
 }
 
+// One rank-1 update of a thread's 4 x 4 outputs: acc[i][j] += a[i] * b[j],
+// IEEE fp32 FMAs in (i, j) order.
+__device__ __forceinline__ void fma_4x4(const float (&a)[4],
+                                        const float (&b)[4],
+                                        float (&acc)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+}
+
 // Stage one K chunk (av: this thread's A elements, bv: its B elements)
 // and add its BK rank-1 updates to acc. Every thread of the CTA calls it.
 template <bool SPLIT>
@@ -137,11 +148,7 @@ __device__ __forceinline__ void fma_chunk(Tiles<SPLIT>& t, const Coords& q,
           acc[i][j] = fmaf(al[i], br[j], acc[i][j]);
         }
     } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+      fma_4x4(ar, br, acc);
     }
   }
 }

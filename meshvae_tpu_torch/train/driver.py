@@ -9,7 +9,8 @@ one process, eager): the body of ``python -m meshvae_tpu_torch.train``.
   * per epoch: the step LR, train_epoch, evaluate, a halt on a non-finite
     loss that names the last good checkpoint, and the best-validation
     checkpoint; history{fold}.json and the log;
-  * resume of the first fold from ``checkpoint_file``;
+  * resume of the first fold from ``checkpoint_file`` (the port's ``.pt``
+    or the JAX package's ``.msgpack``);
   * the test path, with the sex-change .obj triples under ``vis``.
 
 The JAX driver's scanned and pipelined epochs, multi-host barriers and
@@ -30,8 +31,8 @@ from ..mesh.io import load_obj, save_obj
 from ..models.operators import build_operators
 from ..models.vae import MeshVAE, VAEConfig
 from ..tools.make_scaled_template import ensure_template
-from .checkpoint import (checkpoint_path, load_checkpoint, load_params,
-                         save_checkpoint, save_params)
+from .checkpoint import (checkpoint_path, find_checkpoint, load_checkpoint,
+                         load_params, save_checkpoint, save_params)
 from .loop import Trainer, lr_for_epoch, make_optimizer, set_learning_rate
 from .metrics import RunLog, epoch_line, history_record, write_history
 from .splits import stratified_kfold, train_test_split
@@ -79,13 +80,19 @@ def build_model_and_ops(config: dict, device="cuda",
 
 def _restart(trainer: Trainer, params: dict,
              optimizer_state: dict | None = None) -> None:
-    """Load `params` into the model with a fresh (or the given) Adam."""
+    """Load `params` into the model with a fresh (or the given) Adam. A
+    saved param group's missing keys keep the fresh optimizer's values (a
+    JAX checkpoint's group holds only lr; see train/checkpoint.py)."""
     trainer.model.load_state_dict(params)
     trainer.optimizer = make_optimizer(trainer.model.parameters(),
                                        float(trainer.config["learning_rate"]),
                                        float(trainer.config["weight_decay"]))
     if optimizer_state is not None:
-        trainer.optimizer.load_state_dict(optimizer_state)
+        fresh = trainer.optimizer.state_dict()["param_groups"]
+        groups = [{**f, **g} for f, g in
+                  zip(fresh, optimizer_state["param_groups"])]
+        trainer.optimizer.load_state_dict(dict(optimizer_state,
+                                               param_groups=groups))
 
 
 def run(config: dict, do_train: bool, do_test: bool, vis: bool = False,
@@ -224,7 +231,7 @@ def _test_fold(trainer: Trainer, config: dict, log: RunLog, n: int,
         mean = norm["mean"].astype(np.float32)
         std = norm["std"].astype(np.float32)
     trainer.model.load_state_dict(
-        load_checkpoint(checkpoint_path(checkpoint_dir, n))["model"])
+        load_checkpoint(find_checkpoint(checkpoint_dir, n))["model"])
     test_avg, errors, meshes = trainer.evaluate(test_loader, mean, std,
                                                 collect_meshes=True)
     if vis:

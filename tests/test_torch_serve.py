@@ -192,10 +192,11 @@ def test_cli_entry_point(env, tmp_path):
 
 
 def test_package_imports_no_jax():
-    """Importing every module of the port (train/__main__.py and
-    ops/cheb_fused.py included) leaves jax, flax, optax, scikit-learn,
-    msgpack and meshvae_tpu out of sys.modules, and builds and loads no
-    library: neither CUDA kernel nor the native host library."""
+    """Importing every module of the port (train/__main__.py,
+    infer/__main__.py, train/flax_msgpack.py, ops/cheb_fused.py,
+    ops/emitted_spmm.py and bench/ included) leaves jax, flax, optax,
+    scikit-learn, msgpack and meshvae_tpu out of sys.modules, and builds and
+    loads no library: no CUDA kernel, nor the native host library."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import meshvae_tpu_torch as pkg\n"
@@ -205,10 +206,12 @@ def test_package_imports_no_jax():
         "             ('jax', 'jaxlib', 'flax', 'optax', 'sklearn',\n"
         "              'msgpack', 'meshvae_tpu'))\n"
         "from meshvae_tpu_torch import native\n"
-        "from meshvae_tpu_torch.ops import bsr_spmm, cheb_fused\n"
+        "from meshvae_tpu_torch.ops import bsr_spmm, cheb_fused, "
+        "emitted_spmm\n"
         "for name, fn in (('native', native.library),\n"
         "                 ('kernel', bsr_spmm._lib),\n"
-        "                 ('fused kernel', cheb_fused._lib)):\n"
+        "                 ('fused kernel', cheb_fused._lib),\n"
+        "                 ('emitted kernel', emitted_spmm._lib)):\n"
         "    if fn.cache_info().currsize:\n"
         "        bad.append(name + ' loaded at import')\n"
         "print(len([k for k in sys.modules\n"

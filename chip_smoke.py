@@ -98,11 +98,13 @@ Phases, one block of output lines each; any failed check exits non-zero:
             its hierarchy through the native library, fp32 operators (the
             block-sparse L0-L2 and P^T also feed phase 3), 40 synthetic 20k
             meshes through train/driver.run() with FUSED_SEED_DOT on and
-            overrides for paths, folds 2 and epoch 2, the counts reset just
-            before and read just after: per train step 54 forward + 45
-            backward Laplacian calls + one P^T per block-sparse up-pool,
-            36 of them lazy-seed; 108 per eval step; history, finite test
-            averages, the loss of a fixed batch falling. Then the
+            overrides for paths, folds 2, epoch 2 and profile_dir, the
+            counts reset just before and read just after: per train step
+            54 forward + 45 backward Laplacian calls + one P^T per
+            block-sparse up-pool, 36 of them lazy-seed; 108 per eval step;
+            history, finite test averages, the loss of a fixed batch
+            falling; one torch.profiler trace per fold, of epoch 2 only,
+            and its top kernels by device time. Then the
             host-paced step flag on and off (CUDA events, median of 25),
             meshes/sec, peak memory beside the saved bases' size, device
             busy and idle share, and the fp32 kernel per 20k shape and call
@@ -124,10 +126,12 @@ Phases, one block of output lines each; any failed check exits non-zero:
             1024), bf16 at the scaled80k L0 (B = 32, f = 16, C = 512; phase
             7's operators), 1e-5 of max |y| in fp32 and one bf16 ulp; and on
             synthetic operators with G = 1..9 and padded slots at 1, 2 and
-            the resident CTAs per SM (bit-equal to bsr_grouped_spmm
-            expected; the bf16 twin held to the ulp of max |y| itself,
-            since a dense random block row cancels more than a
-            Laplacian's). Then its path, the probe
+            the resident CTAs per SM (in fp32 bit-equal to
+            bsr_grouped_spmm, which keeps #10's order of FMAs; in bf16 the
+            twin and bsr_grouped_spmm, whose tensor cores sum in another
+            order, held to the ulp of max |y| itself, since a dense random
+            block row cancels more than a Laplacian's). Then its path, the
+            probe
             (bench/emitted_probe.py main) at --workload 80k (bf16) and
             --workload 20k --compute-dtype float32, the launch counts reset
             just before and read just after: emitted, grouped, torch.sparse
@@ -143,10 +147,25 @@ Phases, one block of output lines each; any failed check exits non-zero:
             warm card pass in meshes/sec with and without --no-meshes
             (through run_inference, the device pass alone, the whole CLI).
 
+13. tiles   the occupied-tile design of bsr_grouped_spmm
+            (bench/tile_probe.py): synthetic operators with G = 1..9 and
+            padded slots, a dense block, a block with no set bit, empty
+            strips and sparse tiles, at C = 64/512/2048 in all three modes
+            against the twin and in fp32 bit for bit against emitted_spmm,
+            the lazy seed at f = 8/16/32/128; the 5k, 20k and 80k level 0:
+            occupancy, fp32 bit-equal to emitted_spmm, bf16 within one ulp
+            of the twin; per-call times of bsr_grouped_spmm, emitted_spmm
+            (#10, the dense-block inner product) and torch.sparse at C =
+            512, in turns, beside both bounds.
+
 Phase 3 also holds the bf16 mode on the card at every 80k Laplacian (its C
 values, alpha 1 and 2, no seed, t_prev, t_plus, both) and the four P^T:
 max |kernel - twin| <= 2^-8 max |twin| (one bf16 ulp: both round once),
 and prints the share of bit-equal outputs.
+
+Every kernel table gives two bounds: bytes with only the occupied 16x16
+tiles (the kernel's bound_ms) and bytes with the blocks as stored (the
+bound of the earlier design, bound_stored_ms).
 
 The line before the last is {"kernels": [...]}: per serving step (the two
 bsr_grouped_spmm[mode] entries, summed over the step's 20 calls), per
@@ -184,6 +203,10 @@ PEAK_OPS = {"fp32": 67e12,  # fp32 FMA outside the tensor cores
             "bf16x3": 989e12,  # bf16 operands, dense tensor-core rate
             "bf16": 989e12}
 RUNS = 25
+# per-step sums of the kernel tables: times, the two bounds (occupied
+# tiles; blocks as stored) and the bytes and operations parts of the first
+ACC_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms",
+            "stored_ms")
 BATCH = 16
 LAUNCHES_PER_STEP = 20  # 4 block-sparse convs x (K - 1) at K = 6
 TRAIN_MESHES = 40       # 3 batches of 16 per epoch, the last one padded
@@ -623,12 +646,27 @@ def _library_call(torch, csr, x, kind, alpha, kw):
     return torch.sparse.mm(csr, x)
 
 
+def _bounds(bsr, c, dtype, seeds, ops_n, peak):
+    """The two bounds of one call: bytes with only the occupied 16x16 tiles
+    and tile_mask (what the kernel must read; bound_ms, which the kernel is
+    measured against) and with the blocks as stored (stored_ms, the bound
+    of the dense-block design), each the larger of its bytes (indices, x,
+    seeds or gm, y, each once) over the HBM rate and ops_n over `peak`."""
+    from meshvae_tpu_torch.bench.tile_probe import bounds
+
+    b = bounds(bsr, c, dtype, seeds)
+    ops_ms = 1e3 * ops_n / peak
+    return dict(bound_ms=max(b["bytes_ms"], ops_ms), bytes_ms=b["bytes_ms"],
+                ops_ms=ops_ms, stored_ms=max(
+                    1e3 * b["stored_bytes"] / HBM_BYTES_PER_S, ops_ms),
+                bytes=b["bytes"], stored_bytes=b["stored_bytes"])
+
+
 def _time_kind(torch, bsr, csr, c, kind, modes, gen, dev, f=16):
     """Kernel, twin and library times of one call kind at one shape, with
-    its bound: bytes (blocks, g_idx, g_bcol, x, seeds, y, each once; a lazy
-    seed's gm counts as one seed) over the HBM rate against the operations
-    the data needs (2 per nonzero per column, 6 in bf16x3, plus 2 f per
-    output for a lazy seed) over the peak rate of their type."""
+    its bounds (_bounds) for the operations the data needs (2 per nonzero
+    per column, 6 in bf16x3, plus 2 f per output for a lazy seed) at the
+    peak rate of their type."""
     from meshvae_tpu_torch.ops.bsr_spmm import (bsr_grouped_spmm,
                                                 bsr_grouped_spmm_reference)
 
@@ -641,8 +679,6 @@ def _time_kind(torch, bsr, csr, c, kind, modes, gen, dev, f=16):
     lib_err = ((_library_call(torch, csr, x, kind, alpha, kw) - want)
                .abs().max() / want.abs().max()).item()
     act = 4 * c * (bsr.n_pad_cols + bsr.n_pad * (1 + len(kw)))
-    blk_bytes = 4 * (bsr.blocks.numel() + bsr.g_idx.numel()
-                     + bsr.g_bcol.numel())
     nnz = int((bsr.blocks != 0).sum())
     nnz_bytes = 8 * nnz + 4 * (bsr.n_pad + 1)  # CSR value + col, row ptr
     out = {}
@@ -653,24 +689,24 @@ def _time_kind(torch, bsr, csr, c, kind, modes, gen, dev, f=16):
             bsr, x, mode, alpha, **kw))
         ops_n = ((6 if mode == "bf16x3" else 2) * nnz * c
                  + (2 * f * bsr.n_pad * c if "dot" in kind else 0))
-        bytes_ms = 1e3 * (blk_bytes + act) / HBM_BYTES_PER_S
-        ops_ms = 1e3 * ops_n / PEAK_OPS[mode]
+        b = _bounds(bsr, c, torch.float32, len(kw), ops_n, PEAK_OPS[mode])
         bound_nnz = 1e3 * max((nnz_bytes + act) / HBM_BYTES_PER_S,
                               ops_n / PEAK_OPS[mode])
         out[mode] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                         bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
-                         ops_ms=ops_ms)
+                         **{k: b[k] for k in ACC_KEYS if k in b})
         say(f"  {c=} {mode} {kind}: kernel {1e3 * k_ms:.1f} us, twin "
             f"{1e3 * p_ms:.1f} us, torch.sparse {1e3 * lib_ms:.1f} us (rel "
-            f"err {lib_err:.1e}), bound {1e3 * max(bytes_ms, ops_ms):.2f} us "
-            f"(bytes; {1e3 * bound_nnz:.2f} us with CSR storage)")
+            f"err {lib_err:.1e}), bound {1e3 * b['bound_ms']:.2f} us "
+            f"(occupied tiles; {1e3 * b['stored_ms']:.2f} us with the blocks "
+            f"as stored, {1e3 * bound_nnz:.2f} us with CSR storage)")
         out[mode]["row"] = dict(
             n_pad=bsr.n_pad, n_pad_cols=bsr.n_pad_cols, C=c,
             blocks=bsr.num_blocks, nnz=nnz, mode=mode, kind=kind,
             kernel_us=1e3 * k_ms, plain_us=1e3 * p_ms,
             library_us=1e3 * lib_ms, library_rel_err=lib_err,
-            bound_us=1e3 * max(bytes_ms, ops_ms), bound_nnz_us=1e3 * bound_nnz,
-            bytes=blk_bytes + act, ops=ops_n)
+            bound_us=1e3 * b["bound_ms"], bound_stored_us=1e3 * b["stored_ms"],
+            bound_nnz_us=1e3 * bound_nnz, bytes=b["bytes"],
+            stored_bytes=b["stored_bytes"], ops=ops_n)
     return out
 
 
@@ -699,8 +735,7 @@ TRAIN_CALLS = {
 def _per_step(torch, calls, operands, modes, gen, dev, rows):
     """Sums over one step's calls: per mode, ms / plain_ms / library_ms /
     bound_ms and the bytes and operations parts of the bound."""
-    acc = {m: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
-                             "bytes_ms", "ops_ms"), 0.0) for m in modes}
+    acc = {m: dict.fromkeys(ACC_KEYS, 0.0) for m in modes}
     for label, key, c, kinds in calls:
         bsr, csr = operands[key]
         say(f" {label} ({key}, n_pad {bsr.n_pad} x {bsr.n_pad_cols}):")
@@ -800,7 +835,8 @@ def phase_times(torch, servers, ops, hier, dev, host):
     for name, acc in per_step.items():
         say(f"per step {name}: kernel {acc['ms']:.3f} ms, twin "
             f"{acc['plain_ms']:.3f} ms, torch.sparse {acc['library_ms']:.3f}"
-            f" ms, bound {acc['bound_ms']:.3f} ms ({_bound_by(acc)})")
+            f" ms, bound {acc['bound_ms']:.3f} ms ({_bound_by(acc)}; "
+            f"{acc['stored_ms']:.3f} ms with the blocks as stored)")
 
     # --- the serving step, device side, B = 16 --------------------------
     batch = {"x": torch.from_numpy(host["x"]).to(dev),
@@ -1181,10 +1217,9 @@ def phase_kernel_bf16(torch, ops80, dev):
 
 def _time_kind_bf16(torch, bsr, csr, c, kind, gen, dev, f=16):
     """Kernel, twin and torch.sparse times of one bf16 call kind at one 80k
-    shape, with its bound: bytes (bf16 blocks, int32 g_idx / g_bcol, bf16
-    x, seeds or gm and y, each once) over the HBM rate against 2
-    operations per nonzero per column (plus 2 f per output for a lazy
-    seed) at the bf16 tensor-core rate."""
+    shape, with its bounds (_bounds: bf16 tiles or blocks, int32 indices,
+    bf16 x, seeds or gm and y) for 2 operations per nonzero per column
+    (plus 2 f per output for a lazy seed) at the bf16 tensor-core rate."""
     from meshvae_tpu_torch.ops.bsr_spmm import (bsr_grouped_spmm,
                                                 bsr_grouped_spmm_reference)
 
@@ -1203,25 +1238,22 @@ def _time_kind_bf16(torch, bsr, csr, c, kind, gen, dev, f=16):
                                                    **kw))
     p_ms = time_ms(torch, lambda: bsr_grouped_spmm_reference(
         bsr, x, "bf16", alpha, **kw))
-    act = 2 * c * (bsr.n_pad_cols + bsr.n_pad * (1 + len(kw)))
-    blk_bytes = 2 * bsr.blocks.numel() + 4 * (bsr.g_idx.numel()
-                                              + bsr.g_bcol.numel())
     nnz = int((bsr.blocks != 0).sum())
     ops_n = 2 * nnz * c + (2 * f * bsr.n_pad * c if "dot" in kind else 0)
-    bytes_ms = 1e3 * (blk_bytes + act) / HBM_BYTES_PER_S
-    ops_ms = 1e3 * ops_n / PEAK_OPS["bf16"]
+    b = _bounds(bsr, c, bf, len(kw), ops_n, PEAK_OPS["bf16"])
     say(f"  {c=} bf16 {kind}: kernel {1e3 * k_ms:.1f} us, twin "
         f"{1e3 * p_ms:.1f} us, torch.sparse[{csr['lib_dtype']}] "
-        f"{1e3 * lib_ms:.1f} us, bound {1e3 * max(bytes_ms, ops_ms):.2f} us")
+        f"{1e3 * lib_ms:.1f} us, bound {1e3 * b['bound_ms']:.2f} us "
+        f"(occupied tiles; {1e3 * b['stored_ms']:.2f} us as stored)")
     row = dict(n_pad=bsr.n_pad, n_pad_cols=bsr.n_pad_cols, C=c,
                blocks=bsr.num_blocks, G=bsr.g_width, nnz=nnz, mode="bf16",
                kind=kind, kernel_us=1e3 * k_ms, plain_us=1e3 * p_ms,
                library_us=1e3 * lib_ms, library_dtype=csr["lib_dtype"],
-               bound_us=1e3 * max(bytes_ms, ops_ms),
-               bytes=blk_bytes + act, ops=ops_n)
-    return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
-                ops_ms=ops_ms, row=row)
+               bound_us=1e3 * b["bound_ms"],
+               bound_stored_us=1e3 * b["stored_ms"], bytes=b["bytes"],
+               stored_bytes=b["stored_bytes"], ops=ops_n)
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, row=row,
+                **{k: b[k] for k in ACC_KEYS if k in b})
 
 
 def _csr80(torch, s80, dev, bf16=True):
@@ -1338,8 +1370,7 @@ def phase_scaled80k(torch, dev, s80, tmp):
     rows, per_step = [], {}
     for name, calls in {**SCALED_CALLS,
                         "lap_seed_dot": SCALED_DOT_CALLS}.items():
-        acc = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
-                             "bytes_ms", "ops_ms"), 0.0)
+        acc = dict.fromkeys(ACC_KEYS, 0.0)
         for label, key, c, kinds, *f in calls:
             bsr = operands[key]
             say(f" {label} ({key}, n_pad {bsr.n_pad} x {bsr.n_pad_cols}, "
@@ -1353,7 +1384,8 @@ def phase_scaled80k(torch, dev, s80, tmp):
         per_step[name] = acc
         say(f"per 80k train step {name}: kernel {acc['ms']:.3f} ms, twin "
             f"{acc['plain_ms']:.3f} ms, torch.sparse {acc['library_ms']:.3f}"
-            f" ms, bound {acc['bound_ms']:.3f} ms ({_bound_by(acc)})")
+            f" ms, bound {acc['bound_ms']:.3f} ms ({_bound_by(acc)}; "
+            f"{acc['stored_ms']:.3f} ms with the blocks as stored)")
     say("shape_rows_80k " + json.dumps(rows))
     lap = (launches["bf16"] - sum(by_shape.get(k, 0) for k in pool_keys))
     counts = {"lap": lap, "pool_perblock": by_shape.get(pool_keys[0], 0),
@@ -1576,6 +1608,36 @@ SCALED20_CALLS = {
 SCALED20_POOL_C = (1024, 1024, 2048, 2048)
 
 
+def _trace_report(prof, folds):
+    """The Chrome traces run() wrote for epoch 2 of each fold with
+    profile_dir set: one per fold and no other file; the top kernels by
+    device time (kernel events) of the first, which must include
+    bsr_grouped_spmm's."""
+    from meshvae_tpu_torch.train.metrics import PROFILE_EPOCHS, trace_path
+
+    want = sorted(os.path.basename(trace_path(prof, n, e))
+                  for n in range(1, folds + 1) for e in PROFILE_EPOCHS)
+    got = sorted(os.listdir(prof)) if os.path.isdir(prof) else []
+    if got != want:
+        fail(f"profile_dir holds {got}, expected {want}")
+    path = trace_path(prof, 1, PROFILE_EPOCHS[0])
+    with open(path) as fp:
+        events = json.load(fp)["traceEvents"]
+    by_name = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    total = sum(by_name.values())
+    say(f"profile_dir trace {os.path.basename(path)} "
+        f"({os.path.getsize(path) / 2**20:.1f} MiB): {len(by_name)} kernels, "
+        f"{total / 1e3:.3f} ms of device time in the epoch (train and "
+        f"validation); the top ones:")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        say(f"  {us / 1e3:9.3f} ms {us / total:6.1%}  {name[:90]}")
+    if not any("bsr_grouped_spmm" in name for name in by_name):
+        fail("the profile_dir trace shows no bsr_grouped_spmm kernel")
+
+
 def phase_scaled20k(torch, dev, s20, tmp):
     """The scaled20k fp32 main path with the lazy seed through
     train/driver.run(), then its checks and times."""
@@ -1595,10 +1657,12 @@ def phase_scaled20k(torch, dev, s20, tmp):
         f"{time.perf_counter() - t0:.1f}s")
     config = read_config(os.path.join(ROOT, SCALED20_CFG))
     ckpt = os.path.join(tmp, "ckpt20k")
-    config.update({   # paths, folds and epochs only
+    prof = os.path.join(tmp, "profile20k")
+    config.update({   # paths, folds, epochs and the profiler only
         "template": s20["path"], "root_dir": data_dir,
         "checkpoint_dir": ckpt, "log_file": os.path.join(ckpt, "log.txt"),
-        "hierarchy_cache_dir": s20["cache"], "folds": 2, "epoch": 2})
+        "hierarchy_cache_dir": s20["cache"], "folds": 2, "epoch": 2,
+        "profile_dir": prof})
     if (config.get("compute_dtype", "float32"), config["matmul_precision"],
             config["batch_size"], config["polygon_order"]) != (
                 "float32", "highest", SCALED20_BATCH, [10] * 5):
@@ -1630,6 +1694,7 @@ def phase_scaled20k(torch, dev, s20, tmp):
             fail(f"scaled20k P^T {key} launched {by_shape.get(key)} times, "
                  f"expected once per train step ({steps['train']})")
     _check_run(config, ckpt, results, s20["hier"])
+    _trace_report(prof, folds=2)
 
     # --- a fixed batch: the loss falls (flag on); the step's time --------
     port_cheb.FUSED_SEED_DOT = True
@@ -1661,8 +1726,7 @@ def phase_scaled20k(torch, dev, s20, tmp):
     gen = torch.Generator(device=dev).manual_seed(4)
     rows, per_step = [], {}
     for name, group in calls.items():
-        acc = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
-                             "bytes_ms", "ops_ms"), 0.0)
+        acc = dict.fromkeys(ACC_KEYS, 0.0)
         for label, key, c, kinds, f in group:
             bsr = operands[key]
             say(f" {label} ({key}, n_pad {bsr.n_pad} x {bsr.n_pad_cols}, "
@@ -1676,7 +1740,8 @@ def phase_scaled20k(torch, dev, s20, tmp):
         per_step[name] = acc
         say(f"per 20k train step {name}: kernel {acc['ms']:.3f} ms, twin "
             f"{acc['plain_ms']:.3f} ms, torch.sparse {acc['library_ms']:.3f}"
-            f" ms, bound {acc['bound_ms']:.3f} ms ({_bound_by(acc)})")
+            f" ms, bound {acc['bound_ms']:.3f} ms ({_bound_by(acc)}; "
+            f"{acc['stored_ms']:.3f} ms with the blocks as stored)")
     say("shape_rows_20k " + json.dumps(rows))
     pool_n = sum(by_shape.get(k, 0) for k in pool_keys)
     counts = {"lap": launches["fp32"] - pool_n - seed_dot["fp32"],
@@ -1854,7 +1919,8 @@ def _synthetic_bsr(torch, dev, g, dtype, seed):
     padded after the first), 13 + G row blocks over 11 column blocks of 17
     dense random blocks: the ring's chunk count and item stride vary with
     G."""
-    from meshvae_tpu_torch.ops.block_sparse import BLOCK, BlockSparseOperator
+    from meshvae_tpu_torch.ops.block_sparse import (BLOCK, BlockSparseOperator,
+                                                    tile_mask)
 
     gen = torch.Generator().manual_seed(seed)
     nb, n_rows, ncb = 17, 13 + g, 11
@@ -1865,9 +1931,11 @@ def _synthetic_bsr(torch, dev, g, dtype, seed):
     g_bcol = torch.randint(0, ncb, (n_rows * g,), generator=gen,
                            dtype=torch.int32)
     zero = torch.zeros(nb, dtype=torch.int32, device=dev)
-    return BlockSparseOperator(blocks.to(dev), zero, zero, g_idx.to(dev),
+    blocks = blocks.to(dev)
+    return BlockSparseOperator(blocks, zero, zero, g_idx.to(dev),
                                g_bcol.to(dev), n_rows * BLOCK,
-                               n_rows * BLOCK, ncb * BLOCK, g)
+                               n_rows * BLOCK, ncb * BLOCK, g,
+                               tile_mask(blocks))
 
 
 def phase_emitted(torch, dev, ops, s20, s80):
@@ -1906,11 +1974,14 @@ def phase_emitted(torch, dev, ops, s20, s80):
         if not max(rel) <= bar[dt]:
             fail(f"emitted_spmm disagrees at {name}: {rel}")
     # the ring across G = 1..9 (the 80k level 0 has G = 8), padded slots and
-    # 1, 2 or the resident CTAs per SM, against bsr_grouped_spmm (the same
-    # inner product: bit-equal expected) and the twin. Dense random blocks
-    # sum 128 G terms per output, so the twin's cuBLAS order can move a
-    # bf16 rounding of an output near max|y|: one ulp there is up to 2^-7
-    # of max|y|, and the bf16 twin bar is that ulp, exactly
+    # 1, 2 or the resident CTAs per SM, against bsr_grouped_spmm (in fp32
+    # the same FMAs in the same order: bit-equal) and the twin. Dense random
+    # blocks sum 128 G terms per output, so another fp32 order (the twin's
+    # cuBLAS, bsr_grouped_spmm's bf16 tensor cores) can move a bf16
+    # rounding of an output near max|y|: one ulp there is up to 2^-7 of
+    # max|y|, and the bf16 bar is that ulp, exactly. Both references are
+    # measured in units of the twin's max|y|, since a flipped rounding
+    # can move the other reference's own max by that ulp
     sweep = 0.0
     for g in range(1, 10):
         for dt in (f32, bf):
@@ -1920,16 +1991,15 @@ def phase_emitted(torch, dev, ops, s20, s80):
             grouped = bsr_grouped_spmm(bsr, x, mode_of[dt])
             twin = em.emitted_spmm_reference(bsr, x).float()
             top = twin.abs().max().item()
-            bars = [(grouped, bar[dt]),
-                    (twin, bar[dt] if dt == f32
-                     else 2.0 ** (math.floor(math.log2(top)) - 7) / top)]
+            ulp = 2.0 ** (math.floor(math.log2(top)) - 7) / top
+            bars = [(grouped, 0.0 if dt == f32 else ulp),
+                    (twin, bar[dt] if dt == f32 else ulp)]
             for ctas in (0, 1, 2):
                 y = em.emitted_spmm(bsr, x, ctas)
                 torch.cuda.synchronize()
                 for ref, lim in bars:
-                    err = ((y.float() - ref.float()).abs().max()
-                           / ref.float().abs().max()).item()
-                    sweep = max(sweep, err / lim)
+                    err = (y.float() - ref.float()).abs().max().item() / top
+                    sweep = max(sweep, err / lim if lim else 0.0)
                     if not err <= lim:
                         fail(f"emitted_spmm at G={g} {dt} ctas {ctas}: "
                              f"{err:.3e} > {lim:.3e}")
@@ -1979,6 +2049,27 @@ def phase_emitted(torch, dev, ops, s20, s80):
         fail(f"the probe did not launch emitted_spmm in both dtypes: "
              f"{launches}")
     return out, launches, worst
+
+
+def phase_tiles(dev, s80, tmp):
+    """The occupied-tile design of bsr_grouped_spmm against the dense-block
+    product of emitted_spmm (#10, the inner product of the design before
+    it) and torch.sparse: bench/tile_probe.py's synthetic masks, the
+    level-0 occupancy and fp32 bit-equality at 5k, 20k and 80k, and the
+    per-call times in turns."""
+    say("== phase 13: occupied 16x16 tiles (bsr_grouped_spmm against "
+        "emitted_spmm and torch.sparse)")
+    from meshvae_tpu_torch.bench import tile_probe
+
+    argv = ["--workloads", "5k,20k,80k", "--iters", "100"]
+    say("probe: python -m meshvae_tpu_torch.bench.tile_probe "
+        + " ".join(argv) + " --template-dir <tmp>")
+    try:
+        return tile_probe.main(argv + [
+            "--template-dir", os.path.dirname(s80["path"]),
+            "--cache-dir", os.path.join(tmp, "cache_tiles")])
+    except SystemExit as exc:
+        fail(f"the tile probe failed: {exc}")
 
 
 INFER_MESHES = 32   # two batches of 16
@@ -2201,6 +2292,9 @@ def main() -> int:
         t0 = time.perf_counter()
         infer_launches = phase_infer(torch, dev, models, hier, tmpl, tmp)
         seconds["infer"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase_tiles(dev, s80, tmp)
+        seconds["tiles"] = time.perf_counter() - t0
     say("phase seconds " + json.dumps({k: round(v, 1)
                                        for k, v in seconds.items()}))
 
@@ -2208,7 +2302,8 @@ def main() -> int:
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=launched, max_abs_err=err, ms=acc["ms"],
                     plain_ms=acc["plain_ms"], bound_ms=acc["bound_ms"],
-                    bound_by=_bound_by(acc), library_ms=acc["library_ms"])
+                    bound_by=_bound_by(acc), library_ms=acc["library_ms"],
+                    bound_stored_ms=acc.get("stored_ms", acc["bound_ms"]))
 
     pool_keys = [("fp32", up.t_bsr.n_pad, up.t_bsr.n_pad_cols)
                  for up in ops.up[:3]]

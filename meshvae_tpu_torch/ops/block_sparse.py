@@ -7,6 +7,12 @@ to a multiple of 8 when that adds at most 5% rows. The row-grouped view
 ``g_idx [nR, G]`` / ``g_bcol [nR * G]`` lists each row's blocks, with padded
 slots set to ``num_blocks`` (a zero block that is never stored) and their
 ``g_bcol`` aliasing the row's last real column.
+
+``tile_mask [nb, 8]`` (uint8) records which 16x16 tiles of each block hold
+a nonzero: bit t of byte s is set when rows 16s..16s+15, columns
+16t..16t+15 of the block do. The kernel skips every tile whose bit is
+clear. It is derived from the float32 sums, before any cast to bfloat16,
+so it is a superset of the nonzeros in every storage dtype.
 """
 from __future__ import annotations
 
@@ -17,6 +23,8 @@ import scipy.sparse as sp
 import torch
 
 BLOCK = 128
+TILE = 16                   # edge of a tile_mask tile
+TILES = BLOCK // TILE       # tiles per block edge: 8 strips x 8 bits
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,10 +43,20 @@ class BlockSparseOperator:
     n_pad: int
     n_pad_cols: int
     g_width: int
+    tile_mask: torch.Tensor   # [nb, 8] uint8, bit t of byte s: tile (s, t)
 
     @property
     def num_blocks(self) -> int:
         return self.blocks.shape[0]
+
+
+def tile_mask(blocks: torch.Tensor) -> torch.Tensor:
+    """The tile_mask of a [nb, 128, 128] blocks tensor, on its device (also
+    for an operator built without to_block_sparse)."""
+    nb = blocks.shape[0]
+    nonzero = (blocks != 0).reshape(nb, TILES, TILE, TILES, TILE).any(4)
+    weights = 1 << torch.arange(TILES, device=blocks.device)
+    return (nonzero.any(2).long() * weights).sum(-1).to(torch.uint8)
 
 
 def block_sparse_arrays(mat: sp.spmatrix, block: int = BLOCK,
@@ -99,7 +117,9 @@ def block_sparse_arrays(mat: sp.spmatrix, block: int = BLOCK,
         g_bcol[r, len(idxs):] = block_col[idxs[-1]]
 
     return dict(blocks=blocks, block_row=block_row, block_col=block_col,
-                g_idx=g_idx, g_bcol=g_bcol.reshape(-1), n=n, n_pad=n_pad,
+                g_idx=g_idx, g_bcol=g_bcol.reshape(-1),
+                tile_mask=tile_mask(torch.from_numpy(blocks)).numpy(), n=n,
+                n_pad=n_pad,
                 n_pad_cols=(-(-coo.shape[1] // block) * block if allow_rect
                             else n_pad),
                 g_width=g)
@@ -116,7 +136,8 @@ def to_block_sparse(mat: sp.spmatrix, device, block: int = BLOCK,
         blocks=t(a["blocks"]).to(dtype), block_row=t(a["block_row"]),
         block_col=t(a["block_col"]), g_idx=t(a["g_idx"]),
         g_bcol=t(a["g_bcol"]), n=a["n"], n_pad=a["n_pad"],
-        n_pad_cols=a["n_pad_cols"], g_width=a["g_width"])
+        n_pad_cols=a["n_pad_cols"], g_width=a["g_width"],
+        tile_mask=t(a["tile_mask"]))
 
 
 def bsr_to_dense(bsr: BlockSparseOperator) -> np.ndarray:

@@ -34,6 +34,11 @@ rounding, so no c_j goes through HBM. Modes fp32 and bf16 take it in the
 kernel; mode bf16x3, and any f that does not divide the 128-column panel,
 compute c here, round it to the mode's dtype and pass it as t_plus (the
 JAX package's eager fallback, pallas_cheb.py:669-677).
+
+The kernel skips every 16x16 tile of a block whose ``tile_mask`` bit is
+clear (block_sparse.py), and the twin zeroes those tiles before its
+product, so a test of the twin against the JAX package also shows that
+the mask drops no nonzero.
 """
 from __future__ import annotations
 
@@ -42,7 +47,7 @@ import functools
 
 import torch
 
-from .block_sparse import BLOCK, BlockSparseOperator
+from .block_sparse import BLOCK, TILE, TILES, BlockSparseOperator
 
 MODES = ("fp32", "bf16x3", "bf16")
 # storage dtype of blocks, x, seeds and y in each mode
@@ -83,8 +88,8 @@ def _lib():
 
     lib = load_library("bsr_spmm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bsr_grouped_spmm.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i,
-                                     i, i, ctypes.c_float, i, p]
+    lib.bsr_grouped_spmm.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
+                                     i, i, i, ctypes.c_float, i, p]
     lib.bsr_grouped_spmm.restype = ctypes.c_int
     return lib
 
@@ -124,25 +129,37 @@ def _lazy_or_eager(mode: str, t_plus, t_plus_dot):
     return None, t_plus_dot
 
 
+def masked_blocks(bsr: BlockSparseOperator) -> torch.Tensor:
+    """bsr.blocks with every 16x16 tile whose tile_mask bit is clear set to
+    zero: the operator the kernel multiplies."""
+    nb = bsr.num_blocks
+    shifts = torch.arange(TILES, device=bsr.tile_mask.device)
+    keep = (bsr.tile_mask.long()[..., None] >> shifts) & 1 == 1
+    tiles = bsr.blocks.reshape(nb, TILES, TILE, TILES, TILE)
+    return torch.where(keep[:, :, None, :, None], tiles,
+                       tiles.new_zeros(())).reshape(nb, BLOCK, BLOCK)
+
+
 def bsr_grouped_spmm_reference(bsr: BlockSparseOperator, x: torch.Tensor,
                                mode: str = "fp32", alpha: float = 1.0,
                                t_plus: torch.Tensor | None = None,
                                t_prev: torch.Tensor | None = None,
                                t_plus_dot: tuple | None = None
                                ) -> torch.Tensor:
-    """Plain PyTorch twin of the kernel: gather the [nR, G, 128, 128]
-    blocks through g_idx (index num_blocks selects an appended zero block),
-    one batched fp32 product per slot, a sum over slots, then alpha, the
-    seeds and the lazy seed in fp32; mode "bf16" widens its bf16 operands
-    to fp32 first (each product of two bf16 values is exact in fp32) and
-    rounds the result to bf16 once."""
+    """Plain PyTorch twin of the kernel: zero the tiles that tile_mask
+    clears, gather the [nR, G, 128, 128] blocks through g_idx (index
+    num_blocks selects an appended zero block), one batched fp32 product
+    per slot, a sum over slots, then alpha, the seeds and the lazy seed in
+    fp32; mode "bf16" widens its bf16 operands to fp32 first (each product
+    of two bf16 values is exact in fp32) and rounds the result to bf16
+    once."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
     t_plus, t_plus_dot = _lazy_or_eager(mode, t_plus, t_plus_dot)
     n_rows, g = bsr.g_idx.shape
     c = x.shape[1]
     zero = bsr.blocks.new_zeros((1, BLOCK, BLOCK))
-    lg = torch.cat([bsr.blocks, zero])[bsr.g_idx.long()].float()
+    lg = torch.cat([masked_blocks(bsr), zero])[bsr.g_idx.long()].float()
     xg = x.reshape(-1, BLOCK, c)[bsr.g_bcol.long()].reshape(
         n_rows, g, BLOCK, c).float()
     if mode == "bf16x3":
@@ -210,6 +227,8 @@ def bsr_grouped_spmm(bsr: BlockSparseOperator, x: torch.Tensor,
     _check("blocks", bsr.blocks, (bsr.num_blocks, BLOCK, BLOCK), dev, dt)
     _check("g_idx", bsr.g_idx, (bsr.n_pad // BLOCK, g), dev, torch.int32)
     _check("g_bcol", bsr.g_bcol, (n_rows * g,), dev, torch.int32)
+    _check("tile_mask", bsr.tile_mask, (bsr.num_blocks, TILES), dev,
+           torch.uint8)
     gm, wt = t_plus_dot if t_plus_dot is not None else (None, None)
     for name, seed in (("t_plus", t_plus), ("t_prev", t_prev), ("gm", gm)):
         if seed is not None:
@@ -223,7 +242,8 @@ def bsr_grouped_spmm(bsr: BlockSparseOperator, x: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib().bsr_grouped_spmm(
-            ptr(bsr.blocks), ptr(bsr.g_idx), ptr(bsr.g_bcol), ptr(x),
+            ptr(bsr.blocks), ptr(bsr.g_idx), ptr(bsr.g_bcol),
+            ptr(bsr.tile_mask), ptr(x),
             ptr(t_plus), ptr(t_prev), ptr(gm), ptr(wt), ptr(y),
             bsr.num_blocks, n_rows, g, bsr.n_pad_cols // BLOCK, c, f,
             float(alpha), MODES.index(mode), stream)

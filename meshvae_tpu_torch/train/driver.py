@@ -11,10 +11,12 @@ one process, eager): the body of ``python -m meshvae_tpu_torch.train``.
     checkpoint; history{fold}.json and the log;
   * resume of the first fold from ``checkpoint_file`` (the port's ``.pt``
     or the JAX package's ``.msgpack``);
-  * the test path, with the sex-change .obj triples under ``vis``.
+  * the test path, with the sex-change .obj triples under ``vis``;
+  * with ``profile_dir`` set, a torch.profiler Chrome trace of each fold's
+    epoch in metrics.PROFILE_EPOCHS (its train and validation passes).
 
-The JAX driver's scanned and pipelined epochs, multi-host barriers and
-profiler hooks have no counterpart here.
+The JAX driver's scanned and pipelined epochs and multi-host barriers have
+no counterpart here.
 """
 from __future__ import annotations
 
@@ -34,7 +36,8 @@ from ..tools.make_scaled_template import ensure_template
 from .checkpoint import (checkpoint_path, find_checkpoint, load_checkpoint,
                          load_params, save_checkpoint, save_params)
 from .loop import Trainer, lr_for_epoch, make_optimizer, set_learning_rate
-from .metrics import RunLog, epoch_line, history_record, write_history
+from .metrics import (RunLog, epoch_line, history_record, maybe_profile,
+                      write_history)
 from .splits import stratified_kfold, train_test_split
 
 
@@ -184,8 +187,10 @@ def _train_fold(trainer: Trainer, config: dict, log: RunLog, n: int,
         set_learning_rate(trainer.optimizer, lr_for_epoch(
             epoch, float(config["learning_rate"]), config["learning_rates"],
             config["learning_rates_epochs"]))
-        train_avg = trainer.train_epoch(train_loader, generator, mean, std)
-        valid_avg, errors = trainer.evaluate(valid_loader, mean, std)
+        with maybe_profile(config.get("profile_dir"), epoch, fold=n):
+            train_avg = trainer.train_epoch(train_loader, generator, mean,
+                                            std)
+            valid_avg, errors = trainer.evaluate(valid_loader, mean, std)
         mean_val_error = float(errors.mean()) if errors.size else 0.0
         duration = time.time() - begin
         record = history_record(epoch, begin, duration, train_avg, valid_avg,

@@ -1,10 +1,19 @@
-"""History records and the run log (counterpart of
+"""History records, the run log and the profiler hook (counterpart of
 meshvae_tpu/train/metrics.py, one process): per-epoch ``history{fold}.json``
-with the JAX package's schema, and a plain-text log mirrored to stdout."""
+with the JAX package's schema, a plain-text log mirrored to stdout, and a
+torch.profiler Chrome trace of the epochs in PROFILE_EPOCHS when the
+config sets ``profile_dir``."""
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+
+import torch
+
+# Epochs maybe_profile traces, as in the JAX package: epoch 1 pays the
+# first-use costs (kernel builds, allocator growth); 2 is the first clean one.
+PROFILE_EPOCHS = (2,)
 
 
 def history_record(epoch: int, begin: float, duration: float,
@@ -70,3 +79,36 @@ def epoch_line(epoch: int, train: dict, valid: dict,
              train["accuracy"], valid["loss"], mean_val_error,
              valid["rec_loss"], valid["accuracy"],
              valid["sex_change_success_rate"])
+
+
+def is_profiled(profile_dir: str | None, epoch: int,
+                profile_epochs: tuple = PROFILE_EPOCHS) -> bool:
+    """True when maybe_profile traces this epoch."""
+    return bool(profile_dir) and epoch in profile_epochs
+
+
+def trace_path(profile_dir: str, fold: int, epoch: int) -> str:
+    return os.path.join(profile_dir, f"fold{fold}_epoch{epoch}.trace.json")
+
+
+@contextlib.contextmanager
+def maybe_profile(profile_dir: str | None, epoch: int, fold: int = 1,
+                  profile_epochs: tuple = PROFILE_EPOCHS):
+    """torch.profiler over the block for the selected epochs (CPU activity,
+    and CUDA where a card is present), written as a Chrome trace to
+    trace_path(profile_dir, fold, epoch); yields the profiler, or None
+    when the epoch is not traced."""
+    if not is_profiled(profile_dir, epoch, profile_epochs):
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if cuda else [])
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if cuda:
+            torch.cuda.synchronize()  # the block's device work is in the trace
+    prof.export_chrome_trace(trace_path(profile_dir, fold, epoch))

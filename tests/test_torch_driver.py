@@ -30,6 +30,7 @@ from meshvae_tpu_torch.train import driver
 from meshvae_tpu_torch.train.__main__ import main as train_main
 from meshvae_tpu_torch.train.checkpoint import (checkpoint_path,
                                                 load_checkpoint)
+from meshvae_tpu_torch.train.metrics import maybe_profile, trace_path
 from meshvae_tpu_torch.train.splits import stratified_kfold, train_test_split
 
 from conftest import make_grid_mesh
@@ -203,6 +204,33 @@ def test_nonfinite_loss_halts_with_checkpoint_hint(env, monkeypatch):
         driver.run(config, do_train=True, do_test=False, device="cpu")
     with open(os.path.join(config["checkpoint_dir"], "history1.json")) as fp:
         assert [h["epoch"] for h in json.load(fp)] == [1, 2]
+
+
+def test_profile_dir_traces_epoch_2_of_each_fold(env, tmp_path):
+    """profile_dir: run() writes a torch.profiler Chrome trace of epoch 2
+    (metrics.PROFILE_EPOCHS, as the JAX driver) of each fold, holding the
+    epoch's train steps, and none of epochs 1 and 3."""
+    prof = str(tmp_path / "prof")
+    config = dict(_ckpt_config(env, "profiled"), epoch=3, profile_dir=prof)
+    driver.run(config, do_train=True, do_test=False, device="cpu")
+    assert sorted(os.listdir(prof)) == sorted(
+        os.path.basename(trace_path(prof, n, 2)) for n in (1, 2))
+    with open(trace_path(prof, 1, 2)) as fp:
+        names = {e.get("name", "") for e in json.load(fp)["traceEvents"]}
+    assert {"aten::mm", "aten::addmm"} & names  # the epoch's products
+
+
+def test_no_profile_dir_writes_no_trace(trained, tmp_path, monkeypatch):
+    """Without profile_dir the run writes no trace, and maybe_profile
+    yields no profiler and creates nothing."""
+    config, _ = trained
+    for _, _, files in os.walk(config["checkpoint_dir"]):
+        assert not [f for f in files if f.endswith(".trace.json")]
+    monkeypatch.chdir(tmp_path)
+    for profile_dir in ("", None):
+        with maybe_profile(profile_dir, 2) as prof:
+            assert prof is None
+    assert os.listdir(tmp_path) == []
 
 
 def test_fold_splits_match_the_jax_driver(env, monkeypatch):

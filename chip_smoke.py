@@ -7,8 +7,10 @@ Phases, one block of output lines each; any failed check exits non-zero:
 
  1. device  the card's name and power limit (nvidia-smi).
  2. build   compile the three CUDA kernels from ops/csrc (nvcc, sm_90a, one
-            process per source, started together) and print the build
-            seconds and ptxas' register/shared-memory report.
+            process per source, started together; all three include the
+            occupied-tile engine csrc/tile_engine.cuh) and print the build
+            seconds and ptxas' registers, shared memory and spills for
+            every instantiation.
  3. kernel  bsr_grouped_spmm in both modes (fp32, bf16x3) against its plain
             PyTorch twin on the card: the real template5k level-0 and
             level-1 Laplacians at C in {128, 256, 512}, alpha in {1, 2}, with
@@ -109,34 +111,43 @@ Phases, one block of output lines each; any failed check exits non-zero:
             meshes/sec, peak memory beside the saved bases' size, device
             busy and idle share, and the fp32 kernel per 20k shape and call
             kind beside its twin, torch.sparse and its byte bound.
-10. fused   TPU kernel #9 (cheb_conv_fused, ops/csrc/cheb_fused.cu) on the
+10. fused   TPU kernel #9 (cheb_conv_fused, ops/csrc/cheb_fused.cu: the
+            occupied-tile engine's propagation and an in-CTA mix) on the
             card against its plain twin at the config-1 L0 and L1 convs
             (B=16, 16->16, K=6) and the scaled20k L0 conv (B=64, 16->16,
-            K=10): each step (T_k and acc within 1e-5 of their max), the
-            conv forward (1e-5) and its gradients (1e-4 of max|g|), at
-            highest (and the bf16x3 split at config-1 L1). The launch count
-            is reset before and read after these runs. Then the step per
-            call beside its twin, torch.sparse + torch.matmul and its
-            bound, and the conv forward and forward+backward beside the
-            main-path cheb_conv_bsr at the same shapes.
+            K=10): the conv forward (1e-5) and its gradients (1e-4 of
+            max|g|), at highest (and the bf16x3 split at config-1 L1). The
+            launch count is reset before and read after these runs. Then
+            the step on square synthetic operators (G = 1..9, padded
+            slots, dense, empty and half-empty blocks; five (B, f_pad,
+            f_out) shapes; both modes): T_k bit-equal to bsr_grouped_spmm
+            with the same seed, T_k and acc within 1e-5 of their max (acc
+            1e-4 at bf16x3); each real step the same, then its time per
+            call in turns with torch.sparse + torch.matmul, its twin and
+            both bounds (tile_probe.fused_bounds), and the conv forward and
+            forward+backward beside the main-path cheb_conv_bsr at the
+            same shapes, in turns (fused, bsr, bsr, fused).
 11. emitted TPU kernel #10 (emitted_spmm, ops/csrc/emitted_spmm.cu: a
-            persistent grid walking work items through a cp.async ring) on
-            the card against its plain twin and against bsr_grouped_spmm:
-            fp32 at the config-1 L0 (C = 256) and the scaled20k L0 (C =
-            1024), bf16 at the scaled80k L0 (B = 32, f = 16, C = 512; phase
-            7's operators), 1e-5 of max |y| in fp32 and one bf16 ulp; and on
-            synthetic operators with G = 1..9 and padded slots at 1, 2 and
-            the resident CTAs per SM (in fp32 bit-equal to
-            bsr_grouped_spmm, which keeps #10's order of FMAs; in bf16 the
-            twin and bsr_grouped_spmm, whose tensor cores sum in another
-            order, held to the ulp of max |y| itself, since a dense random
-            block row cancels more than a Laplacian's). Then its path, the
-            probe
-            (bench/emitted_probe.py main) at --workload 80k (bf16) and
-            --workload 20k --compute-dtype float32, the launch counts reset
-            just before and read just after: emitted, grouped, torch.sparse
-            and bound ms, the kernel's registers and shared memory; and the
-            twin's time at the probe's shapes.
+            persistent grid taking whole-row-block work items longest
+            first, a producer warp feeding eight consumer warps through TMA
+            copies and mbarriers, the engine's tile products) on the card
+            against its plain twin and against bsr_grouped_spmm: fp32 at
+            the config-1 L0 (C = 256) and the scaled20k L0 (C = 1024), bf16
+            at the scaled80k L0 (B = 32, f = 16, C = 512; phase 7's
+            operators); and on the tile probe's patterned operators (G =
+            1..9 with padded slots, a dense block, a block with no set bit,
+            every other strip empty, sparse tiles) at C = 128/512/2048 and
+            1, 2 and the resident CTAs per SM: in fp32 bit-equal to
+            bsr_grouped_spmm (the same tiles in the same order) and within
+            1e-5 of the twin, in bf16 within one bf16 ulp of max |y| of
+            both. Then its path, the probe (bench/emitted_probe.py main) at
+            --workload 5k --compute-dtype float32 --batch-size 16 (C =
+            256), --workload 20k --compute-dtype float32 and --workload 80k
+            (bf16), the launch counts reset just before and read just
+            after: emitted at resident, 1 and 2 CTAs per SM, grouped and
+            torch.sparse in turns (A B C D E E D C B A), both bounds, the
+            kernel's registers and shared memory; and the twin's time at
+            the probe's shapes.
 12. infer   the batch-inference entry point at config 1: 32 synthetic
             meshes, a checkpoint_1.pt of the seeded weights and their
             norm.npz; ``python -m meshvae_tpu_torch.infer``'s main on the
@@ -152,10 +163,13 @@ Phases, one block of output lines each; any failed check exits non-zero:
             padded slots, a dense block, a block with no set bit, empty
             strips and sparse tiles, at C = 64/512/2048 in all three modes
             against the twin and in fp32 bit for bit against emitted_spmm,
-            the lazy seed at f = 8/16/32/128; the 5k, 20k and 80k level 0:
-            occupancy, fp32 bit-equal to emitted_spmm, bf16 within one ulp
-            of the twin; per-call times of bsr_grouped_spmm, emitted_spmm
-            (#10, the dense-block inner product) and torch.sparse at C =
+            the lazy seed at f = 8/16/32/128; bsr_grouped_spmm's
+            fingerprints (digests of its outputs per mode over fixed
+            inputs) equal to those recorded before its engine moved into
+            csrc/tile_engine.cuh; the 5k, 20k and 80k level 0: occupancy,
+            fp32 bit-equal to emitted_spmm, bf16 within one ulp of the
+            twin; per-call times of bsr_grouped_spmm, emitted_spmm (#10,
+            the same tile products behind TMA) and torch.sparse at C =
             512, in turns, beside both bounds.
 
 Phase 3 also holds the bf16 mode on the card at every 80k Laplacian (its C
@@ -179,8 +193,8 @@ train step (the plain Laplacian calls, the lazy-seed calls #4b in fp32,
 the P^T), the lazy-seed calls of an 80k bf16 step with the flag on (#4b in
 bf16), the fused step (#9) per scaled20k L0 conv forward, the inference
 CLI's calls per batch (the serving step's shapes), and emitted_spmm (#10)
-per call at the probe's two shapes, with the launches of the main-path
-runs (the probe runs for #10). The last line is {"ok": true, ...}.
+per call at the probe's three shapes, with the launches of the main-path
+runs (each probe run's for #10). The last line is {"ok": true, ...}.
 """
 import dataclasses
 import json
@@ -321,9 +335,10 @@ def phase_build():
     say(f"build_sec {time.perf_counter() - t0:.2f} "
         f"({'compiled ' + ', '.join(logs) if logs else 'already built'})")
     for name in names:
-        for line in logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                say(f"  ptxas[{name}]: {line.strip()}")
+        for row in _build.ptxas_table(logs.get(name, "")):
+            say(f"  ptxas[{name}] {row['kernel']}: {row['registers']} "
+                f"registers, {row['smem']} B static shared memory, spill "
+                f"stores {row['spill_stores']} B, loads {row['spill_loads']} B")
     from meshvae_tpu_torch import native
 
     path, secs = native.build()
@@ -1769,11 +1784,62 @@ def _twins():
     return ctx()
 
 
+# the fused step's synthetic cases: (B, f_pad, f_out), C = B * f_pad
+FUSED_SHAPES = [(16, 16, 16), (4, 32, 16), (1, 128, 8), (8, 16, 3),
+                (16, 8, 5)]
+
+
+def _fused_sweep(torch, dev):
+    """The fused step on square patterned operators (G = 1..9, padded
+    slots, a dense block, a block with no set bit, every other strip
+    empty, sparse tiles) at FUSED_SHAPES, both modes, alpha 1 without
+    T_{k-2} and alpha 2 with it: T_k bit-equal to bsr_grouped_spmm with
+    the same seed, T_k and acc within 1e-5 of their max of the twin (acc
+    1e-4 at bf16x3). Returns the worst error as a share of its bar."""
+    from meshvae_tpu_torch.bench.tile_probe import patterned_operator, rel_err
+    from meshvae_tpu_torch.ops.bsr_spmm import bsr_grouped_spmm
+    from meshvae_tpu_torch.ops.cheb_fused import (cheb_fused_step,
+                                                  cheb_fused_step_reference)
+
+    gen = torch.Generator().manual_seed(10)
+    worst = 0.0
+    for g in range(1, 10):
+        bsr = patterned_operator(g, torch.float32, dev, seed=g, square=True)
+        for b, f_pad, f_out in FUSED_SHAPES:
+            c = b * f_pad
+            t1, t2 = (torch.randn(bsr.n_pad, c, generator=gen).to(dev)
+                      for _ in range(2))
+            w = torch.randn(f_pad, f_out, generator=gen).to(dev)
+            acc = torch.randn(bsr.n_pad, b * f_out, generator=gen).to(dev)
+            for mode in MODES:
+                for alpha, prev in ((1.0, None), (2.0, t2)):
+                    got_t, got_a = cheb_fused_step(bsr, t1, prev, w,
+                                                   acc.clone(), alpha, mode)
+                    same = bsr_grouped_spmm(bsr, t1, mode, alpha,
+                                            t_prev=prev)
+                    torch.cuda.synchronize()
+                    want_t, want_a = cheb_fused_step_reference(
+                        bsr, t1, prev, w, acc, alpha, mode)
+                    bar = TOL_KERNEL if mode == "fp32" else 1e-4
+                    errs = (rel_err(got_t, want_t) / TOL_KERNEL,
+                            rel_err(got_a, want_a) / bar)
+                    worst = max(worst, *errs)
+                    if not (torch.equal(got_t, same) and max(errs) <= 1.0):
+                        fail(f"cheb_fused_step at G={g} B={b} f_pad={f_pad} "
+                             f"f_out={f_out} {mode} alpha {alpha}: T_k "
+                             f"bit-equal {torch.equal(got_t, same)}, errors "
+                             f"{errs} of the bars")
+    return worst
+
+
 def phase_fused(torch, dev, ops, hier, ops20, hier20):
     """TPU kernel #9 on the card: the fused step and cheb_conv_fused
-    against their twins, then times beside the main-path conv."""
+    against their twins, the step over the synthetic sweep, then times in
+    turns beside the main-path conv, the library and both bounds."""
     say("== phase 10: fused propagate + mix (cheb_conv_fused, #9)")
+    from meshvae_tpu_torch.bench.tile_probe import fused_bounds, in_turns
     from meshvae_tpu_torch.ops import cheb_fused
+    from meshvae_tpu_torch.ops.bsr_spmm import bsr_grouped_spmm
     from meshvae_tpu_torch.ops.cheb import cheb_conv_bsr
     from meshvae_tpu_torch.ops.cheb_fused import (cheb_conv_fused,
                                                   cheb_fused_step,
@@ -1790,7 +1856,6 @@ def phase_fused(torch, dev, ops, hier, ops20, hier20):
     worst_abs = 0.0
     # --- the convs: counts reset just before, read just after ------------
     cheb_fused.reset_launches()
-    runs = []
     for name, op, b, k in shapes:
         for precision in (("highest", "high") if name == "config-1 L1"
                           else ("highest",)):
@@ -1831,7 +1896,6 @@ def phase_fused(torch, dev, ops, hier, ops20, hier20):
             if not (rel <= bar and max(g_rel) <= 1e-4):
                 fail(f"cheb_conv_fused disagrees with its twin at {name} "
                      f"{precision}")
-            runs.append((name, op, b, k))
     launches = dict(cheb_fused.LAUNCHES)
     # ----------------------------------------------------------------------
     want_n = {"fp32": sum(k - 1 for _, _, _, k in shapes), "bf16x3": 6 - 1}
@@ -1839,8 +1903,12 @@ def phase_fused(torch, dev, ops, hier, ops20, hier20):
         f"kernel-side conv forward)")
     if launches != want_n:
         fail(f"cheb_fused_step launched {launches}, expected {want_n}")
+    worst = _fused_sweep(torch, dev)
+    say(f"  synthetic G = 1..9 (padded slots, dense, empty and half-empty "
+        f"blocks), (B, f_pad, f_out) in {FUSED_SHAPES}, fp32 and bf16x3: "
+        f"T_k bit-equal to bsr_grouped_spmm, worst {worst:.3f} of the bars")
 
-    # --- each step against its twin; per-call times and bounds -----------
+    # --- each step against its twin; per-call times in turns and bounds --
     per_call = {}
     for name, op, b, k in shapes:
         bsr, f = op.bsr, 16
@@ -1850,6 +1918,7 @@ def phase_fused(torch, dev, ops, hier, ops20, hier20):
         w = 0.1 * torch.randn(f, f, device=dev, generator=gen)
         acc = torch.randn(bsr.n_pad, c, device=dev, generator=gen)
         got_t, got_acc = cheb_fused_step(bsr, t1, t2, w, acc.clone(), 2.0)
+        same = bsr_grouped_spmm(bsr, t1, "fp32", 2.0, t_prev=t2)
         torch.cuda.synchronize()
         want_t, want_acc = cheb_fused_step_reference(bsr, t1, t2, w, acc, 2.0)
         errs = [(a - r).abs().max().item() for a, r in
@@ -1857,13 +1926,10 @@ def phase_fused(torch, dev, ops, hier, ops20, hier20):
         rel = max(e / r.abs().max().item()
                   for e, r in zip(errs, (want_t, want_acc)))
         worst_abs = max(worst_abs, *errs)
-        if not rel <= TOL_KERNEL:
-            fail(f"cheb_fused_step disagrees with its twin at {name}: {rel}")
+        if not (rel <= TOL_KERNEL and torch.equal(got_t, same)):
+            fail(f"cheb_fused_step disagrees at {name}: {rel}, T_k bit-equal "
+                 f"to bsr_grouped_spmm {torch.equal(got_t, same)}")
         scratch = acc.clone()
-        k_ms = time_ms(torch, lambda: cheb_fused_step(bsr, t1, t2, w, scratch,
-                                                      2.0))
-        p_ms = time_ms(torch, lambda: cheb_fused_step_reference(
-            bsr, t1, t2, w, acc, 2.0))
         csr = _csr(torch, normalized_neg_adjacency(adjacency[name]),
                    bsr.n_pad, bsr.n_pad, dev)
 
@@ -1872,41 +1938,56 @@ def phase_fused(torch, dev, ops, hier, ops20, hier20):
             return t, acc + torch.matmul(t.reshape(bsr.n_pad, b, f), w
                                          ).reshape(bsr.n_pad, c)
 
-        l_ms = time_ms(torch, library)
-        nnz = int((bsr.blocks != 0).sum())
-        byts = (4 * (bsr.blocks.numel() + bsr.g_idx.numel()
-                     + bsr.g_bcol.numel()) + 4 * c * bsr.n_pad * 3
-                + 2 * 4 * bsr.n_pad * c + 4 * f * f)
-        ops_n = 2 * nnz * c + 2 * bsr.n_pad * c * f
-        bytes_ms = 1e3 * byts / HBM_BYTES_PER_S
-        ops_ms = 1e3 * ops_n / PEAK_OPS["fp32"]
-        per_call[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                              bound_ms=max(bytes_ms, ops_ms),
-                              bytes_ms=bytes_ms, ops_ms=ops_ms, k=k)
-        say(f"  step {name} C={c}: max_err/max {rel:.3e}; kernel "
-            f"{1e3 * k_ms:.1f} us, twin {1e3 * p_ms:.1f} us, torch.sparse + "
-            f"torch.matmul {1e3 * l_ms:.1f} us, bound "
-            f"{1e3 * max(bytes_ms, ops_ms):.2f} us")
+        ms = in_turns({"kernel": lambda: cheb_fused_step(
+            bsr, t1, t2, w, scratch, 2.0), "library": library}, 50,
+            spread=True)
+        p_ms = time_ms(torch, lambda: cheb_fused_step_reference(
+            bsr, t1, t2, w, acc, 2.0))
+        bnd = fused_bounds(bsr, c, f, f)
+        per_call[name] = dict(ms=ms["kernel"], plain_ms=p_ms,
+                              library_ms=ms["library"],
+                              bound_ms=bnd["bound_ms"],
+                              bytes_ms=bnd["bytes_ms"], ops_ms=bnd["ops_ms"],
+                              stored_ms=bnd["stored_ms"], k=k)
+        say(f"  step {name} C={c}: max_err/max {rel:.3e}, T_k bit-equal to "
+            f"bsr_grouped_spmm; kernel {1e3 * ms['kernel']:.1f} us (spread "
+            f"{1e3 * ms['kernel_spread']:.1f}), twin {1e3 * p_ms:.1f} us, "
+            f"torch.sparse + torch.matmul {1e3 * ms['library']:.1f} us, "
+            f"bound {1e3 * bnd['bound_ms']:.2f} us ({bnd['bound_by']}, "
+            f"occupied tiles; {1e3 * bnd['stored_ms']:.2f} us with the "
+            f"blocks as stored)")
 
-    # --- the conv beside the main path's, forward and forward+backward ---
+    # --- the conv beside the main path's, forward and forward+backward,
+    # in turns (fused, cheb_conv_bsr, cheb_conv_bsr, fused) ---------------
     for name, op, b, k in shapes:
         x = torch.randn(b, op.n, 16, device=dev, generator=gen)
         w = (0.1 * torch.randn(k, 16, 16, device=dev, generator=gen)
              ).requires_grad_(True)
         bias = torch.zeros(16, device=dev, requires_grad=True)
         xg = x.clone().requires_grad_(True)
-        row = {}
-        for label, conv in (("fused", cheb_conv_fused),
-                            ("cheb_conv_bsr", lambda a, o, *r, **kw:
-                             cheb_conv_bsr(a, o.bsr, *r, **kw))):
+        convs = {"fused": cheb_conv_fused,
+                 "cheb_conv_bsr": lambda a, o, *r, **kw: cheb_conv_bsr(
+                     a, o.bsr, *r, **kw)}
+
+        def fwd(conv):
             with torch.no_grad():
-                row[f"{label} fwd"] = time_ms(
-                    torch, lambda: conv(x, op, w, bias, precision="highest"))
-            row[f"{label} fwd+bwd"] = time_ms(
-                torch, lambda: conv(xg, op, w, bias,
-                                    precision="highest").sum().backward(),
+                return time_ms(torch, lambda: conv(x, op, w, bias,
+                                                   precision="highest"))
+
+        def fwd_bwd(conv):
+            return time_ms(torch, lambda: conv(
+                xg, op, w, bias, precision="highest").sum().backward(),
                 backlog=False)
-        say(f"  conv {name} B={b} K={k} (ms): " + ", ".join(
+
+        row = {}
+        for label, timer in (("fwd", fwd), ("fwd+bwd", fwd_bwd)):
+            turns = {key: [] for key in convs}
+            for key in ("fused", "cheb_conv_bsr", "cheb_conv_bsr", "fused"):
+                turns[key].append(timer(convs[key]))
+            for key, v in turns.items():
+                row[f"{key} {label}"] = statistics.mean(v)
+                row[f"{key} {label} spread"] = abs(v[0] - v[1])
+        say(f"  conv {name} B={b} K={k}, turns F B B F (ms): " + ", ".join(
             f"{key} {v:.3f}" for key, v in row.items()))
     name = "scaled20k L0"
     entry = {key: v * (per_call[name]["k"] - 1) if key.endswith("ms") else v
@@ -1914,103 +1995,82 @@ def phase_fused(torch, dev, ops, hier, ops20, hier20):
     return entry, launches, worst_abs
 
 
-def _synthetic_bsr(torch, dev, g, dtype, seed):
-    """A random row-grouped operator with G slots per row (a third of them
-    padded after the first), 13 + G row blocks over 11 column blocks of 17
-    dense random blocks: the ring's chunk count and item stride vary with
-    G."""
-    from meshvae_tpu_torch.ops.block_sparse import (BLOCK, BlockSparseOperator,
-                                                    tile_mask)
-
-    gen = torch.Generator().manual_seed(seed)
-    nb, n_rows, ncb = 17, 13 + g, 11
-    blocks = (0.1 * torch.randn(nb, BLOCK, BLOCK, generator=gen)).to(dtype)
-    g_idx = torch.randint(0, nb, (n_rows, g), generator=gen,
-                          dtype=torch.int32)
-    g_idx[:, 1:][torch.rand(n_rows, g - 1, generator=gen) < 0.3] = nb
-    g_bcol = torch.randint(0, ncb, (n_rows * g,), generator=gen,
-                           dtype=torch.int32)
-    zero = torch.zeros(nb, dtype=torch.int32, device=dev)
-    blocks = blocks.to(dev)
-    return BlockSparseOperator(blocks, zero, zero, g_idx.to(dev),
-                               g_bcol.to(dev), n_rows * BLOCK,
-                               n_rows * BLOCK, ncb * BLOCK, g,
-                               tile_mask(blocks))
-
-
 def phase_emitted(torch, dev, ops, s20, s80):
     """TPU kernel #10 on the card: emitted_spmm against its twin and
-    bsr_grouped_spmm at the level-0 shapes and over G = 1..9 with padded
-    slots, then the probe (bench/emitted_probe.py) at the 80k bf16 and 20k
-    fp32 level 0, its launches counted, and the twin's time. Returns the
-    kernels-line entries' numbers per probe run and the launches."""
+    bsr_grouped_spmm at the level-0 shapes and over the synthetic G = 1..9
+    sweep, then its path, the probe (bench/emitted_probe.py) at 5k fp32
+    C = 256, 20k fp32 C = 512 and 80k bf16 C = 512, its launches counted,
+    and the twin's time. Returns the kernels-line entries' numbers per
+    probe run and the launches."""
     say("== phase 11: emitted-pipeline SpMM (emitted_spmm, #10)")
+    import argparse
+
     from meshvae_tpu_torch.bench import emitted_probe
+    from meshvae_tpu_torch.bench.tile_probe import (patterned_operator,
+                                                    ulp_bar)
     from meshvae_tpu_torch.ops import emitted_spmm as em
     from meshvae_tpu_torch.ops.bsr_spmm import bsr_grouped_spmm
 
     gen = torch.Generator(device=dev).manual_seed(11)
     bf, f32 = torch.bfloat16, torch.float32
-    bar = {f32: TOL_KERNEL, bf: TOL_BF16}
     mode_of = {f32: "fp32", bf: "bf16"}
     worst = {f32: 0.0, bf: 0.0}
+
+    def hold(tag, bsr, x, ctas=0):
+        """fp32: bit-equal to bsr_grouped_spmm; bf16: within the bf16 ulp
+        of max |y| of the twin (and of bsr_grouped_spmm). Returns the
+        error as a share of the bar and the bit-equal share."""
+        dt = x.dtype
+        y = em.emitted_spmm(bsr, x, ctas)
+        grouped = bsr_grouped_spmm(bsr, x, mode_of[dt])
+        torch.cuda.synchronize()
+        twin = em.emitted_spmm_reference(bsr, x).float()
+        top = twin.abs().max().item()
+        bar = TOL_KERNEL if dt == f32 else ulp_bar(twin)
+        err = max((y.float() - r.float()).abs().max().item()
+                  for r in (twin, grouped))
+        equal = (y == grouped).float().mean().item()
+        worst[dt] = max(worst[dt], err)
+        if not (err <= bar * top and (dt == bf or equal == 1.0)):
+            fail(f"emitted_spmm at {tag} ({dt}, {ctas} CTAs/SM): "
+                 f"{err / top:.3e} of max|y| (bar {bar:.3e}), bit-equal to "
+                 f"bsr_grouped_spmm {equal:.5f}")
+        return err / top / bar, equal
+
     shapes = [("config-1 L0", ops.lap[0].bsr, 256, f32),
               ("scaled20k L0", s20["ops"].lap[0].bsr, 1024, f32),
               ("scaled80k L0", s80["ops"].lap[0].bsr, 512, bf)]
     for name, bsr, c, dt in shapes:
         x = torch.randn(bsr.n_pad_cols, c, device=dev, generator=gen).to(dt)
-        y = em.emitted_spmm(bsr, x)
-        torch.cuda.synchronize()
-        twin = em.emitted_spmm_reference(bsr, x)
-        grouped = bsr_grouped_spmm(bsr, x, mode_of[dt])
-        errs = [((y.float() - r.float()).abs().max().item(),
-                 r.float().abs().max().item()) for r in (twin, grouped)]
-        rel = [e / m for e, m in errs]
-        worst[dt] = max(worst[dt], errs[0][0], errs[1][0])
-        say(f"  {name} C={c} {str(dt)[6:]} G={bsr.g_width}: vs twin "
-            f"{rel[0]:.3e}, vs bsr_grouped_spmm {rel[1]:.3e} of max|y| (bar "
-            f"{bar[dt]:.1e}); bit-equal to bsr_grouped_spmm "
-            f"{(y == grouped).float().mean().item():.5f}")
-        if not max(rel) <= bar[dt]:
-            fail(f"emitted_spmm disagrees at {name}: {rel}")
-    # the ring across G = 1..9 (the 80k level 0 has G = 8), padded slots and
-    # 1, 2 or the resident CTAs per SM, against bsr_grouped_spmm (in fp32
-    # the same FMAs in the same order: bit-equal) and the twin. Dense random
-    # blocks sum 128 G terms per output, so another fp32 order (the twin's
-    # cuBLAS, bsr_grouped_spmm's bf16 tensor cores) can move a bf16
-    # rounding of an output near max|y|: one ulp there is up to 2^-7 of
-    # max|y|, and the bf16 bar is that ulp, exactly. Both references are
-    # measured in units of the twin's max|y|, since a flipped rounding
-    # can move the other reference's own max by that ulp
+        share, equal = hold(name, bsr, x)
+        say(f"  {name} C={c} {str(dt)[6:]} G={bsr.g_width}: {share:.3f} of "
+            f"the bar; bit-equal to bsr_grouped_spmm {equal:.5f}")
+    # the work items across G = 1..9 with padded slots, a dense block, a
+    # block with no set bit, every other strip empty and sparse tiles, at
+    # 1, 2 or the resident CTAs per SM
     sweep = 0.0
     for g in range(1, 10):
         for dt in (f32, bf):
-            bsr = _synthetic_bsr(torch, dev, g, dt, seed=g)
-            x = torch.randn(bsr.n_pad_cols, 512, device=dev,
-                            generator=gen).to(dt)
-            grouped = bsr_grouped_spmm(bsr, x, mode_of[dt])
-            twin = em.emitted_spmm_reference(bsr, x).float()
-            top = twin.abs().max().item()
-            ulp = 2.0 ** (math.floor(math.log2(top)) - 7) / top
-            bars = [(grouped, 0.0 if dt == f32 else ulp),
-                    (twin, bar[dt] if dt == f32 else ulp)]
-            for ctas in (0, 1, 2):
-                y = em.emitted_spmm(bsr, x, ctas)
-                torch.cuda.synchronize()
-                for ref, lim in bars:
-                    err = (y.float() - ref.float()).abs().max().item() / top
-                    sweep = max(sweep, err / lim if lim else 0.0)
-                    if not err <= lim:
-                        fail(f"emitted_spmm at G={g} {dt} ctas {ctas}: "
-                             f"{err:.3e} > {lim:.3e}")
-    say(f"  G = 1..9 with padded slots, 0/1/2 CTAs per SM cap, vs twin and "
-        f"bsr_grouped_spmm: worst {sweep:.3f} of the bar")
+            bsr = patterned_operator(g, dt, dev, seed=g)
+            for c in (128, 512, 2048):
+                x = torch.randn(bsr.n_pad_cols, c, device=dev,
+                                generator=gen).to(dt)
+                for ctas in (0, 1, 2):
+                    sweep = max(sweep, hold(f"G={g} C={c}", bsr, x, ctas)[0])
+    say(f"  synthetic G = 1..9 (padded slots, dense, empty and half-empty "
+        f"blocks), C = 128/512/2048, 0/1/2 CTAs per SM cap: fp32 bit-equal "
+        f"to bsr_grouped_spmm, worst {sweep:.3f} of the bar")
 
     # --- the probe: counts reset just before, read just after ------------
     tdir = os.path.dirname(s80["path"])
-    runs = {"bf16": ["--workload", "80k", "--cache-dir", s80["cache"]],
-            "fp32": ["--workload", "20k", "--compute-dtype", "float32",
-                     "--cache-dir", s20["cache"]]}
+    runs = {"5k fp32": ["--workload", "5k", "--compute-dtype", "float32",
+                        "--batch-size", "16", "--iters", "200",
+                        "--cache-dir", os.path.join(os.path.dirname(tdir),
+                                                    "cache5")],
+            "20k fp32": ["--workload", "20k", "--compute-dtype", "float32",
+                         "--iters", "200", "--cache-dir", s20["cache"]],
+            "80k bf16": ["--workload", "80k", "--iters", "200",
+                         "--cache-dir", s80["cache"]]}
     em.reset_launches()
     reports = {}
     for key, argv in runs.items():
@@ -2024,41 +2084,47 @@ def phase_emitted(torch, dev, ops, s20, s80):
     # -----------------------------------------------------------------------
     out = {}
     for key, rep in reports.items():
-        dt = bf if key == "bf16" else f32
-        bsr = (s80 if key == "bf16" else s20)["ops"].lap[0].bsr
+        dt = bf if key.endswith("bf16") else f32
+        bsr = emitted_probe.level0(argparse.Namespace(
+            workload=rep["workload"], template_dir=tdir,
+            cache_dir=runs[key][-1]), dev, dt)[0]
         x = torch.randn(bsr.n_pad_cols, rep["c"], device=dev,
                         generator=gen).to(dt)
         plain = time_ms(torch, lambda: em.emitted_spmm_reference(bsr, x))
         info = rep["kernel"]
-        say(f"probe {rep['workload']} {key} C={rep['c']} G={rep['g']}: "
-            f"emitted {rep['emitted_ms']:.4f} ms (CTAs/SM "
+        say(f"probe {key} C={rep['c']} G={rep['g']}: emitted "
+            f"{rep['emitted_ms']:.4f} ms (CTAs/SM "
             f"{rep['emitted_ms_by_ctas_per_sm']}), grouped "
             f"{rep['grouped_ms']:.4f} ms, torch.sparse[{rep['library_dtype']}]"
             f" {rep['library_ms']:.4f} ms, twin {plain:.4f} ms, bound "
-            f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}; x per item "
-            f"{rep['bound_ms_x_per_item']:.4f}); emitted/grouped "
-            f"{rep['emitted_ms'] / rep['grouped_ms']:.3f}; kernel "
-            f"{info['registers']} registers, {info['dynamic_smem']} B shared,"
-            f" {info['local_bytes']} B local, {info['ctas_per_sm']} CTAs/SM")
+            f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}, occupied tiles; "
+            f"{rep['stored_ms']:.4f} as stored); emitted/grouped "
+            f"{rep['emitted_ms'] / rep['grouped_ms']:.3f}; spreads "
+            f"{rep['spread_ms']}; bit-equal to grouped {rep['bit_equal']:.5f}"
+            f"; kernel {info['registers']} registers, {info['dynamic_smem']} "
+            f"B shared, {info['local_bytes']} B local, {info['ctas_per_sm']} "
+            f"CTAs/SM")
         out[key] = dict(ms=rep["emitted_ms"], plain_ms=plain,
                         library_ms=rep["library_ms"],
                         bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
-                        grouped_ms=rep["grouped_ms"])
+                        stored_ms=rep["stored_ms"],
+                        grouped_ms=rep["grouped_ms"],
+                        launches=rep["launches"][mode_of[dt]], c=rep["c"])
     say(f"emitted_spmm launches in the probe runs {launches}")
-    if not (launches["bf16"] > 0 and launches["fp32"] > 0):
-        fail(f"the probe did not launch emitted_spmm in both dtypes: "
-             f"{launches}")
+    if not all(e["launches"] > 0 for e in out.values()):
+        fail(f"a probe run did not launch emitted_spmm: {launches}")
     return out, launches, worst
 
 
 def phase_tiles(dev, s80, tmp):
-    """The occupied-tile design of bsr_grouped_spmm against the dense-block
-    product of emitted_spmm (#10, the inner product of the design before
-    it) and torch.sparse: bench/tile_probe.py's synthetic masks, the
-    level-0 occupancy and fp32 bit-equality at 5k, 20k and 80k, and the
-    per-call times in turns."""
+    """The occupied-tile design of bsr_grouped_spmm against the TMA
+    pipeline of emitted_spmm (#10, the same tile products) and
+    torch.sparse: bench/tile_probe.py's synthetic masks, bsr_grouped_spmm's
+    fingerprints against those recorded before its engine moved into
+    csrc/tile_engine.cuh (the same bits), the level-0 occupancy and fp32
+    bit-equality at 5k, 20k and 80k, and the per-call times in turns."""
     say("== phase 13: occupied 16x16 tiles (bsr_grouped_spmm against "
-        "emitted_spmm and torch.sparse)")
+        "emitted_spmm and torch.sparse, and against its recorded bits)")
     from meshvae_tpu_torch.bench import tile_probe
 
     argv = ["--workloads", "5k,20k,80k", "--iters", "100"]
@@ -2371,17 +2437,16 @@ def main() -> int:
               worst_abs["fp32"], per_step["serve_fp32"]),
     ]
     # TPU kernel #10: the probe runs of phase 11 (its path)
-    for key, label in (("bf16", "scaled80k L0 bf16 C=512"),
-                       ("fp32", "scaled20k L0 fp32 C=512")):
-        e = emitted[key]
+    for key, e in emitted.items():
         kernels.append(dict(
-            name=f"emitted_spmm[{key}] probe, {label}", route="cuda",
-            source=SOURCE_EMITTED, replaces=REPLACES["emitted"],
-            launches=emitted_launches[key],
-            max_abs_err=emitted_err[torch.bfloat16 if key == "bf16"
+            name=f"emitted_spmm[{key[-4:]}] probe, L0 {key} C={e['c']}",
+            route="cuda", source=SOURCE_EMITTED, replaces=REPLACES["emitted"],
+            launches=e["launches"],
+            max_abs_err=emitted_err[torch.bfloat16 if key.endswith("bf16")
                                     else torch.float32],
             ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
-            bound_by=e["bound_by"], library_ms=e["library_ms"]))
+            bound_by=e["bound_by"], library_ms=e["library_ms"],
+            bound_stored_ms=e["stored_ms"]))
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -1,26 +1,32 @@
-"""The occupied-tile SpMM (``bsr_grouped_spmm``) against the dense-block
-inner product (``emitted_spmm``, TPU kernel #10) and torch.sparse.
+"""The occupied-tile SpMM (``bsr_grouped_spmm``) against the TMA pipeline of
+``emitted_spmm`` (TPU kernel #10) and torch.sparse.
 
     python -m meshvae_tpu_torch.bench.tile_probe [--workloads 5k,20k,80k]
         [--batch-size 32] [--features 16] [--iters 200] [--device cpu]
-        [--template-dir DIR] [--cache-dir DIR]
+        [--template-dir DIR] [--cache-dir DIR] [--baseline-csrc DIR]
 
 ``bsr_grouped_spmm`` skips the 16 x 16 tiles of each block that its
 ``tile_mask`` marks empty and runs the rest on the tensor cores (bf16,
 bf16x3) or, in fp32, on the CUDA cores in the order of a dense-block
-product; ``emitted_spmm`` runs every FMA of every 128 x 128 block. So:
+product, through a cp.async ring (the occupied-tile engine,
+csrc/tile_engine.cuh); ``emitted_spmm`` runs the same tile products behind
+a TMA pipeline. So:
 
   1. synthetic operators (G = 1..9 with padded slots; a dense block, a
      block with no set bit, empty strips, sparse tiles) at C = 64, 512 and
      2048: each mode against its twin (1e-5 of max |y| in fp32 and bf16x3,
      the bf16 ulp of max |y| in bf16), the lazy seed at f = 8, 16, 32 and
      128 in fp32 and bf16, and fp32 against ``emitted_spmm`` bit for bit;
-  2. per workload, the level-0 Laplacian of the template's hierarchy
+  2. on a card, the fingerprints of ``bsr_grouped_spmm`` (``fingerprints``:
+     a digest of its outputs per mode over fixed inputs) against those
+     recorded from the kernel before its engine moved into
+     csrc/tile_engine.cuh (FINGERPRINTS): equal means the same bits;
+  3. per workload, the level-0 Laplacian of the template's hierarchy
      (factors 4, 4, 4, 4), x [n_pad, B * F] from numpy's default_rng(0):
      its occupancy (blocks, G, density, occupied 64 x 16 chunks and 16 x 16
      tiles), fp32 ``bsr_grouped_spmm`` equal bit for bit to
      ``emitted_spmm``, bf16 within one bf16 ulp (2^-8 max |y|) of its twin;
-  3. per workload and dtype (fp32; bf16 at 20k and 80k), per-call times of
+  4. per workload and dtype (fp32; bf16 at 20k and 80k), per-call times of
      ``bsr_grouped_spmm``, ``emitted_spmm`` and torch.sparse CSR (cuSPARSE,
      a yardstick only), each --iters back-to-back launches behind a sleep
      kernel, median of three, run in turns (A B C C B A) and averaged, with
@@ -29,12 +35,20 @@ product; ``emitted_spmm`` runs every FMA of every 128 x 128 block. So:
      y), each at 3.35 TB/s against 2 operations per nonzero per column at
      the dtype's peak.
 
-The last line is one JSON report. With --device cpu steps 1 and 2 run the
+--baseline-csrc DIR builds DIR/bsr_spmm.cu (another checkout's
+``meshvae_tpu_torch/ops/csrc``) beside this one and, in the same process,
+compares the two: their ptxas reports, their fingerprints, and per-call
+times at every workload and mode in turns (baseline, this, this,
+baseline) with the spread of each pair of turns.
+
+The last line is one JSON report. With --device cpu steps 1 and 3 run the
 plain twins (nothing is timed, no kernel launches).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import hashlib
 import json
 import math
 import os
@@ -45,13 +59,14 @@ import torch
 
 from ..device import resolve_device
 from ..mesh import load_obj, load_or_build_hierarchy
+from ..ops import bsr_spmm
 from ..ops import emitted_spmm as em
 from ..ops.block_sparse import (BLOCK, TILE, TILES, BlockSparseOperator,
                                 tile_mask, to_block_sparse)
-from ..ops.bsr_spmm import bsr_grouped_spmm, bsr_grouped_spmm_reference
+from ..ops.bsr_spmm import (MODE_DTYPE, bsr_grouped_spmm,
+                            bsr_grouped_spmm_reference)
 from ..ops.graph import normalized_neg_adjacency
 from ..tools.make_scaled_template import ensure_template
-from .emitted_probe import csr_operand, per_launch_ms
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -59,6 +74,13 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 MODE = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 TOL = 1e-5                   # fp32 and bf16x3, of max |y|
+ROUNDS = 3
+# fingerprints() of bsr_grouped_spmm as built from the sources before its
+# engine moved into csrc/tile_engine.cuh (any card of the same
+# architecture gives the same digests: fixed inputs, no atomics)
+FINGERPRINTS = {"fp32": "7cf70ce0fafd9203", "fp32 lazy": "532b7433f63d4f62",
+                "bf16x3": "b9268d1bb1096465", "bf16": "c38701bef98a9f60",
+                "bf16 lazy": "bb0948278cd0c223"}
 _POPCOUNT = torch.tensor([bin(i).count("1") for i in range(256)])
 
 
@@ -76,7 +98,57 @@ def parse_args(argv=None):
                          "template20k/80k.obj)")
     ap.add_argument("--cache-dir", default=None,
                     help="hierarchy cache (default ~/.cache/meshvae_tpu_torch)")
+    ap.add_argument("--baseline-csrc", default=None,
+                    help="another checkout's ops/csrc to build and compare "
+                         "bsr_grouped_spmm against")
     return ap.parse_args(argv)
+
+
+def per_launch_ms(fn, iters: int) -> float:
+    """Median over ROUNDS of (CUDA events around `iters` back-to-back
+    launches, queued behind a sleep kernel so the device never waits on
+    the host) / iters."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(ROUNDS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def csr_operand(mat, bsr, dev, dtype):
+    """The Laplacian padded to [n_pad, n_pad_cols] as torch CSR, in dtype
+    when cuSPARSE takes it, else fp32; returns (csr, dtype name)."""
+    import scipy.sparse as sp
+
+    mat = sp.csr_matrix(mat)
+    indptr = np.concatenate([mat.indptr, np.full(bsr.n_pad - mat.shape[0],
+                                                 mat.indptr[-1])])
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(indptr.astype(np.int64)),
+        torch.from_numpy(mat.indices.astype(np.int64)),
+        torch.from_numpy(mat.data.astype(np.float32)),
+        size=(bsr.n_pad, bsr.n_pad_cols)).to(dev)
+    if dtype == torch.float32:
+        return csr, "fp32"
+    low = torch.sparse_csr_tensor(csr.crow_indices(), csr.col_indices(),
+                                  csr.values().to(dtype), size=csr.shape)
+    try:
+        torch.sparse.mm(low, torch.ones(bsr.n_pad_cols, 128, dtype=dtype,
+                                        device=dev))
+        torch.cuda.synchronize()
+        return low, "bf16"
+    except (RuntimeError, NotImplementedError):
+        return csr, "fp32"
 
 
 def occupancy(bsr: BlockSparseOperator) -> dict:
@@ -115,14 +187,45 @@ def bounds(bsr: BlockSparseOperator, c: int, dtype, seeds: int = 0,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def patterned_operator(g: int, dtype, dev, seed: int) -> BlockSparseOperator:
+def fused_bounds(bsr: BlockSparseOperator, c: int, f_pad: int, f_out: int,
+                 mode: str = "fp32", prev: bool = True,
+                 occ: dict | None = None) -> dict:
+    """Least times of one fused Chebyshev step (TPU kernel #9, fp32
+    storage): T_{k-1} read, T_{k-2} read (prev), T_k written, acc
+    [n_pad, c / f_pad * f_out] read and written, W_k read, each once, and
+    the operator as its occupied tiles with tile_mask and indices
+    (bound_ms) or as stored (stored_ms); against the propagation's 2
+    operations per nonzero per column and the mix's 2 f_out per T_k
+    element (three bf16 products each in bf16x3) at the mode's peak."""
+    occ = occ or occupancy(bsr)
+    idx = 4 * (bsr.g_idx.numel() + bsr.g_bcol.numel())
+    acc = bsr.n_pad * (c // f_pad) * f_out
+    act = 4 * (bsr.n_pad_cols * c + bsr.n_pad * c * (2 if prev else 1)
+               + 2 * acc + f_pad * f_out)
+    tiles = 4 * occ["tiles"] * TILE * TILE + TILES * occ["blocks"] + idx
+    stored = 4 * bsr.blocks.numel() + idx + act
+    split = 3 if mode == "bf16x3" else 1
+    ops = split * 2 * (occ["nnz"] * c + bsr.n_pad * c * f_out)
+    peak = PEAK_OPS[torch.bfloat16 if mode == "bf16x3" else torch.float32]
+    ops_ms = 1e3 * ops / peak
+    bytes_ms = 1e3 * (tiles + act) / HBM_BYTES_PER_S
+    return dict(bytes=tiles + act, stored_bytes=stored, ops=ops,
+                bytes_ms=bytes_ms, ops_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                stored_ms=max(1e3 * stored / HBM_BYTES_PER_S, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def patterned_operator(g: int, dtype, dev, seed: int,
+                       square: bool = False) -> BlockSparseOperator:
     """A random row-grouped operator with G slots per row (a third of them
-    padded after the first) over 13 + G row blocks and 11 column blocks, 17
-    stored blocks: block 0 dense, block 1 all zero (its slots have no set
-    bit), block 2 with every other strip empty, the rest ~35% of their
-    tiles occupied at ~10% density."""
+    padded after the first) over 13 + G row blocks and 11 column blocks
+    (as many as the rows when `square`), 17 stored blocks: block 0 dense,
+    block 1 all zero (its slots have no set bit), block 2 with every other
+    strip empty, the rest ~35% of their tiles occupied at ~10% density."""
     rng = np.random.default_rng(seed)
-    nb, n_rows, ncb = 17, 13 + g, 11
+    nb, n_rows = 17, 13 + g
+    ncb = n_rows if square else 11
     vals = 0.1 * rng.standard_normal((nb, TILES, TILE, TILES, TILE))
     keep = rng.random((nb, TILES, 1, TILES, 1)) < 0.35
     keep = keep & (rng.random(vals.shape) < 0.1)
@@ -149,8 +252,10 @@ def ulp_bar(ref: torch.Tensor) -> float:
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
-    return ((got.float() - want.float()).abs().max()
-            / want.float().abs().max().clamp_min(1e-30)).item()
+    """max |got - want| / max |want|, in float64 (an error of exactly one
+    ulp_bar must not round above it)."""
+    return ((got.double() - want.double()).abs().max()
+            / want.double().abs().max().clamp_min(1e-30)).item()
 
 
 def synthetic_sweep(dev) -> float:
@@ -225,13 +330,125 @@ def level0(workload: str, args, dev, dtype):
     return to_block_sparse(mat, dev, dtype=dtype), mat
 
 
-def in_turns(fns: dict, iters: int) -> dict:
+def in_turns(fns: dict, iters: int, spread: bool = False) -> dict:
     """Per-launch ms of each callable, run in turns A B C C B A; the mean
-    of its two turns."""
+    of its two turns (with spread, also {key}_spread: |first - second|)."""
     times = {k: [] for k in fns}
     for k in list(fns) + list(reversed(list(fns))):
         times[k].append(per_launch_ms(fns[k], iters))
-    return {k: statistics.mean(v) for k, v in times.items()}
+    out = {k: statistics.mean(v) for k, v in times.items()}
+    if spread:
+        out.update({f"{k}_spread": abs(v[0] - v[1]) for k, v in times.items()})
+    return out
+
+
+@contextlib.contextmanager
+def using_library(lib):
+    """bsr_grouped_spmm launches from `lib` (a bound ctypes library) inside
+    the block."""
+    real = bsr_spmm._lib
+    bsr_spmm._lib = lambda: lib
+    try:
+        yield
+    finally:
+        bsr_spmm._lib = real
+
+
+def fingerprints(dev) -> dict:
+    """Per mode, the first 16 hex digits of a sha256 over the bytes of
+    bsr_grouped_spmm's outputs on fixed inputs (numpy's default_rng): the
+    patterned operators G = 1..9 at C = 64 and 512, alpha 2 with and
+    without t_prev; and in fp32 and bf16 ("<mode> lazy") the lazy seed at
+    f = 16 and 128."""
+    out = {}
+    for mode, dt in MODE_DTYPE.items():
+        plain, lazy = hashlib.sha256(), hashlib.sha256()
+        for g in range(1, 10):
+            bsr = patterned_operator(g, dt, dev, seed=100 + g)
+            rng = np.random.default_rng(g)
+
+            def rand(rows, cols, scale=1.0):
+                a = scale * rng.standard_normal((rows, cols))
+                return torch.from_numpy(a.astype(np.float32)).to(dt).to(dev)
+
+            def digest(h, y):
+                h.update(y.contiguous().view(torch.uint8).cpu().numpy()
+                         .tobytes())
+
+            for c in (64, 512):
+                x, prev = rand(bsr.n_pad_cols, c), rand(bsr.n_pad, c)
+                digest(plain, bsr_grouped_spmm(bsr, x, mode, 2.0))
+                digest(plain, bsr_grouped_spmm(bsr, x, mode, 2.0,
+                                               t_prev=prev))
+            if mode == "bf16x3":
+                continue
+            x = rand(bsr.n_pad_cols, 512)
+            for f in (16, 128):
+                dot = (rand(bsr.n_pad, 512), rand(f, f, 0.3))
+                digest(lazy, bsr_grouped_spmm(bsr, x, mode, t_plus_dot=dot))
+        out[mode] = plain.hexdigest()[:16]
+        if mode != "bf16x3":
+            out[f"{mode} lazy"] = lazy.hexdigest()[:16]
+    return out
+
+
+def baseline_ab(args, dev, c: int) -> dict:
+    """bsr_grouped_spmm built from args.baseline_csrc against this build:
+    ptxas reports, fingerprints, and per-call ms at each workload's level 0
+    in every mode, in turns (baseline, this, this, baseline)."""
+    from ..ops import _build
+
+    logs = _build.build_libraries(["bsr_spmm"])
+    logs_base = _build.build_libraries(["bsr_spmm"], args.baseline_csrc)
+    base = bsr_spmm.bind(_build.load_library("bsr_spmm", args.baseline_csrc))
+    this = bsr_spmm._lib()
+    report = {"ptxas": {"this": _build.ptxas_table(logs.get("bsr_spmm", "")),
+                        "baseline": _build.ptxas_table(
+                            logs_base.get("bsr_spmm", ""))}}
+    for side, rows in report["ptxas"].items():
+        for row in rows:
+            print(f"ptxas {side}: {row}", flush=True)
+    with using_library(base):
+        fp_base = fingerprints(dev)
+    fp_this = fingerprints(dev)
+    report["fingerprints"] = {"baseline": fp_base, "this": fp_this,
+                              "equal": fp_base == fp_this}
+    print(f"fingerprints baseline {fp_base}", flush=True)
+    print(f"fingerprints this     {fp_this}; equal {fp_base == fp_this}",
+          flush=True)
+
+    def timed(lib, fn):
+        def run():
+            with using_library(lib):
+                return per_launch_ms(fn, args.iters)
+        return run
+
+    report["times"] = {}
+    for workload in args.workloads.split(","):
+        rng = np.random.default_rng(0)
+        for dtype in (torch.float32, torch.bfloat16):
+            bsr, _ = level0(workload, args, dev, dtype)
+            x = torch.from_numpy(rng.standard_normal(
+                (bsr.n_pad_cols, c)).astype(np.float32)).to(dtype).to(dev)
+            prev = torch.from_numpy(rng.standard_normal(
+                (bsr.n_pad, c)).astype(np.float32)).to(dtype).to(dev)
+            modes = ("fp32", "bf16x3") if dtype == torch.float32 else ("bf16",)
+            for mode in modes:
+                fn = lambda: bsr_grouped_spmm(bsr, x, mode, 2.0, t_prev=prev)
+                turns = [timed(base, fn)(), timed(this, fn)(),
+                         timed(this, fn)(), timed(base, fn)()]
+                row = dict(baseline_ms=(turns[0] + turns[3]) / 2,
+                           this_ms=(turns[1] + turns[2]) / 2,
+                           baseline_spread=abs(turns[0] - turns[3]),
+                           this_spread=abs(turns[1] - turns[2]), turns=turns)
+                report["times"][f"{workload} {mode}"] = row
+                print(f"{workload} L0 {mode} C={c} (alpha 2, t_prev): "
+                      f"baseline {row['baseline_ms']:.4f} ms (spread "
+                      f"{row['baseline_spread']:.4f}), this "
+                      f"{row['this_ms']:.4f} ms (spread "
+                      f"{row['this_spread']:.4f}); turns "
+                      + ", ".join(f"{t:.4f}" for t in turns), flush=True)
+    return report
 
 
 def main(argv=None) -> dict:
@@ -245,6 +462,16 @@ def main(argv=None) -> dict:
           f"seed at f = 8..128: worst {worst:.3f} of the bar; fp32 bit-equal "
           f"to emitted_spmm", flush=True)
     report = {"c": c, "synthetic_worst_of_bar": worst, "workloads": {}}
+    if dev.type == "cuda":
+        if args.baseline_csrc:
+            report["baseline"] = baseline_ab(args, dev, c)
+        fp = fingerprints(dev)
+        report["fingerprints"] = fp
+        print(f"fingerprints {fp}; recorded {FINGERPRINTS or 'none'}",
+              flush=True)
+        if FINGERPRINTS and fp != FINGERPRINTS:
+            raise SystemExit(f"bsr_grouped_spmm's bits changed: "
+                             f"fingerprints {fp}, recorded {FINGERPRINTS}")
     for workload in args.workloads.split(","):
         rng = np.random.default_rng(0)
         entry = {}

@@ -13,6 +13,12 @@ a nonzero: bit t of byte s is set when rows 16s..16s+15, columns
 16t..16t+15 of the block do. The kernel skips every tile whose bit is
 clear. It is derived from the float32 sums, before any cast to bfloat16,
 so it is a superset of the nonzeros in every storage dtype.
+
+``row_order [nR]`` (int32) is the work list of the persistent kernel
+``emitted_spmm``: the row blocks sorted by their occupied 16-deep k chunks
+(``row_chunks``), most first, ties in row order. It is built from
+``tile_mask`` when the operator is made; any permutation of the rows gives
+the same product, so an operator made by hand may leave it None.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ class BlockSparseOperator:
     n_pad_cols: int
     g_width: int
     tile_mask: torch.Tensor   # [nb, 8] uint8, bit t of byte s: tile (s, t)
+    row_order: torch.Tensor | None = None  # [nR] int32, longest rows first
 
     @property
     def num_blocks(self) -> int:
@@ -57,6 +64,28 @@ def tile_mask(blocks: torch.Tensor) -> torch.Tensor:
     nonzero = (blocks != 0).reshape(nb, TILES, TILE, TILES, TILE).any(4)
     weights = 1 << torch.arange(TILES, device=blocks.device)
     return (nonzero.any(2).long() * weights).sum(-1).to(torch.uint8)
+
+
+def row_chunks(tile_mask: np.ndarray, g_idx: np.ndarray,
+               g_bcol: np.ndarray, n_col_blocks: int) -> np.ndarray:
+    """Per row block, the 16-deep k chunks that some strip of it needs:
+    over the row's real slots (g_idx < num_blocks, g_bcol inside x), the
+    chunks t whose bit is set in any of the slot block's 8 mask bytes."""
+    mask = np.asarray(tile_mask, np.uint8)
+    nb = mask.shape[0]
+    per_block = np.unpackbits(np.bitwise_or.reduce(mask, axis=1)[:, None],
+                              axis=1).sum(1)
+    g_idx = np.asarray(g_idx).astype(np.int64)
+    bcol = np.asarray(g_bcol).astype(np.int64).reshape(g_idx.shape)
+    real = (g_idx >= 0) & (g_idx < nb) & (bcol >= 0) & (bcol < n_col_blocks)
+    chunks = np.where(real, per_block[np.clip(g_idx, 0, max(nb - 1, 0))], 0)
+    return chunks.sum(1)
+
+
+def row_order(tile_mask, g_idx, g_bcol, n_col_blocks: int) -> np.ndarray:
+    """The work list: row blocks by row_chunks, most first, stable."""
+    chunks = row_chunks(tile_mask, g_idx, g_bcol, n_col_blocks)
+    return np.argsort(-chunks, kind="stable").astype(np.int32)
 
 
 def block_sparse_arrays(mat: sp.spmatrix, block: int = BLOCK,
@@ -116,13 +145,13 @@ def block_sparse_arrays(mat: sp.spmatrix, block: int = BLOCK,
             g_bcol[r, i] = block_col[bi]
         g_bcol[r, len(idxs):] = block_col[idxs[-1]]
 
+    mask = tile_mask(torch.from_numpy(blocks)).numpy()
+    n_pad_cols = (-(-coo.shape[1] // block) * block if allow_rect
+                  else n_pad)
     return dict(blocks=blocks, block_row=block_row, block_col=block_col,
-                g_idx=g_idx, g_bcol=g_bcol.reshape(-1),
-                tile_mask=tile_mask(torch.from_numpy(blocks)).numpy(), n=n,
-                n_pad=n_pad,
-                n_pad_cols=(-(-coo.shape[1] // block) * block if allow_rect
-                            else n_pad),
-                g_width=g)
+                g_idx=g_idx, g_bcol=g_bcol.reshape(-1), tile_mask=mask, n=n,
+                n_pad=n_pad, n_pad_cols=n_pad_cols, g_width=g,
+                row_order=row_order(mask, g_idx, g_bcol, n_pad_cols // block))
 
 
 def to_block_sparse(mat: sp.spmatrix, device, block: int = BLOCK,
@@ -137,7 +166,7 @@ def to_block_sparse(mat: sp.spmatrix, device, block: int = BLOCK,
         block_col=t(a["block_col"]), g_idx=t(a["g_idx"]),
         g_bcol=t(a["g_bcol"]), n=a["n"], n_pad=a["n_pad"],
         n_pad_cols=a["n_pad_cols"], g_width=a["g_width"],
-        tile_mask=t(a["tile_mask"]))
+        tile_mask=t(a["tile_mask"]), row_order=t(a["row_order"]))
 
 
 def bsr_to_dense(bsr: BlockSparseOperator) -> np.ndarray:

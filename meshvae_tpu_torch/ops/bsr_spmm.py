@@ -82,16 +82,20 @@ def pad_features(b: int, f: int) -> int:
     return f_pad
 
 
-@functools.cache
-def _lib():
-    from ._build import load_library
-
-    lib = load_library("bsr_spmm")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a loaded csrc/bsr_spmm.cu library."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bsr_grouped_spmm.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
                                      i, i, i, ctypes.c_float, i, p]
     lib.bsr_grouped_spmm.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _lib():
+    from ._build import load_library
+
+    return bind(load_library("bsr_spmm"))
 
 
 def _split_bf16(t: torch.Tensor):

@@ -7,6 +7,10 @@ step k = 1..K-1 one launch of ``csrc/cheb_fused.cu`` computes
 T_k = alpha L T_{k-1} - [T_{k-2}] and adds T_k @ W_k (per batch item) into
 the output accumulator in place, so the basis is never re-read by a
 separate mix. acc_0 = x @ W_0 is a plain matmul, as in the JAX package.
+The kernel's propagation is the occupied-tile engine of
+``bsr_grouped_spmm`` (it skips the 16x16 tiles ``tile_mask`` clears, and
+in fp32 its T_k has the bits of ``bsr_grouped_spmm(..., t_prev=T_{k-2})``);
+its mix runs on the CUDA cores in fp32 and on the tensor cores in bf16x3.
 
 The backward is the JAX package's closed form: dW_k = <T_k, g> over the
 saved basis, the mix cotangents g_j = g @ W_j^T, and the adjoint
@@ -29,7 +33,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from .block_sparse import BLOCK, BlockSparseOperator
+from .block_sparse import BLOCK, TILES, BlockSparseOperator
 from .bsr_spmm import (COL_PANEL, _check, _split_bf16,
                        bsr_grouped_spmm_reference)
 from .cheb import _KERNEL_MODE, resolve_precision, reverse_recurrence
@@ -52,8 +56,8 @@ def _lib():
 
     lib = load_library("cheb_fused")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.cheb_fused_step.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
-                                    i, ctypes.c_float, i, p]
+    lib.cheb_fused_step.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                    i, i, ctypes.c_float, i, p]
     lib.cheb_fused_step.restype = ctypes.c_int
     return lib
 
@@ -124,12 +128,14 @@ def cheb_fused_step(bsr: BlockSparseOperator, t1: torch.Tensor,
     _check("blocks", bsr.blocks, (bsr.num_blocks, BLOCK, BLOCK), dev, f32)
     _check("g_idx", bsr.g_idx, (bsr.n_pad // BLOCK, g), dev, torch.int32)
     _check("g_bcol", bsr.g_bcol, (n_rows * g,), dev, torch.int32)
+    _check("tile_mask", bsr.tile_mask, (bsr.num_blocks, TILES), dev,
+           torch.uint8)
     t = torch.empty_like(t1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib().cheb_fused_step(
             bsr.blocks.data_ptr(), bsr.g_idx.data_ptr(),
-            bsr.g_bcol.data_ptr(), t1.data_ptr(),
+            bsr.g_bcol.data_ptr(), bsr.tile_mask.data_ptr(), t1.data_ptr(),
             None if t2 is None else t2.data_ptr(), w.data_ptr(),
             t.data_ptr(), acc.data_ptr(), bsr.num_blocks, n_rows, g,
             bsr.n_pad_cols // BLOCK, c, f_pad, f_out, float(alpha),

@@ -1,279 +1,328 @@
-// Persistent block-sparse SpMM with a cp.async ring, for Hopper (sm_90a):
+// Persistent block-sparse SpMM behind a TMA pipeline, for Hopper (sm_90a):
 //
 //     y[n_pad, C] = L @ x
 //
 // L is stored as `blocks` [nb, 128, 128] plus the row-grouped view
 // `g_idx` [nR, G] (index into blocks; nb marks a padded slot, which adds
-// nothing) and `g_bcol` [nR * G] (column block of each slot). x is
-// [n_col_blocks * 128, C] with C % 128 == 0, in the blocks' dtype: fp32
-// (IEEE fp32 FMAs, no TF32) or bf16 (each product of two bf16 values is
-// exact in fp32). The sum is fp32 and y, in x's dtype, is rounded once.
+// nothing), `g_bcol` [nR * G] (column block of each slot) and `tile_mask`
+// [nb, 8] (uint8, bit t of byte s: the 16 x 16 tile (s, t) holds a
+// nonzero). x is [n_col_blocks * 128, C] with C % 128 == 0, in the blocks'
+// dtype: fp32 (IEEE fp32 FMAs, no TF32) or bf16 (each product of two bf16
+// values is exact in fp32). The sum is fp32 and y, in x's dtype, is
+// rounded once.
 //
 // Replaces TPU kernel #10, `emitted_spmm` (benchmarks/emitted_probe.py:45,
 // pallas_call at :154), the "emitted pipeline" probe: one grid step per
-// column panel walks every row with manual double-buffered DMAs of the
-// whole row (g blocks and g x slabs) so that the per-grid-step cost of the
-// classic pipeline is paid once per panel. On the H100 both halves of that
-// layout are wrong: C = 512 gives a handful of panels for 132 SMs, and a
-// double-buffered row of G blocks (G x 32 KB in bf16) does not fit in 227
-// KB of shared memory once G >= 4. The Hopper form of "few, long-lived
-// grid steps with an explicit copy pipeline" is:
+// column panel walks every row with manual double-buffered DMAs
+// (`pltpu.make_async_copy` completing on DMA semaphores) of the whole row,
+// so that the per-grid-step cost of the classic pipeline is paid once per
+// panel. It asks whether an explicitly emitted copy pipeline beats the
+// auto-pipelined grouped kernel. The Hopper counterpart of that pipeline
+// is TMA copies completing on mbarriers, so this kernel is the same
+// question asked of bsr_grouped_spmm (whose cp.async ring is the
+// auto-pipelined side), at equal inner product.
 //
+// What bounds it: the bytes a call must move, the occupied tiles of L, x
+// once and y (at the 80k template's level 0 in bf16, C = 512: ~24 MB of
+// tiles, 82 MB each of x and y, ~0.057 ms at 3.35 TB/s); the operations on
+// the occupied tiles are far below the tensor cores' rate and, in fp32, a
+// few times below the CUDA cores'.
+//
+// Design:
 //   * a persistent grid of as many CTAs as the occupancy API lets stay
-//     resident (or fewer per SM when the caller asks), each walking the
-//     work items (64-row half of a row block, 64-column tile) in a strided
-//     loop: item = blockIdx.x, blockIdx.x + gridDim.x, ...;
-//   * each item consumed as a stream of (block chunk [64 x 32], x-slab
-//     chunk [32 x 64]) pairs through a STAGES-deep ring in shared memory,
-//     filled by 16-byte cp.async copies (one commit group per chunk, the
-//     wait at STAGES - 2 pending groups), so chunk i + STAGES - 1 is in
-//     flight while chunk i's FMAs run; bf16 chunks land raw and are widened
-//     to fp32 once, into one more shared chunk, before their FMAs;
-//   * the ring's stream runs across item boundaries: the producer walks the
-//     same (item, slot, chunk) sequence as the consumer, STAGES - 1 chunks
-//     ahead, so the next item's first chunks are issued before the current
-//     item's epilogue stores.
-//
-// The inner product is bsr_grouped_spmm's (bsr_tile.cuh): 16 x 16 threads,
-// a 4 x 4 fp32 micro-tile each, rank-1 updates in k order, slots in order,
-// so an A/B against bsr_grouped_spmm measures the pipeline and the grid,
-// not another inner product (in fp32 the two agree bit for bit).
-//
-// What bounds it: the bytes a call must move (blocks, indices, x once, y)
-// at C <= 1024, far below the operation rate. Like bsr_grouped_spmm it runs
-// every FMA of each dense 128 x 128 block (~1.5% nonzero) on the CUDA
-// cores, so FMAs and their operand traffic set its time, many times the
-// byte floor. Tensor cores (mma / wgmma), TMA and mbarriers are later work.
+//     resident (or fewer per SM when the caller asks), each taking work
+//     items (128-row block row, 64 columns) in a strided walk of a work
+//     list that the host builds from tile_mask when the operator is made:
+//     row blocks by their occupied k chunks, most first (stable), each
+//     row's column tiles in order. The longest items start first and the
+//     short ones fill the end of the walk (where there are more items than
+//     resident CTAs);
+//   * eight consumer warps, one per 16-row strip of the row block, run the
+//     occupied-tile engine's products (tile_engine.cuh `tile_product`):
+//     the same tiles in the same order as bsr_grouped_spmm, so in fp32 the
+//     two agree bit for bit, and in bf16 the same MMAs run;
+//   * one producer warp keeps a ring of STAGES chunks full: a chunk is the
+//     x rows [16, 64] of one k chunk of one slot and the A tiles [16, 16]
+//     of the strips whose bit is set, each one TMA copy
+//     (cp.async.bulk.tensor.2d) completing on the stage's full mbarrier;
+//     the consumer warps release a stage on its empty mbarrier. The x
+//     chunk lands once per row block (not once per 64-row half), and the
+//     stream runs across item boundaries, so the next item's first chunks
+//     land while the current item's epilogue stores;
+//   * TMA cannot pad shared-memory rows, so the bf16 boxes use its swizzle
+//     (32 bytes for the A tiles, 128 bytes for the x chunk) and the
+//     fragment addresses apply the same XOR, which keeps ldmatrix free of
+//     bank conflicts. The fp32 boxes need none: a quarter warp reads one A
+//     row (a broadcast) and 128 contiguous bytes of x.
+//   * ptxas fits the bf16 instantiation in 56 registers for four resident
+//     CTAs per SM, with an 8-byte spill; a register budget for three CTAs
+//     per SM removes the spill but ran slower at the 80k level 0.
 
-#include <cuda_pipeline_primitives.h>
+#include <cuda.h>
 
 #include <algorithm>
 
-#include "bsr_tile.cuh"
+#include "tile_engine.cuh"
 
 namespace {
 
-using namespace bsr;
+using namespace tile;
 
-constexpr int KR = 32;              // K depth of one ring chunk
-constexpr int STAGES = 3;           // chunks resident in the ring
-constexpr int CHUNKS = BLOCK / KR;  // chunks per 128 x 128 block
-constexpr int MAX_DEVICES = 16;
+constexpr int CWARPS = BLOCK / KT;             // consumer warps, one a strip
+constexpr int THREADS10 = 32 * (CWARPS + 1);   // and the producer warp
+constexpr int ALIGN = 1024;                    // 128-byte swizzle period
 
-// Shared memory: the ring of STAGES raw chunks; with bf16 operands also
-// one fp32 chunk that each landed chunk is widened into once (every element
-// is converted once, as bsr_grouped_spmm converts once when it stages).
-template <typename T>
-struct Ring {
-  static constexpr bool WIDEN = sizeof(T) == 2;
-  static constexpr int A = BM * KR;        // block chunk [BM][KR], row-major
-  static constexpr int B = KR * BN;        // x-slab chunk [KR][BN]
-  static constexpr int STAGE = A + B;      // elements of one stage
-  static constexpr int RAW_BYTES = STAGES * STAGE * static_cast<int>(sizeof(T));
-  static constexpr int BYTES =
-      RAW_BYTES + (WIDEN ? STAGE * static_cast<int>(sizeof(float)) : 0);
-  static constexpr int VEC = 16 / static_cast<int>(sizeof(T));  // per copy
-  static constexpr int A_COPIES = A / VEC / THREADS;  // per thread
-  static constexpr int B_COPIES = B / VEC / THREADS;
-  static_assert(A % (VEC * THREADS) == 0 && B % (VEC * THREADS) == 0,
-                "each thread copies whole 16-byte pieces");
+template <int MODE>
+struct Stage {
+  using T = Elem<MODE>;
+  static constexpr int ES = static_cast<int>(sizeof(T));
+  static constexpr int X_BYTES = KT * BN * ES;     // x chunk [16][64]
+  static constexpr int A_BYTES = KT * KT * ES;     // one strip's A tile
+  static constexpr int BYTES = X_BYTES + CWARPS * A_BYTES;
+  static constexpr int STAGES = MODE == BF16 ? 6 : 4;
+  static constexpr int RING = STAGES * BYTES;
+  static constexpr int SMEM = ALIGN + RING + 2 * STAGES * 8;  // + barriers
+  static_assert(BYTES % ALIGN == 0 && X_BYTES % ALIGN == 0,
+                "every x chunk starts on the swizzle period");
+  // tile_product's layout policy: element offsets as TMA wrote the boxes
+  // (bf16: 16-byte piece index XOR the 128-byte row bits; A rows are 32
+  // bytes, x rows 128)
+  struct Layout {
+    static __device__ __forceinline__ int a(int r, int k) {
+      const int b = (r * KT + k) * ES;
+      return (MODE == BF16 ? b ^ ((b >> 3) & 0x10) : b) / ES;
+    }
+    static __device__ __forceinline__ int x(int k, int n) {
+      const int b = (k * BN + n) * ES;
+      return (MODE == BF16 ? b ^ ((b >> 3) & 0x70) : b) / ES;
+    }
+  };
 };
 
 struct Shape {
   int nb, g, n_col_blocks, c, n_ct, n_items;
 };
 
-// work item -> (row block, first row of its 64-row half, first column)
-struct Item {
-  int row, m0, col0;
-};
-
-__device__ __forceinline__ Item decode(int item, const Shape& s) {
-  const int rh = item / s.n_ct;
-  return Item{rh / (BLOCK / BM), (rh % (BLOCK / BM)) * BM,
-              (item % s.n_ct) * BN};
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
 }
 
-// the block of slot `slot` of row `row` and its column block, or -1 for a
-// padded slot (or one outside x): uniform across the CTA
-__device__ __forceinline__ int slot_block(const int* __restrict__ g_idx,
-                                          const int* __restrict__ g_bcol,
-                                          const Shape& s, int row, int slot,
-                                          int* bc) {
-  const int bi = g_idx[row * s.g + slot];
-  *bc = g_bcol[row * s.g + slot];
-  return (bi < 0 || bi >= s.nb || *bc < 0 || *bc >= s.n_col_blocks) ? -1
-                                                                     : bi;
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
 }
 
-// The producer's position in the CTA's chunk stream: (item, slot, chunk);
-// item >= n_items once the stream has ended.
-struct Cursor {
-  int item, slot, kc;
-};
-
-// move to the first real slot at or after cur.slot, in this item or a
-// later one of this CTA
-__device__ __forceinline__ void seek(Cursor& cur, const int* g_idx,
-                                     const int* g_bcol, const Shape& s) {
-  while (cur.item < s.n_items) {
-    const int row = decode(cur.item, s).row;
-    for (; cur.slot < s.g; ++cur.slot) {
-      int bc;
-      if (slot_block(g_idx, g_bcol, s, row, cur.slot, &bc) >= 0) return;
-    }
-    cur.item += gridDim.x;
-    cur.slot = 0;
-  }
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
 }
 
-__device__ __forceinline__ void advance(Cursor& cur, const int* g_idx,
-                                        const int* g_bcol, const Shape& s) {
-  if (cur.item >= s.n_items) return;
-  if (++cur.kc == CHUNKS) {
-    cur.kc = 0;
-    ++cur.slot;
-    seek(cur, g_idx, g_bcol, s);
-  }
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
 }
 
-// Issue the cursor's chunk into `stage` (nothing once the stream has
-// ended) and commit one group, so every thread counts the same groups.
-template <typename T>
-__device__ __forceinline__ void issue(T* ring, int stage, const Cursor& cur,
-                                      const T* __restrict__ blocks,
-                                      const int* g_idx, const int* g_bcol,
-                                      const T* __restrict__ x,
-                                      const Shape& s) {
-  using R = Ring<T>;
-  if (cur.item < s.n_items) {
-    const Item it = decode(cur.item, s);
-    int bc;
-    const int bi = slot_block(g_idx, g_bcol, s, it.row, cur.slot, &bc);
-    T* a = ring + stage * R::STAGE;
-    T* b = a + R::A;
-    const T* ga = blocks + (size_t)bi * BLOCK * BLOCK + (size_t)it.m0 * BLOCK
-                  + cur.kc * KR;
-#pragma unroll
-    for (int i = 0; i < R::A_COPIES; ++i) {
-      const int e = (threadIdx.x + i * THREADS) * R::VEC;
-      __pipeline_memcpy_async(a + e, ga + (size_t)(e / KR) * BLOCK + e % KR,
-                              16);
-    }
-    const T* gb = x + ((size_t)bc * BLOCK + cur.kc * KR) * s.c + it.col0;
-#pragma unroll
-    for (int i = 0; i < R::B_COPIES; ++i) {
-      const int e = (threadIdx.x + i * THREADS) * R::VEC;
-      __pipeline_memcpy_async(b + e, gb + (size_t)(e / BN) * s.c + e % BN,
-                              16);
-    }
-  }
-  __pipeline_commit();
+// the box of `map` at (column c0, row c1) into dst, completing on bar
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
+                                       int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_addr(bar))
+      : "memory");
 }
 
-// bf16 stage -> fp32 chunk, four elements per thread and step (an 8-byte
-// read, a 16-byte write: consecutive threads, consecutive addresses)
-__device__ __forceinline__ void widen(const __nv_bfloat16* raw, float* wide) {
-  constexpr int STAGE = Ring<__nv_bfloat16>::STAGE;
-#pragma unroll
-  for (int i = 0; i < STAGE / 4 / THREADS; ++i) {
-    const int e = (threadIdx.x + i * THREADS) * 4;
-    store4(wide + e, load4(raw + e));
-  }
+// slot `slot` of `row`: its block and column block and its two strip words,
+// false for a padded slot (or one outside x)
+__device__ __forceinline__ bool slot_of(const int* __restrict__ g_idx,
+                                        const int* __restrict__ g_bcol,
+                                        const uint32_t* __restrict__ mask,
+                                        const Shape& s, int row, int slot,
+                                        int& bi, int& bc, uint32_t& w0,
+                                        uint32_t& w1) {
+  bi = __ldg(g_idx + row * s.g + slot);
+  bc = __ldg(g_bcol + row * s.g + slot);
+  if (bi < 0 || bi >= s.nb || bc < 0 || bc >= s.n_col_blocks) return false;
+  w0 = __ldg(mask + 2 * bi);
+  w1 = __ldg(mask + 2 * bi + 1);
+  return true;
 }
 
-// acc += A chunk [BM x KR] @ B chunk [KR x BN] on this thread's 4 x 4
-// outputs, k in order (fp32 chunks: the fp32 ring, or the widened chunk)
-__device__ __forceinline__ void consume(const float* a, const float* b,
-                                        const Coords& q,
-                                        float (&acc)[4][4]) {
-#pragma unroll
-  for (int k0 = 0; k0 < KR; k0 += 4) {
-    float ar[4][4];  // ar[kk][i] = A[ty * 4 + i][k0 + kk]
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 v = load4(a + (q.ty * 4 + i) * KR + k0);
-      ar[0][i] = v.x; ar[1][i] = v.y; ar[2][i] = v.z; ar[3][i] = v.w;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float4 v = load4(b + (k0 + kk) * BN + q.tx * 4);
-      const float br[4] = {v.x, v.y, v.z, v.w};
-      fma_4x4(ar[kk], br, acc);
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-emitted_spmm_kernel(const T* __restrict__ blocks,
+template <int MODE>
+__global__ void __launch_bounds__(THREADS10)
+emitted_spmm_kernel(const __grid_constant__ CUtensorMap map_a,
+                    const __grid_constant__ CUtensorMap map_x,
                     const int* __restrict__ g_idx,
                     const int* __restrict__ g_bcol,
-                    const T* __restrict__ x, T* __restrict__ y, Shape s) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* ring = reinterpret_cast<T*>(smem);
-  const Coords q = coords(threadIdx.x);
-
-  // prologue: the first STAGES - 1 chunks of this CTA's stream
-  Cursor cur{static_cast<int>(blockIdx.x), 0, 0};
-  seek(cur, g_idx, g_bcol, s);
-  int issued = 0, consumed = 0;
-  for (; issued < STAGES - 1; ++issued) {
-    issue(ring, issued % STAGES, cur, blocks, g_idx, g_bcol, x, s);
-    advance(cur, g_idx, g_bcol, s);
+                    const uint32_t* __restrict__ mask,
+                    const int* __restrict__ order, Elem<MODE>* __restrict__ y,
+                    Shape s) {
+  using S = Stage<MODE>;
+  using T = Elem<MODE>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((ALIGN - (smem_addr(smem_raw) & (ALIGN - 1))) & (ALIGN - 1));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S::RING);
+  uint64_t* empty = full + S::STAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S::STAGES; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, CWARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  for (int item = blockIdx.x; item < s.n_items; item += gridDim.x) {
-    const Item it = decode(item, s);
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int slot = 0; slot < s.g; ++slot) {
-      int bc;
-      if (slot_block(g_idx, g_bcol, s, it.row, slot, &bc) < 0) continue;
-      for (int kc = 0; kc < CHUNKS; ++kc) {
-        // chunk `consumed` has landed once at most STAGES - 2 younger
-        // groups are pending; the barrier publishes it to every thread and
-        // retires the stage read last time, which the next issue refills
-        __pipeline_wait_prior(STAGES - 2);
-        __syncthreads();
-        issue(ring, issued % STAGES, cur, blocks, g_idx, g_bcol, x, s);
-        advance(cur, g_idx, g_bcol, s);
-        ++issued;
-        const T* a = ring + (consumed % STAGES) * Ring<T>::STAGE;
-        ++consumed;
-        if constexpr (Ring<T>::WIDEN) {
-          // the fp32 chunk was last read before the barrier above
-          float* wide = reinterpret_cast<float*>(smem + Ring<T>::RAW_BYTES);
-          widen(a, wide);
-          __syncthreads();
-          consume(wide, wide + Ring<T>::A, q, acc);
-        } else {
-          consume(a, a + Ring<T>::A, q, acc);
+  int stage = 0;
+  uint32_t phase = 0;
+  if (warp == CWARPS) {  // the producer: one lane issues every copy
+    if (lane != 0) return;
+    for (int item = blockIdx.x; item < s.n_items; item += gridDim.x) {
+      const int row = __ldg(order + item / s.n_ct);
+      const int col0 = (item % s.n_ct) * BN;
+      for (int slot = 0; slot < s.g; ++slot) {
+        int bi, bc;
+        uint32_t w0, w1;
+        if (!slot_of(g_idx, g_bcol, mask, s, row, slot, bi, bc, w0, w1))
+          continue;
+        for (uint32_t need = needed(w0 | w1); need; need &= need - 1) {
+          const int kt = __ffs(need) - 1;
+          uint32_t strips = chunk_strips(w0, w1, kt);
+          unsigned char* buf = ring + stage * S::BYTES;
+          mbar_wait(empty + stage, phase ^ 1);
+          mbar_expect(full + stage,
+                      S::X_BYTES + __popc(strips) * S::A_BYTES);
+          tma_2d(buf, &map_x, col0, bc * BLOCK + kt * KT, full + stage);
+          for (; strips; strips &= strips - 1) {
+            const int st = __ffs(strips) - 1;
+            tma_2d(buf + S::X_BYTES + st * S::A_BYTES, &map_a, kt * KT,
+                   bi * BLOCK + st * KT, full + stage);
+          }
+          if (++stage == S::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
         }
       }
     }
-    // epilogue: one write (one rounding) per output; the ring keeps
-    // filling with the next item's chunks meanwhile
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const size_t off = (size_t)(it.row * BLOCK + it.m0 + q.ty * 4 + i) * s.c
-                         + it.col0 + q.tx * 4;
-      store4(y + off, make_float4(acc[i][0], acc[i][1], acc[i][2],
-                                  acc[i][3]));
-    }
+    return;
   }
-  __pipeline_wait_prior(0);  // only empty groups remain
+
+  // the consumers: warp w owns rows 16w..16w+15 of the item's row block
+  for (int item = blockIdx.x; item < s.n_items; item += gridDim.x) {
+    const int row = __ldg(order + item / s.n_ct);
+    const int col0 = (item % s.n_ct) * BN;
+    Acc acc;
+    zero(acc);
+    for (int slot = 0; slot < s.g; ++slot) {
+      int bi, bc;
+      uint32_t w0, w1;
+      if (!slot_of(g_idx, g_bcol, mask, s, row, slot, bi, bc, w0, w1))
+        continue;
+      const uint32_t mine = (warp < 4 ? w0 : w1) >> (8 * (warp & 3));
+      for (uint32_t need = needed(w0 | w1); need; need &= need - 1) {
+        const int kt = __ffs(need) - 1;
+        const unsigned char* buf = ring + stage * S::BYTES;
+        mbar_wait(full + stage, phase);
+        if ((mine >> kt) & 1u)
+          tile_product<MODE, typename S::Layout>(
+              reinterpret_cast<const T*>(buf + S::X_BYTES
+                                         + warp * S::A_BYTES),
+              reinterpret_cast<const T*>(buf), lane, acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + stage);
+        if (++stage == S::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    // epilogue: one write (one rounding) per output, while the producer
+    // fills the ring with the next item's chunks
+    const size_t row0 = (size_t)row * BLOCK;
+    for_outputs<MODE>(acc, warp * KT, lane, [&](auto n, const float* v,
+                                                int r, int n0) {
+      finish<decltype(n)::value>(v, 1.f, static_cast<const T*>(nullptr),
+                                 static_cast<const T*>(nullptr),
+                                 static_cast<const float*>(nullptr), 0, y,
+                                 (row0 + r) * s.c + col0 + n0, r, n0);
+    });
+  }
 }
 
-// per device: SMs and the occupancy API's resident CTAs per SM, by dtype
+// cuTensorMapEncodeTiled, from the driver through the runtime (the library
+// links against nothing but the CUDA runtime)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+cudaError_t encoder(EncodeTiled* out) {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess) return err;
+    if (q != cudaDriverEntryPointSuccess || p == nullptr)
+      return cudaErrorNotSupported;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  *out = fn;
+  return cudaSuccess;
+}
+
+// a row-major [rows, cols] array as boxes of [box_rows, box_cols]
+template <int MODE>
+cudaError_t tensor_map(CUtensorMap* map, const void* base, uint64_t rows,
+                       uint64_t cols, uint32_t box_rows, uint32_t box_cols,
+                       CUtensorMapSwizzle swizzle) {
+  EncodeTiled encode;
+  cudaError_t err = encoder(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * sizeof(Elem<MODE>)};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(
+      map,
+      MODE == BF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                   : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      2, const_cast<void*>(base), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// per device: SMs and the occupancy API's resident CTAs per SM, by mode
 struct Occupancy {
   int sms = 0, per_sm = 0;
 };
 
-template <typename T>
+template <int MODE>
 cudaError_t occupancy(Occupancy* out) {
   static Occupancy cache[MAX_DEVICES];
   int dev;
@@ -284,15 +333,14 @@ cudaError_t occupancy(Occupancy* out) {
     return cudaSuccess;
   }
   Occupancy o;
-  auto kern = emitted_spmm_kernel<T>;
+  auto kern = emitted_spmm_kernel<MODE>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Ring<T>::BYTES);
+                             Stage<MODE>::SMEM);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&o.sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o.per_sm, kern,
-                                                        THREADS,
-                                                        Ring<T>::BYTES);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &o.per_sm, kern, THREADS10, Stage<MODE>::SMEM);
   if (err != cudaSuccess) return err;
   if (o.per_sm < 1) return cudaErrorInvalidConfiguration;
   if (dev < MAX_DEVICES) cache[dev] = o;
@@ -300,19 +348,30 @@ cudaError_t occupancy(Occupancy* out) {
   return cudaSuccess;
 }
 
-template <typename T>
+template <int MODE>
 int launch(const void* blocks, const int* g_idx, const int* g_bcol,
-           const void* x, void* y, const Shape& s, int ctas_per_sm,
-           cudaStream_t st) {
+           const void* tile_mask, const int* order, const void* x, void* y,
+           const Shape& s, int ctas_per_sm, cudaStream_t st) {
   Occupancy o;
-  cudaError_t err = occupancy<T>(&o);
+  cudaError_t err = occupancy<MODE>(&o);
+  CUtensorMap map_a, map_x;
+  const auto sw_a = MODE == BF16 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                 : CU_TENSOR_MAP_SWIZZLE_NONE;
+  const auto sw_x = MODE == BF16 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : CU_TENSOR_MAP_SWIZZLE_NONE;
+  if (err == cudaSuccess)
+    err = tensor_map<MODE>(&map_a, blocks, (uint64_t)s.nb * BLOCK, BLOCK, KT,
+                           KT, sw_a);
+  if (err == cudaSuccess)
+    err = tensor_map<MODE>(&map_x, x, (uint64_t)s.n_col_blocks * BLOCK, s.c,
+                           KT, BN, sw_x);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int per_sm = ctas_per_sm > 0 ? std::min(ctas_per_sm, o.per_sm)
                                      : o.per_sm;
   const int grid = std::max(1, std::min(s.n_items, o.sms * per_sm));
-  emitted_spmm_kernel<T><<<grid, THREADS, Ring<T>::BYTES, st>>>(
-      static_cast<const T*>(blocks), g_idx, g_bcol,
-      static_cast<const T*>(x), static_cast<T*>(y), s);
+  emitted_spmm_kernel<MODE><<<grid, THREADS10, Stage<MODE>::SMEM, st>>>(
+      map_a, map_x, g_idx, g_bcol, static_cast<const uint32_t*>(tile_mask),
+      order, static_cast<Elem<MODE>*>(y), s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -320,25 +379,30 @@ int launch(const void* blocks, const int* g_idx, const int* g_bcol,
 
 // Plain C entry point (loaded with ctypes). `dtype` is 0 = fp32 (blocks, x
 // and y fp32), 1 = bf16. Shapes, dtypes and alignment are checked by the
-// Python wrapper: c % 128 == 0, every pointer 16-byte aligned, y
-// [n_rows * 128, c], x [n_col_blocks * 128, c]. ctas_per_sm <= 0 takes the
-// occupancy API's resident count; a positive value is capped by it.
-// Launches on `stream` and returns cudaGetLastError() of the launch.
+// Python wrapper: c % 128 == 0, every pointer 16-byte aligned, tile_mask
+// [nb, 8] uint8, order [n_rows] int32 (a permutation of the row blocks,
+// the work list), y [n_rows * 128, c], x [n_col_blocks * 128, c].
+// ctas_per_sm <= 0 takes the occupancy API's resident count; a positive
+// value is capped by it. Launches on `stream` and returns the CUDA error
+// of the launch (or of encoding its tensor maps).
 extern "C" int emitted_spmm(const void* blocks, const int* g_idx,
-                            const int* g_bcol, const void* x, void* y, int nb,
+                            const int* g_bcol, const void* tile_mask,
+                            const int* order, const void* x, void* y, int nb,
                             int n_rows, int g, int n_col_blocks, int c,
                             int dtype, int ctas_per_sm, void* stream) {
-  if (c <= 0 || c % 128 || n_rows <= 0 || g <= 0)
+  if (c <= 0 || c % 128 || n_rows <= 0 || g <= 0 || nb <= 0
+      || tile_mask == nullptr || order == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_ct = c / BN;
-  const Shape s{nb, g, n_col_blocks, c, n_ct, n_rows * (BLOCK / BM) * n_ct};
+  const Shape s{nb, g, n_col_blocks, c, n_ct, n_rows * n_ct};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float>(blocks, g_idx, g_bcol, x, y, s, ctas_per_sm, st);
+      return launch<FP32>(blocks, g_idx, g_bcol, tile_mask, order, x, y, s,
+                          ctas_per_sm, st);
     case 1:
-      return launch<__nv_bfloat16>(blocks, g_idx, g_bcol, x, y, s,
-                                   ctas_per_sm, st);
+      return launch<BF16>(blocks, g_idx, g_bcol, tile_mask, order, x, y, s,
+                          ctas_per_sm, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -355,13 +419,13 @@ extern "C" int emitted_spmm_info(int dtype, int* regs, int* static_smem,
   Occupancy o;
   cudaError_t err;
   if (dtype == 0) {
-    err = cudaFuncGetAttributes(&attr, emitted_spmm_kernel<float>);
-    if (err == cudaSuccess) err = occupancy<float>(&o);
-    *dynamic_smem = Ring<float>::BYTES;
+    err = cudaFuncGetAttributes(&attr, emitted_spmm_kernel<FP32>);
+    if (err == cudaSuccess) err = occupancy<FP32>(&o);
+    *dynamic_smem = Stage<FP32>::SMEM;
   } else if (dtype == 1) {
-    err = cudaFuncGetAttributes(&attr, emitted_spmm_kernel<__nv_bfloat16>);
-    if (err == cudaSuccess) err = occupancy<__nv_bfloat16>(&o);
-    *dynamic_smem = Ring<__nv_bfloat16>::BYTES;
+    err = cudaFuncGetAttributes(&attr, emitted_spmm_kernel<BF16>);
+    if (err == cudaSuccess) err = occupancy<BF16>(&o);
+    *dynamic_smem = Stage<BF16>::SMEM;
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,4 +1,4 @@
-"""Persistent block-sparse SpMM with a copy pipeline: y = L @ x.
+"""Persistent block-sparse SpMM behind a TMA pipeline: y = L @ x.
 
 ``emitted_spmm`` launches the hand-written CUDA kernel
 (``csrc/emitted_spmm.cu``) for CUDA tensors and runs the plain PyTorch twin
@@ -8,12 +8,15 @@ probe: one grid step per column panel with manual double-buffered DMAs),
 and computes what it computes: y = L @ x over the row-grouped view
 (``g_idx`` / ``g_bcol``; padded slots add nothing), x [n_pad_cols, C] with
 C % 128 == 0 in the blocks' dtype (fp32, or bf16), an fp32 sum and one
-rounding to x's dtype. There is no alpha and no seed. On the card the
-kernel is a persistent grid whose CTAs walk (64-row half, 64-column tile)
-work items through a cp.async ring of block and x-slab chunks (see the
-source); ``bench/emitted_probe.py`` holds it against ``bsr_grouped_spmm``
-and times the two. Nothing on the model's path calls it, as in the JAX
-package.
+rounding to x's dtype. There is no alpha and no seed. The kernel skips the
+16x16 tiles that ``tile_mask`` clears, and the twin zeroes them, so a test
+of the twin against the JAX package also shows that the mask drops no
+nonzero. On the card the kernel is a persistent grid whose CTAs take
+(128-row block row, 64-column) work items from the operator's work list
+(``row_order``, longest rows first), with one producer warp feeding eight
+consumer warps through TMA copies and mbarriers (see the source);
+``bench/emitted_probe.py`` holds it against ``bsr_grouped_spmm`` and times
+the two. Nothing on the model's path calls it, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ import functools
 
 import torch
 
-from .block_sparse import BLOCK, BlockSparseOperator
+from .block_sparse import BLOCK, TILES, BlockSparseOperator, row_order
+from .bsr_spmm import masked_blocks
 
 DTYPES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 PANEL = 128  # C must be a multiple of this (the TPU kernel's column panel)
@@ -43,7 +47,8 @@ def _lib():
 
     lib = load_library("emitted_spmm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.emitted_spmm.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.emitted_spmm.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                 p]
     lib.emitted_spmm.restype = ctypes.c_int
     lib.emitted_spmm_info.argtypes = [i] + [ctypes.POINTER(i)] * 6
     lib.emitted_spmm_info.restype = ctypes.c_int
@@ -52,16 +57,17 @@ def _lib():
 
 def emitted_spmm_reference(bsr: BlockSparseOperator,
                            x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch twin: for each of the G slots in order, every row's
-    block of that slot (index num_blocks selects a zero block) times the
-    x slab of its column block, batched over the rows and added to an fp32
-    sum; bf16 operands are widened to fp32 first (each product of two bf16
-    values is exact in fp32); y is rounded to x's dtype once."""
+    """Plain PyTorch twin: zero the tiles that tile_mask clears, then for
+    each of the G slots in order, every row's block of that slot (index
+    num_blocks selects a zero block) times the x slab of its column block,
+    batched over the rows and added to an fp32 sum; bf16 operands are
+    widened to fp32 first (each product of two bf16 values is exact in
+    fp32); y is rounded to x's dtype once."""
     _check_dtypes(bsr, x)
     n_rows, g = bsr.g_idx.shape
     c = x.shape[1]
     zero = bsr.blocks.new_zeros((1, BLOCK, BLOCK))
-    blocks = torch.cat([bsr.blocks, zero])
+    blocks = torch.cat([masked_blocks(bsr), zero])
     slabs = x.reshape(-1, BLOCK, c)
     bcol = bsr.g_bcol.long().reshape(n_rows, g)
     y = torch.zeros(n_rows, BLOCK, c, dtype=torch.float32, device=x.device)
@@ -81,6 +87,17 @@ def _check_dtypes(bsr: BlockSparseOperator, x: torch.Tensor) -> None:
         raise ValueError(f"x must be [n_pad_cols={bsr.n_pad_cols}, C] with C "
                          f"a positive multiple of {PANEL}, got "
                          f"{tuple(x.shape)}")
+
+
+def work_order(bsr: BlockSparseOperator) -> torch.Tensor:
+    """The operator's work list (row blocks, longest first) on its device:
+    bsr.row_order, or, for an operator made without one, the same list
+    built here from tile_mask (a host copy of the layout)."""
+    if bsr.row_order is not None:
+        return bsr.row_order
+    order = row_order(bsr.tile_mask.cpu().numpy(), bsr.g_idx.cpu().numpy(),
+                      bsr.g_bcol.cpu().numpy(), bsr.n_pad_cols // BLOCK)
+    return torch.from_numpy(order).to(bsr.g_idx.device)
 
 
 def _check(name: str, t: torch.Tensor, shape, device, dtype) -> None:
@@ -110,12 +127,17 @@ def emitted_spmm(bsr: BlockSparseOperator, x: torch.Tensor,
     _check("blocks", bsr.blocks, (bsr.num_blocks, BLOCK, BLOCK), dev, dt)
     _check("g_idx", bsr.g_idx, (bsr.n_pad // BLOCK, g), dev, torch.int32)
     _check("g_bcol", bsr.g_bcol, (n_rows * g,), dev, torch.int32)
+    _check("tile_mask", bsr.tile_mask, (bsr.num_blocks, TILES), dev,
+           torch.uint8)
+    order = work_order(bsr)
+    _check("row_order", order, (n_rows,), dev, torch.int32)
     y = torch.empty((bsr.n_pad, x.shape[1]), dtype=dt, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib().emitted_spmm(
             bsr.blocks.data_ptr(), bsr.g_idx.data_ptr(),
-            bsr.g_bcol.data_ptr(), x.data_ptr(), y.data_ptr(),
+            bsr.g_bcol.data_ptr(), bsr.tile_mask.data_ptr(),
+            order.data_ptr(), x.data_ptr(), y.data_ptr(),
             bsr.num_blocks, n_rows, g, bsr.n_pad_cols // BLOCK, x.shape[1],
             list(DTYPES).index(dt), int(ctas_per_sm), stream)
     if rc != 0:

@@ -2,7 +2,8 @@
 Chebyshev conv, TPU kernel #9) against meshvae_tpu/ops/pallas_fused.py,
 whose kernel runs in interpret mode: the output within 1e-5 of its max,
 dx, dW and dbias within 1e-4 of their max (dW and dbias: the layer's), at
-tests/test_pallas.py's shapes and on its padded-rows operator. The CUDA
+tests/test_pallas.py's shapes and on its padded-rows operator; the
+step's bound (tile_probe.fused_bounds) against a hand count. The CUDA
 kernel against its plain twin is marked ``cuda`` and skips without a
 card."""
 import numpy as np
@@ -20,6 +21,7 @@ from meshvae_tpu.ops.graph import GraphOperator as JaxGraphOperator
 from meshvae_tpu.ops.graph import cheb_operator as jax_cheb_operator
 from meshvae_tpu.ops.pallas_fused import cheb_conv_fused as jax_fused
 
+from meshvae_tpu_torch.bench import tile_probe
 from meshvae_tpu_torch.ops import cheb_fused as port_fused
 from meshvae_tpu_torch.ops import graph
 from meshvae_tpu_torch.ops.block_sparse import BLOCK, to_block_sparse
@@ -113,6 +115,33 @@ def test_fused_conv_padded_rows():
         x @ w[0] + 0.5 * x @ w[1], rtol=1e-5, atol=1e-5)
 
 
+def test_fused_bounds_hand_count():
+    """A 256 x 256 operator with one nonzero in each of its four blocks
+    (tiles (0, 0), (0, 4), (0, 0) and (7, 7)): at B = 2, f_pad = 16
+    (C = 32) and f_out = 8 the step reads 4 occupied tiles of 256 fp32,
+    tile_mask (8 bytes a block), g_idx and g_bcol (4 int32 each), T_{k-1}
+    and T_{k-2} [256, 32], writes T_k [256, 32], reads and writes acc
+    [256, 16] and reads W_k [16, 8]; it does 2 operations per nonzero per
+    column and 2 f_out per T_k element."""
+    mat = sp.coo_matrix(([1.0, 2.0, 3.0, 4.0],
+                         ([0, 5, 130, 255], [0, 200, 3, 255])),
+                        shape=(256, 256))
+    bsr = to_block_sparse(mat, "cpu")
+    assert (bsr.num_blocks, bsr.n_pad, bsr.g_width) == (4, 256, 2)
+    b = tile_probe.fused_bounds(bsr, 32, 16, 8)
+    tiles = 4 * 4 * 256 + 8 * 4 + 4 * (4 + 4)
+    act = 4 * (256 * 32 * 3 + 2 * 256 * 2 * 8 + 16 * 8)
+    assert b["bytes"] == tiles + act == 135_744
+    assert b["stored_bytes"] == 4 * 4 * 128 * 128 + 4 * (4 + 4) + act
+    assert b["ops"] == 2 * (4 * 32 + 256 * 32 * 8)
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(1e3 * 135_744 / 3.35e12)
+    first = tile_probe.fused_bounds(bsr, 32, 16, 8, prev=False)
+    assert b["bytes"] - first["bytes"] == 4 * 256 * 32
+    split = tile_probe.fused_bounds(bsr, 32, 16, 8, mode="bf16x3")
+    assert split["ops"] == 3 * b["ops"] and split["bytes"] == b["bytes"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["fp32", "bf16x3"])
 @pytest.mark.parametrize("b,f_in,f_out", [(4, 8, 16), (1, 8, 8),
@@ -120,12 +149,15 @@ def test_fused_conv_padded_rows():
 def test_cuda_fused_step_matches_twin(mode, b, f_in, f_out):
     """The CUDA kernel against its plain twin on the card, both steps
     (alpha 1 without T_{k-2}, alpha 2 with it), acc updated in place; T_k
-    and, in fp32, acc within 1e-5 of their max. In bf16x3 acc is held at
-    1e-4: the mix splits T_k, which kernel and twin agree on to the last
-    fp32 bit only, and a one-bit change can move its bf16 split (the
-    dropped lo*lo term then moves by up to 2^-17 |T W|)."""
+    bit-equal to bsr_grouped_spmm with the same seed and, with acc in
+    fp32, within 1e-5 of their max. In bf16x3 acc is held at 1e-4: the
+    mix splits T_k, which kernel and twin agree on to the last fp32 bit
+    only, and a one-bit change can move its bf16 split (the dropped lo*lo
+    term then moves by up to 2^-17 |T W|)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from meshvae_tpu_torch.ops.bsr_spmm import bsr_grouped_spmm
+
     mesh = make_grid_mesh(40, jitter=0.05)
     adj = vertex_adjacency(mesh.num_vertices, mesh.f)
     bsr = graph.cheb_operator(adj, "cuda", bsr_min_n=1).bsr
@@ -142,9 +174,49 @@ def test_cuda_fused_step_matches_twin(mode, b, f_in, f_out):
             bsr, t1, prev, w, acc, alpha, mode)
         got_t, got_acc = port_fused.cheb_fused_step(bsr, t1, prev, w,
                                                     acc.clone(), alpha, mode)
+        same = bsr_grouped_spmm(bsr, t1, mode, alpha, t_prev=prev)
         torch.cuda.synchronize()
         assert port_fused.LAUNCHES[mode] == before + 1
+        assert torch.equal(got_t, same)
         for got, want, bar in ((got_t, want_t, 1e-5), (got_acc, want_acc,
                                 1e-5 if mode == "fp32" else 1e-4)):
             err = (got - want).abs().max() / want.abs().max()
             assert err.item() <= bar, err.item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fp32", "bf16x3"])
+def test_cuda_fused_step_synthetic_sweep(mode):
+    """On a card, chip_smoke.py phase 10's sweep: square patterned
+    operators (G = 1..9 with padded slots, a dense block, a block with no
+    set bit, every other strip empty, sparse tiles) at (B, f_pad, f_out)
+    in (16, 16, 16), (4, 32, 16), (1, 128, 8), (8, 16, 3), (16, 8, 5):
+    T_k bit-equal to bsr_grouped_spmm with the same seed, T_k within 1e-5
+    of its max of the twin, acc within 1e-5 (1e-4 in bf16x3)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from meshvae_tpu_torch.ops.bsr_spmm import bsr_grouped_spmm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(10)
+    for g in range(1, 10):
+        bsr = tile_probe.patterned_operator(g, torch.float32, dev, seed=g,
+                                            square=True)
+        for b, f_pad, f_out in ((16, 16, 16), (4, 32, 16), (1, 128, 8),
+                                (8, 16, 3), (16, 8, 5)):
+            c = b * f_pad
+            t1, t2 = (torch.randn(bsr.n_pad, c, generator=gen).to(dev)
+                      for _ in range(2))
+            w = torch.randn(f_pad, f_out, generator=gen).to(dev)
+            acc = torch.randn(bsr.n_pad, b * f_out, generator=gen).to(dev)
+            for alpha, prev in ((1.0, None), (2.0, t2)):
+                got_t, got_acc = port_fused.cheb_fused_step(
+                    bsr, t1, prev, w, acc.clone(), alpha, mode)
+                same = bsr_grouped_spmm(bsr, t1, mode, alpha, t_prev=prev)
+                torch.cuda.synchronize()
+                want_t, want_acc = port_fused.cheb_fused_step_reference(
+                    bsr, t1, prev, w, acc, alpha, mode)
+                assert torch.equal(got_t, same), (g, b, f_pad, alpha)
+                assert tile_probe.rel_err(got_t, want_t) <= 1e-5
+                assert tile_probe.rel_err(got_acc, want_acc) <= (
+                    1e-5 if mode == "fp32" else 1e-4), (g, b, f_pad, alpha)

@@ -172,6 +172,42 @@ Phases, one block of output lines each; any failed check exits non-zero:
             the same tile products behind TMA) and torch.sparse at C =
             512, in turns, beside both bounds.
 
+14. distribution (parallel/, ops/bsr_shard.py; _mapped_product,
+            meshvae_tpu/ops/pallas_shard.py:150, is bsr_grouped_spmm on a
+            rank's row shard fed by an all-gather over sp):
+            a. in one process, every shard of the config-1 L0/L1 (fp32,
+               bf16x3), scaled20k L0/L1 (fp32) and scaled80k L0 (bf16)
+               Laplacians at sp 2 and 4 (the shapes printed): the kernel
+               on each shard with no seed, t_prev, t_plus, both and the
+               lazy seed (not in bf16x3) against its twin (1e-5 of max|y|,
+               one bf16 ulp in bf16), and the stacked shards bit-equal to
+               the unsharded call in fp32 and bf16 (within 1e-5 in
+               bf16x3; measured bit-equal too);
+            b. dp=2: a gloo world of two ranks sharing cuda:0 (rank 0 in
+               this process, rank 1 spawned) at config 1, full width, high
+               and highest: two deterministic steps (no dropout, z = mu),
+               each against one process from the same state: loss within
+               1e-5 relative, every gradient within 1e-4 (highest) / 1e-3
+               (high) of its layer's max|g| (phase 6's bars), the world's
+               params equal to Adam on its gradients (1e-2 lr), every
+               rank's params bit-equal, launches per rank equal to one
+               process's;
+            c. sp=2: the same at scaled80k bf16, full width (K=10, B=32),
+               two steps and one eval step at phase 8's bar (closer to one
+               process in bf16 than that is to fp32, plus one bf16 ulp of
+               the scale), launches per rank = one process's Laplacian
+               calls at the shard shapes plus its P^T calls; then a
+               MeshServer in that world (dp=1, sp=2) at config 1 high
+               answering 20 meshes: pred equal, errors within 1e-4 of the
+               mesh scale;
+            d. times: each world's step (host clock), its all-gathers and
+               all-reduces per step with their bytes, replayed one by one
+               for their time, rank 0's device busy time and idle share
+               (labelled a shared-card gloo world, never a scaling
+               result); _mapped_product per call at rank 0's sp=2 80k
+               shard shapes against its twin, torch.sparse on the shard's
+               CSR rows and both bounds, summed per train step.
+
 Phase 3 also holds the bf16 mode on the card at every 80k Laplacian (its C
 values, alpha 1 and 2, no seed, t_prev, t_plus, both) and the four P^T:
 max |kernel - twin| <= 2^-8 max |twin| (one bf16 ulp: both round once),
@@ -193,8 +229,10 @@ train step (the plain Laplacian calls, the lazy-seed calls #4b in fp32,
 the P^T), the lazy-seed calls of an 80k bf16 step with the flag on (#4b in
 bf16), the fused step (#9) per scaled20k L0 conv forward, the inference
 CLI's calls per batch (the serving step's shapes), and emitted_spmm (#10)
-per call at the probe's three shapes, with the launches of the main-path
-runs (each probe run's for #10). The last line is {"ok": true, ...}.
+per call at the probe's three shapes, and _mapped_product (phase 14d,
+per sp=2 80k train step on rank 0's shards, with its shard shapes), with
+the launches of the main-path runs (each probe run's for #10; the sp=2
+world's per rank for _mapped_product). The last line is {"ok": true, ...}.
 """
 import dataclasses
 import json
@@ -767,6 +805,24 @@ def _bound_by(entry: dict) -> str:
     return "bytes" if entry["bytes_ms"] >= entry["ops_ms"] else "operations"
 
 
+def _kernel_times(prof, n):
+    """(us per run, name) of every kernel in a torch.profiler run of n
+    runs, longest first: device-side kernel events only (an aten op's
+    entry repeats its kernels, and a user annotation such as
+    Optimizer.step#Adam.step spans them)."""
+    kern = []
+    for evt in prof.key_averages():
+        if ("CUDA" not in str(getattr(evt, "device_type", ""))
+                or getattr(evt, "is_user_annotation", False)):
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0)
+        if dev_us:
+            kern.append((dev_us / n, evt.key))
+    return sorted(kern, reverse=True)
+
+
 def _profile(torch, fn, label, step_ms, n=5, batch=BATCH):
     """torch.profiler over n runs of fn: device busy time per run, the idle
     share against step_ms, the top kernels."""
@@ -782,19 +838,7 @@ def _profile(torch, fn, label, step_ms, n=5, batch=BATCH):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6 / n
-    # device-side kernel events only: an aten op's entry repeats its
-    # kernels, and a user annotation (Optimizer.step#Adam.step) spans them
-    kern = []
-    for evt in prof.key_averages():
-        if ("CUDA" not in str(getattr(evt, "device_type", ""))
-                or getattr(evt, "is_user_annotation", False)):
-            continue
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "self_cuda_time_total", 0)
-        if dev_us:
-            kern.append((dev_us / n, evt.key))
-    kern.sort(reverse=True)
+    kern = _kernel_times(prof, n)
     busy = sum(t for t, _ in kern)
     if not busy:
         say(f"profile [{label}]: no device time recorded (not measured)")
@@ -2138,6 +2182,676 @@ def phase_tiles(dev, s80, tmp):
         fail(f"the tile probe failed: {exc}")
 
 
+# --- phase 14: distribution --------------------------------------------
+
+# (label, operand set, level, modes the configuration runs, C of its
+# widest Laplacian call): config 1 serves and trains at high (bf16x3) and
+# highest (fp32), scaled20k trains in fp32, scaled80k in bf16
+SHARD_CASES = [("config-1 L0", "c1", 0, ("fp32", "bf16x3"), 256),
+               ("config-1 L1", "c1", 1, ("fp32", "bf16x3"), 256),
+               ("scaled20k L0", "s20", 0, ("fp32",), 1024),
+               ("scaled20k L1", "s20", 1, ("fp32",), 1024),
+               ("scaled80k L0", "s80", 0, ("bf16",), 512)]
+# none, t_prev, t_plus, both, and the lazy seed (not in bf16x3, where the
+# seed is eager)
+SHARD_KINDS = ("a2", "a2 prev", "a2 plus", "a2 plus prev", "a2 dot prev")
+DP_STEPS = 2
+SP_STEPS = 2
+TIMED_STEPS = 2
+PROFILED_STEPS = 1
+# ops a rank of phase 14's worlds builds for itself; rank 0 runs in this
+# process and takes the ones built here
+_PREBUILT = {}
+
+
+def _shard_products(torch, dev, operands):
+    """Phase 14a: every shard of each operator at sp 2 and 4 against the
+    unsharded kernel (stacked rows bit-equal in fp32 and bf16, 1e-5 of
+    max|y| in bf16x3) and against its twin; prints the shard shapes.
+    Returns the worst |kernel - twin| per mode."""
+    from meshvae_tpu_torch.ops.bsr_shard import shard_block_sparse_all
+    from meshvae_tpu_torch.ops.bsr_spmm import (MODE_DTYPE,
+                                                bsr_grouped_spmm,
+                                                bsr_grouped_spmm_reference)
+
+    import types
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    worst = {}
+    for label, key, level, modes, c in SHARD_CASES:
+        for mode in modes:
+            dt = MODE_DTYPE[mode]
+            bsr = operands[key][mode][level]
+            for sp in (2, 4):
+                rel, same = 0.0, True
+                shards = shard_block_sparse_all(bsr, sp)
+                n_glob = shards[0].n_pad_global
+                holders = [int((s.op.g_idx >= s.op.num_blocks).all(1).sum())
+                           for s in shards]
+                say(f" {label} [{mode}] sp={sp}: n {bsr.n}, n_pad "
+                    f"{bsr.n_pad} -> n_pad_global {n_glob}; local "
+                    f"[{shards[0].rows_local}, {n_glob}]; blocks "
+                    f"{[s.op.num_blocks for s in shards]} (unsharded "
+                    f"{bsr.num_blocks}), G {[s.op.g_width for s in shards]} "
+                    f"(unsharded {bsr.g_width}), rows of placeholders only "
+                    f"{holders}")
+                x = torch.zeros(n_glob, c, device=dev, dtype=dt)
+                x[:bsr.n_pad] = torch.randn(bsr.n_pad, c, device=dev,
+                                            generator=gen).to(dt)
+                seeds = _seeds(torch, types.SimpleNamespace(n_pad=n_glob),
+                               c, gen, dev, dt)
+                for kind in SHARD_KINDS:
+                    if "dot" in kind and mode == "bf16x3":
+                        continue
+                    alpha, kw = _seed_args(kind, seeds)
+                    rows = lambda r0, r1: {
+                        k: ((v[0][r0:r1], v[1]) if k == "t_plus_dot"
+                            else v[r0:r1]) for k, v in kw.items()}
+                    full = bsr_grouped_spmm(bsr, x[:bsr.n_pad], mode, alpha,
+                                            **rows(0, bsr.n_pad))
+                    parts = []
+                    for s in shards:
+                        r0, r1 = s.row0, s.row0 + s.rows_local
+                        y = bsr_grouped_spmm(s.op, x, mode, alpha,
+                                             **rows(r0, r1))
+                        ref = bsr_grouped_spmm_reference(s.op, x, mode,
+                                                         alpha, **rows(r0, r1))
+                        err = (y.float() - ref.float()).abs().max().item()
+                        bar = TOL_BF16 if mode == "bf16" else TOL_KERNEL
+                        if not err <= bar * ref.float().abs().max().item():
+                            fail(f"{label} [{mode}] sp={sp} shard "
+                                 f"{s.sp_rank} {kind}: kernel vs twin "
+                                 f"{err:.3e}")
+                        worst[mode] = max(worst.get(mode, 0.0), err)
+                        parts.append(y)
+                    got = torch.cat(parts)[:bsr.n_pad]
+                    torch.cuda.synchronize()
+                    if mode == "bf16x3":
+                        rel = max(rel, ((got - full).abs().max()
+                                        / full.abs().max()).item())
+                        same = same and bool(torch.equal(got, full))
+                        if not rel <= TOL_KERNEL:
+                            fail(f"{label} [{mode}] sp={sp} {kind}: stacked "
+                                 f"shards vs unsharded {rel:.3e}")
+                    elif not torch.equal(got, full):
+                        fail(f"{label} [{mode}] sp={sp} {kind}: stacked "
+                             f"shards are not bit-equal to the unsharded "
+                             f"kernel")
+                say(f"  {len(SHARD_KINDS) - (mode == 'bf16x3')} call kinds: "
+                    f"stacked shards " + (
+                        f"within {rel:.1e} of the unsharded kernel (bit-equal "
+                        f"{same})" if mode == "bf16x3" else
+                        "bit-equal to the unsharded kernel")
+                    + "; each shard within its bar of the twin")
+    return worst
+
+
+def _world_ops(torch, spec, device):
+    from meshvae_tpu_torch.mesh import load_obj, load_or_build_hierarchy
+    from meshvae_tpu_torch.models import build_operators
+
+    if spec["ops_key"] in _PREBUILT:
+        return _PREBUILT[spec["ops_key"]]
+    hier = load_or_build_hierarchy(load_obj(spec["template"]),
+                                   spec["factors"], cache_dir=spec["cache"])
+    return build_operators(hier, device, cheb_method="pallas",
+                           dtype=spec["dtype"])
+
+
+def _digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in sorted(model.state_dict().items()):
+        h.update(k.encode() + v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _world_rank(world, specs):
+    """One rank of phase 14's gloo worlds on the shared card: _world_case
+    for each spec in turn; rank 0 returns their results."""
+    outs = [_world_case(world, spec) for spec in specs]
+    return outs if world.rank == 0 else None
+
+
+def _world_case(world, spec):
+    """The spec's deterministic train steps from its weights, then (sp)
+    one eval step and the MeshServer request; the launch counts and the
+    world's collective counts reset just before and read just after; then
+    the step's time, its collectives replayed, and the idle share. Returns
+    the results, with every rank's launches and digests."""
+    import torch
+    import torch.distributed as tdist
+
+    from meshvae_tpu_torch.models import MeshVAE, VAEConfig
+    from meshvae_tpu_torch.ops import bsr_spmm
+    from meshvae_tpu_torch.train import Trainer
+
+    dev = world.device
+    ops = _world_ops(torch, spec, dev)
+    cfg = VAEConfig.from_config(spec["config"],
+                                coarse_verts=spec["coarse"])
+    model = MeshVAE(cfg)
+    model.load_state_dict(spec["weights"])
+    tr = Trainer(model, ops, spec["config"], dist=world)
+    norm = tr.norm_to_device(*spec["norm"])
+    out = {"steps": []}
+    torch.cuda.synchronize()
+    tdist.barrier()
+    # --- the main path: counts reset just before, read just after -------
+    bsr_spmm.reset_launches()
+    world.reset_stats()
+    for i, host in enumerate(spec["batches"]):
+        pre = {"model": {k: v.detach().cpu().clone()
+                         for k, v in tr.model.state_dict().items()},
+               "optimizer": _cpu_state(tr.optimizer.state_dict())}
+        packed = tr.train_step(tr.to_device(host), None, *norm)
+        out["steps"].append({
+            "pre": pre, "metrics": packed.cpu(),
+            "grads": {k: v.grad.detach().cpu().clone()
+                      for k, v in tr.model.named_parameters()},
+            "params": {k: v.detach().cpu().clone()
+                       for k, v in tr.model.named_parameters()}})
+    if spec.get("eval_batch") is not None:
+        ev = tr.eval_step(tr.to_device(spec["eval_batch"]), *norm)
+        from meshvae_tpu_torch.parallel import fetch
+
+        out["eval"] = {"loss": ev["scalars"][0].item(),
+                       "recon_orig": torch.from_numpy(
+                           fetch(ev["recon_orig"], world))}
+    torch.cuda.synchronize()
+    launches = dict(bsr_spmm.LAUNCHES_BY_SHAPE)
+    stats = dict(world.stats)
+    # --------------------------------------------------------------------
+    out["serve"] = _world_serve(torch, world, spec.get("serve"))
+    ranks = [None] * world.size
+    tdist.all_gather_object(ranks, {"launches": launches, "stats": stats,
+                                    "digest": _digest(tr.model)})
+    out["ranks"] = ranks
+    out.update(_world_times(torch, world, tr, spec, norm))
+    return out
+
+
+def _cpu_state(state):
+    if isinstance(state, dict):
+        return {k: _cpu_state(v) for k, v in state.items()}
+    if isinstance(state, list):
+        return [_cpu_state(v) for v in state]
+    return state.detach().cpu().clone() if hasattr(state, "detach") else state
+
+
+def _world_serve(torch, world, spec):
+    """The sp world's MeshServer (config 1, high) answering one request of
+    20 meshes; the results on every rank."""
+    if spec is None:
+        return None
+    from meshvae_tpu_torch.infer.serve import MeshServer
+    from meshvae_tpu_torch.models import MeshVAE, VAEConfig
+
+    ops = _world_ops(torch, spec, world.device)
+    model = MeshVAE(VAEConfig.from_config(spec["config"],
+                                          coarse_verts=spec["coarse"]))
+    model.load_state_dict(spec["weights"])
+    server = MeshServer(model.to(world.device).eval(), ops, *spec["norm"],
+                        template=spec["tmpl_v"], faces=spec["tmpl_f"],
+                        batch_size=BATCH, save_meshes=False, dist=world)
+    try:
+        return server.handle(spec["paths"])
+    finally:
+        server.close()
+
+
+def _world_times(torch, world, tr, spec, norm):
+    """Host-clock step time (median of TIMED_STEPS, each ending in a
+    synchronize), one step's all-gathers (count, bytes received by this
+    rank, and their time replayed one by one at the same shapes), and
+    rank 0's device busy time per step under torch.profiler. Every rank
+    runs the same collectives in the same order."""
+    import torch.distributed as tdist
+
+    batch = tr.to_device(spec["batches"][0])
+    step = lambda: tr.train_step(batch, None, *norm)
+    times = []
+    for _ in range(TIMED_STEPS):
+        torch.cuda.synchronize()
+        tdist.barrier()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    ms = statistics.median(times)
+    # one step's collectives, recorded, then replayed one by one
+    calls = []
+    comms = {id(c): c for c in (world.world, world.dp_group,
+                                world.sp_group)}.values()
+
+    def recorder(comm, name):
+        real = getattr(comm, name)
+
+        def recorded(t, *args, **kwargs):
+            calls.append((real, tuple(t.shape), t.dtype))
+            return real(t, *args, **kwargs)
+        return recorded
+
+    for comm in comms:
+        comm.all_gather = recorder(comm, "all_gather")
+        comm.all_reduce_ = recorder(comm, "all_reduce_")
+    world.reset_stats()
+    try:
+        step()
+    finally:
+        for comm in comms:
+            del comm.all_gather, comm.all_reduce_
+    stats = dict(world.stats)
+    gather_ms = 0.0
+    for real, shape, dtype in calls:
+        t = torch.zeros(shape, dtype=dtype, device=world.device)
+        torch.cuda.synchronize()
+        tdist.barrier()
+        t0 = time.perf_counter()
+        real(t)
+        torch.cuda.synchronize()
+        gather_ms += 1e3 * (time.perf_counter() - t0)
+    busy = None
+    if world.rank == 0:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILED_STEPS):
+                step()
+            torch.cuda.synchronize()
+        busy = sum(t for t, _ in _kernel_times(prof, PROFILED_STEPS)) or None
+    else:
+        for _ in range(PROFILED_STEPS):
+            step()
+    return {"step_ms": ms, "step_times": times, "gathers": stats,
+            "gather_ms": gather_ms, "busy_us": busy}
+
+
+def _load_state(tr, pre):
+    """A trainer at state `pre` (model and Adam). The optimizer gets a
+    copy: load_state_dict keeps Adam's step tensors, which the next step
+    increments in place."""
+    import copy
+
+    tr.model.load_state_dict(pre["model"])
+    tr.optimizer.load_state_dict(copy.deepcopy(pre["optimizer"]))
+    return tr
+
+
+def _adam_on(torch, make_trainer, pre, grads):
+    """Params after one Adam step from state `pre` with `grads`."""
+    tr = _load_state(make_trainer(), pre)
+    for k, v in tr.model.named_parameters():
+        v.grad = grads[k].to(v.device)
+    tr.optimizer.step()
+    return {k: v.detach().cpu() for k, v in tr.model.named_parameters()}
+
+
+def _single_step(torch, make_trainer, pre, host, norm_host):
+    """The single-process reference of one world step: from `pre` (the
+    world's state before it), the full batch, deterministic."""
+    tr = _load_state(make_trainer(), pre)
+    packed = tr.train_step(tr.to_device(host), None,
+                           *tr.norm_to_device(*norm_host))
+    return {"metrics": packed.cpu(),
+            "grads": {k: v.grad.detach().cpu()
+                      for k, v in tr.model.named_parameters()}}
+
+
+def _hold_world(torch, label, world_out, make_trainer, host_batches,
+                norm_host, grad_bar, lr, yardstick=None):
+    """Each world step against the single-process step from the same
+    state: the loss within 1e-5 relative (or, with a yardstick, phase 8's
+    bf16 bar), every gradient within grad_bar of its layer's max|g| (or
+    the bf16 bar), the world's params bit-equal to (within 1e-2 lr of)
+    Adam on the world's gradients from the same state, and every rank's
+    params bit-equal."""
+    worst = 0.0
+    for i, (st, host) in enumerate(zip(world_out["steps"], host_batches)):
+        ref = _single_step(torch, make_trainer, st["pre"], host, norm_host)
+        w_loss = st["metrics"][0].item()
+        s_loss = ref["metrics"][0].item()
+        if yardstick is None:
+            rel = abs(w_loss - s_loss) / abs(s_loss)
+            g_worst = max((st["grads"][k] - g).abs().max().item()
+                          / _layer_scale(ref["grads"], k)
+                          for k, g in ref["grads"].items())
+            ok = rel <= 1e-5 and g_worst <= grad_bar
+            detail = (f"loss rel {rel:.2e} (bar 1e-5); worst gradient delta "
+                      f"{g_worst:.2e} of its layer's max|g| (bar "
+                      f"{grad_bar:g})")
+        else:
+            y32 = _single_step(torch, yardstick, st["pre"], host, norm_host)
+            ulp = 2.0 ** -8
+            excess = []
+            for name, w, s16, s32, scale in (
+                    [("loss", torch.tensor(w_loss), torch.tensor(s_loss),
+                      y32["metrics"][0], abs(y32["metrics"][0].item()))]
+                    + [(f"grad {k}", st["grads"][k], ref["grads"][k],
+                        y32["grads"][k], _layer_scale(y32["grads"], k))
+                       for k in ref["grads"]]):
+                d_w = float((w - s16).abs().max())
+                d_b = float((s16 - s32).abs().max())
+                excess.append(((d_w - d_b) / scale, name))
+            g_worst, worst_name = max(excess)
+            ok = g_worst <= ulp
+            detail = (f"loss {w_loss:.6g} vs {s_loss:.6g}; worst "
+                      f"(|world - single_bf16| - |single_bf16 - "
+                      f"single_fp32|) / scale {g_worst:.3e} at "
+                      f"{worst_name} (bar one bf16 ulp, {ulp:.3e})")
+        p_adam = _adam_on(torch, make_trainer, st["pre"], st["grads"])
+        p_delta = max((st["params"][k] - v).abs().max().item()
+                      for k, v in p_adam.items())
+        say(f"{label} step {i + 1} vs one process: {detail}; params vs "
+            f"Adam on the world's gradients: max delta {p_delta / lr:.2e} "
+            f"lr (bar 1e-2 lr)")
+        if not ok or p_delta > 1e-2 * lr:
+            fail(f"{label}: step {i + 1} disagrees with the single-process "
+                 f"step")
+        worst = max(worst, g_worst)
+    digests = {r["digest"] for r in world_out["ranks"]}
+    say(f"{label}: every rank's parameters bit-equal: {len(digests) == 1}")
+    if len(digests) != 1:
+        fail(f"{label}: the ranks' parameters differ")
+    return worst
+
+
+def _world_report(label, out, batch):
+    g = out["gathers"]
+    busy = out["busy_us"]
+    say(f"{label} [shared-card gloo world, not a scaling result]: step "
+        f"{out['step_ms']:.1f} ms (median of {TIMED_STEPS}, host clock, "
+        f"{batch / out['step_ms'] * 1e3:.1f} meshes/sec); per step and "
+        f"rank {g['all_gather']} all-gathers receiving "
+        f"{g['all_gather_bytes'] / 2**20:.1f} MiB and {g['all_reduce']} "
+        f"all-reduces of {g['all_reduce_bytes'] / 2**20:.1f} MiB, "
+        f"{out['gather_ms']:.1f} ms replayed one by one; "
+        + (f"rank 0's device busy {busy / 1e3:.1f} ms/step, idle share "
+           f"{1 - busy / (1e3 * out['step_ms']):.2f}" if busy else
+           "device busy not measured"))
+
+
+def phase_distribution(torch, dev, models, ops, hier, tmpl, norm, many_dir,
+                       s20, s80, tmp):
+    """Phase 14: the shard products (a), a dp=2 world at config 1 (b), an
+    sp=2 world at scaled80k bf16 full width and its MeshServer at config 1
+    (c), and the times of _mapped_product at the sp=2 80k shard shapes
+    (d). Returns the kernels-line entry and the world's launches."""
+    say("== phase 14: distribution (dp / sp over torch.distributed; "
+        "_mapped_product = bsr_grouped_spmm on row shards)")
+    import numpy as np
+
+    from meshvae_tpu_torch.config import read_config
+    from meshvae_tpu_torch.data import (BatchIterator, MeshDataset,
+                                        list_meshes)
+    from meshvae_tpu_torch.models import MeshVAE, VAEConfig, build_operators
+    from meshvae_tpu_torch.ops.bsr_shard import shard_block_sparse_all
+    from meshvae_tpu_torch.parallel import spawn_local
+    from meshvae_tpu_torch.train import Trainer
+
+    # --- a. the shard shapes, in one process ----------------------------
+    say("-- 14a: shard products against the unsharded kernel and the twin")
+    lap = lambda o: [op.bsr for op in o.lap if op.bsr is not None]
+    operands = {"c1": {"fp32": lap(ops), "bf16x3": lap(ops)},
+                "s20": {"fp32": lap(s20["ops"])},
+                "s80": {"bf16": lap(s80["ops"])}}
+    worst = _shard_products(torch, dev, operands)
+
+    # --- b. dp=2 at config 1 on the shared card -------------------------
+    say("-- 14b: data parallel, 2 gloo ranks on cuda:0, config 1 full width")
+    config = config_1(tmp)
+    data_dir = os.path.join(tmp, "train_data")   # phase 6's meshes
+    dcfg = {"root_dir": data_dir, "checkpoint_dir": os.path.join(tmp, "c14")}
+    index, labels = list_meshes(dcfg)
+    ds = MeshDataset(index, dcfg, labels, tmpl.v)
+    batches = list(BatchIterator(ds, BATCH))[:DP_STEPS]
+    weights = {k: v.cpu() for k, v in models["high"].state_dict().items()}
+    lr = float(config["learning_rate"])
+    _PREBUILT["c1"] = ops
+    precisions = ("high", "highest")
+    specs = [{"label": f"dp=2 config 1 {p}",
+              "config": dict(config, matmul_precision=p),
+              "coarse": hier.levels[-1], "weights": weights,
+              "norm": (ds.mean, ds.std), "batches": batches,
+              "batch_size": BATCH, "ops_key": "c1",
+              "template": config["template"],
+              "factors": config["downsampling_factors"],
+              "cache": config["hierarchy_cache_dir"],
+              "dtype": torch.float32} for p in precisions]
+    t0 = time.perf_counter()
+    outs = spawn_local(_world_rank, 2, 1, "cuda:0", args=(specs,),
+                       timeout=600)
+    say(f"dp=2: world of 2 ranks ran both precisions in "
+        f"{time.perf_counter() - t0:.1f}s (spawn and set-up included)")
+    dp_worst = {}
+    for p, spec, out in zip(precisions, specs, outs):
+        def make(p=p, cfg=spec["config"]):
+            m = MeshVAE(models[p].cfg)
+            m.load_state_dict(weights)
+            return Trainer(m, ops, cfg, device=dev)
+
+        dp_worst[p] = _hold_world(torch, f"dp=2 [{p}]", out, make, batches,
+                                  (ds.mean, ds.std),
+                                  1e-4 if p == "highest" else 1e-3, lr)
+        single = _launches_of(torch, make, batches, (ds.mean, ds.std))
+        for r, rank in enumerate(out["ranks"]):
+            if rank["launches"] != single:
+                fail(f"dp=2 [{p}] rank {r} launched {rank['launches']}, "
+                     f"one process {single}")
+        say(f"dp=2 [{p}]: launches per rank {out['ranks'][0]['launches']} "
+            f"= one process's over the same {DP_STEPS} steps")
+        _world_report(f"dp=2 config 1 {p}", out, BATCH)
+
+    # --- c. sp=2 at scaled80k bf16, and a MeshServer at config 1 --------
+    say("-- 14c: vertex sharding, 2 gloo ranks on cuda:0, scaled80k bf16 "
+        "full width (K=10, B=32)")
+    config80 = read_config(os.path.join(ROOT, SCALED_CFG))
+    config80.update({"template": s80["path"],
+                     "hierarchy_cache_dir": s80["cache"]})
+    data80 = os.path.join(tmp, "data80k")          # phase 7's meshes
+    d80 = {"root_dir": data80, "checkpoint_dir": os.path.join(tmp, "c14s")}
+    index80, labels80 = list_meshes(d80)
+    ds80 = MeshDataset(index80[:SP_STEPS * SCALED_BATCH], d80, labels80,
+                       s80["tmpl"].v)
+    batches80 = list(BatchIterator(ds80, SCALED_BATCH))[:SP_STEPS]
+    cfg80 = VAEConfig.from_config(config80,
+                                  coarse_verts=s80["hier"].levels[-1])
+    weights80 = MeshVAE(cfg80, generator=torch.Generator().manual_seed(
+        141)).state_dict()
+    _PREBUILT["s80"] = s80["ops"]
+    many = sorted(os.path.join(many_dir, f) for f in os.listdir(many_dir))
+    spec = {"label": "sp=2 scaled80k bf16", "config": config80,
+            "coarse": s80["hier"].levels[-1], "weights": weights80,
+            "norm": (ds80.mean, ds80.std), "batches": batches80,
+            "eval_batch": batches80[0], "batch_size": SCALED_BATCH,
+            "ops_key": "s80", "template": s80["path"],
+            "factors": [4, 4, 4, 4], "cache": s80["cache"],
+            "dtype": torch.bfloat16,
+            "serve": {"config": config, "coarse": hier.levels[-1],
+                      "weights": weights, "norm": norm,
+                      "tmpl_v": tmpl.v, "tmpl_f": tmpl.f, "paths": many,
+                      "ops_key": "c1", "template": config["template"],
+                      "factors": config["downsampling_factors"],
+                      "cache": config["hierarchy_cache_dir"],
+                      "dtype": torch.float32}}
+    t0 = time.perf_counter()
+    [out] = spawn_local(_world_rank, 1, 2, "cuda:0", args=([spec],),
+                        timeout=900)
+    say(f"sp=2: world of 2 ranks ran in {time.perf_counter() - t0:.1f}s "
+        f"(spawn and set-up included)")
+    ops32 = build_operators(s80["hier"], dev, cheb_method="pallas",
+                            dtype=torch.float32)
+
+    def make80(dtype=torch.bfloat16):
+        m = MeshVAE(cfg80 if dtype == torch.bfloat16 else
+                    dataclasses.replace(cfg80, compute_dtype="float32",
+                                        precision="highest"))
+        m.load_state_dict(weights80)
+        return Trainer(m, s80["ops"] if dtype == torch.bfloat16 else ops32,
+                       config80, device=dev)
+
+    sp_worst = _hold_world(torch, "sp=2 [scaled80k bf16]", out, make80,
+                           batches80, (ds80.mean, ds80.std), None,
+                           float(config80["learning_rate"]),
+                           yardstick=lambda: make80(torch.float32))
+    # the eval step, at phase 8's bar
+    # the world's eval step ran after its train steps: hold it against the
+    # single process from the world's final state
+    evs = {}
+    for side, tr in (("single16", make80()),
+                     ("single32", make80(torch.float32))):
+        tr.model.load_state_dict(out["steps"][-1]["params"])
+        ev = tr.eval_step(tr.to_device(batches80[0]),
+                          *tr.norm_to_device(ds80.mean, ds80.std))
+        evs[side] = {"loss": ev["scalars"][0].item(),
+                     "recon_orig": ev["recon_orig"].float().cpu()}
+    w_ev = out["eval"]
+    ulp = 2.0 ** -8
+    for name, w, s16, s32, scale in (
+            ("eval loss", torch.tensor(w_ev["loss"]),
+             torch.tensor(evs["single16"]["loss"]),
+             torch.tensor(evs["single32"]["loss"]),
+             abs(evs["single32"]["loss"])),
+            ("eval recon_orig", w_ev["recon_orig"].float(),
+             evs["single16"]["recon_orig"], evs["single32"]["recon_orig"],
+             float(evs["single32"]["recon_orig"].abs().max()))):
+        d_w = float((w - s16).abs().max())
+        d_b = float((s16 - s32).abs().max())
+        say(f"sp=2 {name}: |world - single_bf16| {d_w:.3e}, |single_bf16 "
+            f"- single_fp32| {d_b:.3e} (scale {scale:.3e})")
+        if not d_w <= d_b + ulp * scale:
+            fail(f"sp=2 {name}: {d_w:.3e} > {d_b:.3e} + one ulp of "
+                 f"{scale:.3e}")
+    # launches per rank: the single process's Laplacian calls at the shard
+    # shapes, its P^T calls as they are
+    single = _launches_of(torch, make80, batches80, (ds80.mean, ds80.std),
+                          eval_batch=batches80[0])
+    shard_of = {}
+    for i, op in enumerate(s80["ops"].lap):
+        if op.bsr is not None:
+            n_glob = -(-op.bsr.n_pad // 256) * 256
+            shard_of[op.bsr.n_pad] = (n_glob // 2, n_glob)
+    want = {}
+    for (mode, n_pad, cols), count in single.items():
+        key = ((mode, *shard_of[n_pad]) if n_pad == cols and n_pad in
+               shard_of else (mode, n_pad, cols))
+        want[key] = want.get(key, 0) + count
+    for r, rank in enumerate(out["ranks"]):
+        if rank["launches"] != want:
+            fail(f"sp=2 rank {r} launched {rank['launches']}, expected the "
+                 f"single process's at the shard shapes {want}")
+    lap_launches = sum(v for (m, n_pad, cols), v in
+                       out["ranks"][0]["launches"].items()
+                       if cols == 2 * n_pad)
+    say(f"sp=2: launches per rank {out['ranks'][0]['launches']} = one "
+        f"process's {single} at the shard shapes ({lap_launches} "
+        f"_mapped_product launches per rank over {SP_STEPS} train steps "
+        f"and one eval step)")
+    _world_report("sp=2 scaled80k bf16", out, SCALED_BATCH)
+    # the sp=2 MeshServer against one process
+    from meshvae_tpu_torch.infer.serve import MeshServer
+
+    server = MeshServer(models["high"], ops, *norm,
+                        template=tmpl.v, faces=tmpl.f, batch_size=BATCH,
+                        save_meshes=False, device=dev)
+    try:
+        want_srv = server.handle(many)
+        scale = float(np.abs(server.preprocess(many)["original"]).max())
+    finally:
+        server.close()
+    got_srv = out["serve"]
+    d_err = max(abs(a["reconstruction_error"][k]
+                    - b["reconstruction_error"][k])
+                for a, b in zip(got_srv, want_srv) for k in ("mean", "max"))
+    preds = [a["sex"] for a in got_srv] == [b["sex"] for b in want_srv]
+    say(f"sp=2 MeshServer (config 1, high, {len(many)} meshes): pred equal "
+        f"{preds}, max error delta {d_err:.3e} (bar {TOL_STEP * scale:.3e}, "
+        f"1e-4 of the mesh scale {scale:.1f})")
+    if len(got_srv) != len(many) or not preds or d_err > TOL_STEP * scale:
+        fail("the sp=2 MeshServer disagrees with one process")
+
+    # --- d. _mapped_product at the sp=2 80k shard shapes ----------------
+    say("-- 14d: _mapped_product per call at rank 0's sp=2 scaled80k shard "
+        "shapes (median of %d, CUDA events)" % RUNS)
+    from meshvae_tpu_torch.ops.graph import normalized_neg_adjacency
+
+    operands80 = _operands80(s80["ops"])
+    shard_ops, csrs = {}, {}
+    for key, bsr in operands80.items():
+        if key[0] != "L":
+            continue
+        shard = shard_block_sparse_all(bsr, 2)[0]
+        shard_ops[key] = shard.op
+        mat = normalized_neg_adjacency(s80["hier"].adjacency[int(key[1])])
+        rows = mat[:min(shard.rows_local, mat.shape[0])]
+        f32 = _csr(torch, rows, shard.rows_local, shard.n_pad_global, dev)
+        bf = None
+        try:
+            bf = torch.sparse_csr_tensor(
+                f32.crow_indices(), f32.col_indices(),
+                f32.values().to(torch.bfloat16), size=f32.shape)
+            torch.sparse.mm(bf, torch.ones(f32.shape[1], 128,
+                                           dtype=torch.bfloat16, device=dev))
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError):
+            bf = None
+        csrs[key] = {"fp32": f32, "bf16": bf,
+                     "lib_dtype": "bf16" if bf is not None else "fp32"}
+    gen = torch.Generator(device=dev).manual_seed(15)
+    acc = dict.fromkeys(ACC_KEYS, 0.0)
+    rows_out = []
+    for label, key, c, kinds in SCALED_CALLS["lap"]:
+        bsr = shard_ops[key]
+        say(f" {label} ({key} shard 0 of 2, [{bsr.n_pad}, {bsr.n_pad_cols}],"
+            f" G {bsr.g_width}):")
+        for kind, count in kinds.items():
+            got = _time_kind_bf16(torch, bsr, csrs[key], c, kind, gen, dev)
+            for k in acc:
+                acc[k] += count * got[k]
+            rows_out.append(dict(got["row"], shape=label, per_step=count))
+    say(f"per sp=2 80k train step, rank 0's _mapped_product calls: kernel "
+        f"{acc['ms']:.3f} ms, twin {acc['plain_ms']:.3f} ms, torch.sparse "
+        f"{acc['library_ms']:.3f} ms, bound {acc['bound_ms']:.3f} ms "
+        f"({_bound_by(acc)}; {acc['stored_ms']:.3f} ms with the blocks as "
+        f"stored)")
+    say("shape_rows_sp2_80k " + json.dumps(rows_out))
+    err = max(worst.values())
+    entry = dict(
+        name="_mapped_product: bsr_grouped_spmm[bf16] on rank 0's sp=2 "
+             "scaled80k row shards, per train step",
+        route="cuda", source=SOURCE,
+        replaces="meshvae_tpu/ops/pallas_shard.py:150",
+        launches=lap_launches, max_abs_err=worst.get("bf16", err),
+        ms=acc["ms"], plain_ms=acc["plain_ms"], bound_ms=acc["bound_ms"],
+        bound_by=_bound_by(acc), library_ms=acc["library_ms"],
+        bound_stored_ms=acc["stored_ms"],
+        shapes=sorted({f"[{b.n_pad}, {b.n_pad_cols}]"
+                       for b in shard_ops.values()}))
+    say(f"phase 14 worst: kernel vs twin {worst}; dp=2 worst gradient "
+        f"delta {dp_worst}; sp=2 worst bf16 excess {sp_worst:.3e}")
+    return entry
+
+
+def _launches_of(torch, make_trainer, batches, norm_host, eval_batch=None):
+    """LAUNCHES_BY_SHAPE of the single-process deterministic steps (and
+    eval step) that a world's main path runs."""
+    from meshvae_tpu_torch.ops import bsr_spmm
+
+    tr = make_trainer()
+    norm = tr.norm_to_device(*norm_host)
+    torch.cuda.synchronize()
+    bsr_spmm.reset_launches()
+    for host in batches:
+        tr.train_step(tr.to_device(host), None, *norm)
+    if eval_batch is not None:
+        tr.eval_step(tr.to_device(eval_batch), *norm)
+    torch.cuda.synchronize()
+    return dict(bsr_spmm.LAUNCHES_BY_SHAPE)
+
+
+
 INFER_MESHES = 32   # two batches of 16
 
 
@@ -2361,6 +3075,10 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_tiles(dev, s80, tmp)
         seconds["tiles"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mapped = phase_distribution(torch, dev, models, ops, hier, tmpl,
+                                    (mean, std), many_dir, s20, s80, tmp)
+        seconds["distribution"] = time.perf_counter() - t0
     say("phase seconds " + json.dumps({k: round(v, 1)
                                        for k, v in seconds.items()}))
 
@@ -2447,6 +3165,8 @@ def main() -> int:
             ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
             bound_by=e["bound_by"], library_ms=e["library_ms"],
             bound_stored_ms=e["stored_ms"]))
+    # _mapped_product (pallas_shard.py:150): the sp=2 world's kernel calls
+    kernels.append(mapped)
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

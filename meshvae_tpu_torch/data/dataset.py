@@ -73,11 +73,12 @@ class MeshDataset:
 
     A "train" dataset computes the per-vertex mean and std and writes them
     to ``checkpoint_dir/norm.npz`` (recomputed per split, as the reference
-    does); any other reads them from there."""
+    does; write_norm=False computes them without writing, on the ranks of
+    a world that are not the primary); any other reads them from there."""
 
     def __init__(self, dataset_index: list[str], config: dict,
                  labels: dict[str, int], template: np.ndarray,
-                 dtype: str = "train"):
+                 dtype: str = "train", write_norm: bool = True):
         self.checkpoint_dir = config["checkpoint_dir"]
         self.root_dir = config["root_dir"]
         self.dtype = dtype
@@ -117,6 +118,7 @@ class MeshDataset:
             mean = self.aligned.astype(np.float64).mean(axis=0)
             std = self.aligned.astype(np.float64).std(axis=0)
             stats = (mean, std)
+        if dtype == "train" and write_norm:
             os.makedirs(self.checkpoint_dir, exist_ok=True)
             # temp file + rename: a concurrent reader never sees a partial
             # archive (np.savez appends .npz to a suffix-less path)

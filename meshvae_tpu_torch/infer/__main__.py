@@ -16,7 +16,11 @@ package's inference.py.
 
 --export, --export-serve, --artifact and --export-platforms (the JAX
 package's serving artifacts) are not ported yet and exit non-zero. Runs on
-the CUDA card unless --device cpu is given.
+the CUDA card unless --device cpu is given. The config's data_parallel /
+seq_parallel / multihost give the world as they do for training (as
+inference.py passes trainer.mesh): each rank runs its dp rows with the
+operators row-sharded over sp, and only the primary writes files and, with
+--serve, reads stdin and answers.
 """
 import argparse
 import os
@@ -61,16 +65,11 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
-    import json
-
-    import numpy as np
-
     from ..config import apply_overrides, read_config
-    from ..device import resolve_device
-    from ..train.checkpoint import find_checkpoint, load_checkpoint
-    from ..train.driver import build_model_and_ops
-    from .driver import run_inference
-    from .serve import MeshServer
+    from ..parallel.sharding import close_world, spawn_local
+    from ..train.driver import maybe_init_multihost
+    from ..validate import validate_config
+    from .driver import run_cli
 
     if args.conf is None:
         args.conf = os.path.join(os.path.dirname(__file__), os.pardir,
@@ -81,41 +80,18 @@ def main(argv=None) -> int:
     config["checkpoint_dir"] = os.path.join(os.path.dirname(args.conf),
                                             config["checkpoint_dir"])
     config["root_dir"] = args.data_dir
-    device = resolve_device(args.device)
-
-    model, ops, _, template = build_model_and_ops(config, device)
-    ckpt = find_checkpoint(config["checkpoint_dir"], args.model)
-    model.load_state_dict(load_checkpoint(ckpt)["model"])
-    with np.load(os.path.join(config["checkpoint_dir"], "norm.npz")) as norm:
-        mean = norm["mean"].astype(np.float32)
-        std = norm["std"].astype(np.float32)
-    batch_size = int(config["batch_size"])
-
-    if args.serve:
-        server = MeshServer(
-            model, ops, mean, std, template=template.v, faces=template.f,
-            batch_size=batch_size, output_path=args.output_path,
-            save_meshes=not args.no_meshes,
-            wire_dtype=np.dtype(config.get("serve_wire_dtype", "float16")),
-            device=device)
+    validate_config(config, args.device)
+    dp = int(config.get("data_parallel", 1))
+    sp = int(config.get("seq_parallel", 1))
+    if config.get("multihost"):
+        world = maybe_init_multihost(config, args.device)
         try:
-            sec = server.warmup()
-            print(json.dumps({"ready": True, "warmup_sec": round(sec, 2),
-                              "batch_size": server.batch_size}), flush=True)
-            server.serve_forever(sys.stdin, sys.stdout)
+            return run_cli(world, args, config)
         finally:
-            server.close()
-        return 0
-
-    any_selected = args.pred or args.error_list or args.inference
-    run_inference(
-        model, ops, args.output_path, mean, std, config,
-        template=template.v, batch_size=batch_size, faces=template.f,
-        write_pred=args.pred or not any_selected,
-        write_error_list=args.error_list or not any_selected,
-        write_inference=args.inference or not any_selected,
-        save_meshes=not args.no_meshes, device=device)
-    return 0
+            close_world()
+    if dp * sp > 1:
+        return spawn_local(run_cli, dp, sp, args.device, args=(args, config))
+    return run_cli(None, args, config)
 
 
 if __name__ == "__main__":

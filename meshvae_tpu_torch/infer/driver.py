@@ -19,13 +19,18 @@ paper's sex-change experiment: for every mesh of the data directory
 (name -> {"sex", "reconstruction_error": {"mean", "max"}}) and the
 ``sex_change/`` triples ``{stem}_recon.obj``, ``{stem}_gt.obj`` and
 ``{stem}.obj`` (the counterfactual), with the JAX package's names, schemas
-and key order. The JAX engine's device-mesh sharding and multi-host writer
-have no counterpart here (ROADMAP: distribution).
+and key order.
+
+In a world (``dist``, a parallel.World), as the JAX engine under a mesh:
+each rank runs its dp rows of every batch, with the operators row-sharded
+over sp; the packed results and the mesh stacks are all-gathered over dp
+(parallel.fetch), and only the primary rank writes files.
 """
 from __future__ import annotations
 
 import json
 import os
+import sys
 
 import numpy as np
 import torch
@@ -36,15 +41,17 @@ from ..device import resolve_device
 from ..mesh.io import save_obj
 from ..mesh.procrustes import apply_inverse_similarity
 from ..models.operators import ModelOperators
+from ..parallel.sharding import fetch, is_primary, shard_batch, shard_operators
 
 
 class InferenceEngine:
     """model: an eval-mode MeshVAE; ops: ModelOperators on the model's
-    device."""
+    device; dist: a parallel.World, or None in one process."""
 
-    def __init__(self, model, ops: ModelOperators):
+    def __init__(self, model, ops: ModelOperators, dist=None):
         self.model = model
-        self.ops = ops
+        self.ops = shard_operators(ops, dist)
+        self.dist = dist
         self.device = next(model.parameters()).device
 
     @torch.inference_mode()
@@ -88,11 +95,14 @@ class InferenceEngine:
         x * std + mean; equal within fp32 round-off). Returns the host
         arrays packed [S, 3, B] (pred, err_mean, err_max, pulled once),
         mask and index [S, B] and, with collect_meshes, recon_orig and
-        oppo_orig [S, B, N, 3]; None for an empty loader."""
+        oppo_orig [S, B, N, 3]; None for an empty loader. In a world each
+        rank runs its dp rows and gets every rank's results."""
         packed, masks, index = [], [], []
         meshes = {"recon_orig": [], "oppo_orig": []}
         for host in loader:
-            batch = {k: torch.as_tensor(np.asarray(host[k]),
+            rows = shard_batch({k: host[k] for k in ("x", "r", "s", "m")},
+                               self.dist)
+            batch = {k: torch.as_tensor(np.asarray(rows[k]),
                                         dtype=torch.float32).to(self.device)
                      for k in ("x", "r", "s", "m")}
             batch["original"] = apply_inverse_similarity(
@@ -108,10 +118,10 @@ class InferenceEngine:
             index.append(np.asarray(host["index"]))
         if not packed:
             return None
-        res = {"packed": torch.stack(packed).cpu().numpy(),  # ONE pull
+        res = {"packed": fetch(torch.stack(packed), self.dist, dim=2),
                "mask": np.stack(masks), "index": np.stack(index)}
         if collect_meshes:
-            res.update({k: torch.stack(v).cpu().numpy()
+            res.update({k: fetch(torch.stack(v), self.dist, dim=1)
                         for k, v in meshes.items()})
         return res
 
@@ -125,7 +135,8 @@ def run_inference(model, ops: ModelOperators, output_path: str, mean, std,
     """The sex-change run over config["root_dir"] (see the module doc);
     `model` and `ops` live on `device`, the normalisation is `mean` /
     `std` [N, 3] (the MeshDataset reads the same statistics from
-    checkpoint_dir/norm.npz). Returns the inference.json dict."""
+    checkpoint_dir/norm.npz). Returns the inference.json dict. In a world
+    (the engine's dist) every rank runs and only the primary writes."""
     device = resolve_device(device)
     dataset_index, labels = list_meshes(config, sex_from_filename=False)
     dataset = MeshDataset(dataset_index, config, labels,
@@ -133,6 +144,7 @@ def run_inference(model, ops: ModelOperators, output_path: str, mean, std,
     loader = BatchIterator(dataset, batch_size, shuffle=False)
     if engine is None:
         engine = InferenceEngine(model, ops)
+    write = is_primary(engine.dist)
     mean_dev, std_dev = (torch.as_tensor(np.asarray(a, np.float32),
                                          device=device) for a in (mean, std))
 
@@ -140,9 +152,10 @@ def run_inference(model, ops: ModelOperators, output_path: str, mean, std,
     pred_sex: dict[str, str] = {}
     error_dict: dict[str, str] = {}
     mesh_dir = os.path.join(output_path, "sex_change")
-    if save_meshes:
+    if write and save_meshes:
         os.makedirs(mesh_dir, exist_ok=True)
-    os.makedirs(output_path, exist_ok=True)
+    if write:
+        os.makedirs(output_path, exist_ok=True)
 
     outs = engine.run_dataset(loader, mean_dev, std_dev,
                               collect_meshes=save_meshes)
@@ -162,7 +175,7 @@ def run_inference(model, ops: ModelOperators, output_path: str, mean, std,
                 }
                 pred_sex[path] = str(pred)
                 error_dict[path] = format(e_mean, ".4f")
-                if save_meshes:
+                if write and save_meshes:
                     stem = name.split(".")[0]
                     save_obj(os.path.join(mesh_dir, stem + "_recon.obj"),
                              outs["recon_orig"][s_i, b_i], faces)
@@ -175,7 +188,56 @@ def run_inference(model, ops: ModelOperators, output_path: str, mean, std,
                               (write_error_list, "error_list.json",
                                error_dict),
                               (write_inference, "inference.json", results)):
-        if wanted:
+        if wanted and write:
             with open(os.path.join(output_path, name), "w") as fp:
                 json.dump(obj, fp)
     return results
+
+
+def run_cli(world, args, config) -> int:
+    """The body of ``python -m meshvae_tpu_torch.infer`` on one rank
+    (world None: the only process): `args` are the CLI's parsed arguments,
+    `config` the resolved config. A module-level function here, so that
+    the spawned ranks of a local world can import it."""
+    from ..train.checkpoint import find_checkpoint, load_checkpoint
+    from ..train.driver import build_model_and_ops
+    from .serve import MeshServer
+
+    device = world.device if world is not None else resolve_device(
+        args.device)
+    model, ops, _, template = build_model_and_ops(config, device)
+    ckpt = find_checkpoint(config["checkpoint_dir"], args.model)
+    model.load_state_dict(load_checkpoint(ckpt)["model"])
+    with np.load(os.path.join(config["checkpoint_dir"], "norm.npz")) as norm:
+        mean = norm["mean"].astype(np.float32)
+        std = norm["std"].astype(np.float32)
+    batch_size = int(config["batch_size"])
+
+    if args.serve:
+        server = MeshServer(
+            model, ops, mean, std, template=template.v, faces=template.f,
+            batch_size=batch_size, output_path=args.output_path,
+            save_meshes=not args.no_meshes,
+            wire_dtype=np.dtype(config.get("serve_wire_dtype", "float16")),
+            device=device, dist=world)
+        try:
+            sec = server.warmup()
+            if server.primary:
+                print(json.dumps({"ready": True, "warmup_sec": round(sec, 2),
+                                  "batch_size": server.batch_size}),
+                      flush=True)
+            server.serve_forever(sys.stdin, sys.stdout)
+        finally:
+            server.close()
+        return 0
+
+    any_selected = args.pred or args.error_list or args.inference
+    run_inference(
+        model, ops, args.output_path, mean, std, config,
+        template=template.v, batch_size=batch_size, faces=template.f,
+        write_pred=args.pred or not any_selected,
+        write_error_list=args.error_list or not any_selected,
+        write_inference=args.inference or not any_selected,
+        save_meshes=not args.no_meshes,
+        engine=InferenceEngine(model, ops, dist=world), device=device)
+    return 0

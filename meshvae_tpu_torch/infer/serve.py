@@ -21,6 +21,12 @@ upcast there; the per-mesh scalars come back as one packed [3, B] array
 the main thread preprocesses chunk i+1 (OBJ parse + Procrustes) while a
 single device-lane thread runs chunk i.
 
+In a world (``dist``, a parallel.World; meshvae_tpu/infer/serve.py:73,83
+takes a mesh): every rank handles every request (the primary reads stdin
+and broadcasts each line), preprocesses the whole chunk and runs its dp
+rows; the packed results and meshes are all-gathered over dp and only the
+primary writes meshes and JSON lines.
+
 Run: ``python -m meshvae_tpu_torch.infer.serve -c cfg [-p key value]
 [--params file.npz] [--norm norm.npz] [--seed N] [--no-meshes]
 [--device cuda|cpu] [-o output_dir]``. Without ``--params`` the weights are
@@ -44,6 +50,7 @@ from ..device import resolve_device
 from ..mesh.io import load_obj, save_obj
 from ..mesh.procrustes import apply_inverse_similarity, procrustes_align
 from ..models.vae import load_params_npz
+from ..parallel.sharding import fetch, is_primary, shard_batch
 from ..train.driver import build_model_and_ops
 from .driver import InferenceEngine
 
@@ -67,12 +74,15 @@ class MeshServer:
     def __init__(self, model, ops, norm_mean, norm_std, template, faces,
                  batch_size: int, output_path: str = ".",
                  save_meshes: bool = False, wire_dtype=np.float16,
-                 device="cuda"):
+                 device="cuda", dist=None):
         if model.cfg.compute_dtype != "float32":
             raise ValueError("serving with compute_dtype bfloat16 is not "
                              "ported yet; serve in float32")
-        self.device = resolve_device(device)
-        self.engine = InferenceEngine(model, ops)
+        self.device = dist.device if dist is not None else resolve_device(
+            device)
+        self.dist = dist
+        self.primary = is_primary(dist)
+        self.engine = InferenceEngine(model, ops, dist=dist)
         self.mean_dev = torch.as_tensor(np.asarray(norm_mean, np.float32),
                                         device=self.device)
         self.std_dev = torch.as_tensor(np.asarray(norm_std, np.float32),
@@ -117,15 +127,18 @@ class MeshServer:
         return res
 
     def _device_chunk(self, host: dict) -> dict:
-        """Upload one padded chunk, run the step, pull the results. Runs on
-        the device-lane thread."""
-        batch = {k: torch.from_numpy(host[k]).to(self.device)
-                 for k in ("x", "r", "s", "m")}
+        """Upload one padded chunk (the rank's dp rows of it), run the step,
+        pull the results of the whole chunk. Runs on the device-lane
+        thread."""
+        rows = shard_batch({k: host[k] for k in ("x", "r", "s", "m")},
+                           self.dist)
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                 for k, v in rows.items()}
         out = self.serve_step(batch)
-        pulled = {"packed": out["packed"].cpu().numpy()}
+        pulled = {"packed": fetch(out["packed"], self.dist, dim=1)}
         if self.save_meshes:
-            pulled["recon"] = out["recon_orig"].cpu().numpy()
-            pulled["oppo"] = out["oppo_orig"].cpu().numpy()
+            pulled["recon"] = fetch(out["recon_orig"], self.dist)
+            pulled["oppo"] = fetch(out["oppo_orig"], self.dist)
         return pulled
 
     # --- host side --------------------------------------------------------
@@ -168,10 +181,11 @@ class MeshServer:
                 stem = name.rsplit(".", 1)[0]
                 rp = os.path.join(self.mesh_dir, stem + "_recon.obj")
                 op = os.path.join(self.mesh_dir, stem + ".obj")
-                save_obj(rp, pulled["recon"][i], self.faces)
-                save_obj(os.path.join(self.mesh_dir, stem + "_gt.obj"),
-                         host["original"][i], self.faces)
-                save_obj(op, pulled["oppo"][i], self.faces)
+                if self.primary:
+                    save_obj(rp, pulled["recon"][i], self.faces)
+                    save_obj(os.path.join(self.mesh_dir, stem + "_gt.obj"),
+                             host["original"][i], self.faces)
+                    save_obj(op, pulled["oppo"][i], self.faces)
                 res["recon"] = rp
                 res["oppo"] = op
             results.append(res)
@@ -182,7 +196,7 @@ class MeshServer:
         input path. The main thread preprocesses chunk i+1 while the device
         lane runs chunk i."""
         results = []
-        if self.save_meshes:
+        if self.save_meshes and self.primary:
             os.makedirs(self.mesh_dir, exist_ok=True)
         bs = self.batch_size
         pending = None  # (future, chunk, host) for the in-flight chunk
@@ -216,9 +230,30 @@ class MeshServer:
         self._device_lane.submit(self._device_chunk, host).result()
         return time.perf_counter() - t0
 
+    def _requests(self, fin):
+        """Request lines: fin's lines, read by the primary and broadcast to
+        the other ranks of a world (None ends the stream)."""
+        if self.dist is None or self.dist.size == 1:
+            yield from fin
+            return
+        import torch.distributed as dist
+
+        lines = iter(fin) if self.primary else None
+        while True:
+            box = [next(lines, None) if self.primary else None]
+            dist.broadcast_object_list(box, src=0)
+            if box[0] is None:
+                return
+            yield box[0]
+
     def serve_forever(self, fin, fout) -> None:
-        """Blocking stdio loop; EOF on fin ends it."""
-        for line in fin:
+        """Blocking stdio loop; EOF on fin ends it. In a world only the
+        primary reads fin and writes fout."""
+        def emit(obj):
+            if self.primary:
+                fout.write(json.dumps(obj) + "\n")
+
+        for line in self._requests(fin):
             req = line.strip()
             if not req:
                 continue
@@ -229,15 +264,16 @@ class MeshServer:
                     raise FileNotFoundError(f"no .obj meshes at {req}")
                 results = self.handle(paths)
             except Exception as exc:  # keep serving across bad requests
-                fout.write(json.dumps({"error": f"{req}: {exc}"}) + "\n")
-                fout.flush()
+                emit({"error": f"{req}: {exc}"})
+                if self.primary:
+                    fout.flush()
                 continue
             for res in results:
-                fout.write(json.dumps(res) + "\n")
-            fout.write(json.dumps(
-                {"done": len(results),
-                 "sec": round(time.perf_counter() - t0, 4)}) + "\n")
-            fout.flush()
+                emit(res)
+            emit({"done": len(results),
+                  "sec": round(time.perf_counter() - t0, 4)})
+            if self.primary:
+                fout.flush()
 
 
 def main(argv=None) -> int:

@@ -30,12 +30,15 @@ def fixed_log_sigma() -> float:
 
 def vae_loss(x: torch.Tensor, recon: torch.Tensor, mu: torch.Tensor,
              logvar: torch.Tensor, y: torch.Tensor, y_hat: torch.Tensor,
-             log_sigma=None, mask: torch.Tensor | None = None):
+             log_sigma=None, mask: torch.Tensor | None = None,
+             denom: torch.Tensor | None = None):
     """mean_B(KLD + sum_{N,3} NLL - 2 log q(y)); x, recon [B, N, 3], mu,
     logvar [B, Z], y one-hot and y_hat softmax [B, C].
 
     `mask` [B] (1 = real sample, 0 = batch padding) turns the batch mean
-    into a masked mean. log q(y) is log(sum(y_hat * y)) on the softmax
+    into a masked mean; `denom` replaces its denominator max(mask.sum(), 1)
+    (under data parallelism: the global batch's, so the ranks' losses sum
+    to the global mean). log q(y) is log(sum(y_hat * y)) on the softmax
     output, as in the reference. Returns (loss, aux) with aux = dict(kld
     [B], rec_loss [B], correct scalar, logqy [B])."""
     if log_sigma is None:
@@ -50,7 +53,8 @@ def vae_loss(x: torch.Tensor, recon: torch.Tensor, mu: torch.Tensor,
         loss = per_sample.mean()
         correct = hits.sum()
     else:
-        denom = torch.clamp(mask.sum(), min=1.0)
+        if denom is None:
+            denom = torch.clamp(mask.sum(), min=1.0)
         loss = torch.sum(per_sample * mask) / denom
         correct = torch.sum(hits * mask)
     return loss, {"kld": kl, "rec_loss": rec, "correct": correct,

@@ -21,7 +21,11 @@ Eval mode (``train=False``) uses z = mu and no dropout. Train mode draws the
 dropout masks and the reparameterisation noise from an explicit
 ``torch.Generator`` on the tensors' device. As in the reference, train mode
 drops the classifier's input out twice: once at the end of ``encode`` and
-again in ``classify``; the posterior sees h after the first.
+again in ``classify``; the posterior sees h after the first. Under data
+parallelism a rank holds rows [start, start + b) of a global batch of
+`total` rows; with ``rows=(start, total)`` every draw is made for the whole
+global batch and the rank keeps its rows, so the masks and the noise are
+the single-process ones.
 
 compute_dtype=bfloat16 follows the JAX package's bf16 mode: parameters stay
 float32 (the master weights) and are cast to bf16 at use; every product
@@ -48,15 +52,29 @@ from .operators import ModelOperators
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def _draw_buffer(x: torch.Tensor, rows: tuple | None) -> torch.Tensor:
+    """An empty tensor like x, or like the whole global batch when rows =
+    (start, total) (see the module docstring)."""
+    if rows is None:
+        return torch.empty_like(x)
+    return x.new_empty((rows[1],) + tuple(x.shape[1:]))
+
+
+def _own_rows(t: torch.Tensor, x: torch.Tensor,
+              rows: tuple | None) -> torch.Tensor:
+    return t if rows is None else t[rows[0]:rows[0] + x.shape[0]]
+
+
 def _dropout(x: torch.Tensor, rate: float, train: bool,
-             generator: torch.Generator | None) -> torch.Tensor:
+             generator: torch.Generator | None,
+             rows: tuple | None = None) -> torch.Tensor:
     """Inverted dropout: keep each element with probability 1 - rate and
     scale the kept ones by 1 / (1 - rate); identity unless training."""
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
-    return x * mask / keep
+    mask = _draw_buffer(x, rows).bernoulli_(keep, generator=generator)
+    return x * _own_rows(mask, x, rows) / keep
 
 
 class ChebConvLayer(nn.Module):
@@ -186,32 +204,35 @@ class MeshVAE(nn.Module):
 
     def encode(self, x: torch.Tensor, ops: ModelOperators,
                train: bool = False,
-               generator: torch.Generator | None = None) -> torch.Tensor:
+               generator: torch.Generator | None = None,
+               rows: tuple | None = None) -> torch.Tensor:
         """x: [B, N, F_in] -> h: [B, num_hidden] (computation dtype)."""
         x = x.to(self.cfg.dtype)
         for i in range(self.cfg.n_layers):
             x = torch.relu(self.cheb_enc(i)(x, ops.lap[i]))
             x = pool_apply(x, ops.down[i])
         h = torch.relu(self._linear(self.enc_lin, x.reshape(x.shape[0], -1)))
-        return _dropout(h, self.cfg.dropout, train, generator)
+        return _dropout(h, self.cfg.dropout, train, generator, rows)
 
     def classify(self, h: torch.Tensor, train: bool = False,
-                 generator: torch.Generator | None = None) -> torch.Tensor:
+                 generator: torch.Generator | None = None,
+                 rows: tuple | None = None) -> torch.Tensor:
         """h: [B, num_hidden] -> y_hat: [B, C] (softmax, in float32)."""
-        h = _dropout(h, self.cfg.dropout, train, generator)
+        h = _dropout(h, self.cfg.dropout, train, generator, rows)
         logits = self._linear(self.classifier_layer, h).float()
         return torch.softmax(logits, dim=-1)
 
     def decode(self, z: torch.Tensor, ops: ModelOperators,
                train: bool = False,
-               generator: torch.Generator | None = None) -> torch.Tensor:
+               generator: torch.Generator | None = None,
+               rows: tuple | None = None) -> torch.Tensor:
         """z: [B, latent + C] (label-conditioned) -> recon: [B, N, F_in]
         (float32)."""
         c = self.cfg
         x = _dropout(torch.relu(self._linear(self.dec_lin, z)), c.dropout,
-                     train, generator)
+                     train, generator, rows)
         x = _dropout(torch.relu(self._linear(self.dec_lin_2, x)), c.dropout,
-                     train, generator)
+                     train, generator, rows)
         x = x.reshape(x.shape[0], c.coarse_verts, self.filters[-1])
         for i in range(c.n_layers):
             x = pool_apply(x, ops.up[-i - 1])
@@ -220,28 +241,32 @@ class MeshVAE(nn.Module):
 
     def sample(self, y: torch.Tensor, z: torch.Tensor, ops: ModelOperators,
                train: bool = False,
-               generator: torch.Generator | None = None) -> torch.Tensor:
+               generator: torch.Generator | None = None,
+               rows: tuple | None = None) -> torch.Tensor:
         """Label-conditioned decode of concat[y, z]."""
-        return self.decode(torch.cat([y, z], dim=-1), ops, train, generator)
+        return self.decode(torch.cat([y, z], dim=-1), ops, train, generator,
+                           rows)
 
     def reparameterize(self, mu: torch.Tensor, logvar: torch.Tensor,
-                       generator: torch.Generator | None) -> torch.Tensor:
-        eps = torch.randn(mu.shape, generator=generator, device=mu.device,
-                          dtype=mu.dtype)
-        return eps * torch.exp(0.5 * logvar) + mu
+                       generator: torch.Generator | None,
+                       rows: tuple | None = None) -> torch.Tensor:
+        eps = _draw_buffer(mu, rows).normal_(generator=generator)
+        return _own_rows(eps, mu, rows) * torch.exp(0.5 * logvar) + mu
 
     def forward(self, x: torch.Tensor, y: torch.Tensor, ops: ModelOperators,
                 train: bool = False,
-                generator: torch.Generator | None = None) -> dict:
+                generator: torch.Generator | None = None,
+                rows: tuple | None = None) -> dict:
         """x [B, N, F_in] normalized vertices, y [B, C] one-hot labels ->
-        dict(recon, y_hat, mu, logvar, z); z = mu unless training."""
-        h = self.encode(x, ops, train, generator)
-        y_hat = self.classify(h, train, generator)
+        dict(recon, y_hat, mu, logvar, z); z = mu unless training. rows:
+        see the module docstring."""
+        h = self.encode(x, ops, train, generator, rows)
+        y_hat = self.classify(h, train, generator, rows)
         hy = torch.cat([y.to(h.dtype), h], dim=-1)
         mu = self._linear(self.z_mean, hy).float()
         logvar = self._linear(self.z_log_var, hy).float()
-        z = self.reparameterize(mu, logvar, generator) if train else mu
-        recon = self.sample(y, z, ops, train, generator)
+        z = self.reparameterize(mu, logvar, generator, rows) if train else mu
+        recon = self.sample(y, z, ops, train, generator, rows)
         return {"recon": recon, "y_hat": y_hat, "mu": mu, "logvar": logvar,
                 "z": z}
 

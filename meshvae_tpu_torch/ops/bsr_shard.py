@@ -1,0 +1,335 @@
+"""Vertex-sharded ("sp") block-sparse SpMM: the distributed form of the
+Chebyshev propagation (counterpart of meshvae_tpu/ops/pallas_shard.py).
+
+The square block-CSR Laplacian is cut on the host into ``sp`` row shards
+(``shard_block_sparse``, block for block as the JAX package cuts it). Each
+rank of an ``sp`` group keeps its own shard, a rectangular
+``BlockSparseOperator`` of ``rows_per * 128`` rows whose columns are the
+global ones. ``mapped_product`` is the port of the TPU function
+``_mapped_product`` (pallas_shard.py:150): it all-gathers the row-sharded
+activation over the ``sp`` group into ``[n_pad_global, C]`` and runs the
+hand-written kernel ``bsr_grouped_spmm`` (csrc/bsr_spmm.cu) on the shard,
+so each rank computes its own output rows. The seeds ``t_prev``, ``t_plus``
+and the lazy seed's ``gm`` are row-sharded like the output and never cross
+the group. A CPU tensor runs the kernel's plain twin on the shard, a CUDA
+tensor the kernel; no other product stands in for it.
+
+The operator is globally symmetric (L = -D^{-1/2} A D^{-1/2}), so every
+backward is the same sharded product on the row-sharded cotangent:
+``bsr_matmul_sharded``, ``cheb_step_sharded`` and ``_BasisMixSharded``, the
+sharded form of ops/cheb.py's ``_BasisMix`` with its two-seed adjoint
+recurrence and, behind ``cheb.FUSED_SEED_DOT`` on square mixes, the lazy
+seed. The local column count is always whole (batch item, f_pad) pairs
+(the batch is not split inside a conv), so the JAX package's
+``(c // dp) % f_pad`` condition (pallas_shard.py:328-329) always holds.
+
+``cheb_conv_bsr_sharded`` takes and returns activations replicated over the
+``sp`` group (the rest of the model is not vertex-sharded): it keeps the
+rank's rows of the padded input, runs the sharded basis and mix, and
+all-gathers the output rows. Autograd follows: the gradient of the
+replicated input is the all-gather of the local rows' gradients, the
+output's gradient is sliced to the local rows, and dW, contracted over the
+local rows only, is summed over the group, where the JAX package's
+partitioner sums it over "sp". The JAX package pads each dp shard's columns
+to 128 (pallas_shard.py:368-372, TPU tuning); the port keeps its own
+``pad_features``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .block_sparse import (BLOCK, BlockSparseOperator, row_order,
+                           tile_mask)
+from .bsr_spmm import bsr_grouped_spmm, pad_features
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedBlockSparse:
+    """One rank's row shard: global block rows [sp_rank * rows_per,
+    (sp_rank + 1) * rows_per) of a square operator of `n` rows padded to
+    `n_pad_global` (a multiple of sp * 128). `op` is rectangular:
+    [rows_per * 128, n_pad_global], block rows local, block columns
+    global."""
+
+    op: BlockSparseOperator
+    n: int
+    n_pad_global: int
+    sp: int
+    sp_rank: int
+
+    @property
+    def rows_per(self) -> int:
+        """Block rows per shard."""
+        return self.n_pad_global // (self.sp * BLOCK)
+
+    @property
+    def row0(self) -> int:
+        """First global row of the shard."""
+        return self.sp_rank * self.rows_per * BLOCK
+
+    @property
+    def rows_local(self) -> int:
+        return self.rows_per * BLOCK
+
+
+def _shard_arrays(blocks: np.ndarray, brow: np.ndarray, bcol: np.ndarray,
+                  rows_per: int, s: int):
+    """Shard s's blocks, local block rows and global block columns, sorted
+    by (row, column), with an explicit zero block (column 0) for every
+    local block row that has none (pallas_shard.py:82-95)."""
+    r0 = s * rows_per
+    m = (brow >= r0) & (brow < r0 + rows_per)
+    b, r, c = blocks[m], brow[m] - r0, bcol[m]
+    missing = sorted(set(range(rows_per)) - set(r.tolist()))
+    if missing:
+        b = np.concatenate(
+            [b, np.zeros((len(missing), BLOCK, BLOCK), np.float32)])
+        r = np.concatenate([r, np.array(missing, np.int64)])
+        c = np.concatenate([c, np.zeros(len(missing), np.int64)])
+    order = np.lexsort((c, r))
+    return b[order], r[order].astype(np.int32), c[order].astype(np.int32)
+
+
+def _grouped_view(b: np.ndarray, r: np.ndarray, c: np.ndarray,
+                  rows_per: int):
+    """The row-grouped view of a shard (pallas_shard.py:123-146): only
+    blocks with content join a row's slots, in column order; padded slots
+    index num_blocks and alias the row's last real column; a row of
+    placeholders only has every slot padded, at column 0."""
+    nb = b.shape[0]
+    per_row = [[] for _ in range(rows_per)]
+    for i in range(nb):
+        if np.any(b[i]):
+            per_row[int(r[i])].append(i)
+    g = max(1, max(len(v) for v in per_row))
+    g_idx = np.full((rows_per, g), nb, np.int32)
+    g_bcol = np.zeros((rows_per, g), np.int32)
+    for row, idxs in enumerate(per_row):
+        for i, bi in enumerate(idxs):
+            g_idx[row, i] = bi
+            g_bcol[row, i] = c[bi]
+        if idxs:
+            g_bcol[row, len(idxs):] = c[idxs[-1]]
+    return g_idx, g_bcol, g
+
+
+def shard_block_sparse(bsr: BlockSparseOperator, sp: int,
+                       sp_rank: int) -> ShardedBlockSparse:
+    """Rank sp_rank's row shard of a square operator (host-side, block
+    granularity, as meshvae_tpu.ops.pallas_shard.shard_block_sparse): the
+    padded dimension grows to a multiple of sp * 128, and every local block
+    row carries an explicit zero block when it has none. Unlike the JAX
+    package's stacked shards, a shard keeps only its own blocks (no common
+    nb_max) and its own group width G; its tile_mask and row_order are
+    computed on it."""
+    if bsr.n_pad != bsr.n_pad_cols:
+        raise ValueError("only square operators shard over rows, got "
+                         f"[{bsr.n_pad}, {bsr.n_pad_cols}]")
+    total_block_rows = -(-bsr.n_pad // (sp * BLOCK)) * sp
+    rows_per = total_block_rows // sp
+    n_pad_global = total_block_rows * BLOCK
+    b, r, c = _shard_arrays(bsr.blocks.float().cpu().numpy(),  # exact
+                            bsr.block_row.cpu().numpy().astype(np.int64),
+                            bsr.block_col.cpu().numpy().astype(np.int64),
+                            rows_per, sp_rank)
+    g_idx, g_bcol, g = _grouped_view(b, r, c, rows_per)
+    mask = tile_mask(torch.from_numpy(b)).numpy()
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
+        bsr.blocks.device)
+    op = BlockSparseOperator(
+        blocks=t(b).to(bsr.blocks.dtype), block_row=t(r), block_col=t(c),
+        g_idx=t(g_idx), g_bcol=t(g_bcol.reshape(-1)),
+        n=rows_per * BLOCK, n_pad=rows_per * BLOCK, n_pad_cols=n_pad_global,
+        g_width=g, tile_mask=t(mask),
+        row_order=t(row_order(mask, g_idx, g_bcol, n_pad_global // BLOCK)))
+    return ShardedBlockSparse(op=op, n=bsr.n, n_pad_global=n_pad_global,
+                              sp=sp, sp_rank=sp_rank)
+
+
+def shard_block_sparse_all(bsr: BlockSparseOperator,
+                           sp: int) -> list[ShardedBlockSparse]:
+    """Every shard of a square operator (tests, and timing the shards in
+    one process)."""
+    return [shard_block_sparse(bsr, sp, s) for s in range(sp)]
+
+
+def mapped_product(sbsr: ShardedBlockSparse, x_local: torch.Tensor, group,
+                   mode: str, alpha: float = 1.0,
+                   t_prev: torch.Tensor | None = None,
+                   t_plus: torch.Tensor | None = None,
+                   t_plus_dot: tuple | None = None) -> torch.Tensor:
+    """y_local = alpha * (L_shard @ all_gather_sp(x_local)) + t_plus -
+    t_prev [+ gm @ kron(I, wt)]: x_local and the seeds are this rank's rows
+    [rows_per * 128, C]; `group` is the sp communicator
+    (parallel.sharding.Comm), whose all_gather concatenates the ranks' rows
+    in rank order."""
+    x_full = group.all_gather(x_local)
+    return bsr_grouped_spmm(sbsr.op, x_full, mode, alpha, t_plus=t_plus,
+                            t_prev=t_prev, t_plus_dot=t_plus_dot)
+
+
+class _MatmulSharded(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_local, sbsr, group, mode):
+        ctx.args = (sbsr, group, mode)
+        return mapped_product(sbsr, x_local, group, mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        sbsr, group, mode = ctx.args
+        # L symmetric: dx = L^T g = L g, the same sharded product
+        return (mapped_product(sbsr, g.contiguous(), group, mode), None,
+                None, None)
+
+
+def bsr_matmul_sharded(sbsr: ShardedBlockSparse, x_local: torch.Tensor,
+                       group, mode: str = "fp32") -> torch.Tensor:
+    """y = L @ x with the rows of x and y sharded over the sp group
+    (pallas_shard.bsr_matmul_sharded); differentiable in x."""
+    return _MatmulSharded.apply(x_local, sbsr, group, mode)
+
+
+class _StepSharded(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t1, t0, sbsr, group, mode):
+        ctx.args = (sbsr, group, mode)
+        return mapped_product(sbsr, t1, group, mode, 2.0, t_prev=t0)
+
+    @staticmethod
+    def backward(ctx, g):
+        sbsr, group, mode = ctx.args
+        return (mapped_product(sbsr, g.contiguous(), group, mode, 2.0), -g,
+                None, None, None)
+
+
+def cheb_step_sharded(sbsr: ShardedBlockSparse, t1: torch.Tensor,
+                      t0: torch.Tensor, group,
+                      mode: str = "fp32") -> torch.Tensor:
+    """T_k = 2 L T_{k-1} - T_{k-2} on row-sharded states, the seed folded
+    into the kernel (pallas_shard.cheb_step_sharded); VJP (2 L g, -g)."""
+    return _StepSharded.apply(t1, t0, sbsr, group, mode)
+
+
+class _BasisMixSharded(torch.autograd.Function):
+    """_BasisMix on the rank's rows [rows_local, B, F_pad]: the basis
+    T_0..T_{K-1} as sharded products (each all-gathers its input over sp),
+    the mix on the local rows. Backward: dW contracts the local basis and
+    is summed over the group; dx runs the two-seed adjoint recurrence as
+    sharded products, with the lazy seed under FUSED_SEED_DOT
+    (pallas_shard._basis_mix_sharded)."""
+
+    @staticmethod
+    def forward(ctx, xt, w, sbsr, group, mode):
+        rows, b, f_pad = xt.shape
+        k, _, f_out = w.shape
+        c = b * f_pad
+
+        def mm(t, alpha, t_prev=None):
+            prev = None if t_prev is None else t_prev.reshape(rows, c)
+            return mapped_product(sbsr, t.reshape(rows, c), group, mode,
+                                  alpha, t_prev=prev).reshape(rows, b, f_pad)
+
+        txs = [xt.contiguous()]
+        if k > 1:
+            txs.append(mm(txs[0], 1.0))
+        for _ in range(2, k):
+            txs.append(mm(txs[-1], 2.0, txs[-2]))
+        txcat = torch.cat(txs, dim=-1)
+        ctx.save_for_backward(txcat, w)
+        ctx.args = (sbsr, group, mode)
+        return torch.matmul(txcat, w.reshape(k * f_pad, f_out))
+
+    @staticmethod
+    def backward(ctx, g):
+        from . import cheb
+
+        txcat, w = ctx.saved_tensors
+        sbsr, group, mode = ctx.args
+        rows, b, kf = txcat.shape
+        k, f_pad, f_out = w.shape
+        c = b * f_pad
+        gm = g.reshape(rows * b, f_out)
+        # the partial contractions over the rows, summed over the group in
+        # fp32 and rounded to w's dtype once (as the JAX partitioner sums
+        # the fp32 dot before its cast)
+        dw = torch.matmul(txcat.reshape(rows * b, kf).t().float(),
+                          gm.float()).reshape(k, f_pad, f_out)
+        dw = group.all_reduce_(dw).to(w.dtype)
+        if not ctx.needs_input_grad[0]:
+            return None, dw, None, None, None
+        c_of = lambda j: torch.matmul(gm, w[j].t()).reshape(rows, c)
+        if k == 1:
+            dx = c_of(0)
+        else:
+            if cheb.FUSED_SEED_DOT and f_pad == f_out and mode != "bf16x3":
+                gm2 = gm.reshape(rows, c).contiguous()
+                seeds = [{"t_plus_dot": (gm2, w[j].t().contiguous())}
+                         for j in range(k - 1)]
+            else:
+                seeds = [{"t_plus": c_of(j)} for j in range(k - 1)]
+            u, prev_u = c_of(k - 1), None
+            for j in range(k - 1, 1, -1):
+                u, prev_u = mapped_product(sbsr, u, group, mode, 2.0,
+                                           t_prev=prev_u, **seeds[j - 1]), u
+            dx = mapped_product(sbsr, u, group, mode, 1.0, t_prev=prev_u,
+                                **seeds[0])
+        return dx.reshape(rows, b, f_pad), dw, None, None, None
+
+
+class _LocalRows(torch.autograd.Function):
+    """Replicated [n_pad_global, ...] -> this rank's rows; the gradient of
+    the replicated input is the all-gather of the local gradients."""
+
+    @staticmethod
+    def forward(ctx, t, group, row0, rows):
+        ctx.group = group
+        return t[row0:row0 + rows].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_gather(g.contiguous()), None, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """This rank's rows -> replicated [n_pad_global, ...]; every rank
+    computes the same gradient of the replicated output, and keeps its own
+    rows of it."""
+
+    @staticmethod
+    def forward(ctx, t, group, row0):
+        ctx.row0, ctx.rows = row0, t.shape[0]
+        return group.all_gather(t.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.row0:ctx.row0 + ctx.rows].contiguous(), None, None
+
+
+def cheb_conv_bsr_sharded(x: torch.Tensor, op, weight: torch.Tensor,
+                          bias: torch.Tensor | None,
+                          precision=None) -> torch.Tensor:
+    """Chebyshev conv with the vertex-sharded kernel (the counterpart of
+    pallas_shard.cheb_conv_pallas_sharded): `op` is a GraphOperator with
+    bsr_sp and sp_group set; x [B, n, F_in] is replicated over the group
+    and so is the result [B, n, F_out]. The recurrence state, the seeds and
+    the basis are row-sharded; bf16 blocks keep a bf16 state."""
+    from .cheb import _KERNEL_MODE, resolve_precision
+
+    sbsr: ShardedBlockSparse = op.bsr_sp
+    group = op.sp_group
+    mode = _KERNEL_MODE[resolve_precision(precision, sbsr.op.blocks.dtype)]
+    b, n, f_in = x.shape
+    f_pad = pad_features(b, f_in)
+    xt = F.pad(x.transpose(0, 1),
+               (0, f_pad - f_in, 0, 0, 0, sbsr.n_pad_global - n))
+    w = F.pad(weight, (0, 0, 0, f_pad - f_in))
+    xt_local = _LocalRows.apply(xt, group, sbsr.row0, sbsr.rows_local)
+    out_local = _BasisMixSharded.apply(xt_local, w, sbsr, group, mode)
+    out = _GatherRows.apply(out_local, group, sbsr.row0)[:n].transpose(0, 1)
+    if bias is not None:
+        out = out + bias
+    return out

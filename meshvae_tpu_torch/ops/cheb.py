@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from .block_sparse import BlockSparseOperator
+from .bsr_shard import cheb_conv_bsr_sharded
 from .bsr_spmm import bsr_grouped_spmm, pad_features
 from .graph import GraphOperator
 
@@ -81,6 +82,9 @@ def cheb_conv(x: torch.Tensor, op: GraphOperator, weight: torch.Tensor,
             rest = rest + bias
         return torch.cat([inner, rest], dim=1)
 
+    if op.bsr_sp is not None:
+        return cheb_conv_bsr_sharded(x, op, weight, bias,
+                                     precision=precision)
     if op.bsr is not None:
         return cheb_conv_bsr(x, op.bsr, weight, bias, precision=precision)
 

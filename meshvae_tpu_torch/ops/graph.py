@@ -21,6 +21,7 @@ import scipy.sparse as sp
 import torch
 
 from .block_sparse import BlockSparseOperator, to_block_sparse
+from .bsr_shard import ShardedBlockSparse  # noqa: F401 (annotation)
 
 # Hybrid cutoff of cheb_method="pallas": levels with fewer vertices use a
 # dense operator (the whole operator is tiny and one dense product beats a
@@ -54,18 +55,27 @@ def normalized_neg_adjacency(adjacency: sp.spmatrix) -> sp.csr_matrix:
 @dataclasses.dataclass(frozen=True)
 class GraphOperator:
     """The Chebyshev propagation operator at one hierarchy level: exactly
-    one of `dense` [active_n, active_n] and `bsr` is set.
+    one of `dense` [active_n, active_n], `bsr` and `bsr_sp` is set.
 
     `active_n` < `n` marks the embedded final-conv operator: rows/columns
-    at or beyond active_n are empty, and only the corner is stored."""
+    at or beyond active_n are empty, and only the corner is stored.
+
+    `bsr_sp` is this rank's row shard of the block-sparse operator under
+    seq_parallel > 1 (ops/bsr_shard.py; parallel.sharding.shard_operators
+    sets it) and `sp_group` the communicator of the ranks that hold the
+    other shards."""
 
     dense: torch.Tensor | None
     bsr: BlockSparseOperator | None
     n: int
     active_n: int
+    bsr_sp: "ShardedBlockSparse | None" = None
+    sp_group: object = None
 
     @property
     def dtype(self) -> torch.dtype:
+        if self.bsr_sp is not None:
+            return self.bsr_sp.op.blocks.dtype
         return (self.dense if self.bsr is None else self.bsr.blocks).dtype
 
 

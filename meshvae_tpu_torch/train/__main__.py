@@ -1,7 +1,10 @@
 """python -m meshvae_tpu_torch.train -c CFG [-t] [-s] [-v] [-p KEY VALUE]
 [--device cpu]: k-fold training (-t) and testing (-s) with the flags of
 main.py; -v writes the test path's sex-change .obj triples. Runs on the
-CUDA card unless --device cpu is given."""
+CUDA card unless --device cpu is given. With data_parallel x seq_parallel
+> 1 (-p data_parallel 2 -p seq_parallel 2) it starts that many local ranks
+itself, one card each (gloo ranks with --device cpu); with multihost it is
+one rank of a world across hosts (train/driver.py)."""
 import argparse
 import os
 

@@ -1,5 +1,5 @@
 """K-fold train / test driver (counterpart of meshvae_tpu/train/driver.py,
-one process, eager): the body of ``python -m meshvae_tpu_torch.train``.
+eager): the body of ``python -m meshvae_tpu_torch.train``.
 
   * the template (a missing scaled one is generated), the hierarchy
     (cached), the operators in the config's compute dtype and the model;
@@ -13,10 +13,20 @@ one process, eager): the body of ``python -m meshvae_tpu_torch.train``.
     or the JAX package's ``.msgpack``);
   * the test path, with the sex-change .obj triples under ``vis``;
   * with ``profile_dir`` set, a torch.profiler Chrome trace of each fold's
-    epoch in metrics.PROFILE_EPOCHS (its train and validation passes).
+    epoch in metrics.PROFILE_EPOCHS (its train and validation passes);
+  * distribution (parallel/sharding.py): with data_parallel x
+    seq_parallel > 1 ``run`` starts that many local ranks itself (rank 0
+    in this process, the others spawned, meeting on a free localhost
+    port), so a config runs as it does in JAX, with one command; with
+    ``multihost`` this process is one rank of a world that meets over
+    tcp:// at coordinator_address (num_processes, process_id) or, with
+    those unset, over the env:// a launcher such as torchrun sets, as
+    jax.distributed.initialize auto-detects. Every rank trains; only the
+    primary (rank 0) writes the initial weights, norm stats, checkpoints,
+    history, log and .obj dumps, with barriers where the JAX driver has
+    them, before the other ranks read a file back.
 
-The JAX driver's scanned and pipelined epochs and multi-host barriers have
-no counterpart here.
+The JAX driver's scanned and pipelined epochs have no counterpart here.
 """
 from __future__ import annotations
 
@@ -32,7 +42,10 @@ from ..mesh.hierarchy import load_or_build_hierarchy
 from ..mesh.io import load_obj, save_obj
 from ..models.operators import build_operators
 from ..models.vae import MeshVAE, VAEConfig
+from ..parallel.sharding import (close_world, initialize_multihost,
+                                 is_primary, spawn_local, sync_processes)
 from ..tools.make_scaled_template import ensure_template
+from ..validate import validate_config
 from .checkpoint import (checkpoint_path, find_checkpoint, load_checkpoint,
                          load_params, save_checkpoint, save_params)
 from .loop import Trainer, lr_for_epoch, make_optimizer, set_learning_rate
@@ -48,9 +61,6 @@ def check_supported(config: dict) -> None:
         "type": (config.get("type", "cheb_VAE"), "cheb_VAE"),
         "pool_method": (config.get("pool_method", "gather"), "gather"),
         "hierarchy_mode": (config.get("hierarchy_mode", "fast"), "fast"),
-        "data_parallel": (int(config.get("data_parallel", 1)), 1),
-        "seq_parallel": (int(config.get("seq_parallel", 1)), 1),
-        "multihost": (bool(config.get("multihost", False)), False),
     }
     for key, (value, ported) in unsupported.items():
         if value != ported:
@@ -64,6 +74,7 @@ def build_model_and_ops(config: dict, device="cuda",
     -> MeshVAE on `device` in eval mode, weights drawn from `generator`.
     Returns (model, ops, hier, template)."""
     check_supported(config)
+    validate_config(config, device)
     device = resolve_device(device)
     ensure_template(config["template"])
     template = load_obj(config["template"])
@@ -98,10 +109,46 @@ def _restart(trainer: Trainer, params: dict,
                                                param_groups=groups))
 
 
+def maybe_init_multihost(config: dict, device="cuda"):
+    """The World of this process when the config sets multihost (see the
+    module docstring), else None."""
+    if not config.get("multihost"):
+        return None
+    pid = int(config.get("process_id", -1))
+    return initialize_multihost(
+        int(config.get("data_parallel", 1)),
+        int(config.get("seq_parallel", 1)), device,
+        coordinator_address=config.get("coordinator_address") or None,
+        num_processes=int(config.get("num_processes") or 0) or None,
+        process_id=pid if pid >= 0 else None)
+
+
+def _run_rank(world, config, do_train, do_test, vis):
+    return run(config, do_train, do_test, vis, device=world.device,
+               dist=world)
+
+
 def run(config: dict, do_train: bool, do_test: bool, vis: bool = False,
-        device="cuda") -> list[dict]:
+        device="cuda", dist=None) -> list[dict]:
     """Train and/or test every fold; returns one dict of test averages
-    (and mean_error) per tested fold."""
+    (and mean_error) per tested fold. `dist` is this rank's World; without
+    it the config's data_parallel / seq_parallel / multihost decide (see
+    the module docstring)."""
+    if dist is None:
+        validate_config(config, device)
+        dp = int(config.get("data_parallel", 1))
+        sp = int(config.get("seq_parallel", 1))
+        if config.get("multihost"):
+            world = maybe_init_multihost(config, device)
+            try:
+                return run(config, do_train, do_test, vis, world.device,
+                           world)
+            finally:
+                close_world()
+        if dp * sp > 1:
+            return spawn_local(_run_rank, dp, sp, device,
+                               args=(config, do_train, do_test, vis))
+    primary = is_primary(dist)
     checkpoint_dir = config["checkpoint_dir"]
     os.makedirs(checkpoint_dir, exist_ok=True)
     seed = int(config["random_seeds"])
@@ -112,10 +159,10 @@ def run(config: dict, do_train: bool, do_test: bool, vis: bool = False,
     base_lr = float(config["learning_rate"])
 
     model, ops, hier, template = build_model_and_ops(config, device)
-    trainer = Trainer(model, ops, config, device=device)
+    trainer = Trainer(model, ops, config, device=device, dist=dist)
     faces = np.asarray(template.f)
 
-    log = RunLog(config["log_file"])
+    log = RunLog(config["log_file"] if primary else None)
     try:
         log.print("model type:", config["type"])
         log.print("optimizer type", config["optimizer"])
@@ -125,7 +172,11 @@ def run(config: dict, do_train: bool, do_test: bool, vis: bool = False,
                   "device:", trainer.device)
 
         init_path = os.path.join(checkpoint_dir, "initial_weight.pt")
-        save_params(init_path, trainer.init_params(seed))
+        init = trainer.init_params(seed)
+        if primary:
+            save_params(init_path, init)
+        # every rank reloads the snapshot at each fold start
+        sync_processes(dist)
 
         dataset_index, labels = list_meshes(config)
         if not dataset_index:
@@ -155,6 +206,8 @@ def run(config: dict, do_train: bool, do_test: bool, vis: bool = False,
                             list(valid_names), labels, template,
                             start_epoch, total_epochs, seed)
             if do_test:
+                # the primary's checkpoint and norm.npz are read back
+                sync_processes(dist)
                 results.append(_test_fold(trainer, config, log, n,
                                           list(names[test_index]), labels,
                                           template, faces, vis))
@@ -169,9 +222,12 @@ def _train_fold(trainer: Trainer, config: dict, log: RunLog, n: int,
                 seed: int) -> None:
     checkpoint_dir = config["checkpoint_dir"]
     batch_size = int(config["batch_size"])
+    primary = is_primary(trainer.dist)
     tv = np.asarray(template.v)
     train_ds = MeshDataset(train_names, config, labels, template=tv,
-                           dtype="train")
+                           dtype="train", write_norm=primary)
+    # the primary's norm.npz is read back by the validation split
+    sync_processes(trainer.dist)
     valid_ds = MeshDataset(valid_names, config, labels, template=tv,
                            dtype="test")
     train_loader = BatchIterator(train_ds, batch_size, shuffle=True,
@@ -187,7 +243,8 @@ def _train_fold(trainer: Trainer, config: dict, log: RunLog, n: int,
         set_learning_rate(trainer.optimizer, lr_for_epoch(
             epoch, float(config["learning_rate"]), config["learning_rates"],
             config["learning_rates_epochs"]))
-        with maybe_profile(config.get("profile_dir"), epoch, fold=n):
+        with maybe_profile(config.get("profile_dir") if primary else None,
+                           epoch, fold=n):
             train_avg = trainer.train_epoch(train_loader, generator, mean,
                                             std)
             valid_avg, errors = trainer.evaluate(valid_loader, mean, std)
@@ -201,7 +258,8 @@ def _train_fold(trainer: Trainer, config: dict, log: RunLog, n: int,
                    f"{train_avg['loss']}, val {valid_avg['loss']})")
             log.print(msg)
             history.append(record)
-            write_history(checkpoint_dir, n, history)
+            if primary:
+                write_history(checkpoint_dir, n, history)
             if config.get("halt_on_nonfinite", True):
                 ckpt = checkpoint_path(checkpoint_dir, n)
                 hint = (f"; best checkpoint so far: {ckpt}"
@@ -212,16 +270,18 @@ def _train_fold(trainer: Trainer, config: dict, log: RunLog, n: int,
                                    "= False to keep training through it)")
             continue
         if valid_avg["loss"] <= best_loss:
-            save_checkpoint(checkpoint_path(checkpoint_dir, n),
-                            trainer.model.state_dict(),
-                            trainer.optimizer.state_dict(), epoch,
-                            train_avg["loss"], valid_avg["loss"])
+            if primary:
+                save_checkpoint(checkpoint_path(checkpoint_dir, n),
+                                trainer.model.state_dict(),
+                                trainer.optimizer.state_dict(), epoch,
+                                train_avg["loss"], valid_avg["loss"])
             best_loss = valid_avg["loss"]
         history.append(record)
         if epoch % 10 == 0:
             log.print(epoch_line(epoch, train_avg, valid_avg,
                                  mean_val_error))
-    write_history(checkpoint_dir, n, history)
+    if primary:
+        write_history(checkpoint_dir, n, history)
 
 
 def _test_fold(trainer: Trainer, config: dict, log: RunLog, n: int,
@@ -239,7 +299,7 @@ def _test_fold(trainer: Trainer, config: dict, log: RunLog, n: int,
         load_checkpoint(find_checkpoint(checkpoint_dir, n))["model"])
     test_avg, errors, meshes = trainer.evaluate(test_loader, mean, std,
                                                 collect_meshes=True)
-    if vis:
+    if vis and is_primary(trainer.dist):
         _save_sex_change_meshes(checkpoint_dir, n, test_ds, meshes, faces)
     log.print(
         "round {} test loss {},  mean error: {}, train sigma {}, "

@@ -1,5 +1,6 @@
 """Train and eval steps and the epoch loop (counterpart of
-meshvae_tpu/train/loop.py, one process, eager).
+meshvae_tpu/train/loop.py, eager; one process, or one rank of a ("dp",
+"sp") world).
 
   * one train step is forward, loss, backward, a torch.optim.Adam update
     with L2 added to the gradient before the moments (optax's
@@ -14,6 +15,16 @@ meshvae_tpu/train/loop.py, one process, eager).
 With compute_dtype=bfloat16 the model computes in bf16 (models/vae.py)
 while the parameters, their gradients and Adam's moments stay float32, and
 the loss, the metrics and the pose error are float32.
+
+In a world (parallel/sharding.py), as the JAX package's GSPMD step under a
+mesh: each rank runs its dp rows of the global batch, with the operators
+row-sharded over sp; the loss and the packed metrics are masked means over
+the global batch (the mask sums are summed over dp before the division);
+the dropout masks and the noise are drawn for the global batch and sliced
+(models/vae.py ``rows``); the gradients are summed over the whole world in
+one all-reduce and scaled by 1/sp (the sp ranks of a dp slice hold the
+same gradient), so every replica applies the same bits; the metrics, the
+eval sums and the eval outputs are summed or gathered over dp.
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ from ..device import resolve_device
 from ..mesh.procrustes import apply_inverse_similarity
 from ..models.losses import vae_loss
 from ..models.vae import MeshVAE
+from ..parallel.sharding import fetch, replicate, shard_batch, shard_operators
 
 # order of the packed per-step metrics returned by the train step
 METRIC_NAMES = ("loss", "kld", "rec_loss", "error", "correct", "count")
@@ -62,16 +74,21 @@ class Trainer:
     """Owns one (model, operators, optimizer) triple on one device.
 
     Batches are the host dicts of data.BatchIterator (numpy); ``to_device``
-    moves the keys a step reads. Randomness (dropout masks, the
-    reparameterisation noise) comes from the torch.Generator the caller
-    passes, which must live on the trainer's device."""
+    moves the keys a step reads (in a world: the rank's dp rows).
+    Randomness (dropout masks, the reparameterisation noise) comes from the
+    torch.Generator the caller passes, which must live on the trainer's
+    device. With ``dist`` (a parallel.World) the trainer runs on the
+    world's device and the operators are sharded for its sp group."""
 
     BATCH_KEYS = ("x", "label", "r", "s", "m", "mask")
 
-    def __init__(self, model: MeshVAE, ops, config: dict, device="cuda"):
-        self.device = resolve_device(device)
+    def __init__(self, model: MeshVAE, ops, config: dict, device="cuda",
+                 dist=None):
+        self.dist = dist
+        self.device = dist.device if dist is not None else resolve_device(
+            device)
         self.model = model.to(self.device)
-        self.ops = ops
+        self.ops = shard_operators(ops, dist)
         self.config = config
         self.num_classes = int(config["num_classes"])
         self.optimizer = make_optimizer(self.model.parameters(),
@@ -84,12 +101,14 @@ class Trainer:
         fresh = MeshVAE(self.model.cfg,
                         generator=torch.Generator().manual_seed(seed))
         self.model.load_state_dict(fresh.state_dict())
+        replicate(self.model.state_dict().values(), self.dist)
         self.optimizer = make_optimizer(self.model.parameters(),
                                         self.optimizer.param_groups[0]["lr"],
                                         float(self.config["weight_decay"]))
         return self.model.state_dict()
 
     def to_device(self, batch: dict) -> dict:
+        batch = shard_batch({k: batch[k] for k in self.BATCH_KEYS}, self.dist)
         out = {}
         for k in self.BATCH_KEYS:
             t = torch.as_tensor(np.asarray(batch[k]))
@@ -104,14 +123,50 @@ class Trainer:
                      for a in (norm_mean, norm_std))
 
     # ------------------------------------------------------------------
+    def _dp_sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """t summed over the dp group (in place; t itself in one process)."""
+        if self.dist is not None:
+            self.dist.dp_group.all_reduce_(t)
+        return t
+
+    def _denominator(self, mask: torch.Tensor) -> torch.Tensor:
+        """max(global mask sum, 1): the masked means' denominator."""
+        return torch.clamp(self._dp_sum_(mask.sum()), min=1.0)
+
     def _forward_loss(self, batch: dict, train: bool,
                       generator: torch.Generator | None):
         x = batch["x"]
         y = F.one_hot(batch["label"], self.num_classes).to(x.dtype)
-        out = self.model(x, y, self.ops, train=train, generator=generator)
+        rows = None
+        if train and self.dist is not None and self.dist.dp > 1:
+            b = x.shape[0]
+            rows = (self.dist.dp_rank * b, self.dist.dp * b)
+        out = self.model(x, y, self.ops, train=train, generator=generator,
+                         rows=rows)
+        denom = self._denominator(batch["mask"])
         loss, aux = vae_loss(x, out["recon"], out["mu"], out["logvar"], y,
-                             out["y_hat"], mask=batch["mask"])
-        return loss, out, aux, y
+                             out["y_hat"], mask=batch["mask"], denom=denom)
+        return loss, out, aux, y, denom
+
+    def _reduce_gradients(self) -> None:
+        """Sum every gradient over the world in one all-reduce, scaled by
+        1/sp: the result is the single-process gradient, the same bits on
+        every rank."""
+        if self.dist is None or self.dist.size == 1:
+            return
+        params = list(self.model.parameters())
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        flat = torch.cat([p.grad.reshape(-1) for p in params])
+        self.dist.world.all_reduce_(flat)
+        if self.dist.sp > 1:
+            flat.mul_(1.0 / self.dist.sp)
+        offset = 0
+        for p in params:
+            n = p.numel()
+            p.grad.copy_(flat[offset:offset + n].view_as(p))
+            offset += n
 
     @torch.no_grad()
     def _pose_error(self, recon, batch, norm_mean, norm_std):
@@ -136,34 +191,35 @@ class Trainer:
         step's gradients afterwards. generator None makes the step
         deterministic (no dropout, z = mu), for gradient checks."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss, out, aux, _ = self._forward_loss(batch, generator is not None,
-                                               generator)
+        loss, out, aux, _, denom = self._forward_loss(
+            batch, generator is not None, generator)
         loss.backward()
+        self._reduce_gradients()
         self.optimizer.step()
         with torch.no_grad():
             mask = batch["mask"]
-            denom = torch.clamp(mask.sum(), min=1.0)
             _, err = self._pose_error(out["recon"], batch, norm_mean,
                                       norm_std)
-            return torch.stack([
+            return self._dp_sum_(torch.stack([
                 loss.detach(),
                 (aux["kld"] * mask).sum() / denom,
                 (aux["rec_loss"] * mask).sum() / denom,
                 (err.mean(dim=-1) * mask).sum() / denom,
                 aux["correct"],
                 mask.sum(),
-            ])
+            ]))
 
     @torch.no_grad()
     def eval_step(self, batch: dict, norm_mean: torch.Tensor,
                   norm_std: torch.Tensor) -> dict:
         """Eval forward, loss, pose error and the sex-change
         counterfactual. ``scalars`` [7] is loss, kld, rec_loss, correct,
-        count, sc_correct and the masked sum of per-mesh mean errors."""
+        count, sc_correct and the masked sum of per-mesh mean errors (over
+        the global batch in a world; the other outputs are the rank's
+        rows)."""
         model, ops = self.model, self.ops
-        loss, out, aux, y = self._forward_loss(batch, False, None)
+        loss, out, aux, y, denom = self._forward_loss(batch, False, None)
         mask = batch["mask"]
-        denom = torch.clamp(mask.sum(), min=1.0)
         recon_orig, err = self._pose_error(out["recon"], batch, norm_mean,
                                            norm_std)
         oppo = 1.0 - y
@@ -173,7 +229,7 @@ class Trainer:
         oppo_label = torch.argmax(oppo, dim=-1)
         sc_correct = ((oppo_pred == oppo_label).to(mask.dtype) * mask).sum()
         oppo_orig, _ = self._pose_error(x_oppo, batch, norm_mean, norm_std)
-        scalars = torch.stack([
+        scalars = self._dp_sum_(torch.stack([
             loss,
             (aux["kld"] * mask).sum() / denom,
             (aux["rec_loss"] * mask).sum() / denom,
@@ -181,7 +237,7 @@ class Trainer:
             mask.sum(),
             sc_correct,
             (err.mean(dim=-1) * mask).sum(),
-        ])
+        ]))
         return {"scalars": scalars, "errors": err, "recon_orig": recon_orig,
                 "oppo_orig": oppo_orig, "oppo_pred": oppo_pred,
                 "oppo_label": oppo_label, "y_hat": out["y_hat"],
@@ -214,7 +270,9 @@ class Trainer:
         the mean pose error) and the [valid, N] per-vertex errors; with
         collect_meshes also the original-pose reconstructions and
         counterfactuals, their predicted and target labels and the
-        dataset indices, valid rows only (the test path's mesh dumps)."""
+        dataset indices, valid rows only (the test path's mesh dumps). In
+        a world every rank gets all of them: the rows are all-gathered over
+        dp (parallel.fetch)."""
         totals = {"loss": 0.0, "kld": 0.0, "rec_loss": 0.0}
         correct = sc_correct = count = err_sum = 0.0
         errors = []
@@ -232,12 +290,12 @@ class Trainer:
             err_sum += float(sc[6])
             count += n
             keep = np.asarray(batch["mask"]) > 0
-            errors.append(out["errors"].cpu().numpy()[keep])
+            errors.append(fetch(out["errors"], self.dist)[keep])
             if collect_meshes:
                 for k, src in (("recon", "recon_orig"), ("oppo", "oppo_orig"),
                                ("oppo_pred", "oppo_pred"),
                                ("oppo_label", "oppo_label")):
-                    meshes[k].append(out[src].cpu().numpy()[keep])
+                    meshes[k].append(fetch(out[src], self.dist)[keep])
                 meshes["index"].append(np.asarray(batch["index"])[keep])
         avg = {k: v / max(count, 1.0) for k, v in totals.items()}
         avg["accuracy"] = correct / max(count, 1.0)

@@ -57,17 +57,24 @@ def write_history(checkpoint_dir: str, fold: int, history: list[dict]) -> None:
 class RunLog:
     """Text log: every line goes to stdout and to the file."""
 
-    def __init__(self, path: str):
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        self._fp = open(path, "w")
+    def __init__(self, path: str | None):
+        """path None: a rank of a world that is not the primary, which
+        prints and writes nothing."""
+        self._fp = None
+        if path is not None:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            self._fp = open(path, "w")
 
     def print(self, *args) -> None:
+        if self._fp is None:
+            return
         text = " ".join(str(a) for a in args)
         print(text, flush=True)
         print(text, file=self._fp, flush=True)
 
     def close(self) -> None:
-        self._fp.close()
+        if self._fp is not None:
+            self._fp.close()
 
 
 def epoch_line(epoch: int, train: dict, valid: dict,

@@ -241,7 +241,8 @@ def test_fold_splits_match_the_jax_driver(env, monkeypatch):
     seen = {"port": [], "jax": []}
 
     class Recorder:
-        def __init__(self, side, names, cfg, labels, template, dtype):
+        def __init__(self, side, names, cfg, labels, template, dtype,
+                     write_norm=True):
             seen[side].append((dtype, list(names)))
             self.mean = self.std = np.zeros((1, 3), np.float32)
 

@@ -194,9 +194,11 @@ def test_cli_entry_point(env, tmp_path):
 def test_package_imports_no_jax():
     """Importing every module of the port (train/__main__.py,
     infer/__main__.py, train/flax_msgpack.py, ops/cheb_fused.py,
-    ops/emitted_spmm.py and bench/ included) leaves jax, flax, optax,
-    scikit-learn, msgpack and meshvae_tpu out of sys.modules, and builds and
-    loads no library: no CUDA kernel, nor the native host library."""
+    ops/emitted_spmm.py, bench/, parallel/, ops/bsr_shard.py and
+    validate.py included) leaves jax, flax, optax, scikit-learn, msgpack
+    and meshvae_tpu out of sys.modules, builds and loads no library (no
+    CUDA kernel, nor the native host library) and starts no
+    torch.distributed process group."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import meshvae_tpu_torch as pkg\n"
@@ -214,6 +216,13 @@ def test_package_imports_no_jax():
         "                 ('emitted kernel', emitted_spmm._lib)):\n"
         "    if fn.cache_info().currsize:\n"
         "        bad.append(name + ' loaded at import')\n"
+        "for name in ('parallel', 'parallel.sharding', 'ops.bsr_shard',\n"
+        "             'validate'):\n"
+        "    if 'meshvae_tpu_torch.' + name not in sys.modules:\n"
+        "        bad.append(name + ' not imported')\n"
+        "import torch.distributed as dist\n"
+        "if dist.is_available() and dist.is_initialized():\n"
+        "    bad.append('a process group started at import')\n"
         "print(len([k for k in sys.modules\n"
         "           if k.startswith('meshvae_tpu_torch.')]), bad)\n"
         "sys.exit(1 if bad else 0)\n")

@@ -152,7 +152,7 @@ def feed_noise(monkeypatch, noise):
             mask = jnp.asarray(noise.next_mask(x.shape), x.dtype)
             return x * mask / (1 - self.rate)
 
-    def port_dropout(x, rate, train, generator):
+    def port_dropout(x, rate, train, generator, rows=None):
         if not train or rate == 0.0:
             return x
         mask = torch.from_numpy(noise.next_mask(x.shape)).to(x.dtype)
@@ -166,5 +166,6 @@ def feed_noise(monkeypatch, noise):
     monkeypatch.setattr(port_vae, "_dropout", port_dropout)
     monkeypatch.setattr(
         MeshVAE, "reparameterize",
-        lambda self, mu, logvar, generator: torch.from_numpy(noise.eps)
+        lambda self, mu, logvar, generator, rows=None: torch.from_numpy(
+            noise.eps)
         * torch.exp(0.5 * logvar) + mu)

@@ -73,7 +73,9 @@ Phases, one block of output lines each; any failed check exits non-zero:
             native library (seconds, levels), bf16 operators (n_pad, blocks
             and G per operator; these also feed phase 3's bf16 checks), 40
             synthetic 80k meshes, then train/driver.run() with the config's
-            own settings and overrides only for paths, folds 2 and epoch 2,
+            own settings and overrides only for paths, folds 2 and epoch 2
+            (and scan_epoch False: the per-step loop, whose readings phase
+            15 compares with the scanned epoch's),
             train and test, the counts reset just before and read just
             after: 139 bf16 launches per train step, 144 per eval step, each
             P^T once per train step, no fp32 or bf16x3. History, checkpoint
@@ -100,7 +102,8 @@ Phases, one block of output lines each; any failed check exits non-zero:
             its hierarchy through the native library, fp32 operators (the
             block-sparse L0-L2 and P^T also feed phase 3), 40 synthetic 20k
             meshes through train/driver.run() with FUSED_SEED_DOT on and
-            overrides for paths, folds 2, epoch 2 and profile_dir, the
+            overrides for paths, folds 2, epoch 2, profile_dir and
+            scan_epoch False (the per-step loop, as phase 7), the
             counts reset just before and read just after: per train step
             54 forward + 45 backward Laplacian calls + one P^T per
             block-sparse up-pool, 36 of them lazy-seed; 108 per eval step;
@@ -208,6 +211,40 @@ Phases, one block of output lines each; any failed check exits non-zero:
                shard shapes against its twin, torch.sparse on the shard's
                CSR rows and both bounds, summed per train step.
 
+15. scan    the scanned epoch (train/loop.py, train/graphs.py): at config
+            1 high and highest (B=16), scaled20k fp32 with FUSED_SEED_DOT
+            (B=64) and scaled80k bf16 (B=32), all at full width, two
+            trainers from the same seeded weights, one replaying CUDA
+            graphs of the steps and one running the same steps eagerly,
+            over the same staged epoch of 4 steps (drawn from phases 6, 7
+            and 9's synthetic meshes, the last quarter of the last step
+            padding), permutations and generator seed: one replayed step
+            (an epoch of two: the warm-up, then the first replay), then
+            three epochs at lr, lr / 2 and 0 (the last one on one batch at
+            every step), the counts reset just before and read just after:
+            the loss per step, every gradient, the params and Adam's state
+            bit-equal (else held to the train bars: loss 1e-5 relative,
+            gradients and moments 1e-4 / 1e-3 / one bf16 ulp of the layer's
+            max, params 1e-2 lr per step, and printed), the same launches
+            per step as the eager steps and as phases 6, 7 and 9 count
+            them; at lr 0 the params stay as they were and the replays
+            draw a new loss each; the light, errors and collect evals equal
+            to the eager ones, and within 1e-5 (loss) and 1e-4 of the mesh
+            scale of evaluate(); no host sync in an eager scanned epoch
+            (torch's sync debug mode). Then the per-step time of an epoch
+            (CUDA events over the epoch / 4) in turns eager, graphed,
+            graphed, eager, beside the per-step loop (train_epoch); device
+            busy time, idle share, kernels and host calls that queue device
+            work per step (torch.profiler); peak allocated and reserved
+            memory (the graph pools included); each graph's capture
+            seconds. Last, run() with files/default.cfg (scan_epoch left at
+            its default) at config-1 width on the block-sparse path, train,
+            test and -v on phase 6's 40 meshes, 2 folds x 2 epochs, with
+            profile_dir: 38 launches per train step and 40 per eval step,
+            never the per-step loop, the history, checkpoints and .obj
+            triples, epoch 2's trace holding bsr_grouped_spmm, and the log
+            line naming the graphs.
+
 Phase 3 also holds the bf16 mode on the card at every 80k Laplacian (its C
 values, alpha 1 and 2, no seed, t_prev, t_plus, both) and the four P^T:
 max |kernel - twin| <= 2^-8 max |twin| (one bf16 ulp: both round once),
@@ -232,7 +269,10 @@ CLI's calls per batch (the serving step's shapes), and emitted_spmm (#10)
 per call at the probe's three shapes, and _mapped_product (phase 14d,
 per sp=2 80k train step on rank 0's shards, with its shard shapes), with
 the launches of the main-path runs (each probe run's for #10; the sp=2
-world's per rank for _mapped_product). The last line is {"ok": true, ...}.
+world's per rank for _mapped_product), and the train-step calls of phase
+15's graphed epochs (config-1 Laplacian in both modes, the 20k lazy seed,
+the 80k Laplacian: launches counted per replay, times as measured above).
+The last line is {"ok": true, ...}.
 """
 import dataclasses
 import json
@@ -1371,7 +1411,9 @@ def phase_scaled80k(torch, dev, s80, tmp):
         "template": s80["path"], "root_dir": data_dir,
         "checkpoint_dir": ckpt, "log_file": os.path.join(ckpt, "log.txt"),
         "hierarchy_cache_dir": os.path.join(tmp, "cache80"),
-        "folds": 2, "epoch": 2})
+        "folds": 2, "epoch": 2,
+        # the per-step loop, as before the scanned epoch (phase 15)
+        "scan_epoch": False})
     if (config["compute_dtype"], config["batch_size"],
             config["polygon_order"]) != ("bfloat16", SCALED_BATCH, [10] * 5):
         fail(f"{SCALED_CFG} no longer is bf16, B=32, K=10")
@@ -1454,31 +1496,40 @@ def phase_scaled80k(torch, dev, s80, tmp):
     return per_step, counts
 
 
-def _run_driver(torch, config, dev):
+def _run_driver(torch, config, dev, vis=False):
     """train/driver.run(config) with train and test, the launch counts
     reset just before and read just after, and the train and eval steps
-    counted. Returns (results, seconds, steps, launches, lazy-seed
-    launches, launches by shape)."""
+    counted (the per-step loop's calls; a scanned epoch's steps, replays
+    included, by staged epoch). Returns (results, seconds, steps,
+    launches, lazy-seed launches, launches by shape)."""
     from meshvae_tpu_torch.ops import bsr_spmm
     from meshvae_tpu_torch.train import Trainer
     from meshvae_tpu_torch.train import driver
 
     steps = {"train": 0, "eval": 0}
     real = {k: getattr(Trainer, f"{k}_step") for k in steps}
+    real_scan = Trainer._run_scan
+    scanned = bool(config.get("scan_epoch", True))
 
     def counted(kind):
         def step(self, *args, **kwargs):
-            steps[kind] += 1
+            if not scanned:
+                steps[kind] += 1
             return real[kind](self, *args, **kwargs)
         return step
 
+    def run_scan(self, st):
+        steps["train" if "metrics" in st.outs else "eval"] += st.steps
+        return real_scan(self, st)
+
     Trainer.train_step, Trainer.eval_step = counted("train"), counted("eval")
+    Trainer._run_scan = run_scan
     try:
         torch.cuda.synchronize()
         # --- the main path: counts reset just before, read just after ----
         bsr_spmm.reset_launches()
         t0 = time.perf_counter()
-        results = driver.run(config, do_train=True, do_test=True, vis=False,
+        results = driver.run(config, do_train=True, do_test=True, vis=vis,
                              device=dev)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
@@ -1489,6 +1540,7 @@ def _run_driver(torch, config, dev):
     finally:
         Trainer.train_step, Trainer.eval_step = (real["train"],
                                                  real["eval"])
+        Trainer._run_scan = real_scan
     say(f"run(): {secs:.1f}s for {steps['train']} train and "
         f"{steps['eval']} eval steps (host work included: dataset loads, "
         f"operators, checkpoints); launches {launches}, lazy seed "
@@ -1721,7 +1773,9 @@ def phase_scaled20k(torch, dev, s20, tmp):
         "template": s20["path"], "root_dir": data_dir,
         "checkpoint_dir": ckpt, "log_file": os.path.join(ckpt, "log.txt"),
         "hierarchy_cache_dir": s20["cache"], "folds": 2, "epoch": 2,
-        "profile_dir": prof})
+        "profile_dir": prof,
+        # the per-step loop, as before the scanned epoch (phase 15)
+        "scan_epoch": False})
     if (config.get("compute_dtype", "float32"), config["matmul_precision"],
             config["batch_size"], config["polygon_order"]) != (
                 "float32", "highest", SCALED20_BATCH, [10] * 5):
@@ -2998,6 +3052,542 @@ def phase_infer(torch, dev, models, hier, tmpl, tmp):
     return launches
 
 
+# --- phase 15: the scanned epoch --------------------------------------------
+SCAN_STEPS = 4           # steps of phase 15's staged epochs
+SCAN_TIMED_EPOCHS = 3    # epochs per timing turn (A B B A)
+# an eval step at config 1: 4 block-sparse convs x 5 forward, then the
+# counterfactual's decode (cheb_dec_2, cheb_dec_3) and encode (cheb_enc_0,
+# cheb_enc_1) x 5
+CONFIG1_EVAL_LAUNCHES = 40
+# the runtime calls that queue device work, counted per step on the host
+_HOST_CALLS = ("LaunchKernel", "GraphLaunch", "Memcpy", "Memset")
+
+
+def _scan_batches(ds, batch, seed):
+    """SCAN_STEPS batches of `ds` (drawn with a seeded generator, with
+    repetition where the set is small) as host batches; the last step's
+    last quarter is padding (mask 0), which the permutations move around."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(SCAN_STEPS):
+        idx = rng.integers(0, len(ds.x), batch)
+        mask = np.ones(batch, np.float32)
+        if i == SCAN_STEPS - 1:
+            mask[-batch // 4:] = 0.0
+        out.append({"x": ds.x[idx], "label": ds.labels[idx], "r": ds.r[idx],
+                    "s": ds.s[idx], "m": ds.m[idx], "mask": mask,
+                    "index": idx})
+    return out
+
+
+def _scan_snapshot(tr):
+    """The trainer's params, gradients and Adam state, copied."""
+    named = dict(tr.model.named_parameters())
+    return {"params": {k: v.detach().clone() for k, v in named.items()},
+            "grads": {k: v.grad.detach().clone() for k, v in named.items()},
+            "adam": {f"{k}:{n}": t.detach().clone() for k, v in named.items()
+                     for n, t in tr.optimizer.state[v].items()}}
+
+
+def _scan_delta(eager, graphed, rows_e, rows_g):
+    """Worst graphed-vs-eager deltas: the loss per step (relative), every
+    gradient and Adam moment against its layer's max, params absolute;
+    and whether every tensor is bit-equal."""
+    def group(k):  # (layer, Adam moment)
+        name, _, moment = k.partition(":")
+        return name.rsplit(".", 1)[0], moment
+
+    def scale(named, k):
+        return max(v.abs().max().item() for n, v in named.items()
+                   if group(n) == group(k)) or 1.0
+
+    equal = all(a.equal(b) for part in ("params", "grads", "adam")
+                for a, b in zip(eager[part].values(),
+                                graphed[part].values())) and rows_e.equal(
+                                    rows_g)
+    loss = ((rows_g[:, 0] - rows_e[:, 0]).abs()
+            / rows_e[:, 0].abs()).max().item()
+    out = {"bit_equal": equal, "loss_rel": loss,
+           "params_abs": max((graphed["params"][k] - v).abs().max().item()
+                             for k, v in eager["params"].items())}
+    for part in ("grads", "adam"):
+        out[part] = max(((graphed[part][k] - v).abs().max()
+                         / scale(eager[part], k)).item()
+                        for k, v in eager[part].items()
+                        if v.is_floating_point() and v.dim())
+    return out
+
+
+def _scan_hold(label, what, d, bar, lr_steps):
+    """Bit-equality expected; otherwise the train bars: loss 1e-5
+    relative, gradients and Adam's moments `bar` of the layer's max, params
+    1e-2 lr per step."""
+    say(f"  {what}: " + ("bit-equal" if d["bit_equal"] else
+                         "NOT bit-equal: " + json.dumps(
+                             {k: v for k, v in d.items()
+                              if k != "bit_equal"})))
+    if not d["bit_equal"] and not (
+            d["loss_rel"] <= 1e-5 and d["grads"] <= bar
+            and d["adam"] <= 2 * bar and d["params_abs"] <= 1e-2 * lr_steps):
+        fail(f"scanned epoch [{label}] {what}: graphed and eager steps "
+             f"disagree beyond the train bars: {d}")
+
+
+def _no_host_sync(torch, run):
+    """The messages of torch's sync debug mode (warn) over run()."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sorted({str(w.message)[:160] for w in caught
+                   if "called a synchronizing" in str(w.message)})
+
+
+def _epoch_profile(torch, run, steps):
+    """torch.profiler over one epoch: device busy ms, kernels and device
+    ops (kernels, copies, fills; also by name) and host calls that queue
+    device work (launches, graph launches, copies, fills), each per
+    step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    busy = kernels = device_ops = host = 0
+    by_name = {}
+    for evt in prof.key_averages():
+        if getattr(evt, "is_user_annotation", False):
+            continue
+        if "CUDA" in str(getattr(evt, "device_type", "")):
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = getattr(evt, "self_cuda_time_total", 0)
+            if us:
+                busy += us
+                device_ops += evt.count
+                by_name[evt.key] = by_name.get(evt.key, 0) + evt.count / steps
+                if not evt.key.startswith(("Memcpy", "Memset")):
+                    kernels += evt.count
+        elif evt.key.startswith("cu") and any(h in evt.key
+                                              for h in _HOST_CALLS):
+            host += evt.count
+    return {"busy_ms": busy / 1e3 / steps, "kernels": kernels / steps,
+            "device_ops": device_ops / steps, "host_calls": host / steps,
+            "by_name": by_name}
+
+
+def _epoch_ms(torch, run, steps, epochs=SCAN_TIMED_EPOCHS):
+    """Median over `epochs` epochs of (CUDA-event ms per step, host ms per
+    step to queue the epoch)."""
+    dev_ms, host_ms = [], []
+    for _ in range(epochs):
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter()
+        start.record()
+        run()
+        end.record()
+        host_ms.append((time.perf_counter() - t0) * 1e3 / steps)
+        torch.cuda.synchronize()
+        dev_ms.append(start.elapsed_time(end) / steps)
+    return statistics.median(dev_ms), statistics.median(host_ms)
+
+
+def _epoch_memory(torch, run):
+    """(peak allocated, peak reserved) bytes over one epoch, from an
+    emptied cache."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+
+
+def _scan_case(torch, dev, label, model_cfg, ops, config, ds, batch, bar,
+               want, flag=False):
+    """Phase 15 for one workload: eager and graphed trainers from the same
+    weights (see the phase's docstring). Returns its report and the
+    graphed run's train launches."""
+    import numpy as np
+
+    from meshvae_tpu_torch.models import MeshVAE
+    from meshvae_tpu_torch.ops import bsr_spmm
+    from meshvae_tpu_torch.ops import cheb as port_cheb
+    from meshvae_tpu_torch.train import Trainer, set_learning_rate
+
+    say(f"-- 15 [{label}]: B={batch}, {SCAN_STEPS} steps per staged epoch")
+    weights = MeshVAE(model_cfg, generator=torch.Generator().manual_seed(
+        5)).state_dict()
+
+    def trainer(graphs):
+        model = MeshVAE(model_cfg)
+        model.load_state_dict(weights)
+        tr = Trainer(model, ops, config, device=dev)
+        tr.graphs = graphs
+        return tr
+
+    host = _scan_batches(ds, batch, seed=3)
+    tr = {False: trainer(False), True: trainer(True)}
+    staged = tr[True].stage_batches(host, with_index=True)
+    two = {k: (v[:2] if k in Trainer.BATCH_KEYS + ("mask_host",) else v)
+           for k, v in staged.items()}
+    norm = tr[True].norm_to_device(ds.mean, ds.std)
+    lr = float(config["learning_rate"])
+    n = SCAN_STEPS * batch
+    rng = np.random.default_rng(5)
+    perms = [rng.permutation(n), rng.permutation(n),
+             np.tile(np.arange(batch), SCAN_STEPS)]  # one batch each step
+    lrs = [lr, lr / 2, 0.0]
+    report = {"case": label, "batch": batch, "steps": SCAN_STEPS}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()  # before any graph of the case
+    port_cheb.FUSED_SEED_DOT = flag
+    try:
+        # --- one replayed step: the warm-up, then the first replay --------
+        one = {}
+        for graphs, t in tr.items():
+            gen = torch.Generator(device=dev).manual_seed(7)
+            rows = t.train_epoch_scanned_async(two, gen, *norm,
+                                               perm=np.arange(2 * batch))
+            one[graphs] = (rows.wait().clone(), _scan_snapshot(t))
+        _scan_hold(label, "one replayed step (loss, every gradient, "
+                   "params, Adam)", _scan_delta(one[False][1], one[True][1],
+                                                one[False][0], one[True][0]),
+                   bar, lr * 2)
+        for t in tr.values():
+            t.model.load_state_dict(weights)
+            t.reset_optimizer()
+
+        # --- three epochs: lr, lr / 2, then 0 on one batch each step ------
+        epochs, launches = {}, {}
+        for graphs, t in tr.items():
+            gen = torch.Generator(device=dev).manual_seed(7)
+            torch.cuda.synchronize()
+            # the main path: counts reset just before, read just after
+            bsr_spmm.reset_launches()
+            epochs[graphs] = []
+            for rate, perm in zip(lrs, perms):
+                set_learning_rate(t.optimizer, rate)
+                rows = t.train_epoch_scanned_async(staged, gen, *norm,
+                                                   perm=perm)
+                epochs[graphs].append((rows.wait().clone(),
+                                       _scan_snapshot(t)))
+            torch.cuda.synchronize()
+            launches[graphs] = (dict(bsr_spmm.LAUNCHES),
+                                dict(bsr_spmm.LAUNCHES_SEED_DOT))
+        for e in range(3):
+            _scan_hold(label, f"epoch {e + 1} at lr {lrs[e]:g}",
+                       _scan_delta(epochs[False][e][1], epochs[True][e][1],
+                                   epochs[False][e][0], epochs[True][e][0]),
+                       bar, lr * SCAN_STEPS * (e + 1))
+        steps = 3 * SCAN_STEPS
+        per_step = {k: {m: c / steps for m, c in d.items() if c}
+                    for k, d in zip(("all", "lazy seed"), launches[True])}
+        say(f"  launches over {steps} train steps: graphed {launches[True]}"
+            f", eager {launches[False]}; per graphed step {per_step}")
+        if launches[True] != launches[False] or per_step != want["train"]:
+            fail(f"scanned epoch [{label}]: graphed launches "
+                 f"{launches[True]} (per step {per_step}), eager "
+                 f"{launches[False]}, expected {want['train']} per step")
+        report["train_launches"] = launches[True]
+        params = [s["params"] for _, s in epochs[True]]
+        same_params = all(params[2][k].equal(v) for k, v in params[1].items())
+        moved = not all(params[1][k].equal(v) for k, v in params[0].items())
+        losses = epochs[True][2][0][:, 0].tolist()
+        del params
+        say(f"  lr: epoch 3 at lr 0 left the params "
+            f"{'as they were' if same_params else 'CHANGED'} (epoch 2 at "
+            f"lr/2 moved them: {moved}); its {SCAN_STEPS} replays of one "
+            f"batch drew losses {[round(x, 4) for x in losses]}")
+        if not (same_params and moved):
+            fail(f"scanned epoch [{label}]: the lr set between epochs was "
+                 f"not followed by the graph")
+        if len(set(losses)) != SCAN_STEPS:
+            fail(f"scanned epoch [{label}]: replays drew the same dropout "
+                 f"masks and noise: losses {losses}")
+
+        # --- the eval variants, graphed vs eager vs evaluate() -------------
+        evals = {}
+        bsr_spmm.reset_launches()
+        ev_launches = {}
+        for graphs, t in tr.items():
+            before = sum(bsr_spmm.LAUNCHES.values())
+            evals[graphs] = {v: t.finalize_eval_scanned(
+                t.evaluate_scanned_async(staged, *norm,
+                                         collect_meshes=v == "collect",
+                                         with_errors=v != "light"),
+                with_errors=v != "light")
+                for v in ("light", "errors", "collect")}
+            ev_launches[graphs] = sum(bsr_spmm.LAUNCHES.values()) - before
+        plain = tr[False].evaluate(host, ds.mean, ds.std,
+                                   collect_meshes=True)
+        scale = float(np.abs(ds.original).max())
+        worst = 0.0
+        for v in ("light", "errors", "collect"):
+            a, b = evals[False][v], evals[True][v]
+            ok = a[0] == b[0] and all(
+                (x is None and y is None) or (
+                    {k: np.array_equal(x[k], y[k]) for k in x}
+                    == {k: True for k in x} if isinstance(x, dict)
+                    else np.array_equal(x, y)) for x, y in zip(a[1:], b[1:]))
+            if not ok:
+                fail(f"scanned epoch [{label}]: the graphed {v} eval differs "
+                     f"from the eager one")
+        for x, y in ((evals[True]["collect"][1], plain[1]),
+                     (evals[True]["collect"][2]["recon"], plain[2]["recon"]),
+                     (evals[True]["collect"][2]["oppo"], plain[2]["oppo"])):
+            worst = max(worst, float(np.abs(x - y).max()) / scale)
+        rel = abs(evals[True]["collect"][0]["loss"] - plain[0]["loss"]) / abs(
+            plain[0]["loss"])
+        say(f"  eval: graphed light/errors/collect equal to the eager "
+            f"scanned ones; against the per-batch evaluate(): loss rel "
+            f"{rel:.2e}, errors and meshes {worst:.2e} of the mesh scale "
+            f"(bars 1e-5, 1e-4); launches graphed {ev_launches[True]}, eager "
+            f"{ev_launches[False]}")
+        if rel > 1e-5 or worst > 1e-4 or not np.array_equal(
+                evals[True]["collect"][2]["oppo_pred"],
+                plain[2]["oppo_pred"]):
+            fail(f"scanned epoch [{label}]: the scanned eval and "
+                 f"evaluate() disagree")
+        want_ev = 3 * SCAN_STEPS * want["eval"]
+        if ev_launches != {False: want_ev, True: want_ev}:
+            fail(f"scanned epoch [{label}]: eval launches {ev_launches}, "
+                 f"expected {want_ev} each")
+        report["capture_s"] = {k: round(st.graph.capture_seconds, 3)
+                               for k, st in tr[True]._scans.items()}
+        del one, epochs, evals, plain  # the copies compared above
+
+        # --- no host sync inside the eager scanned epoch ------------------
+        t = tr[True]
+        shuffle = torch.Generator(device=dev).manual_seed(9)
+        gen = torch.Generator(device=dev).manual_seed(8)
+        run = lambda: t.train_epoch_scanned_async(staged, gen, *norm,
+                                                  shuffle_generator=shuffle)
+        run()  # a new generator: warm-up and capture before the times
+        t.graphs = False
+        syncs = _no_host_sync(torch, run)
+        t.graphs = True
+        say(f"  host syncs in an eager scanned epoch: {syncs or 'none'}")
+        if syncs:
+            fail(f"scanned epoch [{label}]: the step syncs with the host: "
+                 f"{syncs}")
+
+        # --- times A B B A (A eager steps, B replays), the per-step loop ---
+        times = {}
+        for graphs in (False, True, True, False):
+            t.graphs = graphs
+            times.setdefault(graphs, []).append(
+                _epoch_ms(torch, run, SCAN_STEPS))
+        gen_loop = torch.Generator(device=dev).manual_seed(8)
+        loop_ms = _epoch_ms(torch, lambda: t.train_epoch(
+            host, gen_loop, ds.mean, ds.std), SCAN_STEPS)
+        prof = {}
+        mem = {}
+        for graphs in (False, True):
+            t.graphs = graphs
+            prof[graphs] = _epoch_profile(torch, run, SCAN_STEPS)
+            mem[graphs] = _epoch_memory(torch, run)
+        t.graphs = True
+        # the graphs' private pools (train and three evals) and both
+        # trainers' gradients and Adam state: reserved memory now, cache
+        # emptied, minus before the case's first step
+        torch.cuda.empty_cache()
+        report["pools_gib"] = (torch.cuda.memory_reserved()
+                               - reserved) / 2**30
+        bsr = sum(per_step["all"].values())
+        for graphs, name in ((False, "eager"), (True, "graphed")):
+            ms = [d for d, _ in times[graphs]]
+            report[name] = {
+                "step_ms": ms, "queue_ms": [h for _, h in times[graphs]],
+                "busy_ms": prof[graphs]["busy_ms"],
+                "idle": [1 - prof[graphs]["busy_ms"] / m for m in ms],
+                "kernels_per_step": prof[graphs]["kernels"],
+                "device_ops_per_step": prof[graphs]["device_ops"],
+                "host_calls_per_step": prof[graphs]["host_calls"],
+                "peak_allocated_gib": mem[graphs][0] / 2**30,
+                "peak_reserved_gib": mem[graphs][1] / 2**30}
+        report["per_step_loop_ms"] = loop_ms[0]
+        report["bsr_grouped_spmm_per_step"] = bsr
+        e, g = report["eager"], report["graphed"]
+        say(f"  per step A B B A: eager {e['step_ms'][0]:.3f} / "
+            f"{e['step_ms'][1]:.3f} ms, graphed {g['step_ms'][0]:.3f} / "
+            f"{g['step_ms'][1]:.3f} ms (host queues a step in "
+            f"{e['queue_ms'][0]:.3f} / {g['queue_ms'][0]:.3f} ms); the "
+            f"per-step loop {loop_ms[0]:.3f} ms")
+        say(f"  device busy {e['busy_ms']:.3f} / {g['busy_ms']:.3f} ms per "
+            f"step, idle share {e['idle'][0]:.2f} / {g['idle'][0]:.2f}; "
+            f"kernels per step {e['kernels_per_step']:.0f} / "
+            f"{g['kernels_per_step']:.0f} (bsr_grouped_spmm {bsr:.0f}); host"
+            f" calls per step {e['host_calls_per_step']:.1f} / "
+            f"{g['host_calls_per_step']:.1f}; peak allocated "
+            f"{e['peak_allocated_gib']:.2f} / {g['peak_allocated_gib']:.2f} "
+            f"GiB (a replay allocates nothing: its activations sit in the "
+            f"graph's pool), reserved {e['peak_reserved_gib']:.2f} / "
+            f"{g['peak_reserved_gib']:.2f} GiB (both with the pools); the "
+            f"pools hold {report['pools_gib']:.2f} GiB; capture s "
+            f"{report['capture_s']}")
+        # one graph launch per step, and the epoch's own few calls (the
+        # permutation, the step index, the normalisation, the one pull)
+        if (g["host_calls_per_step"] > 1 + 32 / SCAN_STEPS
+                or g["kernels_per_step"] < bsr):
+            fail(f"scanned epoch [{label}]: replays made "
+                 f"{g['host_calls_per_step']} host calls and "
+                 f"{g['kernels_per_step']} kernels per step")
+        diff = {k: round(prof[True]["by_name"].get(k, 0)
+                         - prof[False]["by_name"].get(k, 0), 2)
+                for k in set(prof[True]["by_name"]) | set(
+                    prof[False]["by_name"])}
+        diff = sorted(((v, k) for k, v in diff.items() if v), reverse=True)
+        say(f"  device ops per step, graphed minus eager: "
+            f"{[(v, k[:60]) for v, k in diff[:6] + diff[-6:]]}")
+    finally:
+        port_cheb.FUSED_SEED_DOT = False
+    say("scan_case " + json.dumps(report))
+    return report
+
+
+def _scan_driver_run(torch, dev, hier, tmp):
+    """python -m meshvae_tpu_torch.train's run() with files/default.cfg
+    (scan_epoch left at its default, True) at config-1 width on the block-
+    sparse path (cheb_method pallas): train, test and -v on phase 6's 40
+    synthetic meshes, 2 folds x 2 epochs, profile_dir set, counts reset
+    just before and read just after: 38 launches per train step and 40 per
+    eval step; never the per-step loop; history, checkpoints, the .obj
+    triples, epoch 2's trace with the kernels; the log names the graphs."""
+    from meshvae_tpu_torch.config import read_config
+
+    config = read_config(os.path.join(ROOT, "files", "default.cfg"))
+    if not config["scan_epoch"] or "pipeline_epochs" in config:
+        fail("files/default.cfg no longer leaves the scanned, pipelined "
+             "epoch on")
+    from meshvae_tpu_torch.train import Trainer
+
+    ckpt = os.path.join(tmp, "ckpt_default")
+    prof = os.path.join(tmp, "profile_default")
+    config.update({   # paths, folds, epochs, the profiler, block-sparse path
+        "template": os.path.join(ROOT, "template", "template5k.obj"),
+        "root_dir": os.path.join(tmp, "train_data"), "checkpoint_dir": ckpt,
+        "log_file": os.path.join(ckpt, "log.txt"),
+        "hierarchy_cache_dir": os.path.join(tmp, "cache"), "folds": 2,
+        "epoch": 2, "profile_dir": prof, "cheb_method": "pallas"})
+    per_step_loop = (Trainer.train_epoch, Trainer.evaluate)
+
+    def refuse(*args, **kwargs):
+        fail("the default config ran the per-step loop (train_epoch or "
+             "evaluate, one pull per step)")
+
+    Trainer.train_epoch = Trainer.evaluate = refuse
+    try:
+        results, secs, steps, launches, _, _ = _run_driver(torch, config,
+                                                           dev, vis=True)
+    finally:
+        Trainer.train_epoch, Trainer.evaluate = per_step_loop
+    _trace_report(prof, folds=2)  # epoch 2's replayed kernels, traced
+    want = {"fp32": (TRAIN_LAP_LAUNCHES + TRAIN_POOL_LAUNCHES)
+            * steps["train"] + CONFIG1_EVAL_LAUNCHES * steps["eval"],
+            "bf16x3": 0, "bf16": 0}
+    if steps["train"] < 1 or launches != want:
+        fail(f"default.cfg run launched {launches}, expected {want} "
+             f"({steps})")
+    _check_run(config, ckpt, results, hier)
+    with open(os.path.join(ckpt, "log.txt")) as fp:
+        line = [l for l in fp if l.startswith("epochs:")]
+    if not line or "CUDA graphs" not in line[0] or "pipelined" not in line[0]:
+        fail(f"default.cfg run did not log the graphed epoch: {line}")
+    triples = 0
+    for fold in (1, 2):
+        for d in ("sex_change_S", "sex_change_F"):
+            path = os.path.join(ckpt, f"mesh{fold}", d)
+            triples += len(os.listdir(path)) if os.path.isdir(path) else 0
+    if triples != 3 * TRAIN_MESHES:  # each mesh is tested in one fold
+        fail(f"default.cfg run wrote {triples} .obj files, expected "
+             f"{3 * TRAIN_MESHES}")
+    say(f"  default.cfg (scan_epoch default): {line[0].strip()}; {secs:.1f}s"
+        f", {steps} steps, launches {launches}, {triples} .obj files")
+    return launches
+
+
+def phase_scan(torch, dev, models, ops, hier, s20, s80, tmp):
+    """Phase 15: the scanned epoch's CUDA graphs against the same steps run
+    eagerly at config 1 (high, highest), scaled20k fp32 with the lazy seed
+    and scaled80k bf16, then a default.cfg driver run. Returns the reports
+    and the graphed train launches per case."""
+    say("== phase 15: scanned epoch (staged on the device, reshuffled there;"
+        " CUDA graphs of the train and eval steps against the same steps "
+        "run eagerly)")
+    import gc
+
+    from meshvae_tpu_torch.config import read_config
+    from meshvae_tpu_torch.data import MeshDataset, list_meshes
+    from meshvae_tpu_torch.mesh import TriMesh
+    from meshvae_tpu_torch.models import VAEConfig
+
+    def dataset(data_dir, template, limit=None):
+        index, labels = list_meshes({"root_dir": data_dir})
+        norm_dir = os.path.join(tmp, "scan_norm_" + os.path.basename(data_dir))
+        return MeshDataset(index[:limit], {"root_dir": data_dir,
+                                           "checkpoint_dir": norm_dir},
+                           labels, template.v)
+
+    config1 = config_1(tmp)
+    c80 = read_config(os.path.join(ROOT, SCALED_CFG))
+    c20 = read_config(os.path.join(ROOT, SCALED20_CFG))
+    ds1 = dataset(os.path.join(tmp, "train_data"),
+                  TriMesh(hier.vertices[0], hier.faces[0]))
+    pools20 = sum(up.t_bsr is not None for up in s20["ops"].up)
+    cases = [
+        ("config-1 high", models["high"].cfg, ops, config1, ds1, BATCH,
+         1e-3, {"train": {"all": {"bf16x3": TRAIN_LAP_LAUNCHES,
+                                  "fp32": TRAIN_POOL_LAUNCHES},
+                          "lazy seed": {}}, "eval": CONFIG1_EVAL_LAUNCHES},
+         False),
+        ("config-1 highest", models["highest"].cfg, ops,
+         dict(config1, matmul_precision="highest"), ds1, BATCH, 1e-4,
+         {"train": {"all": {"fp32": TRAIN_LAP_LAUNCHES
+                            + TRAIN_POOL_LAUNCHES}, "lazy seed": {}},
+          "eval": CONFIG1_EVAL_LAUNCHES}, False),
+        ("scaled20k fp32, FUSED_SEED_DOT",
+         VAEConfig.from_config(c20, coarse_verts=s20["hier"].levels[-1]),
+         s20["ops"], c20, None, SCALED20_BATCH, 1e-4,
+         {"train": {"all": {"fp32": SCALED20_FWD + SCALED20_BWD + pools20},
+                    "lazy seed": {"fp32": SCALED20_SEED_DOT}},
+          "eval": SCALED20_EVAL}, True),
+        ("scaled80k bf16",
+         VAEConfig.from_config(c80, coarse_verts=s80["hier"].levels[-1]),
+         s80["ops"], c80, None, SCALED_BATCH, 2.0 ** -8,
+         {"train": {"all": {"bf16": SCALED_TRAIN_LAUNCHES},
+                    "lazy seed": {}}, "eval": SCALED_EVAL_LAUNCHES}, False),
+    ]
+    reports = []
+    for label, cfg, operators, config, ds, batch, bar, want, flag in cases:
+        if ds is None:
+            scaled = s20 if "20k" in label else s80
+            ds = dataset(os.path.join(tmp, "data20k" if "20k" in label
+                                      else "data80k"), scaled["tmpl"],
+                         limit=batch)
+        reports.append(_scan_case(torch, dev, label, cfg, operators, config,
+                                  ds, batch, bar, want, flag))
+        del ds
+        gc.collect()
+        torch.cuda.empty_cache()
+    default_launches = _scan_driver_run(torch, dev, hier, tmp)
+    return reports, default_launches
+
+
 def main() -> int:
     import torch
 
@@ -3079,6 +3669,10 @@ def main() -> int:
         mapped = phase_distribution(torch, dev, models, ops, hier, tmpl,
                                     (mean, std), many_dir, s20, s80, tmp)
         seconds["distribution"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scan_reports, _ = phase_scan(torch, dev, models, ops, hier, s20, s80,
+                                     tmp)
+        seconds["scan"] = time.perf_counter() - t0
     say("phase seconds " + json.dumps({k: round(v, 1)
                                        for k, v in seconds.items()}))
 
@@ -3167,6 +3761,28 @@ def main() -> int:
             bound_stored_ms=e["stored_ms"]))
     # _mapped_product (pallas_shard.py:150): the sp=2 world's kernel calls
     kernels.append(mapped)
+    # phase 15: the same calls replayed in CUDA graphs (launches counted per
+    # replay from what was captured, over 3 epochs of SCAN_STEPS); times as
+    # measured per step above
+    scan = {r["case"]: r["train_launches"] for r in scan_reports}
+    steps15 = 3 * SCAN_STEPS
+    graphed = [
+        ("config-1 high", "bf16x3", "bf16x3", per_step["train_lap_bf16x3"],
+         worst_abs["bf16x3"], scan["config-1 high"][0]["bf16x3"]),
+        ("config-1 highest", "fp32", "fp32", per_step["train_lap_fp32"],
+         worst_abs["fp32"], scan["config-1 highest"][0]["fp32"]
+         - TRAIN_POOL_LAUNCHES * steps15),
+        ("scaled20k fp32, FUSED_SEED_DOT", "fp32", "seed_dot",
+         per_step20["lap_seed_dot"], worst_abs["seed_fp32"],
+         scan["scaled20k fp32, FUSED_SEED_DOT"][1]["fp32"]),
+        ("scaled80k bf16", "bf16", "fp32", per_step80["lap"], worst80["lap"],
+         scan["scaled80k bf16"][0]["bf16"] - len(s80["ops"].up) * steps15)]
+    for case, mode, replaces, acc, err, launched in graphed:
+        part = "lazy seed" if replaces == "seed_dot" else "Laplacian"
+        kernels.append(entry(
+            f"bsr_grouped_spmm[{mode}] {case} train step replayed in a CUDA "
+            f"graph (scanned epoch): {part}", REPLACES[replaces], launched,
+            err, acc))
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -14,7 +14,9 @@ import os
 from typing import Any, Callable
 
 
-def _bool(value) -> bool:
+def parse_bool(value) -> bool:
+    """A config flag: a bool, or "1"/"true"/"yes"/"on" (any case) for True
+    and anything else for False."""
     if isinstance(value, bool):
         return value
     return str(value).strip().lower() in ("1", "true", "yes", "on")
@@ -70,15 +72,15 @@ _SCHEMA: dict[str, tuple[Callable, Any]] = {
     "hierarchy_mode": (str, "fast"),
     "data_parallel": (int, 1),
     "seq_parallel": (int, 1),
-    "multihost": (_bool, False),
+    "multihost": (parse_bool, False),
     "coordinator_address": (str, ""),
     "num_processes": (int, 0),
     "process_id": (int, -1),
-    "scan_epoch": (_bool, True),
+    "scan_epoch": (parse_bool, True),
     "serve_wire_dtype": (str, "float16"),  # serving-chunk x dtype on the wire
     "hierarchy_cache_dir": (str, ""),
     "profile_dir": (str, ""),
-    "halt_on_nonfinite": (_bool, True),
+    "halt_on_nonfinite": (parse_bool, True),
 }
 
 
@@ -118,12 +120,16 @@ def default_config() -> dict:
 
 
 def apply_overrides(config: dict, overrides: list[tuple[str, str]] | None) -> dict:
-    """CLI `-p key value` overrides with JSON coercion for non-string targets."""
+    """CLI `-p key value` overrides with JSON coercion for non-string
+    targets; a flag also takes the config file's spellings (parse_bool:
+    ``-p scan_epoch False``)."""
     if not overrides:
         return config
     for key, value in overrides:
         current = config.get(key)
-        if current is not None and not isinstance(current, str):
+        if isinstance(current, bool):
+            value = parse_bool(value)
+        elif current is not None and not isinstance(current, str):
             value = json.loads(value)
         config[key] = value
     return config

@@ -16,8 +16,12 @@ def kld(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
 
 def gaussian_nll(mu: torch.Tensor, log_sigma, x: torch.Tensor) -> torch.Tensor:
     """Per-element negative log-likelihood of x under
-    N(mu, exp(log_sigma)^2)."""
-    log_sigma = torch.as_tensor(log_sigma, dtype=x.dtype, device=x.device)
+    N(mu, exp(log_sigma)^2). A float log_sigma becomes a device tensor by
+    a fill, not a host-to-device copy (a CUDA graph can capture a fill)."""
+    if isinstance(log_sigma, torch.Tensor):
+        log_sigma = log_sigma.to(x.device, x.dtype)
+    else:
+        log_sigma = torch.full((), log_sigma, dtype=x.dtype, device=x.device)
     return (0.5 * ((x - mu) / log_sigma.exp()).square() + log_sigma
             + _HALF_LOG_2PI)
 

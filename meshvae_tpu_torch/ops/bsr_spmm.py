@@ -56,7 +56,9 @@ MODE_DTYPE = {"fp32": torch.float32, "bf16x3": torch.float32,
 
 # Launches of the CUDA kernel per mode, and per (mode, n_pad, n_pad_cols)
 # of the operator, counted where the wrapper launches it (never on the CPU
-# twin path). Readers reset and read them around a run.
+# twin path). Readers reset and read them around a run. Inside a CUDA
+# graph the wrapper runs once, at capture; train/graphs.py takes that
+# count back and adds it at each replay.
 LAUNCHES = {mode: 0 for mode in MODES}
 LAUNCHES_BY_SHAPE: dict[tuple[str, int, int], int] = {}
 # the launches among LAUNCHES that computed the lazy seed in the kernel

@@ -2,10 +2,10 @@
 with the port's own format).
 
 ``checkpoint_{fold}.pt`` holds the model's state_dict, the Adam state
-(``torch.optim.Adam.state_dict()``), ``epoch_num``, ``train_loss`` and
-``val_loss``; a ``.meta.json`` beside it repeats the three scalars. The
-initial-weights snapshot that every fold restarts from is
-``initial_weight.pt`` (a state_dict). Normalisation statistics live in
+(``torch.optim.Adam.state_dict()`` on the CPU, lr a float), ``epoch_num``,
+``train_loss`` and ``val_loss``; a ``.meta.json`` beside it repeats the
+three scalars. The initial-weights snapshot that every fold restarts from
+is ``initial_weight.pt`` (a state_dict). Normalisation statistics live in
 ``norm.npz``, written by ``data.MeshDataset``.
 
 ``load_checkpoint`` also reads the JAX package's ``checkpoint_{fold}.msgpack``
@@ -45,12 +45,23 @@ def _to_cpu(state: dict) -> dict:
     return {k: v.detach().cpu() for k, v in state.items()}
 
 
+def _optimizer_to_cpu(state: dict) -> dict:
+    """An Adam state dict with its tensors on the CPU and each group's lr
+    a float (on the card lr is a device tensor, train/loop.py
+    make_optimizer)."""
+    groups = [dict(g, lr=float(g["lr"])) for g in state.get("param_groups",
+                                                           [])]
+    return dict(state, param_groups=groups,
+                state={i: _to_cpu(s) for i, s in state.get("state",
+                                                            {}).items()})
+
+
 def save_checkpoint(path: str, model_state: dict, optimizer_state: dict,
                     epoch: int, train_loss: float, val_loss: float) -> None:
     meta = {"epoch_num": int(epoch), "train_loss": float(train_loss),
             "val_loss": float(val_loss)}
-    _save({"model": _to_cpu(model_state), "optimizer": optimizer_state,
-           **meta}, path)
+    _save({"model": _to_cpu(model_state),
+           "optimizer": _optimizer_to_cpu(optimizer_state), **meta}, path)
     with open(path + ".meta.json", "w") as fp:
         json.dump(meta, fp)
 

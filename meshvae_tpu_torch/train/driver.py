@@ -1,14 +1,27 @@
-"""K-fold train / test driver (counterpart of meshvae_tpu/train/driver.py,
-eager): the body of ``python -m meshvae_tpu_torch.train``.
+"""K-fold train / test driver (counterpart of meshvae_tpu/train/driver.py):
+the body of ``python -m meshvae_tpu_torch.train``.
 
   * the template (a missing scaled one is generated), the hierarchy
     (cached), the operators in the config's compute dtype and the model;
   * an initial-weights snapshot that every fold restarts from;
   * stratified k-fold over the mesh listing and a train/validation split
     of each fold's training part (train/splits.py, scikit-learn's streams);
-  * per epoch: the step LR, train_epoch, evaluate, a halt on a non-finite
-    loss that names the last good checkpoint, and the best-validation
-    checkpoint; history{fold}.json and the log;
+  * per epoch: the step LR, the train and validation passes, a halt on a
+    non-finite loss that names the last good checkpoint, and the
+    best-validation checkpoint; history{fold}.json and the log;
+  * ``scan_epoch`` (default True), as the JAX driver's: each fold's
+    train and validation splits are staged on the device once
+    (Trainer.stage_batches), every epoch is reshuffled there from its own
+    torch.Generator, and its steps run as replayed CUDA graphs on a card
+    in one process (eager steps on the CPU and in a world, whose
+    collectives are not captured; the log says which); each epoch's
+    metrics are pulled once. With ``pipeline_epochs`` (default True)
+    epoch N + 1 is queued before epoch N's metrics are read, so the
+    halt, the checkpoint (from Trainer.snapshot, taken before the next
+    epoch's steps) and the history run one epoch late; a profiled epoch
+    is read inside its trace. The test path runs evaluate_scanned.
+    ``scan_epoch = False`` runs the per-step loop (train_epoch,
+    evaluate);
   * resume of the first fold from ``checkpoint_file`` (the port's ``.pt``
     or the JAX package's ``.msgpack``);
   * the test path, with the sex-change .obj triples under ``vis``;
@@ -26,7 +39,6 @@ eager): the body of ``python -m meshvae_tpu_torch.train``.
     history, log and .obj dumps, with barriers where the JAX driver has
     them, before the other ranks read a file back.
 
-The JAX driver's scanned and pipelined epochs have no counterpart here.
 """
 from __future__ import annotations
 
@@ -36,6 +48,7 @@ import time
 import numpy as np
 import torch
 
+from ..config import parse_bool
 from ..data.dataset import BatchIterator, MeshDataset, list_meshes
 from ..device import resolve_device
 from ..mesh.hierarchy import load_or_build_hierarchy
@@ -48,9 +61,10 @@ from ..tools.make_scaled_template import ensure_template
 from ..validate import validate_config
 from .checkpoint import (checkpoint_path, find_checkpoint, load_checkpoint,
                          load_params, save_checkpoint, save_params)
-from .loop import Trainer, lr_for_epoch, make_optimizer, set_learning_rate
-from .metrics import (RunLog, epoch_line, history_record, maybe_profile,
-                      write_history)
+from .graphs import HostCopy
+from .loop import Trainer, lr_for_epoch, set_learning_rate
+from .metrics import (RunLog, epoch_line, history_record, is_profiled,
+                      maybe_profile, write_history)
 from .splits import stratified_kfold, train_test_split
 
 
@@ -98,15 +112,17 @@ def _restart(trainer: Trainer, params: dict,
     saved param group's missing keys keep the fresh optimizer's values (a
     JAX checkpoint's group holds only lr; see train/checkpoint.py)."""
     trainer.model.load_state_dict(params)
-    trainer.optimizer = make_optimizer(trainer.model.parameters(),
-                                       float(trainer.config["learning_rate"]),
-                                       float(trainer.config["weight_decay"]))
-    if optimizer_state is not None:
-        fresh = trainer.optimizer.state_dict()["param_groups"]
-        groups = [{**f, **g} for f, g in
-                  zip(fresh, optimizer_state["param_groups"])]
-        trainer.optimizer.load_state_dict(dict(optimizer_state,
-                                               param_groups=groups))
+    trainer.reset_optimizer(optimizer_state)
+
+
+def epoch_mode(config: dict, trainer: Trainer) -> str:
+    """The run log's line on how epochs run (module docstring)."""
+    if not parse_bool(config.get("scan_epoch", True)):
+        return "per-step epoch loop (scan_epoch = False)"
+    pipelined = ("pipelined" if parse_bool(config.get("pipeline_epochs", True))
+                 else "not pipelined")
+    return (f"scanned epoch, staged on {trainer.device} and reshuffled "
+            f"there, {pipelined}: {trainer.step_mode()}")
 
 
 def maybe_init_multihost(config: dict, device="cuda"):
@@ -170,6 +186,7 @@ def run(config: dict, do_train: bool, do_test: bool, vis: bool = False,
         log.print("compute dtype:", model.cfg.compute_dtype,
                   "matmul precision:", model.cfg.precision,
                   "device:", trainer.device)
+        log.print("epochs:", epoch_mode(config, trainer))
 
         init_path = os.path.join(checkpoint_dir, "initial_weight.pt")
         init = trainer.init_params(seed)
@@ -223,6 +240,7 @@ def _train_fold(trainer: Trainer, config: dict, log: RunLog, n: int,
     checkpoint_dir = config["checkpoint_dir"]
     batch_size = int(config["batch_size"])
     primary = is_primary(trainer.dist)
+    profile_dir = config.get("profile_dir") if primary else None
     tv = np.asarray(template.v)
     train_ds = MeshDataset(train_names, config, labels, template=tv,
                            dtype="train", write_norm=primary)
@@ -236,27 +254,39 @@ def _train_fold(trainer: Trainer, config: dict, log: RunLog, n: int,
     mean, std = train_ds.mean, train_ds.std
     generator = torch.Generator(device=trainer.device).manual_seed(
         seed * 1000 + n)
+    scan = parse_bool(config.get("scan_epoch", True))
+    pipeline = scan and parse_bool(config.get("pipeline_epochs", True))
+    if scan:
+        # one upload per fold; epochs reshuffle on the device
+        staged_train = trainer.stage_batches(train_loader)
+        staged_valid = trainer.stage_batches(valid_loader)
+        shuffle = torch.Generator(device=trainer.device).manual_seed(
+            seed * 7919 + n)
+        norm = trainer.norm_to_device(mean, std)
     best_loss = float("inf")
     history = []
-    for epoch in range(start_epoch, total_epochs + 1):
-        begin = time.time()
-        set_learning_rate(trainer.optimizer, lr_for_epoch(
-            epoch, float(config["learning_rate"]), config["learning_rates"],
-            config["learning_rates_epochs"]))
-        with maybe_profile(config.get("profile_dir") if primary else None,
-                           epoch, fold=n):
-            train_avg = trainer.train_epoch(train_loader, generator, mean,
-                                            std)
-            valid_avg, errors = trainer.evaluate(valid_loader, mean, std)
-        mean_val_error = float(errors.mean()) if errors.size else 0.0
-        duration = time.time() - begin
-        record = history_record(epoch, begin, duration, train_avg, valid_avg,
-                                mean_val_error)
+    pending = None
+
+    def consume_pending():
+        """Read the epoch in flight: its metrics, then the non-finite
+        halt, the best-validation checkpoint and the history."""
+        nonlocal best_loss, pending
+        if pending is None:
+            return
+        p, pending = pending, None
+        epoch = p["epoch"]
+        train_avg, (valid_avg, mean_val_error) = (p["train"](), p["valid"]())
+        # after the pull, so it covers the epoch's device work; pipelined
+        # epochs overlap by the next epoch's dispatch
+        duration = time.time() - p["begin"]
+        record = history_record(epoch, p["begin"], duration, train_avg,
+                                valid_avg, mean_val_error)
         if not (np.isfinite(train_avg["loss"])
                 and np.isfinite(valid_avg["loss"])):
             msg = (f"non-finite loss at fold {n} epoch {epoch} (train "
                    f"{train_avg['loss']}, val {valid_avg['loss']})")
             log.print(msg)
+            # the failing epoch stays in the flushed history
             history.append(record)
             if primary:
                 write_history(checkpoint_dir, n, history)
@@ -268,18 +298,59 @@ def _train_fold(trainer: Trainer, config: dict, log: RunLog, n: int,
                         "saved")
                 raise RuntimeError(msg + hint + " (set halt_on_nonfinite "
                                    "= False to keep training through it)")
-            continue
+            return
         if valid_avg["loss"] <= best_loss:
             if primary:
+                state = (p["snapshot"].wait() if p["snapshot"] is not None
+                         else {"model": trainer.model.state_dict(),
+                               "optimizer": trainer.optimizer.state_dict()})
                 save_checkpoint(checkpoint_path(checkpoint_dir, n),
-                                trainer.model.state_dict(),
-                                trainer.optimizer.state_dict(), epoch,
+                                state["model"], state["optimizer"], epoch,
                                 train_avg["loss"], valid_avg["loss"])
             best_loss = valid_avg["loss"]
         history.append(record)
         if epoch % 10 == 0:
             log.print(epoch_line(epoch, train_avg, valid_avg,
                                  mean_val_error))
+
+    for epoch in range(start_epoch, total_epochs + 1):
+        begin = time.time()
+        set_learning_rate(trainer.optimizer, lr_for_epoch(
+            epoch, float(config["learning_rate"]), config["learning_rates"],
+            config["learning_rates_epochs"]))
+        with maybe_profile(profile_dir, epoch, fold=n):
+            snapshot = None
+            if scan:
+                packed = trainer.train_epoch_scanned_async(
+                    staged_train, generator, *norm, shuffle_generator=shuffle)
+                # light: the validation needs only the per-mesh mean error
+                # of the scalars, so no [S, B, N] error rows are written
+                eval_pending = trainer.evaluate_scanned_async(
+                    staged_valid, *norm, with_errors=False)
+                if pipeline and primary:
+                    # taken before the next epoch's steps update the
+                    # state in place, and pulled as the epoch's metrics are
+                    snapshot = HostCopy(trainer.snapshot())
+                train = lambda pk=packed: trainer.finalize_train_metrics(pk)
+
+                def valid(ep=eval_pending):
+                    avg, _ = trainer.finalize_eval_scanned(
+                        ep, with_errors=False)
+                    return avg, float(avg["error"])
+            else:
+                train_avg = trainer.train_epoch(train_loader, generator,
+                                                mean, std)
+                valid_avg, errors = trainer.evaluate(valid_loader, mean, std)
+                mve = float(errors.mean()) if errors.size else 0.0
+                train = lambda ta=train_avg: ta
+                valid = lambda va=valid_avg, e=mve: (va, e)
+            consume_pending()
+            pending = {"epoch": epoch, "begin": begin, "train": train,
+                       "valid": valid, "snapshot": snapshot}
+            # a traced epoch is read inside its trace
+            if not pipeline or is_profiled(profile_dir, epoch):
+                consume_pending()
+    consume_pending()
     if primary:
         write_history(checkpoint_dir, n, history)
 
@@ -297,8 +368,12 @@ def _test_fold(trainer: Trainer, config: dict, log: RunLog, n: int,
         std = norm["std"].astype(np.float32)
     trainer.model.load_state_dict(
         load_checkpoint(find_checkpoint(checkpoint_dir, n))["model"])
-    test_avg, errors, meshes = trainer.evaluate(test_loader, mean, std,
-                                                collect_meshes=True)
+    if parse_bool(config.get("scan_epoch", True)):
+        test_avg, errors, meshes = trainer.evaluate_scanned(
+            test_loader, mean, std, collect_meshes=True)
+    else:
+        test_avg, errors, meshes = trainer.evaluate(test_loader, mean, std,
+                                                    collect_meshes=True)
     if vis and is_primary(trainer.dist):
         _save_sex_change_meshes(checkpoint_dir, n, test_ds, meshes, faces)
     log.print(

@@ -1,6 +1,6 @@
-"""Train and eval steps and the epoch loop (counterpart of
-meshvae_tpu/train/loop.py, eager; one process, or one rank of a ("dp",
-"sp") world).
+"""Train and eval steps, the per-step epoch loop and the scanned epoch
+(counterpart of meshvae_tpu/train/loop.py; one process, or one rank of a
+("dp", "sp") world).
 
   * one train step is forward, loss, backward, a torch.optim.Adam update
     with L2 added to the gradient before the moments (optax's
@@ -25,6 +25,21 @@ the dropout masks and the noise are drawn for the global batch and sliced
 one all-reduce and scaled by 1/sp (the sp ranks of a dp slice hold the
 same gradient), so every replica applies the same bits; the metrics, the
 eval sums and the eval outputs are summed or gathered over dp.
+
+The scanned epoch (the JAX package's ``scan_epoch``, ``lax.scan`` over a
+staged epoch): ``stage_batches`` uploads a loader's batches once as
+[S, B, ...] device tensors; ``train_epoch_scanned_async`` draws the
+epoch's permutation of the flat S * B sample grid on the device (padding
+samples ride along, as ``reshuffle_batches``), and each step gathers its
+rows through a device-side step index and writes its packed metrics into
+row i of an [S, 6] device tensor, pulled once per epoch (graphs.HostCopy)
+by ``finalize_train_metrics``; ``evaluate_scanned_async`` does the same for
+the eval step in three variants (light: the scalars only; errors; collect:
+the test path's meshes). On a card with one process the steps are CUDA
+graphs (train/graphs.py) replayed with no host work in between; on the CPU
+and in a world (whose collectives are not captured) the same step
+functions run eagerly. Adam on CUDA is capturable with a device-tensor lr
+(``make_optimizer``), which ``set_learning_rate`` fills in place.
 """
 from __future__ import annotations
 
@@ -37,6 +52,7 @@ from ..mesh.procrustes import apply_inverse_similarity
 from ..models.losses import vae_loss
 from ..models.vae import MeshVAE
 from ..parallel.sharding import fetch, replicate, shard_batch, shard_operators
+from .graphs import HostCopy, StepGraph, map_tensors
 
 # order of the packed per-step metrics returned by the train step
 METRIC_NAMES = ("loss", "kld", "rec_loss", "error", "correct", "count")
@@ -57,17 +73,128 @@ def lr_for_epoch(epoch: int, base_lr: float, learning_rates: list[float],
     return lr
 
 
+def reshuffle_batches(batches: dict, perm) -> dict:
+    """Re-draw a staged epoch's batch composition: flatten the [S, B]
+    sample grid, gather by perm, restack. Padding samples (mask 0) ride
+    along wherever they land. The scanned epoch does not build this
+    epoch: each step gathers its own row of it (Trainer._scan_batch), so
+    the staged data is held once."""
+    steps, bs = batches["mask"].shape[:2]
+
+    def gather(a):
+        flat = a.reshape((steps * bs,) + tuple(a.shape[2:]))
+        return flat.index_select(0, perm).reshape(
+            (steps, bs) + tuple(a.shape[2:]))
+
+    return {k: gather(v) for k, v in batches.items()}
+
+
+def stage_batch_arrays(loader, device, keys: tuple,
+                       with_index: bool = False):
+    """A loader's batches uploaded once as stacked [S, B, ...] tensors on
+    `device` (None for an empty loader): "label" as int64, the rest as
+    float32. "mask" is also kept on the host as the numpy "mask_host", and
+    with_index the dataset indices as a host "index" [S, B]."""
+    batch_list = list(loader)
+    if not batch_list:
+        return None
+    stacked = {k: np.stack([b[k] for b in batch_list]) for k in keys
+               if k in batch_list[0]}
+    staged = {k: torch.as_tensor(v).to(
+        device, torch.long if k == "label" else torch.float32)
+        for k, v in stacked.items()}
+    staged["mask_host"] = stacked["mask"]
+    if with_index:
+        staged["index"] = np.stack([b["index"] for b in batch_list])
+    return staged
+
+
+# param-group keys that follow the optimizer's device, never a saved state
+_DEVICE_POLICY = ("capturable", "foreach", "fused", "differentiable")
+
+
+def _merge_groups(optimizer, state_dict):
+    """load_state_dict pre-hook: each saved param group over this
+    optimizer's (a JAX checkpoint's group holds only lr), keeping this
+    optimizer's device policy (a checkpoint written on the card loads on
+    the CPU, and one from the CPU stays capturable on the card)."""
+    groups = []
+    for group, saved in zip(optimizer.param_groups,
+                            state_dict["param_groups"]):
+        fresh = {k: v for k, v in group.items() if k != "params"}
+        policy = {k: group[k] for k in _DEVICE_POLICY if k in group}
+        groups.append({**fresh, **saved, **policy})
+    return dict(state_dict, param_groups=groups)
+
+
+def _lr_to_device(optimizer) -> None:
+    """load_state_dict post-hook on CUDA: the loaded lr (a float or a
+    tensor) into a fresh 0-d tensor on the parameters' device."""
+    for group in optimizer.param_groups:
+        group["lr"] = torch.full((), float(group["lr"]),
+                                 device=group["params"][0].device)
+
+
 def make_optimizer(params, learning_rate: float,
                    weight_decay: float) -> torch.optim.Adam:
     """torch.optim.Adam: the same update as the JAX package's optax chain
-    add_decayed_weights(wd) -> scale_by_adam(0.9, 0.999, 1e-8) -> lr."""
-    return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
-                            eps=1e-8, weight_decay=weight_decay)
+    add_decayed_weights(wd) -> scale_by_adam(0.9, 0.999, 1e-8) -> lr.
+
+    On CUDA it is capturable (a CUDA graph can hold its step) and lr is a
+    0-d device tensor that set_learning_rate fills in place, so a captured
+    step reads each epoch's rate; a loaded state dict's lr (a float in the
+    checkpoints) goes into a new such tensor. On the CPU lr is a float."""
+    params = list(params)
+    if not params or params[0].device.type != "cuda":
+        opt = torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
+                               eps=1e-8, weight_decay=weight_decay)
+    else:
+        lr = torch.full((), float(learning_rate), device=params[0].device)
+        opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                               weight_decay=weight_decay, capturable=True)
+        opt.register_load_state_dict_post_hook(_lr_to_device)
+    opt.register_load_state_dict_pre_hook(_merge_groups)
+    return opt
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def _host(x) -> np.ndarray:
+    """A pulled array as numpy: HostCopy (waited for), tensor or array."""
+    if isinstance(x, HostCopy):
+        x = x.wait()
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+class _Scan:
+    """What the steps of one staged epoch read and write: the staged
+    [S, B, ...] tensors flattened to [S * B, ...], the epoch's sample
+    order ``perm`` [S * B] (step i takes rows perm[i * B:(i + 1) * B]),
+    the step index [1], the normalisation, the [S, ...] output rows
+    ``outs``, the step function and its graph (None when steps run
+    eagerly). Built once per staged epoch and kind of step."""
+
+    def __init__(self, staged: dict, outs: dict, device):
+        self.staged = staged
+        self.steps, self.batch = staged["mask"].shape[:2]
+        n = self.steps * self.batch
+        self.flat = {k: staged[k].reshape((n,) + tuple(staged[k].shape[2:]))
+                     for k in Trainer.BATCH_KEYS}
+        self.perm = torch.arange(n, device=device)
+        self.step = torch.zeros(1, dtype=torch.long, device=device)
+        self.norm = None
+        self.outs = outs
+        self.run = None
+        self.graph = None
+        self.generator = None
 
 
 class Trainer:
@@ -78,7 +205,10 @@ class Trainer:
     Randomness (dropout masks, the reparameterisation noise) comes from the
     torch.Generator the caller passes, which must live on the trainer's
     device. With ``dist`` (a parallel.World) the trainer runs on the
-    world's device and the operators are sharded for its sp group."""
+    world's device and the operators are sharded for its sp group.
+
+    ``graphs`` (True on a card in one process) makes the scanned epoch's
+    steps CUDA graphs; set it False to run the same steps eagerly."""
 
     BATCH_KEYS = ("x", "label", "r", "s", "m", "mask")
 
@@ -94,6 +224,37 @@ class Trainer:
         self.optimizer = make_optimizer(self.model.parameters(),
                                         float(config["learning_rate"]),
                                         float(config["weight_decay"]))
+        self.graphs = self.device.type == "cuda" and (dist is None
+                                                     or dist.size == 1)
+        self._scans: dict[str, _Scan] = {}
+
+    def step_mode(self) -> str:
+        """How the scanned epoch runs its steps, for the run log."""
+        if self.graphs:
+            return "CUDA graphs of the train and eval steps"
+        if self.dist is not None and self.dist.size > 1:
+            return ("eager steps: a world's collectives are not captured "
+                    "in CUDA graphs")
+        return f"eager steps on {self.device}"
+
+    def reset_optimizer(self, state: dict | None = None) -> None:
+        """A fresh Adam over the model's parameters at the config's lr and
+        decay, loaded from `state` when given (make_optimizer's hooks:
+        missing group keys keep the fresh values, lr may be a float)."""
+        self.optimizer = make_optimizer(self.model.parameters(),
+                                        float(self.config["learning_rate"]),
+                                        float(self.config["weight_decay"]))
+        if state is not None:
+            self.optimizer.load_state_dict(state)
+
+    def snapshot(self) -> dict:
+        """On-device copy of the model's and Adam's state, {"model":
+        state_dict, "optimizer": Adam state dict}: the epoch pipeline
+        checkpoints from it one epoch late, after the next epoch's steps
+        have updated the live tensors in place."""
+        clone = lambda t: t.detach().clone()
+        return {"model": map_tensors(clone, self.model.state_dict()),
+                "optimizer": map_tensors(clone, self.optimizer.state_dict())}
 
     def init_params(self, seed: int) -> dict:
         """Fresh weights drawn from `seed` (the MeshVAE init
@@ -102,9 +263,9 @@ class Trainer:
                         generator=torch.Generator().manual_seed(seed))
         self.model.load_state_dict(fresh.state_dict())
         replicate(self.model.state_dict().values(), self.dist)
-        self.optimizer = make_optimizer(self.model.parameters(),
-                                        self.optimizer.param_groups[0]["lr"],
-                                        float(self.config["weight_decay"]))
+        lr = float(self.optimizer.param_groups[0]["lr"])
+        self.reset_optimizer()
+        set_learning_rate(self.optimizer, lr)
         return self.model.state_dict()
 
     def to_device(self, batch: dict) -> dict:
@@ -309,3 +470,250 @@ class Trainer:
                       for k, v in meshes.items()}
             return avg, errors, meshes
         return avg, errors
+
+    # ------------------------------------------------------------------
+    # The scanned epoch (module docstring).
+    def stage_batches(self, loader, with_index: bool = False):
+        """Upload a whole epoch of batches once as stacked [S, B, ...]
+        device tensors (None for an empty loader), to pass to
+        train_epoch_scanned / evaluate_scanned in place of the loader:
+        later epochs reshuffle on the device instead of shipping the data
+        again. with_index also keeps the dataset indices as a host "index"
+        [S, B] (evaluate_scanned's mesh collection names files with them).
+        "original" is not staged: _pose_error recomputes it from x. In a
+        world every rank stages the whole grid, as the permutation moves
+        samples between dp slices; each step takes its rank's rows."""
+        return stage_batch_arrays(loader, self.device, self.BATCH_KEYS,
+                                  with_index=with_index)
+
+    def _scan_outs(self, kind: str, staged: dict) -> dict:
+        """The [S, ...] rows a kind of step writes (this rank's rows of
+        each batch in a world)."""
+        s, b = staged["mask"].shape[:2]
+        dev = self.device
+        if kind == "train":
+            return {"metrics": torch.zeros((s, len(METRIC_NAMES)),
+                                           device=dev)}
+        b //= self.dist.dp if self.dist is not None else 1
+        n = staged["x"].shape[2]
+        outs = {"scalars": torch.zeros((s, 7), device=dev)}
+        if kind in ("errors", "collect"):
+            outs["errors"] = torch.zeros((s, b, n), device=dev)
+        if kind == "collect":
+            for k in ("recon_orig", "oppo_orig"):
+                outs[k] = torch.zeros((s, b, n, 3), device=dev)
+            for k in ("oppo_pred", "oppo_label"):
+                outs[k] = torch.zeros((s, b), dtype=torch.long, device=dev)
+        return outs
+
+    def _scan_batch(self, st: _Scan) -> dict:
+        """Step st.step's batch: rows perm[i * B:(i + 1) * B] of the flat
+        sample grid (the rank's dp rows of them in a world), gathered on
+        the device."""
+        idx = st.perm.view(st.steps, st.batch).index_select(0, st.step)[0]
+        if self.dist is not None and self.dist.dp > 1:
+            b = st.batch // self.dist.dp
+            idx = idx[self.dist.dp_rank * b:(self.dist.dp_rank + 1) * b]
+        return {k: v.index_select(0, idx) for k, v in st.flat.items()}
+
+    def _scan_train_step(self, st: _Scan, generator) -> None:
+        packed = self.train_step(self._scan_batch(st), generator, *st.norm)
+        st.outs["metrics"].index_copy_(0, st.step, packed[None])
+        st.step.add_(1)
+
+    def _scan_eval_step(self, st: _Scan) -> None:
+        out = self.eval_step(self._scan_batch(st), *st.norm)
+        for k, rows in st.outs.items():
+            rows.index_copy_(0, st.step, out[k][None])
+        st.step.add_(1)
+
+    def _train_deps(self) -> list:
+        """What a captured train step is bound to: the parameters, the
+        optimizer, its lr tensors and its state tensors."""
+        opt = self.optimizer
+        deps = [opt, *self.model.parameters()]
+        deps += [g["lr"] for g in opt.param_groups]
+        for state in opt.state.values():
+            deps += list(state.values())
+        return deps
+
+    def _scan_state(self, kind: str, staged: dict, norm_mean, norm_std,
+                    generator=None) -> _Scan:
+        """The _Scan of `staged` for a kind of step ("train", "light",
+        "errors", "collect"), built at a new staged epoch; the
+        normalisation is copied into its own tensors; with ``graphs`` its
+        StepGraph, rebuilt for another generator and checked against its
+        dependencies (train/graphs.py)."""
+        st = self._scans.get(kind)
+        if st is None or st.staged is not staged:
+            st = _Scan(staged, self._scan_outs(kind, staged), self.device)
+            self._scans[kind] = st
+        mean, std = self.norm_to_device(norm_mean, norm_std)
+        if st.norm is None:
+            st.norm = (mean.clone(), std.clone())
+        else:
+            st.norm[0].copy_(mean)
+            st.norm[1].copy_(std)
+        if st.run is None or st.generator is not generator:
+            st.generator = generator
+            st.graph = None
+            if kind == "train":
+                st.run = lambda: self._scan_train_step(st, generator)
+            else:
+                st.run = lambda: self._scan_eval_step(st)
+        if self.graphs and st.graph is None:
+            deps = (self._train_deps if kind == "train"
+                    else lambda: list(self.model.parameters()))
+            st.graph = StepGraph(st.run, deps, generator,
+                                 name=f"{kind} step")
+        elif self.graphs:
+            st.graph.check()
+        return st
+
+    def _run_scan(self, st: _Scan) -> None:
+        """The epoch's steps: replays of the graph (eager calls with
+        ``graphs`` off; a graph already captured is kept for later), with
+        no host work in between."""
+        st.step.zero_()
+        step = st.graph if self.graphs else st.run
+        for _ in range(st.steps):
+            step()
+
+    def train_epoch_scanned_async(self, staged, generator, norm_mean,
+                                  norm_std, shuffle_generator=None,
+                                  perm=None):
+        """Run one scanned train epoch over `staged` (a stage_batches dict,
+        or a loader staged here) without waiting for it: returns the [S, 6]
+        per-step metrics as an in-flight HostCopy (None for an empty epoch)
+        for finalize_train_metrics, so the next epoch can be queued before
+        this one is read (the epoch pipeline, train/driver.py). The
+        epoch's order of the S * B samples is a permutation drawn on the
+        device from shuffle_generator (identity without it); `perm` gives
+        it explicitly."""
+        if staged is not None and not isinstance(staged, dict):
+            staged = self.stage_batches(staged)
+        if staged is None:
+            return None
+        st = self._scan_state("train", staged, norm_mean, norm_std,
+                              generator)
+        n = st.steps * st.batch
+        if perm is not None:
+            st.perm.copy_(torch.as_tensor(np.asarray(perm), dtype=torch.long))
+        elif shuffle_generator is not None:
+            torch.randperm(n, generator=shuffle_generator, out=st.perm)
+        else:
+            torch.arange(n, out=st.perm)
+        self._run_scan(st)
+        return HostCopy(st.outs["metrics"])
+
+    @staticmethod
+    def finalize_train_metrics(packed) -> dict:
+        """Read and reduce a scanned epoch's [S, 6] metrics (its one
+        device-to-host pull): count-weighted means of loss, kld, rec_loss
+        and error, accuracy = correct / count."""
+        if packed is None:
+            return {"loss": 0.0, "kld": 0.0, "rec_loss": 0.0, "error": 0.0,
+                    "accuracy": 0.0, "count": 0.0}
+        arr = _host(packed).astype(np.float64)
+        metrics = {k: arr[:, i] for i, k in enumerate(METRIC_NAMES)}
+        counts = metrics["count"]
+        total = float(counts.sum())
+        avg = {k: float((metrics[k] * counts).sum()) / max(total, 1.0)
+               for k in ("loss", "kld", "rec_loss", "error")}
+        avg["accuracy"] = float(metrics["correct"].sum()) / max(total, 1.0)
+        avg["count"] = total
+        return avg
+
+    def train_epoch_scanned(self, staged, generator, norm_mean, norm_std,
+                            shuffle_generator=None, perm=None) -> dict:
+        """train_epoch over a staged epoch, read back at once: the same
+        math and averages."""
+        return self.finalize_train_metrics(self.train_epoch_scanned_async(
+            staged, generator, norm_mean, norm_std,
+            shuffle_generator=shuffle_generator, perm=perm))
+
+    def evaluate_scanned_async(self, staged, norm_mean, norm_std,
+                               collect_meshes: bool = False,
+                               with_errors: bool = True):
+        """Run the eval steps over `staged` (or a loader, staged here with
+        its indices when collecting) without waiting; returns what
+        finalize_eval_scanned reads (None for an empty split).
+        with_errors=False runs the light variant, which writes no [S, B, N]
+        error rows (finalize it with with_errors=False too)."""
+        if staged is not None and not isinstance(staged, dict):
+            staged = self.stage_batches(staged, with_index=collect_meshes)
+        if staged is None:
+            return None
+        index = staged.get("index")
+        if collect_meshes and index is None:
+            raise ValueError("collect_meshes needs a loader or a dict from "
+                             "stage_batches(..., with_index=True)")
+        kind = ("collect" if collect_meshes else "errors" if with_errors
+                else "light")
+        st = self._scan_state(kind, staged, norm_mean, norm_std)
+        self._run_scan(st)
+        outs = st.outs
+        if self.dist is not None and self.dist.dp > 1:
+            outs = {k: v if k == "scalars"
+                    else self.dist.dp_group.all_gather(v, dim=1)
+                    for k, v in outs.items()}
+        return {"outs": HostCopy(outs), "index": index,
+                "collect": collect_meshes, "mask_host": staged["mask_host"]}
+
+    _EVAL_EMPTY = {"loss": 0.0, "kld": 0.0, "rec_loss": 0.0, "error": 0.0,
+                   "accuracy": 0.0, "sex_change_success_rate": 0.0,
+                   "count": 0.0}
+
+    def finalize_eval_scanned(self, pending, with_errors: bool = True):
+        """Read and reduce a scanned evaluation: the averages of evaluate()
+        and, with_errors, the [valid, N] per-vertex errors (and with
+        collection the meshes, as evaluate(collect_meshes=True))."""
+        if pending is None:
+            avg = dict(self._EVAL_EMPTY)
+            return (avg, np.zeros((0, 1))) if with_errors else (avg, None)
+        outs = pending["outs"].wait()
+        if with_errors and "errors" not in outs:
+            raise ValueError(
+                "eval scan was dispatched with with_errors=False (light "
+                "variant): per-vertex errors were never materialized")
+        sc = _host(outs["scalars"]).astype(np.float64)         # [S, 7]
+        counts = sc[:, 4]
+        total = float(counts.sum())
+        avg = {
+            "loss": float((sc[:, 0] * counts).sum()) / max(total, 1.0),
+            "kld": float((sc[:, 1] * counts).sum()) / max(total, 1.0),
+            "rec_loss": float((sc[:, 2] * counts).sum()) / max(total, 1.0),
+            "accuracy": float(sc[:, 3].sum()) / max(total, 1.0),
+            "sex_change_success_rate": float(sc[:, 5].sum()) / max(total,
+                                                                    1.0),
+            "error": float(sc[:, 6].sum()) / max(total, 1.0),
+            "count": total,
+        }
+        if not with_errors and not pending["collect"]:
+            return avg, None
+        mask = np.asarray(pending["mask_host"]) > 0              # [S, B]
+        errors = _host(outs["errors"])[mask]                     # [valid, N]
+        if pending["collect"]:
+            meshes = {
+                "recon": _host(outs["recon_orig"])[mask],
+                "oppo": _host(outs["oppo_orig"])[mask],
+                "oppo_pred": _host(outs["oppo_pred"])[mask],
+                "oppo_label": _host(outs["oppo_label"])[mask],
+                "index": np.asarray(pending["index"])[mask],
+            }
+            return avg, errors, meshes
+        return avg, errors
+
+    def evaluate_scanned(self, staged, norm_mean, norm_std,
+                         collect_meshes: bool = False):
+        """evaluate() over a staged split (or a loader), run at once and
+        read back: the averages, the errors and, with collect_meshes, the
+        meshes."""
+        pending = self.evaluate_scanned_async(staged, norm_mean, norm_std,
+                                              collect_meshes=collect_meshes)
+        result = self.finalize_eval_scanned(pending, with_errors=True)
+        if collect_meshes and pending is None:
+            return result + ({k: np.zeros((0,)) for k in
+                              ("recon", "oppo", "oppo_pred", "oppo_label",
+                               "index")},)
+        return result

@@ -186,8 +186,10 @@ def test_resume_restarts_after_the_checkpoint_epoch(env, trained):
 def test_nonfinite_loss_halts_with_checkpoint_hint(env, monkeypatch):
     """A non-finite train loss at epoch 2 stops the run, names the best
     checkpoint so far (epoch 1's), and keeps the failing epoch in the
-    history."""
-    config = _ckpt_config(env, "nan")
+    history. This is the per-step loop's halt (scan_epoch = False, whose
+    train_epoch is poisoned); tests/test_torch_scan.py holds the scanned,
+    pipelined one."""
+    config = dict(_ckpt_config(env, "nan"), scan_epoch=False)
     real = Trainer.train_epoch
     epochs = []
 

@@ -245,6 +245,40 @@ Phases, one block of output lines each; any failed check exits non-zero:
             triples, epoch 2's trace holding bsr_grouped_spmm, and the log
             line naming the graphs.
 
+16. classifiers  the two classifier pipelines at config-1 width on the
+            block-sparse path at high (BASELINE configs 2 and 3):
+            a. crecon: train/crecon_driver.run() (python -m
+               meshvae_tpu_torch.crecon's body) with files/crecon.cfg on
+               phase 6's 40 meshes, phase 15's default.cfg fold-1
+               checkpoint as the frozen VAE, 5 folds x 2 epochs, train and
+               test, the counts reset just before and read just after: 35
+               launches per train step (30 forward: the VAE's encode at B
+               and decode at 2B, the GCN's two block-sparse convs; cheb_1's
+               dx) and 30 per eval step; the log line naming the CUDA
+               graphs; five test results; every fold's checkpoint reloads;
+            b. the joint model: train/driver.run() with files/joint.cfg, 2
+               folds x 2 epochs, train, test and -v: 55 Laplacian launches
+               per train step (30 forward, 25 backward: all convs but
+               enc_0) + 3 P^T at 2B width, 50 per eval step (with the
+               counterfactual); sup_accuracy and adv_accuracy in every
+               history epoch and test result;
+            c. bsr_grouped_spmm against its twin at every (mode, operator,
+               C, call kind) that a, b and d launched (LAUNCHES_BY_CALL) and
+               phase 3 did not (GCN cheb_0's dx at C = 128, the 2B
+               decoder's backward at C = 512, P^T at C = 512 and 1024; in
+               fp32 too), 1e-5 of max|y|; and one deterministic crecon and
+               joint train step
+               (no dropout, z = mu) on the card and on the CPU from the
+               same weights at high and highest: loss within 1e-5
+               relative, every gradient within 1e-3 / 1e-4 of its layer's
+               max|g|;
+            d. per-step times of the crecon and joint train steps at high
+               and highest over a staged epoch of 4 (CUDA events, eager,
+               graphed, graphed, eager), meshes/sec, device busy and idle
+               share, the calls per replayed step equal to CRECON_CALLS /
+               JOINT_CALLS, and those calls' kernel, twin, torch.sparse and
+               bound sums per step.
+
 Phase 3 also holds the bf16 mode on the card at every 80k Laplacian (its C
 values, alpha 1 and 2, no seed, t_prev, t_plus, both) and the four P^T:
 max |kernel - twin| <= 2^-8 max |twin| (one bf16 ulp: both round once),
@@ -271,8 +305,11 @@ per sp=2 80k train step on rank 0's shards, with its shard shapes), with
 the launches of the main-path runs (each probe run's for #10; the sp=2
 world's per rank for _mapped_product), and the train-step calls of phase
 15's graphed epochs (config-1 Laplacian in both modes, the 20k lazy seed,
-the 80k Laplacian: launches counted per replay, times as measured above).
-The last line is {"ok": true, ...}.
+the 80k Laplacian: launches counted per replay, times as measured above),
+and phase 16's crecon and joint train steps (the Laplacian calls in both
+modes, the joint model's P^T of up-pools 0-1 and 2 at 2B width: launches
+of the run()s at high, of a counted replayed epoch at highest). The last
+line is {"ok": true, ...}.
 """
 import dataclasses
 import json
@@ -892,13 +929,11 @@ def _profile(torch, fn, label, step_ms, n=5, batch=BATCH):
     return busy
 
 
-def phase_times(torch, servers, ops, hier, dev, host):
-    """Per-call times at every shape and call kind of the serving step and
-    the train step, summed per step; the serving step itself."""
-    say("== phase 5: times (median of %d, CUDA events)" % RUNS)
+def _operands(torch, ops, hier, dev) -> dict:
+    """Config 1's block-sparse operators by name (L0, L1 and the P^T of
+    up-pools 0-2, P0T-P2T), each with its torch.sparse CSR form."""
     from meshvae_tpu_torch.ops.graph import normalized_neg_adjacency
 
-    gen = torch.Generator(device=dev).manual_seed(1)
     operands = {}
     for i in (0, 1):
         bsr = ops.lap[i].bsr
@@ -908,6 +943,15 @@ def phase_times(torch, servers, ops, hier, dev, host):
         bsr = ops.up[i].t_bsr
         operands[f"P{i}T"] = (bsr, _csr(torch, hier.upsample[i].T,
                                         bsr.n_pad, bsr.n_pad_cols, dev))
+    return operands
+
+
+def phase_times(torch, servers, ops, hier, dev, host):
+    """Per-call times at every shape and call kind of the serving step and
+    the train step, summed per step; the serving step itself."""
+    say("== phase 5: times (median of %d, CUDA events)" % RUNS)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    operands = _operands(torch, ops, hier, dev)
     rows = []
     say("serving step, per call:")
     per_step = {f"serve_{m}": acc for m, acc in _per_step(
@@ -1496,12 +1540,13 @@ def phase_scaled80k(torch, dev, s80, tmp):
     return per_step, counts
 
 
-def _run_driver(torch, config, dev, vis=False):
-    """train/driver.run(config) with train and test, the launch counts
-    reset just before and read just after, and the train and eval steps
-    counted (the per-step loop's calls; a scanned epoch's steps, replays
-    included, by staged epoch). Returns (results, seconds, steps,
-    launches, lazy-seed launches, launches by shape)."""
+def _run_driver(torch, config, dev, vis=False, run=None):
+    """train/driver.run(config) with train and test (or run(), another
+    entry point's), the launch counts reset just before and read just
+    after, and the train and eval steps counted (the per-step loop's
+    calls; a scanned epoch's steps, replays included, by staged epoch).
+    Returns (results, seconds, steps, launches, lazy-seed launches,
+    launches by shape)."""
     from meshvae_tpu_torch.ops import bsr_spmm
     from meshvae_tpu_torch.train import Trainer
     from meshvae_tpu_torch.train import driver
@@ -1529,8 +1574,8 @@ def _run_driver(torch, config, dev, vis=False):
         # --- the main path: counts reset just before, read just after ----
         bsr_spmm.reset_launches()
         t0 = time.perf_counter()
-        results = driver.run(config, do_train=True, do_test=True, vis=vis,
-                             device=dev)
+        results = (run() if run is not None else driver.run(
+            config, do_train=True, do_test=True, vis=vis, device=dev))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = dict(bsr_spmm.LAUNCHES)
@@ -3588,6 +3633,371 @@ def phase_scan(torch, dev, models, ops, hier, s20, s80, tmp):
     return reports, default_launches
 
 
+# --- phase 16: the classifier pipelines --------------------------------------
+CLASSIFIER_EPOCHS = 2
+CRECON_FOLDS = 5        # crecon's run() runs five whatever `folds` says
+JOINT_FOLDS = 2
+# calls per step at config 1 (K = 6), as TRAIN_CALLS. crecon: the frozen
+# VAE's enc_0 (L0, F 3 -> C 128) and enc_1 (L1, C 256) at B, its dec_2 and
+# dec_3 at 2B (C 512), the GCN's cheb_0 (L0, F 6 -> f_pad 8, C 128) and
+# cheb_1 (L1, C 256), and only cheb_1's dx backward (the GCN's input is a
+# constant). The joint model: the same forward, the backward of every
+# conv but enc_0 (cheb_0's dx too), and the P^T of up-pools 0-2 at 2B
+# width (C 512, 512, 1024).
+_FWD = {"a1": 1, "a2 prev": 4}
+_twice = lambda kinds: {k: 2 * v for k, v in kinds.items()}
+CRECON_CALLS = {
+    "lap": [("enc_0+cheb_0 L0", "L0", 128, _twice(_FWD)),
+            ("enc_1+cheb_1 L1", "L1", 256, {**_twice(_FWD), **_BWD}),
+            ("2B dec_2 L1", "L1", 512, _FWD),
+            ("2B dec_3 L0", "L0", 512, _FWD)]}
+JOINT_CALLS = {
+    "lap": [("enc_0+cheb_0 L0", "L0", 128, {**_twice(_FWD), **_BWD}),
+            ("enc_1+cheb_1 L1", "L1", 256, _twice({**_FWD, **_BWD})),
+            ("2B dec_2 L1", "L1", 512, {**_FWD, **_BWD}),
+            ("2B dec_3 L0", "L0", 512, {**_FWD, **_BWD})],
+    "pool_colmajor": [("up-pool 0 P^T at 2B", "P0T", 512, {"a1": 1}),
+                      ("up-pool 1 P^T at 2B", "P1T", 512, {"a1": 1})],
+    "pool_grouped": [("up-pool 2 P^T at 2B", "P2T", 1024, {"a1": 1})]}
+CRECON_EVAL_LAUNCHES = 30   # the train step's forward
+JOINT_EVAL_LAUNCHES = 50    # forward + the counterfactual's decode, encode
+
+
+def _table_counts(calls: dict) -> dict:
+    """{(operand, C, kind): calls per step} of a CALLS table."""
+    out = {}
+    for table in calls.values():
+        for _, key, c, kinds in table:
+            for kind, n in kinds.items():
+                out[(key, c, kind)] = out.get((key, c, kind), 0) + n
+    return out
+
+
+def _launch_table(by_call: dict, names: dict, steps: int) -> dict:
+    """LAUNCHES_BY_CALL of `steps` steps as {(operand, C, kind): calls per
+    step}, the operand named by its (n_pad, n_pad_cols)."""
+    return {(names[(n, m)], c, kind): count / steps
+            for (_, n, m, c, kind), count in by_call.items()}
+
+
+def _classifier_configs(tmp):
+    """files/crecon.cfg and files/joint.cfg with overrides for paths,
+    folds, epochs and the block-sparse path at high; crecon's frozen VAE
+    is phase 15's default.cfg run() fold-1 checkpoint (config-1 width,
+    trained on phase 6's meshes)."""
+    from meshvae_tpu_torch.config import read_config
+
+    out = {}
+    for name, extra in (
+            ("crecon", {"checkpoint_file": os.path.join(
+                tmp, "ckpt_default", "checkpoint_1.pt")}),
+            ("joint", {"folds": JOINT_FOLDS})):
+        config = read_config(os.path.join(ROOT, "files", f"{name}.cfg"))
+        ckpt = os.path.join(tmp, f"ckpt_{name}")
+        config.update({
+            "template": os.path.join(ROOT, "template", "template5k.obj"),
+            "root_dir": os.path.join(tmp, "train_data"),
+            "checkpoint_dir": ckpt, "log_file": os.path.join(ckpt, "log.txt"),
+            "hierarchy_cache_dir": os.path.join(tmp, "cache"),
+            "epoch": CLASSIFIER_EPOCHS, "cheb_method": "pallas",
+            "matmul_precision": "high", **extra})
+        out[name] = config
+    return out
+
+
+def _hold_launches(label, launches, steps, per_train, per_eval, pool=0):
+    """A main-path run's launches against its per-step counts: at high the
+    Laplacian calls are bf16x3 and the P^T fp32."""
+    want = {"fp32": pool * steps["train"], "bf16": 0,
+            "bf16x3": per_train * steps["train"] + per_eval * steps["eval"]}
+    say(f"  {label} launches {launches} over {steps} steps (expected "
+        f"{want}: {per_train} Laplacian + {pool} P^T per train step, "
+        f"{per_eval} per eval step)")
+    if steps["train"] < 1 or launches != want:
+        fail(f"{label}: launched {launches}, expected {want} ({steps})")
+
+
+def _card_vs_cpu(torch, label, make, batch_of, bar):
+    """One deterministic train step (no dropout, z = mu) on the card and on
+    the CPU from the same weights: loss within 1e-5 relative, every
+    gradient within `bar` of its layer's max|g|. make(side) -> trainer;
+    batch_of(trainer) -> (args of its train_step)."""
+    loss, grads = {}, {}
+    for side in ("cuda", "cpu"):
+        tr = make(side)
+        loss[side] = tr.train_step(*batch_of(tr))[0].item()
+        grads[side] = {k: v.grad.cpu()
+                       for k, v in tr.model.named_parameters()}
+    rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    worst = max((grads["cuda"][k] - g).abs().max().item()
+                / _layer_scale(grads["cpu"], k)
+                for k, g in grads["cpu"].items())
+    say(f"  card vs cpu train step [{label}]: loss {loss['cuda']:.6f} rel "
+        f"{rel:.2e} (bar 1e-5); worst gradient delta {worst:.2e} of its "
+        f"layer's max|g| (bar {bar:g}) over {len(grads['cpu'])} tensors")
+    if not (rel <= 1e-5 and worst <= bar):
+        fail(f"card and CPU train steps disagree: {label}")
+
+
+def _classifier_times(torch, label, trainer, staged, args, card):
+    """Per-step time of a train epoch of SCAN_STEPS: a first epoch warms
+    up and captures, one more counts the launches per replayed step; then
+    CUDA events in turns eager, graphed, graphed, eager and the profiler's
+    device busy time and idle share. Returns (report, LAUNCHES,
+    LAUNCHES_BY_CALL) of the counted epoch."""
+    from meshvae_tpu_torch.ops import bsr_spmm
+
+    shuffle = torch.Generator(device=trainer.device).manual_seed(9)
+    run = lambda: trainer.train_epoch_scanned_async(
+        staged, *args, shuffle_generator=shuffle)
+    trainer.graphs = True
+    run()  # warm-up, capture and replays
+    torch.cuda.synchronize()
+    bsr_spmm.reset_launches()
+    run()
+    torch.cuda.synchronize()
+    counts = (dict(bsr_spmm.LAUNCHES), dict(bsr_spmm.LAUNCHES_BY_CALL))
+    times = {}
+    for graphs in (False, True, True, False):
+        trainer.graphs = graphs
+        times.setdefault(graphs, []).append(
+            _epoch_ms(torch, run, SCAN_STEPS)[0])
+    prof = {}
+    for graphs in (False, True):
+        trainer.graphs = graphs
+        prof[graphs] = _epoch_profile(torch, run, SCAN_STEPS)
+    trainer.graphs = True
+    report = {"case": label}
+    for graphs, name in ((False, "eager"), (True, "graphed")):
+        busy = prof[graphs]["busy_ms"]
+        report[name] = {"step_ms": times[graphs], "busy_ms": busy,
+                        "idle": [1 - busy / m for m in times[graphs]],
+                        "meshes_per_s": [BATCH / m * 1e3
+                                         for m in times[graphs]]}
+    e, g = report["eager"], report["graphed"]
+    say(f"  times [{label}] per step of an epoch of {SCAN_STEPS}, A B B A: "
+        f"eager {e['step_ms'][0]:.3f} / {e['step_ms'][1]:.3f} ms, graphed "
+        f"{g['step_ms'][0]:.3f} / {g['step_ms'][1]:.3f} ms "
+        f"({g['meshes_per_s'][0]:.1f} meshes/sec at B={BATCH}); device busy "
+        f"{e['busy_ms']:.3f} / {g['busy_ms']:.3f} ms, idle share "
+        f"{e['idle'][0]:.2f} / {g['idle'][0]:.2f} ({card})")
+    return report, counts
+
+
+def phase_classifiers(torch, dev, ops, hier, tmpl, tmp, covered, card):
+    """Phase 16: crecon and the joint model at config-1 width on the
+    block-sparse path (module docstring). Returns the launches, per-step
+    kernel sums and worst kernel-vs-twin errors of its kernel-line
+    entries."""
+    say("== phase 16: classifiers (crecon and the joint VAE + GCN at "
+        "config-1 width, cheb_method pallas)")
+    import numpy as np
+
+    from meshvae_tpu_torch.data import MeshDataset, list_meshes
+    from meshvae_tpu_torch.models import (ChebGCN, GCNConfig, MeshVAE,
+                                          VAEConfig, build_operators)
+    from meshvae_tpu_torch.models.joint import build_joint_model
+    from meshvae_tpu_torch.ops import bsr_spmm
+    from meshvae_tpu_torch.train import JointTrainer
+    from meshvae_tpu_torch.train import crecon_driver
+    from meshvae_tpu_torch.train.checkpoint import (checkpoint_path,
+                                                    load_checkpoint)
+    from meshvae_tpu_torch.train.crecon_driver import CreconTrainer
+
+    configs = _classifier_configs(tmp)
+    operands = {"L0": ops.lap[0].bsr, "L1": ops.lap[1].bsr,
+                **{f"P{i}T": ops.up[i].t_bsr for i in (0, 1, 2)}}
+    names = {(b.n_pad, b.n_pad_cols): k for k, b in operands.items()}
+    launched = {}
+
+    # --- (a) crecon through crecon_driver.run(): the main path ----------
+    c = configs["crecon"]
+    results, secs, steps, launches, _, _ = _run_driver(
+        torch, c, dev, run=lambda: crecon_driver.run(
+            c, do_train=True, do_test=True, device=dev))
+    launched.update(dict.fromkeys(bsr_spmm.LAUNCHES_BY_CALL))
+    say(f"crecon run(): {secs:.1f}s, {CRECON_FOLDS} folds x "
+        f"{CLASSIFIER_EPOCHS} epochs on {TRAIN_MESHES} meshes, frozen VAE "
+        f"{os.path.relpath(c['checkpoint_file'], tmp)}")
+    _hold_launches("crecon run()", launches, steps,
+                   sum(_table_counts(CRECON_CALLS).values()),
+                   CRECON_EVAL_LAUNCHES)
+    crecon_launches = launches["bf16x3"]
+    with open(c["log_file"]) as fp:
+        mode = [l.strip() for l in fp if l.startswith("epochs:")]
+    if not mode or "CUDA graphs" not in mode[0]:
+        fail(f"crecon run() did not run its steps as CUDA graphs: {mode}")
+    if len(results) != CRECON_FOLDS or not all(
+            np.isfinite(r["test_loss"]) and 0.0 <= r["test_acc"] <= 1.0
+            for r in results):
+        fail(f"crecon test results {results}")
+    vae = MeshVAE(VAEConfig.from_config(c, coarse_verts=hier.levels[-1]))
+    vae.load_state_dict(load_checkpoint(c["checkpoint_file"])["model"])
+    gcn_cfg = GCNConfig.from_config(c, coarse_verts=hier.levels[-1])
+    for n in range(1, CRECON_FOLDS + 1):
+        ChebGCN(gcn_cfg).load_state_dict(load_checkpoint(checkpoint_path(
+            c["checkpoint_dir"], n))["model"])
+    say(f"  {mode[0]}; test " + "; ".join(
+        f"fold {r['fold']} loss {r['test_loss']:.4f} acc {r['test_acc']:.3f}"
+        for r in results) + f"; checkpoint_1-{CRECON_FOLDS}.pt reload")
+
+    # --- (b) the joint model through train/driver.run() -----------------
+    j = configs["joint"]
+    results, secs, steps, launches, _, by_shape = _run_driver(
+        torch, j, dev, vis=True)
+    launched.update(dict.fromkeys(bsr_spmm.LAUNCHES_BY_CALL))
+    _hold_launches("joint run()", launches, steps,
+                   sum(v for (key, _, _), v in
+                       _table_counts(JOINT_CALLS).items()
+                       if key.startswith("L")), JOINT_EVAL_LAUNCHES,
+                   pool=len(JOINT_CALLS["pool_colmajor"])
+                   + len(JOINT_CALLS["pool_grouped"]))
+    joint_launches = {"lap": launches["bf16x3"], "pool": {
+        names[(n, m)]: v for (_, n, m), v in by_shape.items()
+        if names.get((n, m), "").startswith("P")}}
+    for fold in range(1, JOINT_FOLDS + 1):
+        with open(os.path.join(j["checkpoint_dir"],
+                               f"history{fold}.json")) as fp:
+            hist = json.load(fp)
+        rates = [(h["validation"].get("sup_accuracy"),
+                  h["validation"].get("adv_accuracy")) for h in hist]
+        if [h["epoch"] for h in hist] != [1, 2] or not all(
+                a is not None and b is not None and 0 <= a <= 1
+                and 0 <= b <= 1 for a, b in rates):
+            fail(f"joint history{fold}.json lacks the extra scalars: "
+                 f"{rates}")
+    for r in results:
+        if not all(np.isfinite(v) for v in r.values()):
+            fail(f"joint test averages {r}")
+    triples = sum(len(os.listdir(path)) for path in (
+        os.path.join(j["checkpoint_dir"], f"mesh{fold}", d)
+        for fold in range(1, JOINT_FOLDS + 1)
+        for d in ("sex_change_S", "sex_change_F")) if os.path.isdir(path))
+    if triples != 3 * TRAIN_MESHES:  # -v: each mesh is tested in one fold
+        fail(f"joint run() wrote {triples} .obj files, expected "
+             f"{3 * TRAIN_MESHES}")
+    say("  joint test: " + "; ".join(
+        f"fold {r['fold']} loss {r['loss']:.1f} acc {r['accuracy']:.3f} sup "
+        f"{r['sup_accuracy']:.3f} adv {r['adv_accuracy']:.3f} sex change "
+        f"{r['sex_change_success_rate']:.3f}" for r in results)
+        + f"; history sup/adv accuracy per epoch {rates}")
+
+    # --- card vs CPU: one deterministic train step each ------------------
+    ops_cpu = build_operators(hier, "cpu", cheb_method="pallas")
+    index, labels = list_meshes({"root_dir": c["root_dir"]})
+    ds = MeshDataset(index, {"root_dir": c["root_dir"],
+                             "checkpoint_dir": os.path.join(tmp, "norm16")},
+                     labels, tmpl.v)
+    host = _scan_batches(ds, BATCH, seed=16)
+    fixed = host[0]
+    vae_state = vae.state_dict()
+    gcn_state = ChebGCN(gcn_cfg, generator=torch.Generator().manual_seed(
+        16)).state_dict()
+    joint_state = build_joint_model(
+        j, hier.levels[-1], generator=torch.Generator().manual_seed(
+            17)).state_dict()
+
+    def crecon_trainer(side, precision):
+        cfg = dict(c, matmul_precision=precision)
+        v = MeshVAE(dataclasses.replace(vae.cfg, precision=precision))
+        v.load_state_dict(vae_state)
+        g = ChebGCN(dataclasses.replace(gcn_cfg, precision=precision))
+        g.load_state_dict(gcn_state)
+        return CreconTrainer(g, v, ops if side == "cuda" else ops_cpu, cfg,
+                             device=dev if side == "cuda" else "cpu")
+
+    def joint_trainer(side, precision):
+        cfg = dict(j, matmul_precision=precision)
+        m = build_joint_model(cfg, hier.levels[-1])
+        m.load_state_dict(joint_state)
+        return JointTrainer(m, ops if side == "cuda" else ops_cpu, cfg,
+                            device=dev if side == "cuda" else "cpu")
+
+    def joint_args(tr):
+        return (tr.to_device(fixed), None,
+                *tr.norm_to_device(ds.mean, ds.std))
+
+    for precision, bar in (("high", 1e-3), ("highest", 1e-4)):
+        _card_vs_cpu(torch, f"crecon {precision}",
+                     lambda side: crecon_trainer(side, precision),
+                     lambda tr: (tr.to_device(fixed),), bar)
+        _card_vs_cpu(torch, f"joint {precision}",
+                     lambda side: joint_trainer(side, precision),
+                     joint_args, bar)
+
+    # --- (d) times: graphed and eager train steps, per-step kernel sums --
+    reports, per_replay = [], {}
+    for precision in ("high", "highest"):
+        for name, make, calls in (("crecon", crecon_trainer, CRECON_CALLS),
+                                  ("joint", joint_trainer, JOINT_CALLS)):
+            tr = make("cuda", precision)
+            staged = tr.stage_batches(host)
+            args = ((None, None, None) if name == "crecon" else
+                    (torch.Generator(device=dev).manual_seed(3),
+                     *tr.norm_to_device(ds.mean, ds.std)))
+            label = f"{name} {precision}"
+            report, (counts, by_call) = _classifier_times(
+                torch, label, tr, staged, args, card)
+            table = _launch_table(by_call, names, SCAN_STEPS)
+            if table != _table_counts(calls):
+                fail(f"{label}: calls per replayed step {table}, expected "
+                     f"{_table_counts(calls)}")
+            per_replay[label] = counts
+            launched.update(dict.fromkeys(by_call))
+            report["launches_per_step"] = {k: v / SCAN_STEPS
+                                           for k, v in counts.items() if v}
+            reports.append(report)
+            del tr, staged
+    say("  calls per replayed step equal CRECON_CALLS and JOINT_CALLS; "
+        "launches per replayed epoch " + json.dumps(per_replay))
+
+    # --- (c) the kernel against its twin at the new (operator, C, kind):
+    # after d, whose epochs at highest add the fp32 shapes ------------------
+    gen = torch.Generator(device=dev).manual_seed(16)
+    new = sorted(set(launched) - covered)
+    worst = {"bf16x3": 0.0, "fp32": 0.0}
+    say(f"  kernel vs twin at the {len(new)} (mode, operator, C, call kind) "
+        f"that phases 16a, b and d launched and phase 3 did not cover:")
+    for mode, n, m, cc, kind in new:
+        bsr = operands[names[(n, m)]]
+        x = torch.randn(bsr.n_pad_cols, cc, device=dev, generator=gen)
+        err, _ = _hold(torch, bsr, x, mode, kind,
+                       _seeds(torch, bsr, cc, gen, dev), TOL_KERNEL,
+                       f"{names[(n, m)]} C={cc} {mode} {kind}")
+        worst[mode] = max(worst[mode], err)
+
+    rows = []
+    per_step = {}
+    say("per-call times at the classifiers' shapes (median of %d):" % RUNS)
+    timing_operands = _operands(torch, ops, hier, dev)
+    for name, calls in (("crecon", CRECON_CALLS), ("joint", JOINT_CALLS)):
+        for part, table in calls.items():
+            modes = MODES if part == "lap" else ("fp32",)
+            for m, acc in _per_step(torch, table, timing_operands, modes, gen,
+                                    dev, rows).items():
+                per_step[f"{name}_{part}" + (f"_{m}" if part == "lap"
+                                             else "")] = acc
+    for key, acc in per_step.items():
+        say(f"per step {key}: kernel {acc['ms']:.3f} ms, twin "
+            f"{acc['plain_ms']:.3f} ms, torch.sparse {acc['library_ms']:.3f}"
+            f" ms, bound {acc['bound_ms']:.3f} ms ({_bound_by(acc)}; "
+            f"{acc['stored_ms']:.3f} ms with the blocks as stored)")
+    for r in reports:
+        mode = "bf16x3" if r["case"].endswith(" high") else "fp32"
+        name = r["case"].split()[0]
+        k_ms = per_step[f"{name}_lap_{mode}"]["ms"] + sum(
+            per_step[f"{name}_{p}"]["ms"] for p in ("pool_colmajor",
+                                                    "pool_grouped")
+            if f"{name}_{p}" in per_step)
+        r["kernel_ms_per_step"] = k_ms
+        say(f"  {r['case']}: kernel sum {k_ms:.3f} ms of the graphed step's "
+            f"{r['graphed']['step_ms'][0]:.3f} ms "
+            f"({k_ms / r['graphed']['step_ms'][0]:.2f})")
+    say("classifier_times " + json.dumps(reports))
+    return {"crecon_launches": crecon_launches, "joint": joint_launches,
+            "per_replay": per_replay, "per_step": per_step, "worst": worst}
+
+
 def main() -> int:
     import torch
 
@@ -3601,6 +4011,7 @@ def main() -> int:
     from meshvae_tpu_torch.device import resolve_device
     from meshvae_tpu_torch.infer.serve import MeshServer
 
+    from meshvae_tpu_torch.ops import bsr_spmm
     from meshvae_tpu_torch.ops import cheb as port_cheb
 
     port_cheb.FUSED_SEED_DOT = False  # each phase that wants it says so
@@ -3619,8 +4030,10 @@ def main() -> int:
                            torch.float32)
         seconds["setup"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+        bsr_spmm.reset_launches()
         worst_abs = phase_kernel(torch, ops, s20["ops"], dev)
         worst80 = phase_kernel_bf16(torch, s80["ops"], dev)
+        covered = set(bsr_spmm.LAUNCHES_BY_CALL)  # phase 16 holds the rest
         seconds["kernel"] = time.perf_counter() - t0
         servers = {p: MeshServer(m, ops, mean, std, template=tmpl.v,
                                  faces=tmpl.f, batch_size=BATCH,
@@ -3673,6 +4086,10 @@ def main() -> int:
         scan_reports, _ = phase_scan(torch, dev, models, ops, hier, s20, s80,
                                      tmp)
         seconds["scan"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        classifiers = phase_classifiers(torch, dev, ops, hier, tmpl, tmp,
+                                        covered, card)
+        seconds["classifiers"] = time.perf_counter() - t0
     say("phase seconds " + json.dumps({k: round(v, 1)
                                        for k, v in seconds.items()}))
 
@@ -3783,6 +4200,38 @@ def main() -> int:
             f"bsr_grouped_spmm[{mode}] {case} train step replayed in a CUDA "
             f"graph (scanned epoch): {part}", REPLACES[replaces], launched,
             err, acc))
+    # phase 16: the classifier pipelines' train steps. Launches at high
+    # (bf16x3, and the joint model's fp32 P^T) from the run() of each; at
+    # highest (fp32) from one counted epoch of SCAN_STEPS replayed steps
+    cl, err16 = classifiers["per_step"], classifiers["worst"]
+    replay = classifiers["per_replay"]
+    pool_err = max(worst_abs["pool"], err16["fp32"])
+    kernels += [
+        entry("bsr_grouped_spmm[bf16x3] crecon train step: Laplacian",
+              REPLACES["bf16x3"], classifiers["crecon_launches"],
+              max(worst_abs["bf16x3"], err16["bf16x3"]),
+              cl["crecon_lap_bf16x3"]),
+        entry("bsr_grouped_spmm[fp32] crecon train step: Laplacian",
+              REPLACES["fp32"], replay["crecon highest"]["fp32"],
+              max(worst_abs["fp32"], err16["fp32"]), cl["crecon_lap_fp32"]),
+        entry("bsr_grouped_spmm[bf16x3] joint train step: Laplacian",
+              REPLACES["bf16x3"], classifiers["joint"]["lap"],
+              max(worst_abs["bf16x3"], err16["bf16x3"]),
+              cl["joint_lap_bf16x3"]),
+        entry("bsr_grouped_spmm[fp32] joint train step: Laplacian",
+              REPLACES["fp32"], replay["joint highest"]["fp32"]
+              - 3 * SCAN_STEPS, max(worst_abs["fp32"], err16["fp32"]),
+              cl["joint_lap_fp32"]),
+        entry("bsr_grouped_spmm[fp32] joint train step: up-pools 0-1 P^T at "
+              "2B, column-major", REPLACES["colmajor"],
+              classifiers["joint"]["pool"]["P0T"]
+              + classifiers["joint"]["pool"]["P1T"], pool_err,
+              cl["joint_pool_colmajor"]),
+        entry("bsr_grouped_spmm[fp32] joint train step: up-pool 2 P^T at 2B,"
+              " grouped", REPLACES["grouped"],
+              classifiers["joint"]["pool"]["P2T"], pool_err,
+              cl["joint_pool_grouped"]),
+    ]
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -187,6 +187,11 @@ class MeshVAE(nn.Module):
                     mod.weight.uniform_(-bound, bound, generator=gen)
                 mod.bias.uniform_(-bound, bound, generator=gen)
 
+    def fresh(self, generator: torch.Generator) -> "MeshVAE":
+        """A new MeshVAE of this configuration with weights from
+        `generator` (Trainer.init_params)."""
+        return MeshVAE(self.cfg, generator=generator)
+
     def cheb_enc(self, i: int) -> ChebConvLayer:
         return getattr(self, f"cheb_enc_{i}")
 
@@ -271,34 +276,47 @@ class MeshVAE(nn.Module):
                 "z": z}
 
 
-_HEADS = ("enc_lin", "dec_lin", "dec_lin_2", "classifier_layer", "z_mean",
-          "z_log_var")
+# Layer names in the order the port's models register them: MeshVAE's
+# convs, then its heads; ChebGCN's convs (cheb_{i}), then enc_lin and
+# cls_layer; JointMeshVAE's submodels (vae, gcn), then its two heads.
+_CONV_PREFIXES = ("cheb_enc_", "cheb_dec_", "cheb_")
+_LAYERS = ("enc_lin", "dec_lin", "dec_lin_2", "classifier_layer", "z_mean",
+           "z_log_var", "cls_layer", "vae", "gcn", "sup_head", "adv_head")
 
 
 def parameter_order(names) -> list[str]:
-    """state_dict names in the order MeshVAE registers its parameters (the
-    order of ``model.parameters()``, which torch optimizer state follows):
-    the encoder convs, the decoder convs, then the heads as ``_HEADS``
-    lists them; weight before bias."""
+    """state_dict names in the order the port's model registers its
+    parameters (the order of ``model.parameters()``, which torch optimizer
+    state follows), for a MeshVAE, a ChebGCN or a JointMeshVAE: at every
+    level of the name, convs by prefix and index, then the other layers
+    and submodels as ``_LAYERS`` lists them; weight before bias."""
+    def rank(part: str):
+        for group, prefix in enumerate(_CONV_PREFIXES):
+            if part.startswith(prefix) and part[len(prefix):].isdigit():
+                return group, int(part[len(prefix):])
+        return len(_CONV_PREFIXES), _LAYERS.index(part)
+
     def key(name: str):
-        layer, leaf = name.rsplit(".", 1)
-        for group, prefix in enumerate(("cheb_enc_", "cheb_dec_")):
-            if layer.startswith(prefix):
-                return group, int(layer[len(prefix):]), leaf != "weight"
-        return 2, _HEADS.index(layer), leaf != "weight"
+        *path, leaf = name.split(".")
+        return tuple(rank(p) for p in path), leaf != "weight"
 
     return sorted(names, key=key)
 
 
 def params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
     """flax param tree (``{"params": {...}}`` or its inner dict, leaves as
-    numpy arrays) -> MeshVAE state_dict. Chebyshev ``weight [K, F_in,
-    F_out]`` and ``bias`` keep their shapes; a Dense ``kernel [in, out]``
-    becomes ``nn.Linear.weight [out, in]``."""
+    numpy arrays) -> the port model's state_dict; a nested tree (the joint
+    model's ``vae``, ``gcn``) gives dotted names. Chebyshev ``weight [K,
+    F_in, F_out]`` and ``bias`` keep their shapes; a Dense ``kernel [in,
+    out]`` becomes ``nn.Linear.weight [out, in]``."""
     params = tree.get("params", tree)
     arr = lambda v: torch.from_numpy(np.array(v, dtype=np.float32))
     out = {}
     for name, leaves in params.items():
+        if not any(k in leaves for k in ("kernel", "weight")):
+            out.update({f"{name}.{k}": v
+                        for k, v in params_from_flax(leaves).items()})
+            continue
         if "kernel" in leaves:
             out[f"{name}.weight"] = arr(np.asarray(leaves["kernel"]).T)
         else:

@@ -61,6 +61,10 @@ MODE_DTYPE = {"fp32": torch.float32, "bf16x3": torch.float32,
 # count back and adds it at each replay.
 LAUNCHES = {mode: 0 for mode in MODES}
 LAUNCHES_BY_SHAPE: dict[tuple[str, int, int], int] = {}
+# and per (mode, n_pad, n_pad_cols, C, call kind): the kind is "a1" or "a2"
+# (alpha), then " plus", " dot" (the lazy seed) and " prev" for the seeds
+# the call takes, e.g. "a2 plus prev"
+LAUNCHES_BY_CALL: dict[tuple[str, int, int, int, str], int] = {}
 # the launches among LAUNCHES that computed the lazy seed in the kernel
 LAUNCHES_SEED_DOT = {mode: 0 for mode in MODES}
 
@@ -70,6 +74,7 @@ def reset_launches() -> None:
         LAUNCHES[mode] = 0
         LAUNCHES_SEED_DOT[mode] = 0
     LAUNCHES_BY_SHAPE.clear()
+    LAUNCHES_BY_CALL.clear()
 
 
 _TILE_COLS = 64  # the kernel's column tile (BN in csrc/bsr_spmm.cu)
@@ -261,4 +266,9 @@ def bsr_grouped_spmm(bsr: BlockSparseOperator, x: torch.Tensor,
         LAUNCHES_SEED_DOT[mode] += 1
     key = (mode, bsr.n_pad, bsr.n_pad_cols)
     LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
+    kind = f"a{alpha:g}" + "".join(
+        f" {name}" for name, seed in (("plus", t_plus), ("dot", gm),
+                                      ("prev", t_prev)) if seed is not None)
+    key = key + (c, kind)
+    LAUNCHES_BY_CALL[key] = LAUNCHES_BY_CALL.get(key, 0) + 1
     return y

@@ -97,7 +97,8 @@ def checkpoint_from_flax(payload: dict) -> dict:
 def adam_state_from_optax(opt_state: dict, model: dict) -> dict:
     """optax's inject_hyperparams(chain(add_decayed_weights, scale_by_adam,
     scale_by_learning_rate)) state -> a torch.optim.Adam state dict over
-    `model`'s parameters in MeshVAE's parameter order."""
+    `model`'s parameters in the order its module registers them
+    (models.vae.parameter_order: a MeshVAE, ChebGCN or JointMeshVAE)."""
     adam = opt_state["inner_state"]["1"]  # the chain's scale_by_adam
     mu, nu = params_from_flax(adam["mu"]), params_from_flax(adam["nu"])
     step = torch.tensor(float(np.asarray(adam["count"])), dtype=torch.float32)

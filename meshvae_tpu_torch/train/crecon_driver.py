@@ -1,0 +1,253 @@
+"""Second-stage reconstruction-difference classifier, crecon, BASELINE
+config 2 (counterpart of meshvae_tpu/train/crecon_driver.py): the body of
+``python -m meshvae_tpu_torch.crecon``.
+
+A frozen, pretrained VAE (``checkpoint_file``: the port's ``.pt`` or the
+JAX package's ``.msgpack``) turns each batch into difference features
+diff = cat(x - recon_oppo, x - recon) [B, N, 6] (``estimate_diff``; train
+mode conditions on the true label, eval mode on the prediction), and a
+ChebGCN (models/gcn.py) is trained on them with cross entropy and Adam on
+its own parameters only.
+
+  * ``CreconTrainer``'s steps pack [loss, correct, count] into one tensor;
+    an epoch's average loss is the sum of its batch losses over the number
+    of steps, as the reference reports it;
+  * ``scan_epoch`` (default True): each fold's splits are staged on the
+    device once and the train split is reshuffled there every epoch; the
+    steps run as CUDA graphs on a card (train/graphs.py, as Trainer's),
+    eagerly on the CPU. ``scan_epoch = False`` runs the per-step loop;
+  * ``run`` always runs 5 stratified folds, whatever ``folds`` says, with
+    a train/validation split of each fold's training part (the
+    reference's, and the JAX driver's); an initial-weights snapshot every
+    fold restarts from; per epoch a checkpoint when the validation
+    accuracy is at least the best so far; the test path on the final
+    weights after training, or on the fold's checkpoint without -t.
+
+Classifier pipelines run in one process and in float32
+(train/driver.check_supported).
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..config import parse_bool
+from ..data.dataset import BatchIterator, MeshDataset, list_meshes
+from ..models.gcn import ChebGCN, GCNConfig
+from .checkpoint import (checkpoint_path, find_checkpoint, load_checkpoint,
+                         load_params, save_checkpoint, save_params)
+from .driver import build_model_and_ops, check_supported
+from .loop import Trainer, _host
+from .metrics import RunLog
+from .splits import stratified_kfold, train_test_split
+
+FOLDS = 5  # the reference's crecon.py runs five folds whatever `folds` says
+
+
+@torch.no_grad()
+def estimate_diff(vae, x: torch.Tensor, labels: torch.Tensor, ops,
+                  train: bool):
+    """Frozen-VAE difference features. x [B, N, 3] normalized, labels [B]
+    -> (diff [B, N, 6], correct, pred [B]). The same-label and the
+    opposite-label decodes run as one decoder pass at 2B rows."""
+    h = vae.encode(x, ops)
+    y_hat = vae.classify(h)
+    pred = torch.argmax(y_hat, dim=-1)
+    correct = (pred == labels).sum()
+    onehot = F.one_hot(labels if train else pred, y_hat.shape[-1]).to(x.dtype)
+    mu = vae.z_mean(torch.cat([onehot, h], dim=-1))
+    b = x.shape[0]
+    both = vae.sample(torch.cat([onehot, 1.0 - onehot], dim=0),
+                      torch.cat([mu, mu], dim=0), ops)
+    diff = torch.cat([x - both[b:], x - both[:b]], dim=-1)
+    return diff, correct, pred
+
+
+class CreconTrainer(Trainer):
+    """The GCN's trainer over a frozen VAE. Of Trainer it takes the Adam
+    (over the GCN's parameters), init_params, staging and the scanned
+    epoch with its CUDA graphs; its steps take the batch keys x, label and
+    mask and no normalisation, and ``run_epoch`` is its epoch."""
+
+    BATCH_KEYS = ("x", "label", "mask")
+
+    def __init__(self, gcn: ChebGCN, vae, ops, config: dict, device="cuda"):
+        super().__init__(gcn, ops, config, device=device)
+        self.vae = vae.to(self.device).eval().requires_grad_(False)
+        self.scan_epoch = parse_bool(config.get("scan_epoch", True))
+
+    def _loss(self, diff, labels, mask):
+        logits = self.model(diff, self.ops)
+        nll = -F.log_softmax(logits, dim=-1).gather(1, labels[:, None])[:, 0]
+        return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0), logits
+
+    @staticmethod
+    def _packed(loss, logits, batch) -> torch.Tensor:
+        mask = batch["mask"]
+        pred = torch.argmax(torch.softmax(logits, dim=-1), dim=-1)
+        correct = ((pred == batch["label"]).to(mask.dtype) * mask).sum()
+        return torch.stack([loss.detach(), correct, mask.sum()])
+
+    def train_step(self, batch: dict, generator=None) -> torch.Tensor:
+        """One Adam update of the GCN from a device batch; returns the
+        packed [loss, correct, count]. The frozen VAE draws nothing, so
+        the generator is unused."""
+        self.optimizer.zero_grad(set_to_none=True)
+        diff, _, _ = estimate_diff(self.vae, batch["x"], batch["label"],
+                                   self.ops, train=True)
+        loss, logits = self._loss(diff, batch["label"], batch["mask"])
+        loss.backward()
+        self.optimizer.step()
+        with torch.no_grad():
+            return self._packed(loss, logits, batch)
+
+    @torch.no_grad()
+    def eval_step(self, batch: dict) -> dict:
+        diff, _, _ = estimate_diff(self.vae, batch["x"], batch["label"],
+                                   self.ops, train=False)
+        loss, logits = self._loss(diff, batch["label"], batch["mask"])
+        return {"scalars": self._packed(loss, logits, batch)}
+
+    def _scan_outs(self, kind: str, staged: dict) -> dict:
+        rows = staged["mask"].shape[0]
+        return {"metrics" if kind == "train" else "scalars":
+                torch.zeros((rows, 3), device=self.device)}
+
+    @staticmethod
+    def _averages(per_step: np.ndarray):
+        """per_step [S, 3] of (batch loss, correct, count) -> (the sum of
+        batch losses / S, correct / count)."""
+        per_step = np.asarray(per_step, dtype=np.float64).reshape(-1, 3)
+        steps = per_step.shape[0]
+        count = float(per_step[:, 2].sum())
+        return (float(per_step[:, 0].sum()) / max(steps, 1),
+                float(per_step[:, 1].sum()) / max(count, 1.0))
+
+    def run_epoch(self, loader, train: bool,
+                  shuffle_generator: torch.Generator | None = None):
+        """One epoch over a loader (the per-step loop, one pull per step)
+        or a stage_batches dict (the scanned epoch, reshuffled on the
+        device from shuffle_generator when training; one pull); None is an
+        empty split. Returns (average loss, accuracy)."""
+        if loader is None:
+            return 0.0, 0.0
+        if isinstance(loader, dict):
+            if train:
+                packed = self.train_epoch_scanned_async(
+                    loader, None, None, None,
+                    shuffle_generator=shuffle_generator)
+                return self._averages(_host(packed))
+            pending = self.evaluate_scanned_async(loader, None, None,
+                                                  with_errors=False)
+            return self._averages(_host(pending["outs"].wait()["scalars"]))
+        rows = []
+        for batch in loader:
+            batch = self.to_device(batch)
+            packed = (self.train_step(batch) if train
+                      else self.eval_step(batch)["scalars"])
+            rows.append(_host(packed))
+        return self._averages(np.stack(rows)) if rows else (0.0, 0.0)
+
+
+def run(config: dict, do_train: bool, do_test: bool,
+        device="cuda") -> list[dict]:
+    """Train and/or test the GCN over 5 folds; returns one dict per tested
+    fold: fold, test_loss, test_acc."""
+    check_supported(config, "crecon")
+    vae_ckpt = config.get("checkpoint_file")
+    if not vae_ckpt or not os.path.exists(vae_ckpt):
+        raise FileNotFoundError(
+            f"crecon needs a pretrained VAE checkpoint; checkpoint_file="
+            f"{vae_ckpt!r} not found")
+    checkpoint_dir = config["checkpoint_dir"]
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    seed = int(config["random_seeds"])
+
+    vae, ops, hier, template = build_model_and_ops(config, device)
+    vae.load_state_dict(load_checkpoint(vae_ckpt)["model"])
+    gcn = ChebGCN(GCNConfig.from_config(
+        config, coarse_verts=hier.levels[-1],
+        num_features=2 * template.v.shape[1]))
+    trainer = CreconTrainer(gcn, vae, ops, config, device=device)
+
+    log = RunLog(config["log_file"])
+    try:
+        log.print("model type:", config["type"])
+        log.print("frozen VAE:", vae_ckpt, "matmul precision:",
+                  gcn.cfg.precision, "device:", trainer.device)
+        log.print("epochs:", (f"scanned epoch, staged on {trainer.device} "
+                              f"and reshuffled there: {trainer.step_mode()}"
+                              if trainer.scan_epoch else
+                              "per-step epoch loop (scan_epoch = False)"))
+        init_path = os.path.join(checkpoint_dir, "initial_weight_gcn.pt")
+        save_params(init_path, trainer.init_params(seed))
+
+        dataset_index, labels = list_meshes(config)
+        if not dataset_index:
+            raise RuntimeError(f"no meshes found under {config['root_dir']}")
+        names = np.array(dataset_index)
+        tv = np.asarray(template.v)
+        results = []
+        folds = stratified_kfold(FOLDS, np.ones(len(names)), seed)
+        for n, (train_index, test_index) in enumerate(folds, start=1):
+            train_names, valid_names = train_test_split(
+                names[train_index], test_size=float(config["test_size"]),
+                seed=seed)
+            trainer.model.load_state_dict(load_params(init_path))
+            trainer.reset_optimizer()
+            if do_train:
+                _train_fold(trainer, config, log, n, list(train_names),
+                            list(valid_names), labels, tv, seed)
+            if do_test:
+                if not do_train:
+                    trainer.model.load_state_dict(load_checkpoint(
+                        find_checkpoint(checkpoint_dir, n))["model"])
+                test_ds = MeshDataset(list(names[test_index]), config,
+                                      labels, template=tv, dtype="test")
+                te_loss, te_acc = trainer.run_epoch(
+                    _loader(trainer, test_ds, config), train=False)
+                log.print("test loss ", te_loss, "test acc", te_acc)
+                results.append({"fold": n, "test_loss": te_loss,
+                                "test_acc": te_acc})
+    finally:
+        log.close()
+    return results
+
+
+def _loader(trainer: CreconTrainer, ds: MeshDataset, config: dict,
+            shuffle: bool = False, seed: int = 0):
+    """A split's batches: staged on the device for the scanned epoch, else
+    the host loader."""
+    loader = BatchIterator(ds, int(config["batch_size"]), shuffle=shuffle,
+                           seed=seed)
+    return trainer.stage_batches(loader) if trainer.scan_epoch else loader
+
+
+def _train_fold(trainer: CreconTrainer, config: dict, log: RunLog, n: int,
+                train_names: list[str], valid_names: list[str], labels: dict,
+                tv: np.ndarray, seed: int) -> None:
+    checkpoint_dir = config["checkpoint_dir"]
+    train_ds = MeshDataset(train_names, config, labels, template=tv,
+                           dtype="train")
+    valid_ds = MeshDataset(valid_names, config, labels, template=tv,
+                           dtype="test")
+    train_loader = _loader(trainer, train_ds, config, shuffle=True,
+                           seed=seed + n)
+    valid_loader = _loader(trainer, valid_ds, config)
+    shuffle = (torch.Generator(device=trainer.device).manual_seed(
+        seed * 7919 + n) if trainer.scan_epoch else None)
+    best_val_acc = 0.0
+    for epoch in range(1, int(config["epoch"]) + 1):
+        tr_loss, tr_acc = trainer.run_epoch(train_loader, True, shuffle)
+        va_loss, va_acc = trainer.run_epoch(valid_loader, False)
+        if va_acc >= best_val_acc:
+            save_checkpoint(checkpoint_path(checkpoint_dir, n),
+                            trainer.model.state_dict(),
+                            trainer.optimizer.state_dict(), epoch, tr_loss,
+                            va_loss)
+            best_val_acc = va_acc
+        log.print("epoch ", epoch, " Train loss ", tr_loss, "train acc",
+                  tr_acc, " Val loss ", va_loss, "acc ", va_acc)

@@ -2,7 +2,10 @@
 the body of ``python -m meshvae_tpu_torch.train``.
 
   * the template (a missing scaled one is generated), the hierarchy
-    (cached), the operators in the config's compute dtype and the model;
+    (cached), the operators in the config's compute dtype and the model:
+    the joint VAE + GCN (models/joint.py, trained by train/joint.py) for
+    type = joint_VAE, else the MeshVAE; ``check_supported`` refuses what
+    the port does not run yet (the joint model in a world or in bf16);
   * an initial-weights snapshot that every fold restarts from;
   * stratified k-fold over the mesh listing and a train/validation split
     of each fold's training part (train/splits.py, scikit-learn's streams);
@@ -53,6 +56,7 @@ from ..data.dataset import BatchIterator, MeshDataset, list_meshes
 from ..device import resolve_device
 from ..mesh.hierarchy import load_or_build_hierarchy
 from ..mesh.io import load_obj, save_obj
+from ..models.joint import JointMeshVAE, build_joint_model
 from ..models.operators import build_operators
 from ..models.vae import MeshVAE, VAEConfig
 from ..parallel.sharding import (close_world, initialize_multihost,
@@ -62,17 +66,19 @@ from ..validate import validate_config
 from .checkpoint import (checkpoint_path, find_checkpoint, load_checkpoint,
                          load_params, save_checkpoint, save_params)
 from .graphs import HostCopy
+from .joint import JointTrainer
 from .loop import Trainer, lr_for_epoch, set_learning_rate
 from .metrics import (RunLog, epoch_line, history_record, is_profiled,
                       maybe_profile, write_history)
 from .splits import stratified_kfold, train_test_split
 
 
-def check_supported(config: dict) -> None:
+def check_supported(config: dict, pipeline: str | None = None) -> None:
     """Raise on settings the port does not run yet (they are queued in
-    ROADMAP.md), rather than ignoring them."""
+    ROADMAP.md), rather than ignoring them. `pipeline` names a classifier
+    pipeline ("crecon"; "joint" is implied by type = joint_VAE), which the
+    port runs in one process and in float32 only."""
     unsupported = {
-        "type": (config.get("type", "cheb_VAE"), "cheb_VAE"),
         "pool_method": (config.get("pool_method", "gather"), "gather"),
         "hierarchy_mode": (config.get("hierarchy_mode", "fast"), "fast"),
     }
@@ -80,12 +86,29 @@ def check_supported(config: dict) -> None:
         if value != ported:
             raise ValueError(f"{key} = {value!r} is not ported yet; the "
                              f"port runs {key} = {ported!r}")
+    if pipeline is None and config.get("type") == "joint_VAE":
+        pipeline = "joint"
+    if pipeline is None:
+        return
+    ranks = int(config.get("data_parallel", 1)) * int(
+        config.get("seq_parallel", 1))
+    if ranks > 1 or parse_bool(config.get("multihost", False)):
+        raise ValueError(
+            f"{pipeline} in a world (data_parallel x seq_parallel = {ranks}"
+            f", multihost = {config.get('multihost', False)}) is not ported "
+            "yet (ROADMAP.md queue 1, item 8); run it in one process")
+    if str(config.get("compute_dtype") or "float32") != "float32":
+        raise ValueError(
+            f"{pipeline} at compute_dtype = {config['compute_dtype']!r} is "
+            "not ported yet (ROADMAP.md queue 1, item 3); it runs float32")
 
 
 def build_model_and_ops(config: dict, device="cuda",
                         generator: torch.Generator | None = None):
     """Template -> hierarchy -> operators (in the config's compute dtype)
-    -> MeshVAE on `device` in eval mode, weights drawn from `generator`.
+    -> the model on `device` in eval mode, weights drawn from `generator`:
+    a JointMeshVAE for type = joint_VAE, a MeshVAE for every other type
+    (crecon's frozen VAE included), as the JAX driver builds them.
     Returns (model, ops, hier, template)."""
     check_supported(config)
     validate_config(config, device)
@@ -102,8 +125,20 @@ def build_model_and_ops(config: dict, device="cuda",
         final_conv_adjacency=config.get("final_conv_adjacency",
                                         "reference_quirk"),
         dtype=cfg.dtype)
-    model = MeshVAE(cfg, generator=generator).to(device).eval()
-    return model, ops, hier, template
+    if config.get("type") == "joint_VAE":
+        model = build_joint_model(config, hier.levels[-1],
+                                  template.v.shape[1], generator=generator)
+    else:
+        model = MeshVAE(cfg, generator=generator)
+    return model.to(device).eval(), ops, hier, template
+
+
+def make_trainer(config: dict, model, ops, device="cuda",
+                 dist=None) -> Trainer:
+    """The model's trainer: JointTrainer for a JointMeshVAE, else
+    Trainer."""
+    cls = JointTrainer if isinstance(model, JointMeshVAE) else Trainer
+    return cls(model, ops, config, device=device, dist=dist)
 
 
 def _restart(trainer: Trainer, params: dict,
@@ -151,6 +186,7 @@ def run(config: dict, do_train: bool, do_test: bool, vis: bool = False,
     it the config's data_parallel / seq_parallel / multihost decide (see
     the module docstring)."""
     if dist is None:
+        check_supported(config)
         validate_config(config, device)
         dp = int(config.get("data_parallel", 1))
         sp = int(config.get("seq_parallel", 1))
@@ -175,7 +211,7 @@ def run(config: dict, do_train: bool, do_test: bool, vis: bool = False,
     base_lr = float(config["learning_rate"])
 
     model, ops, hier, template = build_model_and_ops(config, device)
-    trainer = Trainer(model, ops, config, device=device, dist=dist)
+    trainer = make_trainer(config, model, ops, device=device, dist=dist)
     faces = np.asarray(template.f)
 
     log = RunLog(config["log_file"] if primary else None)

@@ -43,8 +43,8 @@ from ..ops import bsr_spmm, cheb_fused, emitted_spmm
 
 def _counters() -> tuple[dict, ...]:
     return (bsr_spmm.LAUNCHES, bsr_spmm.LAUNCHES_SEED_DOT,
-            bsr_spmm.LAUNCHES_BY_SHAPE, cheb_fused.LAUNCHES,
-            emitted_spmm.LAUNCHES)
+            bsr_spmm.LAUNCHES_BY_SHAPE, bsr_spmm.LAUNCHES_BY_CALL,
+            cheb_fused.LAUNCHES, emitted_spmm.LAUNCHES)
 
 
 def _read_counters() -> list[dict]:

@@ -50,7 +50,6 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..mesh.procrustes import apply_inverse_similarity
 from ..models.losses import vae_loss
-from ..models.vae import MeshVAE
 from ..parallel.sharding import fetch, replicate, shard_batch, shard_operators
 from .graphs import HostCopy, StepGraph, map_tensors
 
@@ -182,12 +181,12 @@ class _Scan:
     ``outs``, the step function and its graph (None when steps run
     eagerly). Built once per staged epoch and kind of step."""
 
-    def __init__(self, staged: dict, outs: dict, device):
+    def __init__(self, staged: dict, outs: dict, device, keys: tuple):
         self.staged = staged
         self.steps, self.batch = staged["mask"].shape[:2]
         n = self.steps * self.batch
         self.flat = {k: staged[k].reshape((n,) + tuple(staged[k].shape[2:]))
-                     for k in Trainer.BATCH_KEYS}
+                     for k in keys}
         self.perm = torch.arange(n, device=device)
         self.step = torch.zeros(1, dtype=torch.long, device=device)
         self.norm = None
@@ -208,12 +207,22 @@ class Trainer:
     world's device and the operators are sharded for its sp group.
 
     ``graphs`` (True on a card in one process) makes the scanned epoch's
-    steps CUDA graphs; set it False to run the same steps eagerly."""
+    steps CUDA graphs; set it False to run the same steps eagerly.
+
+    Subclasses (train/joint.py) swap the objective by overriding
+    ``_forward_loss`` and surface model-specific eval metrics through
+    ``extra_scalar_names`` (rate names) and ``_extra_scalars(aux)`` (the
+    matching correct counts): they follow the packed eval scalars and come
+    back as name = count / total in the eval averages, and so in
+    history{fold}.json."""
 
     BATCH_KEYS = ("x", "label", "r", "s", "m", "mask")
+    extra_scalar_names: tuple = ()
 
-    def __init__(self, model: MeshVAE, ops, config: dict, device="cuda",
-                 dist=None):
+    def _extra_scalars(self, aux: dict) -> list:
+        return []
+
+    def __init__(self, model, ops, config: dict, device="cuda", dist=None):
         self.dist = dist
         self.device = dist.device if dist is not None else resolve_device(
             device)
@@ -257,10 +266,10 @@ class Trainer:
                 "optimizer": map_tensors(clone, self.optimizer.state_dict())}
 
     def init_params(self, seed: int) -> dict:
-        """Fresh weights drawn from `seed` (the MeshVAE init
-        distributions) and fresh Adam moments; returns the state_dict."""
-        fresh = MeshVAE(self.model.cfg,
-                        generator=torch.Generator().manual_seed(seed))
+        """Fresh weights drawn from `seed` (the init distributions of the
+        trainer's model class, ``model.fresh``) and fresh Adam moments;
+        returns the state_dict."""
+        fresh = self.model.fresh(torch.Generator().manual_seed(seed))
         self.model.load_state_dict(fresh.state_dict())
         replicate(self.model.state_dict().values(), self.dist)
         lr = float(self.optimizer.param_groups[0]["lr"])
@@ -296,6 +305,8 @@ class Trainer:
 
     def _forward_loss(self, batch: dict, train: bool,
                       generator: torch.Generator | None):
+        """(loss, out, aux, y, denom) of the model on a device batch: the
+        objective the steps differentiate and report."""
         x = batch["x"]
         y = F.one_hot(batch["label"], self.num_classes).to(x.dtype)
         rows = None
@@ -374,10 +385,10 @@ class Trainer:
     def eval_step(self, batch: dict, norm_mean: torch.Tensor,
                   norm_std: torch.Tensor) -> dict:
         """Eval forward, loss, pose error and the sex-change
-        counterfactual. ``scalars`` [7] is loss, kld, rec_loss, correct,
-        count, sc_correct and the masked sum of per-mesh mean errors (over
-        the global batch in a world; the other outputs are the rank's
-        rows)."""
+        counterfactual. ``scalars`` [7 + extras] is loss, kld, rec_loss,
+        correct, count, sc_correct, the masked sum of per-mesh mean errors
+        and the _extra_scalars counts (over the global batch in a world;
+        the other outputs are the rank's rows)."""
         model, ops = self.model, self.ops
         loss, out, aux, y, denom = self._forward_loss(batch, False, None)
         mask = batch["mask"]
@@ -398,6 +409,7 @@ class Trainer:
             mask.sum(),
             sc_correct,
             (err.mean(dim=-1) * mask).sum(),
+            *(s.to(mask.dtype) for s in self._extra_scalars(aux)),
         ]))
         return {"scalars": scalars, "errors": err, "recon_orig": recon_orig,
                 "oppo_orig": oppo_orig, "oppo_pred": oppo_pred,
@@ -436,6 +448,7 @@ class Trainer:
         dp (parallel.fetch)."""
         totals = {"loss": 0.0, "kld": 0.0, "rec_loss": 0.0}
         correct = sc_correct = count = err_sum = 0.0
+        extra = np.zeros(len(self.extra_scalar_names))
         errors = []
         meshes = {"recon": [], "oppo": [], "oppo_pred": [], "oppo_label": [],
                   "index": []}
@@ -449,6 +462,7 @@ class Trainer:
             correct += float(sc[3])
             sc_correct += float(sc[5])
             err_sum += float(sc[6])
+            extra += sc[7:]
             count += n
             keep = np.asarray(batch["mask"]) > 0
             errors.append(fetch(out["errors"], self.dist)[keep])
@@ -463,6 +477,8 @@ class Trainer:
         avg["sex_change_success_rate"] = sc_correct / max(count, 1.0)
         avg["error"] = err_sum / max(count, 1.0)
         avg["count"] = count
+        for name, total in zip(self.extra_scalar_names, extra):
+            avg[name] = float(total) / max(count, 1.0)
         errors = (np.concatenate(errors, axis=0) if errors
                   else np.zeros((0, 1)))
         if collect_meshes:
@@ -496,7 +512,8 @@ class Trainer:
                                            device=dev)}
         b //= self.dist.dp if self.dist is not None else 1
         n = staged["x"].shape[2]
-        outs = {"scalars": torch.zeros((s, 7), device=dev)}
+        outs = {"scalars": torch.zeros(
+            (s, 7 + len(self.extra_scalar_names)), device=dev)}
         if kind in ("errors", "collect"):
             outs["errors"] = torch.zeros((s, b, n), device=dev)
         if kind == "collect":
@@ -541,19 +558,24 @@ class Trainer:
                     generator=None) -> _Scan:
         """The _Scan of `staged` for a kind of step ("train", "light",
         "errors", "collect"), built at a new staged epoch; the
-        normalisation is copied into its own tensors; with ``graphs`` its
-        StepGraph, rebuilt for another generator and checked against its
-        dependencies (train/graphs.py)."""
+        normalisation (none for steps that take none: norm_mean None) is
+        copied into its own tensors; with ``graphs`` its StepGraph, rebuilt
+        for another generator and checked against its dependencies
+        (train/graphs.py)."""
         st = self._scans.get(kind)
         if st is None or st.staged is not staged:
-            st = _Scan(staged, self._scan_outs(kind, staged), self.device)
+            st = _Scan(staged, self._scan_outs(kind, staged), self.device,
+                       self.BATCH_KEYS)
             self._scans[kind] = st
-        mean, std = self.norm_to_device(norm_mean, norm_std)
-        if st.norm is None:
-            st.norm = (mean.clone(), std.clone())
+        if norm_mean is None:
+            st.norm = ()
         else:
-            st.norm[0].copy_(mean)
-            st.norm[1].copy_(std)
+            mean, std = self.norm_to_device(norm_mean, norm_std)
+            if not st.norm:
+                st.norm = (mean.clone(), std.clone())
+            else:
+                st.norm[0].copy_(mean)
+                st.norm[1].copy_(std)
         if st.run is None or st.generator is not generator:
             st.generator = generator
             st.graph = None
@@ -669,14 +691,15 @@ class Trainer:
         and, with_errors, the [valid, N] per-vertex errors (and with
         collection the meshes, as evaluate(collect_meshes=True))."""
         if pending is None:
-            avg = dict(self._EVAL_EMPTY)
+            avg = dict(self._EVAL_EMPTY, **dict.fromkeys(
+                self.extra_scalar_names, 0.0))
             return (avg, np.zeros((0, 1))) if with_errors else (avg, None)
         outs = pending["outs"].wait()
         if with_errors and "errors" not in outs:
             raise ValueError(
                 "eval scan was dispatched with with_errors=False (light "
                 "variant): per-vertex errors were never materialized")
-        sc = _host(outs["scalars"]).astype(np.float64)         # [S, 7]
+        sc = _host(outs["scalars"]).astype(np.float64)       # [S, 7 + extras]
         counts = sc[:, 4]
         total = float(counts.sum())
         avg = {
@@ -689,6 +712,8 @@ class Trainer:
             "error": float(sc[:, 6].sum()) / max(total, 1.0),
             "count": total,
         }
+        for i, name in enumerate(self.extra_scalar_names):
+            avg[name] = float(sc[:, 7 + i].sum()) / max(total, 1.0)
         if not with_errors and not pending["collect"]:
             return avg, None
         mask = np.asarray(pending["mask_host"]) > 0              # [S, B]

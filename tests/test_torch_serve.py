@@ -194,11 +194,12 @@ def test_cli_entry_point(env, tmp_path):
 def test_package_imports_no_jax():
     """Importing every module of the port (train/__main__.py,
     infer/__main__.py, train/flax_msgpack.py, ops/cheb_fused.py,
-    ops/emitted_spmm.py, bench/, parallel/, ops/bsr_shard.py and
-    validate.py included) leaves jax, flax, optax, scikit-learn, msgpack
-    and meshvae_tpu out of sys.modules, builds and loads no library (no
-    CUDA kernel, nor the native host library) and starts no
-    torch.distributed process group."""
+    ops/emitted_spmm.py, bench/, parallel/, ops/bsr_shard.py, validate.py,
+    and the classifier pipelines' models/gcn.py, models/joint.py,
+    train/joint.py, train/crecon_driver.py and the crecon CLI included)
+    leaves jax, flax, optax, scikit-learn, msgpack and meshvae_tpu out of
+    sys.modules, builds and loads no library (no CUDA kernel, nor the
+    native host library) and starts no torch.distributed process group."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import meshvae_tpu_torch as pkg\n"
@@ -217,7 +218,8 @@ def test_package_imports_no_jax():
         "    if fn.cache_info().currsize:\n"
         "        bad.append(name + ' loaded at import')\n"
         "for name in ('parallel', 'parallel.sharding', 'ops.bsr_shard',\n"
-        "             'validate'):\n"
+        "             'validate', 'models.gcn', 'models.joint',\n"
+        "             'train.joint', 'train.crecon_driver', 'crecon'):\n"
         "    if 'meshvae_tpu_torch.' + name not in sys.modules:\n"
         "        bad.append(name + ' not imported')\n"
         "import torch.distributed as dist\n"

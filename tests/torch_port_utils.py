@@ -1,7 +1,7 @@
 """Shared set-up for the tests that hold meshvae_tpu_torch against the JAX
 package end to end: one grid-mesh hierarchy fed to both packages, a flax
-MeshVAE with its params, and the port's MeshVAE loaded from the same params
-through params_from_flax."""
+MeshVAE (or ChebGCN, or joint model) with its params, and the port's model
+loaded from the same params through params_from_flax."""
 import dataclasses
 import os
 
@@ -15,12 +15,16 @@ import flax.linen as flax_nn
 
 import meshvae_tpu.ops.graph as jax_graph
 from meshvae_tpu.mesh.hierarchy import MeshHierarchy as JaxHierarchy
+from meshvae_tpu.models.gcn import ChebGCN as JaxChebGCN
+from meshvae_tpu.models.gcn import GCNConfig as JaxGCNConfig
+from meshvae_tpu.models.joint import JointMeshVAE as JaxJointMeshVAE
 from meshvae_tpu.models.operators import build_operators as jax_build_ops
 from meshvae_tpu.models.vae import MeshVAE as JaxMeshVAE
 from meshvae_tpu.models.vae import VAEConfig as JaxVAEConfig
 
 from meshvae_tpu_torch.mesh import TriMesh, build_hierarchy
-from meshvae_tpu_torch.models import (MeshVAE, VAEConfig, build_operators,
+from meshvae_tpu_torch.models import (ChebGCN, GCNConfig, JointMeshVAE,
+                                      MeshVAE, VAEConfig, build_operators,
                                       params_from_flax)
 from meshvae_tpu_torch.models import vae as port_vae
 from meshvae_tpu_torch.ops import graph as port_graph
@@ -45,14 +49,16 @@ def jax_hierarchy(h):
 
 
 def paired_models(hier, precision, dropout=0.2, tgrad_ell_max=None,
-                  compute_dtype="float32", orders=ORDERS):
+                  compute_dtype="float32", orders=ORDERS, jit_init=False):
     """(jax_model, jax_ops, flax params as numpy, port_model, port_ops) with
     identical weights. The JAX side takes the Pallas path (run it under
     pallas_cheb.INTERPRET = True). tgrad_ell_max, when given, is the
     pool-backward fan-in cutoff on both sides while the operators are
     built (6 on the grid gives up-pools 0-2 a block-sparse P^T and up-pool
     3 gathers, as config 1 has). compute_dtype "bfloat16" builds both
-    models and both operator sets in bf16; orders sets K per layer."""
+    models and both operator sets in bf16; orders sets K per layer.
+    jit_init draws the params under jit (faster; other values than the
+    eager init's)."""
     jdtype, pdtype = {"float32": (jnp.float32, torch.float32),
                       "bfloat16": (jnp.bfloat16, torch.bfloat16)}[
                           compute_dtype]
@@ -61,28 +67,21 @@ def paired_models(hier, precision, dropout=0.2, tgrad_ell_max=None,
                         dropout=dropout, coarse_verts=hier.levels[-1],
                         cheb_method="pallas", precision=precision,
                         compute_dtype=compute_dtype)
-    old = (jax_graph.PALLAS_MIN_N, jax_graph.TGRAD_ELL_MAX,
-           port_graph.TGRAD_ELL_MAX)
-    jax_graph.PALLAS_MIN_N = BSR_MIN_N
-    if tgrad_ell_max is not None:
-        jax_graph.TGRAD_ELL_MAX = port_graph.TGRAD_ELL_MAX = tgrad_ell_max
-    try:
-        jops = jax_build_ops(jax_hierarchy(hier), cheb_method="pallas",
-                             pool_method="gather", dtype=jdtype)
-        pops = build_operators(hier, "cpu", cheb_method="pallas",
-                               bsr_min_n=BSR_MIN_N, dtype=pdtype)
-    finally:
-        (jax_graph.PALLAS_MIN_N, jax_graph.TGRAD_ELL_MAX,
-         port_graph.TGRAD_ELL_MAX) = old
+    jops, pops = paired_operators(hier, "pallas", tgrad_ell_max, jdtype,
+                                  pdtype)
     # params do not depend on the operator layout: init on the dense path
-    dense_ops = jax_build_ops(jax_hierarchy(hier), cheb_method="dense",
-                              pool_method="gather")
-    params = JaxMeshVAE(dataclasses.replace(
-        jcfg, cheb_method="dense", compute_dtype="float32")).init(
-        {"params": jax.random.key(0)},
-        jnp.zeros((1, hier.levels[0], 3), jnp.float32),
-        jnp.zeros((1, 2), jnp.float32), dense_ops, train=False)
-    params = jax.tree_util.tree_map(np.asarray, params)
+    init_model = JaxMeshVAE(dataclasses.replace(
+        jcfg, cheb_method="dense", compute_dtype="float32"))
+    init_args = ({"params": jax.random.key(0)},
+                 jnp.zeros((1, hier.levels[0], 3), jnp.float32),
+                 jnp.zeros((1, 2), jnp.float32))
+    if jit_init:
+        params = _jit_init(init_model, hier, *init_args, train=False)
+    else:
+        dense_ops = jax_build_ops(jax_hierarchy(hier), cheb_method="dense",
+                                  pool_method="gather")
+        params = init_model.init(*init_args, dense_ops, train=False)
+        params = jax.tree_util.tree_map(np.asarray, params)
 
     pcfg = VAEConfig(num_features=3, filters=FILTERS, polygon_order=orders,
                      n_layers=4, num_hidden=32, latent=6, num_classes=2,
@@ -92,6 +91,94 @@ def paired_models(hier, precision, dropout=0.2, tgrad_ell_max=None,
     pmodel.load_state_dict(params_from_flax(params))
     pmodel.eval()
     return JaxMeshVAE(jcfg), jops, params, pmodel, pops
+
+
+def paired_operators(hier, cheb_method="pallas", tgrad_ell_max=None,
+                     jdtype=jnp.float32, pdtype=torch.float32):
+    """(JAX operators, port operators) of one hierarchy, the finest two
+    grid levels block-sparse on both sides with cheb_method "pallas";
+    tgrad_ell_max, when given, is the pool-backward fan-in cutoff on both
+    sides while they are built."""
+    old = (jax_graph.PALLAS_MIN_N, jax_graph.TGRAD_ELL_MAX,
+           port_graph.TGRAD_ELL_MAX)
+    jax_graph.PALLAS_MIN_N = BSR_MIN_N
+    if tgrad_ell_max is not None:
+        jax_graph.TGRAD_ELL_MAX = port_graph.TGRAD_ELL_MAX = tgrad_ell_max
+    try:
+        jops = jax_build_ops(jax_hierarchy(hier), cheb_method=cheb_method,
+                             pool_method="gather", dtype=jdtype)
+        pops = build_operators(hier, "cpu", cheb_method=cheb_method,
+                               bsr_min_n=BSR_MIN_N, dtype=pdtype)
+    finally:
+        (jax_graph.PALLAS_MIN_N, jax_graph.TGRAD_ELL_MAX,
+         port_graph.TGRAD_ELL_MAX) = old
+    return jops, pops
+
+
+GCN_FEATURES = 6  # 2 x the mesh's 3 coordinates
+
+
+def gcn_configs(hier, precision, cheb_method="pallas"):
+    """(JAX GCNConfig, port GCNConfig) of the grid-sized GCN."""
+    common = dict(num_features=GCN_FEATURES, filters=FILTERS,
+                  polygon_order=ORDERS, n_layers=4, num_classes=2,
+                  coarse_verts=hier.levels[-1], precision=precision)
+    return (JaxGCNConfig(**common, cheb_method=cheb_method),
+            GCNConfig(**common))
+
+
+def _jit_init(module, hier, key, *inputs, **kwargs):
+    """flax params of `module` as numpy, initialised under jit on the dense
+    operators (params do not depend on the operator layout)."""
+    dense_ops = jax_build_ops(jax_hierarchy(hier), cheb_method="dense",
+                              pool_method="gather")
+    params = jax.jit(lambda k: module.init(k, *inputs, dense_ops, **kwargs))(
+        key)
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+def paired_gcn(hier, precision, cheb_method="pallas"):
+    """(jax ChebGCN, jax_ops, flax params as numpy, port ChebGCN, port_ops)
+    with identical weights."""
+    jcfg, pcfg = gcn_configs(hier, precision, cheb_method)
+    jops, pops = paired_operators(hier, cheb_method)
+    params = _jit_init(
+        JaxChebGCN(dataclasses.replace(jcfg, cheb_method="dense")), hier,
+        jax.random.key(1),
+        jnp.zeros((1, hier.levels[0], GCN_FEATURES), jnp.float32))
+    pmodel = ChebGCN(pcfg)
+    pmodel.load_state_dict(params_from_flax(params))
+    return JaxChebGCN(jcfg), jops, params, pmodel, pops
+
+
+JOINT_SPLIT = 2
+
+
+def paired_joint(hier, precision, cheb_method="pallas", dropout=0.2,
+                 tgrad_ell_max=None):
+    """(jax JointMeshVAE, jax_ops, flax params as numpy, port JointMeshVAE,
+    port_ops) with identical weights: paired_models' VAE, the grid GCN and
+    a latent split of JOINT_SPLIT."""
+    jvae = JaxVAEConfig(num_features=3, filters=FILTERS, polygon_order=ORDERS,
+                        n_layers=4, num_hidden=32, latent=6, num_classes=2,
+                        dropout=dropout, coarse_verts=hier.levels[-1],
+                        cheb_method=cheb_method, precision=precision)
+    jgcn, pgcn = gcn_configs(hier, precision, cheb_method)
+    jops, pops = paired_operators(hier, cheb_method, tgrad_ell_max)
+    params = _jit_init(
+        JaxJointMeshVAE(dataclasses.replace(jvae, cheb_method="dense"),
+                        dataclasses.replace(jgcn, cheb_method="dense"),
+                        JOINT_SPLIT), hier, {"params": jax.random.key(2)},
+        jnp.zeros((1, hier.levels[0], 3), jnp.float32),
+        jnp.zeros((1, 2), jnp.float32), train=False)
+    pvae = VAEConfig(num_features=3, filters=FILTERS, polygon_order=ORDERS,
+                     n_layers=4, num_hidden=32, latent=6, num_classes=2,
+                     dropout=dropout, coarse_verts=hier.levels[-1],
+                     precision=precision)
+    pmodel = JointMeshVAE(pvae, pgcn, JOINT_SPLIT)
+    pmodel.load_state_dict(params_from_flax(params))
+    return (JaxJointMeshVAE(jvae, jgcn, JOINT_SPLIT), jops, params,
+            pmodel.eval(), pops)
 
 
 def write_requests(template: TriMesh, root: str, n: int = 6) -> str:
@@ -121,14 +208,17 @@ def count_kernel_calls(monkeypatch, **modules):
 
 class FedNoise:
     """numpy dropout masks (in call order) and reparameterisation noise,
-    fed to both packages (feed_noise)."""
+    fed to both packages (feed_noise). decode_rows: the decoder's rows per
+    sample (2 for the joint model's one pass over both labels)."""
 
-    def __init__(self, b, hidden, flat, latent, seed=0, rate=0.2):
+    def __init__(self, b, hidden, flat, latent, seed=0, rate=0.2,
+                 decode_rows=1):
         rng = np.random.default_rng(seed)
         keep = lambda shape: (rng.random(shape) >= rate).astype(np.float32)
         # encode's h, classify's input, dec_lin, dec_lin_2
+        d = decode_rows * b
         self.masks = [keep((b, hidden)), keep((b, hidden)),
-                      keep((b, hidden)), keep((b, flat))]
+                      keep((d, hidden)), keep((d, flat))]
         self.eps = rng.standard_normal((b, latent)).astype(np.float32)
         self.i = 0
 

@@ -261,7 +261,8 @@ Phases, one block of output lines each; any failed check exits non-zero:
                per train step (30 forward, 25 backward: all convs but
                enc_0) + 3 P^T at 2B width, 50 per eval step (with the
                counterfactual); sup_accuracy and adv_accuracy in every
-               history epoch and test result;
+               history epoch and test result, the P^T launches counted
+               per operator (LAUNCHES_BY_SHAPE): each once per train step;
             c. bsr_grouped_spmm against its twin at every (mode, operator,
                C, call kind) that a, b and d launched (LAUNCHES_BY_CALL) and
                phase 3 did not (GCN cheb_0's dx at C = 128, the 2B
@@ -278,6 +279,48 @@ Phases, one block of output lines each; any failed check exits non-zero:
                share, the calls per replayed step equal to CRECON_CALLS /
                JOINT_CALLS, and those calls' kernel, twin, torch.sparse and
                bound sums per step.
+
+17. bf16 paths  at config-1 width on the block-sparse path (template5k,
+            K=6, filters 16/16/16/32/32, hidden 512, latent 16), the counts
+            reset just before each main-path run and read just after:
+            a. a MeshServer at compute_dtype bfloat16, B=16, answering phase
+               4's three request lines through serve_forever: 20 mode-bf16
+               launches per serving step and none in another mode, the
+               calls per step as SERVE_CALLS; one step on the card and on
+               the CPU (bf16, and fp32 at highest as the yardstick) from
+               the same weights at phase 8's bar, pred equal where the
+               CPU's bf16 logits are settled (more than two bf16 ulps
+               apart; at most a quarter of the rows excused); the serving
+               step's time (50 host-paced steps, CUDA events), peak memory,
+               busy time and idle share;
+            b. BASELINE config 4: python -m meshvae_tpu_torch.infer's main
+               with -p compute_dtype bfloat16 -p batch_size 128 over 256
+               synthetic meshes (two batches): 20 bf16 launches per batch
+               (CONFIG4_CALLS); the first batch with --device cpu in bf16
+               and in fp32 at highest, held as in a; meshes/sec with the
+               .obj triples (the main-path run) and with --no-meshes; then
+               a scaled80k bf16 inference run (B=32, --no-meshes) on phase
+               7's fold-1 checkpoint: 72 bf16 launches per batch;
+            c. phase 16's a, b and d at compute_dtype bfloat16 (the same
+               code): 35 and 55 + 3 bf16 launches per train step, 30 and
+               50 per eval step; one deterministic crecon step on seeded
+               weights and one joint step, card vs CPU at phase 8's bar;
+               the crecon step behind phase 15's trained VAE, whose x -
+               recon cancels, at the bar for cancelling features (the card
+               and the witness, the same step on the card with the twin in
+               the kernel's place, each within twice the CPU's bf16 error
+               of its fp32 plus one ulp; a second card run within one
+               ulp); graphed and eager step times at B=16 and B=128;
+            d. phase 16b's joint checkpoint through the inference CLI at
+               high (20 bf16x3 launches per batch) and a MeshServer, card
+               vs --device cpu at phase 12's bars (pred equal, errors and
+               .obj within 1e-4 of the mesh scale);
+            e. bsr_grouped_spmm against its twin at every (mode, operator,
+               C, call kind) that a-d launched and phases 3 and 16 did not
+               (one bf16 ulp of max|y| in bf16, 1e-5 otherwise); the bf16
+               kernel, twin, torch.sparse (bf16 CSR) and bound sums per
+               bf16 serving step, config-4 batch and bf16 crecon and joint
+               train step.
 
 Phase 3 also holds the bf16 mode on the card at every 80k Laplacian (its C
 values, alpha 1 and 2, no seed, t_prev, t_plus, both) and the four P^T:
@@ -308,8 +351,10 @@ world's per rank for _mapped_product), and the train-step calls of phase
 the 80k Laplacian: launches counted per replay, times as measured above),
 and phase 16's crecon and joint train steps (the Laplacian calls in both
 modes, the joint model's P^T of up-pools 0-1 and 2 at 2B width: launches
-of the run()s at high, of a counted replayed epoch at highest). The last
-line is {"ok": true, ...}.
+of the run()s at high, of a counted replayed epoch at highest), and
+phase 17's bf16 serving step, config-4 batch and bf16 crecon and joint
+train steps (Laplacian calls, the joint model's bf16 P^T; launches of the
+main-path runs). The last line is {"ok": true, ...}.
 """
 import dataclasses
 import json
@@ -1410,13 +1455,18 @@ def _csr80(torch, s80, dev, bf16=True):
         i = int(key[1])
         mat = (normalized_neg_adjacency(hier.adjacency[i]) if key[0] == "L"
                else hier.upsample[i].T)
-        f32 = _csr(torch, mat, bsr.n_pad, bsr.n_pad_cols, dev)
-        out[key] = {"fp32": f32, "bf16": torch.sparse_csr_tensor(
-            f32.crow_indices(), f32.col_indices(),
-            f32.values().to(torch.bfloat16), size=f32.shape,
-            check_invariants=True)}
-    if not bf16:
-        return {k: e["fp32"] for k, e in out.items()}
+        out[key] = _csr(torch, mat, bsr.n_pad, bsr.n_pad_cols, dev)
+    return _with_bf16(torch, out, dev) if bf16 else out
+
+
+def _with_bf16(torch, csrs: dict, dev) -> dict:
+    """{name: fp32 CSR} -> {name: {"fp32", "bf16", "lib_dtype"}}: each
+    operand's CSR also in bf16 where cuSPARSE takes bf16 (probed once),
+    else None with lib_dtype fp32 (the yardstick then runs fp32)."""
+    out = {k: {"fp32": f32, "bf16": torch.sparse_csr_tensor(
+        f32.crow_indices(), f32.col_indices(),
+        f32.values().to(torch.bfloat16), size=f32.shape,
+        check_invariants=True)} for k, f32 in csrs.items()}
     try:
         probe = min(out.values(), key=lambda e: e["fp32"].shape[1])["bf16"]
         torch.sparse.mm(probe, torch.ones(probe.shape[1], 128,
@@ -1671,6 +1721,21 @@ def _step_report(torch, step, label, batch_size):
     return ms
 
 
+def _held_bf16(name, card, cpu16, cpu32, scale) -> float:
+    """Phase 8's bar: the card's bf16 result may be no further from the
+    CPU's bf16 result than that is from the CPU's fp32 result, plus one
+    bf16 ulp (2^-8) of the scale. Returns the margin used, (|card -
+    cpu_bf16| - |cpu_bf16 - cpu_fp32|) / scale."""
+    d_card = float(abs(card - cpu16).max())
+    d_bf16 = float(abs(cpu16 - cpu32).max())
+    say(f"  {name}: |card - cpu_bf16| {d_card:.3e}, |cpu_bf16 - "
+        f"cpu_fp32| {d_bf16:.3e} (scale {scale:.3e})")
+    if not d_card <= d_bf16 + TOL_BF16 * scale:
+        fail(f"card vs CPU in bf16: {name} {d_card:.3e} > "
+             f"{d_bf16:.3e} + one ulp of {scale:.3e}")
+    return (d_card - d_bf16) / scale
+
+
 def phase_bf16_card_vs_cpu(torch, dev, hier, tmpl, tmp):
     """Config-1 size (template5k, K=6, B=16) in bf16: one deterministic
     train step and one eval step on the card and on the CPU from the same
@@ -1713,19 +1778,8 @@ def phase_bf16_card_vs_cpu(torch, dev, hier, tmpl, tmp):
             "recon_orig": ev["recon_orig"].float().cpu(),
             "grads": {k: v.grad.cpu() for k, v in
                       tr.model.named_parameters()}}
-    ulp = 2.0 ** -8
     worst = []
-
-    def held(name, card, cpu16, cpu32, scale):
-        d_card = float(abs(card - cpu16).max())
-        d_bf16 = float(abs(cpu16 - cpu32).max())
-        worst.append((d_card - d_bf16) / scale)
-        say(f"  {name}: |card - cpu_bf16| {d_card:.3e}, |cpu_bf16 - "
-            f"cpu_fp32| {d_bf16:.3e} (scale {scale:.3e})")
-        if not d_card <= d_bf16 + ulp * scale:
-            fail(f"card vs CPU in bf16: {name} {d_card:.3e} > "
-                 f"{d_bf16:.3e} + one ulp of {scale:.3e}")
-
+    held = lambda *args: worst.append(_held_bf16(*args))
     c, a, b = runs["card"], runs["cpu16"], runs["cpu32"]
     for key in ("loss", "eval_loss"):
         held(key, torch.tensor(c[key]), torch.tensor(a[key]),
@@ -2964,16 +3018,10 @@ def phase_infer(torch, dev, models, hier, tmpl, tmp):
     Returns the card's launches per precision."""
     say(f"== phase 12: batch inference (python -m meshvae_tpu_torch.infer, "
         f"config 1, {INFER_MESHES} synthetic meshes, batch {BATCH})")
-    import contextlib
-    import io
-
     import numpy as np
 
     from meshvae_tpu_torch.data import (MeshDataset, generate_synthetic_dataset,
                                         list_meshes)
-    from meshvae_tpu_torch.infer import driver as infer_driver
-    from meshvae_tpu_torch.infer.__main__ import main as infer_main
-    from meshvae_tpu_torch.mesh import load_obj
     from meshvae_tpu_torch.ops import bsr_spmm
     from meshvae_tpu_torch.train.checkpoint import save_checkpoint
     from meshvae_tpu_torch.train.loop import make_optimizer
@@ -2991,63 +3039,18 @@ def phase_infer(torch, dev, models, hier, tmpl, tmp):
     index, labels = list_meshes(dcfg)
     ds = MeshDataset(index, dcfg, labels, tmpl.v)  # writes norm.npz
     scale = float(np.abs(ds.original).max())
-    config = config_1(tmp)
     cfg_path = os.path.join(root, "infer.cfg")
-    with open(cfg_path, "w") as fp:
-        fp.write("[All]\ncheckpoint_dir = ckpt/\n")
-        for k in ("template", "hierarchy_cache_dir", "downsampling_factors",
-                  "num_conv_filters", "polygon_order", "num_hidden",
-                  "num_style", "batch_size", "cheb_method"):
-            v = config[k]
-            fp.write(f"{k} = "
-                     f"{', '.join(map(str, v)) if isinstance(v, list) else v}"
-                     "\n")
+    _infer_cfg(cfg_path, dict(config_1(tmp), checkpoint_dir="ckpt/"))
     batches = -(-INFER_MESHES // BATCH)
-    timed = {}
-    real = {"run": infer_driver.run_inference,
-            "device": infer_driver.InferenceEngine.run_dataset}
-
-    def timer(key, fn):
-        def run(*args, **kwargs):
-            t0 = time.perf_counter()
-            res = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            timed[key] = time.perf_counter() - t0
-            return res
-        return run
 
     def cli(out, device, precision, *flags):
         """main(argv) of the CLI; returns its seconds, run_inference's and
         InferenceEngine.run_dataset's (the device pass and its one pull)."""
-        argv = ["-c", cfg_path, "-d", data_dir, "-o", out, "-n", "1",
-                "-p", "matmul_precision", precision, "--device", device,
-                *flags]
-        infer_driver.run_inference = timer("run", real["run"])
-        infer_driver.InferenceEngine.run_dataset = timer("device",
-                                                         real["device"])
-        try:
-            with contextlib.redirect_stdout(io.StringIO()):
-                t0 = time.perf_counter()
-                rc = infer_main(argv)
-                secs = time.perf_counter() - t0
-        finally:
-            infer_driver.run_inference = real["run"]
-            infer_driver.InferenceEngine.run_dataset = real["device"]
-        if rc != 0:
-            fail(f"python -m meshvae_tpu_torch.infer {' '.join(argv)}: rc "
-                 f"{rc}")
-        return secs, timed["run"], timed["device"]
+        return _infer_cli(torch, [
+            "-c", cfg_path, "-d", data_dir, "-o", out, "-n", "1", "-p",
+            "matmul_precision", precision, "--device", device, *flags])
 
-    def outputs(out):
-        with open(os.path.join(out, "pred.json")) as fp:
-            pred = json.load(fp)
-        with open(os.path.join(out, "inference.json")) as fp:
-            inf = json.load(fp)
-        mdir = os.path.join(out, "sex_change")
-        objs = {f: load_obj(os.path.join(mdir, f)).v
-                for f in sorted(os.listdir(mdir))}
-        return pred, inf, objs
-
+    outputs = _infer_outputs
     launches = {}
     for p, mode in (("high", "bf16x3"), ("highest", "fp32")):
         card_out = os.path.join(root, f"card_{p}")
@@ -3680,11 +3683,12 @@ def _launch_table(by_call: dict, names: dict, steps: int) -> dict:
             for (_, n, m, c, kind), count in by_call.items()}
 
 
-def _classifier_configs(tmp):
+def _classifier_configs(tmp, bf16=False):
     """files/crecon.cfg and files/joint.cfg with overrides for paths,
-    folds, epochs and the block-sparse path at high; crecon's frozen VAE
-    is phase 15's default.cfg run() fold-1 checkpoint (config-1 width,
-    trained on phase 6's meshes)."""
+    folds, epochs and the block-sparse path at high, or at compute_dtype
+    bfloat16 with checkpoints of their own; crecon's frozen VAE is phase
+    15's default.cfg run() fold-1 checkpoint (config-1 width, trained on
+    phase 6's meshes)."""
     from meshvae_tpu_torch.config import read_config
 
     out = {}
@@ -3693,7 +3697,7 @@ def _classifier_configs(tmp):
                 tmp, "ckpt_default", "checkpoint_1.pt")}),
             ("joint", {"folds": JOINT_FOLDS})):
         config = read_config(os.path.join(ROOT, "files", f"{name}.cfg"))
-        ckpt = os.path.join(tmp, f"ckpt_{name}")
+        ckpt = os.path.join(tmp, f"ckpt_{name}" + ("16" if bf16 else ""))
         config.update({
             "template": os.path.join(ROOT, "template", "template5k.obj"),
             "root_dir": os.path.join(tmp, "train_data"),
@@ -3701,15 +3705,20 @@ def _classifier_configs(tmp):
             "hierarchy_cache_dir": os.path.join(tmp, "cache"),
             "epoch": CLASSIFIER_EPOCHS, "cheb_method": "pallas",
             "matmul_precision": "high", **extra})
+        if bf16:
+            config["compute_dtype"] = "bfloat16"
         out[name] = config
     return out
 
 
-def _hold_launches(label, launches, steps, per_train, per_eval, pool=0):
+def _hold_launches(label, launches, steps, per_train, per_eval, pool=0,
+                   lap="bf16x3", pool_mode="fp32"):
     """A main-path run's launches against its per-step counts: at high the
-    Laplacian calls are bf16x3 and the P^T fp32."""
-    want = {"fp32": pool * steps["train"], "bf16": 0,
-            "bf16x3": per_train * steps["train"] + per_eval * steps["eval"]}
+    Laplacian calls are bf16x3 and the P^T fp32; in bf16 both are
+    bf16."""
+    want = dict.fromkeys(("fp32", "bf16x3", "bf16"), 0)
+    want[lap] += per_train * steps["train"] + per_eval * steps["eval"]
+    want[pool_mode] += pool * steps["train"]
     say(f"  {label} launches {launches} over {steps} steps (expected "
         f"{want}: {per_train} Laplacian + {pool} P^T per train step, "
         f"{per_eval} per eval step)")
@@ -3717,29 +3726,87 @@ def _hold_launches(label, launches, steps, per_train, per_eval, pool=0):
         fail(f"{label}: launched {launches}, expected {want} ({steps})")
 
 
-def _card_vs_cpu(torch, label, make, batch_of, bar):
-    """One deterministic train step (no dropout, z = mu) on the card and on
-    the CPU from the same weights: loss within 1e-5 relative, every
-    gradient within `bar` of its layer's max|g|. make(side) -> trainer;
-    batch_of(trainer) -> (args of its train_step)."""
-    loss, grads = {}, {}
-    for side in ("cuda", "cpu"):
-        tr = make(side)
-        loss[side] = tr.train_step(*batch_of(tr))[0].item()
-        grads[side] = {k: v.grad.cpu()
-                       for k, v in tr.model.named_parameters()}
-    rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
-    worst = max((grads["cuda"][k] - g).abs().max().item()
-                / _layer_scale(grads["cpu"], k)
-                for k, g in grads["cpu"].items())
-    say(f"  card vs cpu train step [{label}]: loss {loss['cuda']:.6f} rel "
-        f"{rel:.2e} (bar 1e-5); worst gradient delta {worst:.2e} of its "
-        f"layer's max|g| (bar {bar:g}) over {len(grads['cpu'])} tensors")
+def _graphs_logged(config, label):
+    """The run's log line naming its epoch mode; fails unless it names
+    the CUDA graphs."""
+    with open(config["log_file"]) as fp:
+        mode = [l.strip() for l in fp if l.startswith("epochs:")]
+    if not mode or "CUDA graphs" not in mode[0]:
+        fail(f"{label} run() did not run its steps as CUDA graphs: {mode}")
+    return mode[0]
+
+
+def _steps(torch, make, batch_of, sides):
+    """One deterministic train step (no dropout, z = mu) of make(side) on
+    each side from the same weights: {side: {"loss": loss, name:
+    gradient}}, on the CPU. The side "twin" runs on the card with every
+    Laplacian call through the kernel's plain twin, and launches nothing."""
+    import contextlib
+
+    from meshvae_tpu_torch.ops import bsr_spmm
+
+    out = {}
+    for side in sides:
+        twin = side == "twin"
+        with _twins() if twin else contextlib.nullcontext():
+            bsr_spmm.reset_launches()
+            tr = make(side)
+            loss = tr.train_step(*batch_of(tr))[0].float().cpu()
+        if twin and any(bsr_spmm.LAUNCHES.values()):
+            fail(f"the twin's step launched {bsr_spmm.LAUNCHES}")
+        out[side] = {"loss": loss, **{k: v.grad.cpu() for k, v in
+                                      tr.model.named_parameters()}}
+    return out
+
+
+def _held_fp32(label, runs, bar):
+    """Card vs CPU at high or highest: loss within 1e-5 relative, every
+    gradient within `bar` of its layer's max|g|."""
+    card, cpu = runs["card"], runs["cpu"]
+    rel = float(abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]))
+    grads = {k: g for k, g in cpu.items() if k != "loss"}
+    worst = max(float((card[k] - g).abs().max()) / _layer_scale(grads, k)
+                for k, g in grads.items())
+    say(f"  card vs cpu train step [{label}]: loss {float(card['loss']):.6f}"
+        f" rel {rel:.2e} (bar 1e-5); worst gradient delta {worst:.2e} of "
+        f"its layer's max|g| (bar {bar:g}) over {len(grads)} tensors")
     if not (rel <= 1e-5 and worst <= bar):
         fail(f"card and CPU train steps disagree: {label}")
 
 
-def _classifier_times(torch, label, trainer, staged, args, card):
+def _held_cancelling(name, runs, scale) -> float:
+    """The bf16 step where its features cancel (crecon's x - recon behind
+    a trained VAE): the GCN then learns from rounding residue, and two bf16
+    computations of the step that round in different orders each sit up
+    to the bf16 error from fp32, so they may differ by twice it. The bar:
+    the card's run, and the witness (the same step on the card with the
+    kernel's twin in its place), each no further from the CPU's fp32 than
+    twice the CPU's bf16 is, plus one bf16 ulp of the scale; a second card
+    run repeats the first within one ulp. The witness's distance to the
+    CPU's bf16 beside the card's says whether the kernel adds to the gap.
+    Returns the card's margin to its bar over the scale."""
+    card, again, twin, a, b = (runs[k] for k in ("card", "again", "twin",
+                                                  "cpu", "cpu32"))
+    d = {k: float(abs(u - v).max()) for k, (u, v) in {
+        "card": (card, b), "twin": (twin, b), "repeat": (card, again),
+        "kernel": (card, twin), "card16": (card, a), "twin16": (twin, a),
+        "bf16": (a, b)}.items()}
+    bar = 2 * d["bf16"] + TOL_BF16 * scale
+    say(f"  {name}: from the CPU's bf16, card {d['card16']:.3e} and twin on "
+        f"the card {d['twin16']:.3e}; card - twin {d['kernel']:.3e}; from "
+        f"its fp32, card {d['card']:.3e}, twin {d['twin']:.3e}, CPU bf16 "
+        f"{d['bf16']:.3e} (bar {bar:.3e}); card again {d['repeat']:.3e} "
+        f"(scale {scale:.3e})")
+    if not (d["card"] <= bar and d["twin"] <= bar):
+        fail(f"{name}: a bf16 card run beyond twice the CPU's bf16 error "
+             f"plus one ulp ({d['card']:.3e}, {d['twin']:.3e} > {bar:.3e})")
+    if not d["repeat"] <= TOL_BF16 * scale:
+        fail(f"{name}: a second card run differs by {d['repeat']:.3e}")
+    return (d["card"] - bar) / scale
+
+
+def _classifier_times(torch, label, trainer, staged, args, card,
+                      batch=BATCH):
     """Per-step time of a train epoch of SCAN_STEPS: a first epoch warms
     up and captures, one more counts the launches per replayed step; then
     CUDA events in turns eager, graphed, graphed, eager and the profiler's
@@ -3772,30 +3839,37 @@ def _classifier_times(torch, label, trainer, staged, args, card):
         busy = prof[graphs]["busy_ms"]
         report[name] = {"step_ms": times[graphs], "busy_ms": busy,
                         "idle": [1 - busy / m for m in times[graphs]],
-                        "meshes_per_s": [BATCH / m * 1e3
+                        "meshes_per_s": [batch / m * 1e3
                                          for m in times[graphs]]}
     e, g = report["eager"], report["graphed"]
     say(f"  times [{label}] per step of an epoch of {SCAN_STEPS}, A B B A: "
         f"eager {e['step_ms'][0]:.3f} / {e['step_ms'][1]:.3f} ms, graphed "
         f"{g['step_ms'][0]:.3f} / {g['step_ms'][1]:.3f} ms "
-        f"({g['meshes_per_s'][0]:.1f} meshes/sec at B={BATCH}); device busy "
+        f"({g['meshes_per_s'][0]:.1f} meshes/sec at B={batch}); device busy "
         f"{e['busy_ms']:.3f} / {g['busy_ms']:.3f} ms, idle share "
         f"{e['idle'][0]:.2f} / {g['idle'][0]:.2f} ({card})")
     return report, counts
 
 
-def phase_classifiers(torch, dev, ops, hier, tmpl, tmp, covered, card):
-    """Phase 16: crecon and the joint model at config-1 width on the
-    block-sparse path (module docstring). Returns the launches, per-step
-    kernel sums and worst kernel-vs-twin errors of its kernel-line
-    entries."""
-    say("== phase 16: classifiers (crecon and the joint VAE + GCN at "
-        "config-1 width, cheb_method pallas)")
+# the Laplacian calls' and the joint model's P^T modes, by the steps'
+# matmul precision ("default": compute_dtype bfloat16)
+CLASSIFIER_MODES = {"high": ("bf16x3", "fp32"), "highest": ("fp32", "fp32"),
+                    "default": ("bf16", "bf16")}
+
+
+def _classifier_paths(torch, dev, hier, tmpl, tmp, card, ops_of, names,
+                      bf16=False):
+    """Phase 16a, b, the card-vs-CPU steps and d at high, or phase 17c at
+    compute_dtype bfloat16 (module docstring). ops_of: operators by side
+    ("card", "cpu"; in bf16 also "cpu32", fp32), in the computation
+    dtype; names: {(n_pad, n_pad_cols): operand}. Returns the run()s'
+    launches (the joint model's by operand, as counted), every
+    LAUNCHES_BY_CALL key launched, the time reports and the Laplacian
+    and P^T launches per replayed epoch of each timed case."""
     import numpy as np
 
     from meshvae_tpu_torch.data import MeshDataset, list_meshes
-    from meshvae_tpu_torch.models import (ChebGCN, GCNConfig, MeshVAE,
-                                          VAEConfig, build_operators)
+    from meshvae_tpu_torch.models import ChebGCN, GCNConfig, MeshVAE, VAEConfig
     from meshvae_tpu_torch.models.joint import build_joint_model
     from meshvae_tpu_torch.ops import bsr_spmm
     from meshvae_tpu_torch.train import JointTrainer
@@ -3804,57 +3878,63 @@ def phase_classifiers(torch, dev, ops, hier, tmpl, tmp, covered, card):
                                                     load_checkpoint)
     from meshvae_tpu_torch.train.crecon_driver import CreconTrainer
 
-    configs = _classifier_configs(tmp)
-    operands = {"L0": ops.lap[0].bsr, "L1": ops.lap[1].bsr,
-                **{f"P{i}T": ops.up[i].t_bsr for i in (0, 1, 2)}}
-    names = {(b.n_pad, b.n_pad_cols): k for k, b in operands.items()}
-    launched = {}
+    configs = _classifier_configs(tmp, bf16)
+    c, j = configs["crecon"], configs["joint"]
+    lap, pool = CLASSIFIER_MODES["default" if bf16 else "high"]
+    tag = " bf16" if bf16 else ""
+    crecon_lap = sum(_table_counts(CRECON_CALLS).values())
+    joint_lap = sum(v for (key, _, _), v in
+                    _table_counts(JOINT_CALLS).items() if key.startswith("L"))
+    pools = [key for table in ("pool_colmajor", "pool_grouped")
+             for _, key, _, _ in JOINT_CALLS[table]]
+    keys = set()
 
     # --- (a) crecon through crecon_driver.run(): the main path ----------
-    c = configs["crecon"]
     results, secs, steps, launches, _, _ = _run_driver(
         torch, c, dev, run=lambda: crecon_driver.run(
             c, do_train=True, do_test=True, device=dev))
-    launched.update(dict.fromkeys(bsr_spmm.LAUNCHES_BY_CALL))
-    say(f"crecon run(): {secs:.1f}s, {CRECON_FOLDS} folds x "
+    keys |= set(bsr_spmm.LAUNCHES_BY_CALL)
+    say(f"crecon{tag} run(): {secs:.1f}s, {CRECON_FOLDS} folds x "
         f"{CLASSIFIER_EPOCHS} epochs on {TRAIN_MESHES} meshes, frozen VAE "
         f"{os.path.relpath(c['checkpoint_file'], tmp)}")
-    _hold_launches("crecon run()", launches, steps,
-                   sum(_table_counts(CRECON_CALLS).values()),
-                   CRECON_EVAL_LAUNCHES)
-    crecon_launches = launches["bf16x3"]
-    with open(c["log_file"]) as fp:
-        mode = [l.strip() for l in fp if l.startswith("epochs:")]
-    if not mode or "CUDA graphs" not in mode[0]:
-        fail(f"crecon run() did not run its steps as CUDA graphs: {mode}")
+    _hold_launches(f"crecon{tag} run()", launches, steps, crecon_lap,
+                   CRECON_EVAL_LAUNCHES, lap=lap)
+    crecon_launches = launches[lap]
+    mode = _graphs_logged(c, f"crecon{tag}")
     if len(results) != CRECON_FOLDS or not all(
             np.isfinite(r["test_loss"]) and 0.0 <= r["test_acc"] <= 1.0
             for r in results):
-        fail(f"crecon test results {results}")
+        fail(f"crecon{tag} test results {results}")
     vae = MeshVAE(VAEConfig.from_config(c, coarse_verts=hier.levels[-1]))
     vae.load_state_dict(load_checkpoint(c["checkpoint_file"])["model"])
     gcn_cfg = GCNConfig.from_config(c, coarse_verts=hier.levels[-1])
     for n in range(1, CRECON_FOLDS + 1):
         ChebGCN(gcn_cfg).load_state_dict(load_checkpoint(checkpoint_path(
             c["checkpoint_dir"], n))["model"])
-    say(f"  {mode[0]}; test " + "; ".join(
+    say(f"  {mode}; test " + "; ".join(
         f"fold {r['fold']} loss {r['test_loss']:.4f} acc {r['test_acc']:.3f}"
         for r in results) + f"; checkpoint_1-{CRECON_FOLDS}.pt reload")
 
     # --- (b) the joint model through train/driver.run() -----------------
-    j = configs["joint"]
     results, secs, steps, launches, _, by_shape = _run_driver(
         torch, j, dev, vis=True)
-    launched.update(dict.fromkeys(bsr_spmm.LAUNCHES_BY_CALL))
-    _hold_launches("joint run()", launches, steps,
-                   sum(v for (key, _, _), v in
-                       _table_counts(JOINT_CALLS).items()
-                       if key.startswith("L")), JOINT_EVAL_LAUNCHES,
-                   pool=len(JOINT_CALLS["pool_colmajor"])
-                   + len(JOINT_CALLS["pool_grouped"]))
-    joint_launches = {"lap": launches["bf16x3"], "pool": {
-        names[(n, m)]: v for (_, n, m), v in by_shape.items()
-        if names.get((n, m), "").startswith("P")}}
+    keys |= set(bsr_spmm.LAUNCHES_BY_CALL)
+    _hold_launches(f"joint{tag} run()", launches, steps, joint_lap,
+                   JOINT_EVAL_LAUNCHES, pool=len(pools), lap=lap,
+                   pool_mode=pool)
+    by_operand = {}
+    for (_, n, m), v in by_shape.items():
+        if (n, m) not in names:
+            fail(f"joint{tag} run() launched on an unknown operator {(n, m)}")
+        by_operand[names[(n, m)]] = by_operand.get(names[(n, m)], 0) + v
+    joint_launches = {
+        "lap": sum(v for k, v in by_operand.items() if k.startswith("L")),
+        "pool": {k: v for k, v in by_operand.items() if k.startswith("P")}}
+    if joint_launches["pool"] != dict.fromkeys(pools, steps["train"]):
+        fail(f"joint{tag} run(): P^T launches {joint_launches['pool']}, "
+             f"expected each once per train step ({steps['train']})")
+    say(f"  joint{tag} launches by operator {by_operand}")
+    jmode = _graphs_logged(j, f"joint{tag}")
     for fold in range(1, JOINT_FOLDS + 1):
         with open(os.path.join(j["checkpoint_dir"],
                                f"history{fold}.json")) as fp:
@@ -3864,97 +3944,164 @@ def phase_classifiers(torch, dev, ops, hier, tmpl, tmp, covered, card):
         if [h["epoch"] for h in hist] != [1, 2] or not all(
                 a is not None and b is not None and 0 <= a <= 1
                 and 0 <= b <= 1 for a, b in rates):
-            fail(f"joint history{fold}.json lacks the extra scalars: "
+            fail(f"joint{tag} history{fold}.json lacks the extra scalars: "
                  f"{rates}")
     for r in results:
         if not all(np.isfinite(v) for v in r.values()):
-            fail(f"joint test averages {r}")
+            fail(f"joint{tag} test averages {r}")
     triples = sum(len(os.listdir(path)) for path in (
         os.path.join(j["checkpoint_dir"], f"mesh{fold}", d)
         for fold in range(1, JOINT_FOLDS + 1)
         for d in ("sex_change_S", "sex_change_F")) if os.path.isdir(path))
     if triples != 3 * TRAIN_MESHES:  # -v: each mesh is tested in one fold
-        fail(f"joint run() wrote {triples} .obj files, expected "
+        fail(f"joint{tag} run() wrote {triples} .obj files, expected "
              f"{3 * TRAIN_MESHES}")
-    say("  joint test: " + "; ".join(
+    say(f"  {jmode}; joint{tag} test: " + "; ".join(
         f"fold {r['fold']} loss {r['loss']:.1f} acc {r['accuracy']:.3f} sup "
         f"{r['sup_accuracy']:.3f} adv {r['adv_accuracy']:.3f} sex change "
         f"{r['sex_change_success_rate']:.3f}" for r in results)
         + f"; history sup/adv accuracy per epoch {rates}")
 
     # --- card vs CPU: one deterministic train step each ------------------
-    ops_cpu = build_operators(hier, "cpu", cheb_method="pallas")
     index, labels = list_meshes({"root_dir": c["root_dir"]})
-    ds = MeshDataset(index, {"root_dir": c["root_dir"],
-                             "checkpoint_dir": os.path.join(tmp, "norm16")},
+    ds = MeshDataset(index, {"root_dir": c["root_dir"], "checkpoint_dir":
+                             os.path.join(tmp, f"norm_{lap}")},
                      labels, tmpl.v)
-    host = _scan_batches(ds, BATCH, seed=16)
-    fixed = host[0]
-    vae_state = vae.state_dict()
+    fixed = _scan_batches(ds, BATCH, seed=16)[0]
+    vae_states = {"trained": vae.state_dict(), "seeded": MeshVAE(
+        vae.cfg, generator=torch.Generator().manual_seed(77)).state_dict()}
     gcn_state = ChebGCN(gcn_cfg, generator=torch.Generator().manual_seed(
         16)).state_dict()
     joint_state = build_joint_model(
         j, hier.levels[-1], generator=torch.Generator().manual_seed(
             17)).state_dict()
 
-    def crecon_trainer(side, precision):
-        cfg = dict(c, matmul_precision=precision)
-        v = MeshVAE(dataclasses.replace(vae.cfg, precision=precision))
-        v.load_state_dict(vae_state)
-        g = ChebGCN(dataclasses.replace(gcn_cfg, precision=precision))
+    def trainer(name, side, precision, vae_state="trained"):
+        config = dict(c if name == "crecon" else j,
+                      matmul_precision=precision)
+        if side == "cpu32":
+            config.update(compute_dtype="float32",
+                          matmul_precision="highest")
+        device = "cpu" if side.startswith("cpu") else dev
+        operators = ops_of[side if device == "cpu" else "card"]
+        if name == "joint":
+            m = build_joint_model(config, hier.levels[-1])
+            m.load_state_dict(joint_state)
+            return JointTrainer(m, operators, config, device=device)
+        v = MeshVAE(VAEConfig.from_config(config,
+                                          coarse_verts=hier.levels[-1]))
+        v.load_state_dict(vae_states[vae_state])
+        g = ChebGCN(GCNConfig.from_config(config,
+                                          coarse_verts=hier.levels[-1]))
         g.load_state_dict(gcn_state)
-        return CreconTrainer(g, v, ops if side == "cuda" else ops_cpu, cfg,
-                             device=dev if side == "cuda" else "cpu")
+        return CreconTrainer(g, v, operators, config, device=device)
 
-    def joint_trainer(side, precision):
-        cfg = dict(j, matmul_precision=precision)
-        m = build_joint_model(cfg, hier.levels[-1])
-        m.load_state_dict(joint_state)
-        return JointTrainer(m, ops if side == "cuda" else ops_cpu, cfg,
-                            device=dev if side == "cuda" else "cpu")
+    def batch_of(name):
+        if name == "crecon":
+            return lambda tr: (tr.to_device(fixed),)
+        return lambda tr: (tr.to_device(fixed), None,
+                           *tr.norm_to_device(ds.mean, ds.std))
 
-    def joint_args(tr):
-        return (tr.to_device(fixed), None,
-                *tr.norm_to_device(ds.mean, ds.std))
+    if not bf16:
+        for precision, bar in (("high", 1e-3), ("highest", 1e-4)):
+            for name in ("crecon", "joint"):
+                _held_fp32(f"{name} {precision}", _steps(
+                    torch, lambda side: trainer(name, side, precision),
+                    batch_of(name), ("card", "cpu")), bar)
+    else:
+        # phase 8's bar on seeded weights; behind the trained VAE, crecon's
+        # features cancel and the bar is the witness's (_held_cancelling)
+        for label, name, vae_state, sides in (
+                ("crecon, seeded VAE", "crecon", "seeded",
+                 ("card", "cpu", "cpu32")),
+                ("joint", "joint", "seeded", ("card", "cpu", "cpu32")),
+                ("crecon, trained VAE", "crecon", "trained",
+                 ("card", "again", "twin", "cpu", "cpu32"))):
+            runs = _steps(torch, lambda side: trainer(name, side, "default",
+                                                      vae_state),
+                          batch_of(name), sides)
+            margins = []
+            for k, ref in runs["cpu32"].items():
+                scale = (float(abs(ref)) if k == "loss" else _layer_scale(
+                    {q: g for q, g in runs["cpu32"].items() if q != "loss"},
+                    k))
+                got = {side: r[k] for side, r in runs.items()}
+                margins.append(
+                    _held_cancelling(f"{label} {k}", got, scale)
+                    if "twin" in runs else
+                    _held_bf16(f"{label} {k}", got["card"], got["cpu"],
+                               ref, scale))
+            say(f"  card vs CPU [{label} bf16]: {len(margins)} quantities "
+                f"held, worst margin {max(margins):.3e} of the scale")
 
-    for precision, bar in (("high", 1e-3), ("highest", 1e-4)):
-        _card_vs_cpu(torch, f"crecon {precision}",
-                     lambda side: crecon_trainer(side, precision),
-                     lambda tr: (tr.to_device(fixed),), bar)
-        _card_vs_cpu(torch, f"joint {precision}",
-                     lambda side: joint_trainer(side, precision),
-                     joint_args, bar)
-
-    # --- (d) times: graphed and eager train steps, per-step kernel sums --
+    # --- (d) times: graphed and eager train steps ------------------------
+    cases = ([("default", BATCH), ("default", CONFIG4_BATCH)] if bf16 else
+             [("high", BATCH), ("highest", BATCH)])
     reports, per_replay = [], {}
-    for precision in ("high", "highest"):
-        for name, make, calls in (("crecon", crecon_trainer, CRECON_CALLS),
-                                  ("joint", joint_trainer, JOINT_CALLS)):
-            tr = make("cuda", precision)
+    for precision, batch in cases:
+        host = _scan_batches(ds, batch, seed=16)
+        lap_mode, pool_mode = CLASSIFIER_MODES[precision]
+        for name, calls, n_lap, n_pool in (
+                ("crecon", CRECON_CALLS, crecon_lap, 0),
+                ("joint", JOINT_CALLS, joint_lap, len(pools))):
+            tr = trainer(name, "card", precision)
             staged = tr.stage_batches(host)
             args = ((None, None, None) if name == "crecon" else
                     (torch.Generator(device=dev).manual_seed(3),
                      *tr.norm_to_device(ds.mean, ds.std)))
-            label = f"{name} {precision}"
+            label = (f"{name} bf16 B={batch}" if bf16 else
+                     f"{name} {precision}")
             report, (counts, by_call) = _classifier_times(
-                torch, label, tr, staged, args, card)
-            table = _launch_table(by_call, names, SCAN_STEPS)
-            if table != _table_counts(calls):
-                fail(f"{label}: calls per replayed step {table}, expected "
-                     f"{_table_counts(calls)}")
-            per_replay[label] = counts
-            launched.update(dict.fromkeys(by_call))
+                torch, label, tr, staged, args, card, batch=batch)
+            keys |= set(by_call)
+            want = dict.fromkeys(bsr_spmm.MODES, 0)
+            want[lap_mode] += n_lap * SCAN_STEPS
+            want[pool_mode] += n_pool * SCAN_STEPS
+            if counts != want:
+                fail(f"{label}: launches per replayed epoch {counts}, "
+                     f"expected {want}")
+            if batch == BATCH and _launch_table(
+                    by_call, names, SCAN_STEPS) != _table_counts(calls):
+                fail(f"{label}: calls per replayed step "
+                     f"{_launch_table(by_call, names, SCAN_STEPS)}, "
+                     f"expected {_table_counts(calls)}")
+            per_replay[label] = dict.fromkeys(("lap", "pool"), 0)
+            for (_, n, m, _, _), v in by_call.items():
+                per_replay[label]["lap" if names.get((n, m), "").startswith(
+                    "L") else "pool"] += v
             report["launches_per_step"] = {k: v / SCAN_STEPS
                                            for k, v in counts.items() if v}
             reports.append(report)
             del tr, staged
-    say("  calls per replayed step equal CRECON_CALLS and JOINT_CALLS; "
-        "launches per replayed epoch " + json.dumps(per_replay))
+    say("  calls per replayed step at B=16 equal CRECON_CALLS and "
+        "JOINT_CALLS; Laplacian and P^T launches per replayed epoch "
+        + json.dumps(per_replay))
+    return {"crecon": crecon_launches, "joint": joint_launches,
+            "keys": keys, "reports": reports, "per_replay": per_replay}
+
+
+def phase_classifiers(torch, dev, ops, hier, tmpl, tmp, covered, card):
+    """Phase 16: crecon and the joint model at config-1 width on the
+    block-sparse path at high (module docstring). Returns the launches,
+    per-step kernel sums and worst kernel-vs-twin errors of its
+    kernel-line entries."""
+    say("== phase 16: classifiers (crecon and the joint VAE + GCN at "
+        "config-1 width, cheb_method pallas)")
+    from meshvae_tpu_torch.models import build_operators
+
+    operands = {"L0": ops.lap[0].bsr, "L1": ops.lap[1].bsr,
+                **{f"P{i}T": ops.up[i].t_bsr for i in (0, 1, 2)}}
+    names = {(b.n_pad, b.n_pad_cols): k for k, b in operands.items()}
+    paths = _classifier_paths(
+        torch, dev, hier, tmpl, tmp, card,
+        {"card": ops, "cpu": build_operators(hier, "cpu",
+                                             cheb_method="pallas")}, names)
+    reports = paths["reports"]
 
     # --- (c) the kernel against its twin at the new (operator, C, kind):
     # after d, whose epochs at highest add the fp32 shapes ------------------
     gen = torch.Generator(device=dev).manual_seed(16)
-    new = sorted(set(launched) - covered)
+    new = sorted(paths["keys"] - covered)
     worst = {"bf16x3": 0.0, "fp32": 0.0}
     say(f"  kernel vs twin at the {len(new)} (mode, operator, C, call kind) "
         f"that phases 16a, b and d launched and phase 3 did not cover:")
@@ -3994,8 +4141,600 @@ def phase_classifiers(torch, dev, ops, hier, tmpl, tmp, covered, card):
             f"{r['graphed']['step_ms'][0]:.3f} ms "
             f"({k_ms / r['graphed']['step_ms'][0]:.2f})")
     say("classifier_times " + json.dumps(reports))
-    return {"crecon_launches": crecon_launches, "joint": joint_launches,
-            "per_replay": per_replay, "per_step": per_step, "worst": worst}
+    return dict(paths, per_step=per_step, worst=worst)
+
+
+# --- phase 17: the bf16 paths and the joint model through inference -------
+CONFIG4_BATCH = 128
+CONFIG4_MESHES = 256    # two batches of 128
+# BASELINE config 4 per batch at B = 128: the serving step's convs at 8x
+# the columns (the encoder's F 3 pads to C 384 only; the 2B decoder)
+CONFIG4_CALLS = [("enc L0", "L0", 384, _FWD), ("enc L1", "L1", 2048, _FWD),
+                 ("dec L1", "L1", 4096, _FWD), ("dec L0", "L0", 4096, _FWD)]
+# an 80k inference batch: the four block-sparse encoder convs at B and the
+# four decoder convs at 2B, 9 calls each (K = 10)
+INFER80_LAUNCHES = 72
+
+
+def _settled(logits):
+    """Rows of [B, 2] logits whose two values differ by more than two bf16
+    ulps of their magnitude: another bf16 order of the same sums keeps
+    their argmax."""
+    import numpy as np
+
+    lg = np.asarray(logits, np.float64)
+    mag = np.maximum(np.abs(lg).max(axis=-1), 1e-30)
+    return np.abs(lg[:, 0] - lg[:, 1]) > 2 * 2.0 ** (np.floor(np.log2(mag))
+                                                     - 7)
+
+
+def _engine_runs(torch, cases, batch_cpu, mean, std):
+    """InferenceEngine.step of each (side, model, ops, device) on one host
+    batch, with the classifier's logits; outputs on the CPU in float32."""
+    from meshvae_tpu_torch.infer.driver import InferenceEngine
+    from meshvae_tpu_torch.models.vae import dense
+
+    out = {}
+    for side, model, ops, device in cases:
+        batch = {k: v.to(device) for k, v in batch_cpu.items()}
+        m, s = mean.to(device), std.to(device)
+        got = InferenceEngine(model, ops).step(batch, m, s)
+        with torch.no_grad():
+            h = model.encode(batch["x"], ops)
+            got["logits"] = dense(model.classifier_layer, h, model.cfg.dtype)
+        out[side] = {k: v.float().cpu() for k, v in got.items()}
+    return out
+
+
+def _held_rows(label, runs, keys, worst):
+    """Card vs CPU in bf16 on the rows whose prediction is settled (the
+    CPU's bf16 logits; the excused rows printed, at most a quarter): pred
+    equal there, then phase 8's bar per key over the rows where the CPU's
+    bf16 and fp32 predictions agree."""
+    import torch
+
+    c, a, b = runs["card"], runs["cpu16"], runs["cpu32"]
+    keep = _settled(a["logits"].numpy())
+    same = torch.from_numpy(keep & (a["pred"] == b["pred"]).numpy())
+    keep = torch.from_numpy(keep)
+    say(f"  {label}: {int((~keep).sum())} of {len(keep)} rows excused "
+        f"(CPU bf16 logits within two ulps), {int(same.sum())} held")
+    if (~keep).sum() > len(keep) // 4:
+        fail(f"{label}: more than a quarter of the rows are excused")
+    if not bool((c["pred"][keep] == a["pred"][keep]).all()):
+        fail(f"{label}: pred differs between the card and the CPU")
+    for k in keys:
+        worst.append(_held_bf16(f"{label} {k}", c[k][same], a[k][same],
+                                b[k][same],
+                                float(b[k][same].abs().max())))
+
+
+def _bf16_sums(torch, tables, operands, dev, rows):
+    """Per-step sums of the bf16 kernel, twin, torch.sparse and bounds over
+    call tables {name: [(label, operand, C, kinds)]}."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    sums = {}
+    for name, calls in tables.items():
+        acc = dict.fromkeys(ACC_KEYS, 0.0)
+        say(f" {name}:")
+        for label, key, c, kinds in calls:
+            bsr, csr = operands[key]
+            for kind, count in kinds.items():
+                got = _time_kind_bf16(torch, bsr, csr, c, kind, gen, dev)
+                for k in acc:
+                    acc[k] += count * got[k]
+                rows.append(dict(got["row"], shape=label, step=name,
+                                 per_step=count))
+        sums[name] = acc
+        say(f"per step {name}: kernel {acc['ms']:.3f} ms, twin "
+            f"{acc['plain_ms']:.3f} ms, torch.sparse {acc['library_ms']:.3f}"
+            f" ms, bound {acc['bound_ms']:.3f} ms ({_bound_by(acc)}; "
+            f"{acc['stored_ms']:.3f} ms with the blocks as stored)")
+    return sums
+
+
+def _infer_cli(torch, argv):
+    """python -m meshvae_tpu_torch.infer's main(argv), quiet; returns (CLI
+    seconds, run_inference's, the device pass's)."""
+    import contextlib
+    import io
+
+    from meshvae_tpu_torch.infer import driver as infer_driver
+    from meshvae_tpu_torch.infer.__main__ import main as infer_main
+
+    timed = {}
+    real = {"run": infer_driver.run_inference,
+            "device": infer_driver.InferenceEngine.run_dataset}
+
+    def timer(key, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            res = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            timed[key] = time.perf_counter() - t0
+            return res
+        return run
+
+    infer_driver.run_inference = timer("run", real["run"])
+    infer_driver.InferenceEngine.run_dataset = timer("device", real["device"])
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            rc = infer_main(argv)
+            secs = time.perf_counter() - t0
+    finally:
+        infer_driver.run_inference = real["run"]
+        infer_driver.InferenceEngine.run_dataset = real["device"]
+    if rc != 0:
+        fail(f"python -m meshvae_tpu_torch.infer {' '.join(argv)}: rc {rc}")
+    return secs, timed["run"], timed["device"]
+
+
+def _infer_outputs(out, names=None):
+    """(pred.json, inference.json, {.obj name: vertices}) of a run, the
+    meshes only for `names` (all when None)."""
+    from meshvae_tpu_torch.mesh import load_obj
+
+    with open(os.path.join(out, "pred.json")) as fp:
+        pred = json.load(fp)
+    with open(os.path.join(out, "inference.json")) as fp:
+        inf = json.load(fp)
+    mdir = os.path.join(out, "sex_change")
+    objs = {}
+    if os.path.isdir(mdir):
+        stems = None if names is None else {n.split(".")[0] for n in names}
+        objs = {f: load_obj(os.path.join(mdir, f)).v
+                for f in sorted(os.listdir(mdir))
+                if stems is None or f.split(".")[0].replace("_recon", "")
+                .replace("_gt", "") in stems}
+    return pred, inf, objs
+
+
+def _infer_cfg(path, config, extra=()):
+    """A config file of config_1's model keys (and `extra` keys) for the
+    inference CLI."""
+    with open(path, "w") as fp:
+        fp.write("[All]\n")
+        for k in ("template", "hierarchy_cache_dir", "downsampling_factors",
+                  "num_conv_filters", "polygon_order", "num_hidden",
+                  "num_style", "batch_size", "cheb_method", "checkpoint_dir",
+                  *extra):
+            v = config[k]
+            fp.write(f"{k} = "
+                     f"{', '.join(map(str, v)) if isinstance(v, list) else v}"
+                     "\n")
+
+
+def _p17_serve(torch, dev, ctx):
+    """17a: a bf16 MeshServer answering phase 4's three request lines (the
+    main path), card vs CPU on one step, the serving step's time."""
+    import io
+
+    import numpy as np
+
+    from meshvae_tpu_torch.infer.serve import MeshServer
+    from meshvae_tpu_torch.ops import bsr_spmm
+
+    say("-- 17a: bf16 serving (config 1, B=16)")
+    many = [os.path.join(ctx["many_dir"], f)
+            for f in os.listdir(ctx["many_dir"])]
+    server = MeshServer(ctx["model16"], ctx["ops16"], *ctx["norm"],
+                        template=ctx["tmpl"].v, faces=ctx["tmpl"].f,
+                        batch_size=BATCH,
+                        output_path=os.path.join(ctx["tmp"], "out_bf16"),
+                        save_meshes=True, device=dev)
+    try:
+        say(f"warmup[bf16] {server.warmup():.2f}s")
+        request = (f"{ctx['single']}\n{ctx['many_dir']}\n"
+                   f"{os.path.join(ctx['tmp'], 'missing.obj')}\n")
+        torch.cuda.synchronize()
+        # --- the main path: counts reset just before, read just after ----
+        bsr_spmm.reset_launches()
+        fout = io.StringIO()
+        server.serve_forever(io.StringIO(request), fout)
+        launches = dict(bsr_spmm.LAUNCHES)
+        by_call = dict(bsr_spmm.LAUNCHES_BY_CALL)
+        # -----------------------------------------------------------------
+        lines = [json.loads(l) for l in fout.getvalue().splitlines()]
+        _check_lines(lines, ctx["single"], many)
+        say(f"serve[bf16]: {len(lines)} lines; request seconds "
+            f"{[l['sec'] for l in lines if 'done' in l]}; first answer "
+            f"{lines[0]}")
+        want = {m: 3 * LAUNCHES_PER_STEP if m == "bf16" else 0
+                for m in bsr_spmm.MODES}
+        say(f"main-path launches {launches} (expected {want}: "
+            f"{LAUNCHES_PER_STEP} bf16 per serving step)")
+        if launches != want:
+            fail(f"bf16 serving launched {launches}, expected {want}")
+        table = _launch_table(by_call, ctx["names"], 3)
+        if table != _table_counts({"lap": SERVE_CALLS}):
+            fail(f"bf16 serving: calls per step {table}")
+
+        host = server.preprocess(sorted(many)[:BATCH])
+        batch = {"x": torch.from_numpy(host["x"].astype(np.float32)),
+                 **{k: torch.from_numpy(host[k])
+                    for k in ("r", "s", "m", "original")}}
+        mean, std = (torch.from_numpy(server.mean),
+                     torch.from_numpy(server.std))
+        runs = _engine_runs(torch, [
+            ("card", ctx["model16"], ctx["ops16"], dev),
+            ("cpu16", ctx["cpu16"], ctx["ops16_cpu"], "cpu"),
+            ("cpu32", ctx["cpu32"], ctx["ops32_cpu"], "cpu")],
+            batch, mean, std)
+        if not all(bool(torch.isfinite(v).all())
+                   for v in runs["card"].values()):
+            fail("non-finite bf16 serving outputs on the card")
+        _held_rows("serve step", runs, ("recon_orig", "oppo_orig",
+                                        "err_mean", "err_max"),
+                   ctx["worst_held"])
+
+        dev_batch = {"x": torch.from_numpy(host["x"]).to(dev),
+                     **{k: torch.from_numpy(host[k]).to(dev)
+                        for k in ("r", "s", "m")}}
+        ms = time_ms(torch, lambda: server.serve_step(dev_batch),
+                     runs=2 * RUNS, backlog=False)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        server.serve_step(dev_batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        say(f"serving step [bf16]: {ms:.3f} ms, {BATCH / ms * 1e3:.1f} "
+            f"meshes/sec at B={BATCH} as served; peak memory "
+            f"{peak / 2**20:.1f} MiB, of which the step's own "
+            f"{(peak - base) / 2**20:.1f} MiB ({ctx['card']})")
+        busy = _profile(torch, lambda: server.serve_step(dev_batch),
+                        "serve bf16", ms)
+    finally:
+        server.close()
+    return {"launches": launches, "keys": set(by_call), "ms": ms,
+            "busy": busy}
+
+
+def _p17_config4(torch, dev, ctx):
+    """17b: BASELINE config 4 (bf16, B=128) through the inference CLI on
+    256 meshes, one batch card vs CPU, meshes/sec with and without the
+    triples; then a scaled80k bf16 inference run on phase 7's checkpoint."""
+    import numpy as np
+
+    from meshvae_tpu_torch.data import (MeshDataset, generate_synthetic_dataset,
+                                        list_meshes)
+    from meshvae_tpu_torch.models.vae import dense
+    from meshvae_tpu_torch.ops import bsr_spmm
+    from meshvae_tpu_torch.train.checkpoint import save_checkpoint
+
+    say(f"-- 17b: BASELINE config 4 (python -m meshvae_tpu_torch.infer, bf16,"
+        f" B={CONFIG4_BATCH}, {CONFIG4_MESHES} synthetic meshes)")
+    tmp = ctx["tmp"]
+    root = os.path.join(tmp, "config4")
+    data_dir = os.path.join(root, "data")
+    t0 = time.perf_counter()
+    generate_synthetic_dataset(ctx["tmpl"], data_dir,
+                               n_samples=CONFIG4_MESHES, seed=17)
+    say(f"{CONFIG4_MESHES} synthetic meshes in "
+        f"{time.perf_counter() - t0:.1f}s")
+    ckpt = os.path.join(root, "ckpt")
+    os.makedirs(ckpt)
+    save_checkpoint(os.path.join(ckpt, "checkpoint_1.pt"), ctx["weights"],
+                    {"state": {}, "param_groups": []}, 1, 0.0, 0.0)
+    np.savez(os.path.join(ckpt, "norm.npz"), mean=ctx["norm"][0],
+             std=ctx["norm"][1])
+    cfg_path = os.path.join(root, "infer.cfg")
+    _infer_cfg(cfg_path, dict(config_1(tmp), checkpoint_dir=ckpt))
+    # one batch for the CPU: the first 128 names, as the loader batches them
+    names = sorted(f for f in os.listdir(data_dir) if f.endswith(".obj"))
+    one_dir = os.path.join(root, "one_batch")
+    os.makedirs(one_dir)
+    for f in names[:CONFIG4_BATCH]:
+        os.symlink(os.path.join(data_dir, f), os.path.join(one_dir, f))
+    bf16 = ["-p", "compute_dtype", "bfloat16", "-p", "batch_size",
+            str(CONFIG4_BATCH)]
+
+    def argv(data, out, device, *flags):
+        return ["-c", cfg_path, "-d", data, "-o", os.path.join(root, out),
+                "-n", "1", "--device", device, *flags]
+
+    torch.cuda.synchronize()
+    # --- the main path: counts reset just before, read just after --------
+    bsr_spmm.reset_launches()
+    secs, run_secs, dev_secs = _infer_cli(torch, argv(data_dir, "card", "cuda",
+                                                      *bf16))
+    launches = dict(bsr_spmm.LAUNCHES)
+    by_call = dict(bsr_spmm.LAUNCHES_BY_CALL)
+    # ---------------------------------------------------------------------
+    batches = CONFIG4_MESHES // CONFIG4_BATCH
+    want = {m: LAUNCHES_PER_STEP * batches if m == "bf16" else 0
+            for m in bsr_spmm.MODES}
+    say(f"config 4 [card]: {secs:.2f}s CLI, {run_secs:.2f}s run_inference "
+        f"({CONFIG4_MESHES / run_secs:.1f} meshes/sec with the .obj "
+        f"triples), device pass {dev_secs:.3f}s; launches {launches} "
+        f"(expected {want})")
+    if launches != want:
+        fail(f"config 4 launched {launches}, expected {want}")
+    table = _launch_table(by_call, ctx["names"], batches)
+    if table != _table_counts({"lap": CONFIG4_CALLS}):
+        fail(f"config 4: calls per batch {table}")
+    pred, inf, objs = _infer_outputs(os.path.join(root, "card"),
+                                     names[:CONFIG4_BATCH])
+    if len(pred) != CONFIG4_MESHES or not all(
+            np.isfinite(v["reconstruction_error"]["max"])
+            for v in inf.values()):
+        fail(f"config 4: {len(pred)} answers, or non-finite errors")
+
+    # one batch on the CPU, bf16 and the fp32 yardstick
+    _infer_cli(torch, argv(one_dir, "cpu16", "cpu", *bf16))
+    _infer_cli(torch, argv(one_dir, "cpu32", "cpu", "-p", "batch_size",
+                           str(CONFIG4_BATCH), "-p", "matmul_precision",
+                           "highest"))
+    outs = {"card": (pred, inf, objs)}
+    for side in ("cpu16", "cpu32"):
+        outs[side] = _infer_outputs(os.path.join(root, side))
+    dcfg = {"root_dir": one_dir, "checkpoint_dir": ckpt}
+    index, labels = list_meshes(dcfg)
+    ds = MeshDataset(index, dcfg, labels, ctx["tmpl"].v, dtype="test")
+    with torch.no_grad():
+        h = ctx["cpu16"].encode(torch.from_numpy(ds.x), ctx["ops16_cpu"])
+        logits = dense(ctx["cpu16"].classifier_layer, h, torch.bfloat16)
+    stems = [f.split("/").pop() for f in ds.filenames]
+    runs = {}
+    for side, (p, i, o) in outs.items():
+        by_stem = {k.split("/").pop(): v for k, v in p.items()}
+        runs[side] = {
+            "pred": torch.tensor([int(by_stem[s]) for s in stems]),
+            "logits": logits.float(),
+            "err_mean": torch.tensor([i[s]["reconstruction_error"]["mean"]
+                                      for s in stems]),
+            "err_max": torch.tensor([i[s]["reconstruction_error"]["max"]
+                                     for s in stems]),
+            "recon_orig": torch.from_numpy(np.stack([
+                o[s.split(".")[0] + "_recon.obj"] for s in stems])),
+            "oppo_orig": torch.from_numpy(np.stack([
+                o[s.split(".")[0] + ".obj"] for s in stems]))}
+    _held_rows("config-4 batch", runs, ("recon_orig", "oppo_orig",
+                                        "err_mean", "err_max"),
+               ctx["worst_held"])
+
+    secs_nm, run_nm, dev_nm = _infer_cli(torch, argv(
+        data_dir, "card_nomesh", "cuda", *bf16, "--no-meshes"))
+    say(f"config 4 [card, --no-meshes]: {CONFIG4_MESHES / run_nm:.1f} "
+        f"meshes/sec through run_inference ({run_nm:.3f}s); "
+        f"{CONFIG4_MESHES / dev_nm:.1f} through the device pass alone "
+        f"({dev_nm:.4f}s, {batches} steps); with the triples "
+        f"{CONFIG4_MESHES / run_secs:.1f} ({run_secs:.3f}s); "
+        f"{CONFIG4_MESHES / secs_nm:.1f} through the whole CLI ({ctx['card']})")
+
+    # scaled80k bf16 batch inference on phase 7's fold-1 checkpoint
+    s80 = ctx["s80"]
+    data80 = os.path.join(tmp, "data80k")
+    argv80 = ["-c", os.path.join(ROOT, SCALED_CFG), "-d", data80, "-o",
+              os.path.join(root, "out80"), "-n", "1", "--device", "cuda",
+              "--no-meshes", "-p", "template", s80["path"], "-p",
+              "hierarchy_cache_dir", os.path.join(tmp, "cache80"), "-p",
+              "checkpoint_dir", os.path.join(tmp, "ckpt80k")]
+    torch.cuda.synchronize()
+    # --- the main path: counts reset just before, read just after --------
+    bsr_spmm.reset_launches()
+    secs80, run80, dev80 = _infer_cli(torch, argv80)
+    launches80 = dict(bsr_spmm.LAUNCHES)
+    by_call80 = dict(bsr_spmm.LAUNCHES_BY_CALL)
+    # ---------------------------------------------------------------------
+    batches80 = -(-SCALED_MESHES // SCALED_BATCH)
+    want80 = {m: INFER80_LAUNCHES * batches80 if m == "bf16" else 0
+              for m in bsr_spmm.MODES}
+    pred80, inf80, _ = _infer_outputs(os.path.join(root, "out80"))
+    say(f"scaled80k bf16 inference (B={SCALED_BATCH}, {SCALED_MESHES} "
+        f"meshes, --no-meshes): {secs80:.2f}s CLI, "
+        f"{SCALED_MESHES / run80:.1f} meshes/sec through run_inference, "
+        f"{SCALED_MESHES / dev80:.1f} through the device pass; launches "
+        f"{launches80} (expected {want80}: {INFER80_LAUNCHES} per batch)")
+    if launches80 != want80:
+        fail(f"scaled80k inference launched {launches80}, expected {want80}")
+    if len(pred80) != SCALED_MESHES or not all(
+            np.isfinite(v["reconstruction_error"]["mean"])
+            for v in inf80.values()):
+        fail("scaled80k inference: missing answers or non-finite errors")
+    return {"launches": launches, "launches80": launches80,
+            "keys": set(by_call) | set(by_call80)}
+
+
+def _p17_classifiers(torch, dev, ctx):
+    """17c: phase 16's classifier paths at compute_dtype bfloat16, timed
+    at B=16 and B=128."""
+    say("-- 17c: crecon and the joint model in bf16 (config-1 width, B=16)")
+    out = _classifier_paths(
+        torch, dev, ctx["hier"], ctx["tmpl"], ctx["tmp"], ctx["card"],
+        {"card": ctx["ops16"], "cpu": ctx["ops16_cpu"],
+         "cpu32": ctx["ops32_cpu"]}, ctx["names"], bf16=True)
+    say("classifier_times_bf16 " + json.dumps(out["reports"]))
+    return out
+
+
+def _p17_joint_infer(torch, dev, ctx):
+    """17d: phase 16b's joint checkpoint through the inference CLI and a
+    MeshServer at high, card vs CPU at phase 12's fp32 bars."""
+    import io
+
+    import numpy as np
+
+    from meshvae_tpu_torch.config import read_config
+    from meshvae_tpu_torch.data import MeshDataset, list_meshes
+    from meshvae_tpu_torch.infer.serve import MeshServer
+    from meshvae_tpu_torch.ops import bsr_spmm
+    from meshvae_tpu_torch.train.checkpoint import load_checkpoint
+    from meshvae_tpu_torch.train.driver import build_model_and_ops
+
+    say("-- 17d: the joint model through batch inference and serving (phase "
+        "16b's checkpoint, high)")
+    tmp = ctx["tmp"]
+    root = os.path.join(tmp, "joint_infer")
+    os.makedirs(root)
+    data_dir = os.path.join(tmp, "infer", "data")   # phase 12's meshes
+    ckpt = os.path.join(tmp, "ckpt_joint")
+    joint = read_config(os.path.join(ROOT, "files", "joint.cfg"))
+    config = dict(config_1(tmp), checkpoint_dir=ckpt, type="joint_VAE",
+                  latent_split=joint["latent_split"])
+    cfg_path = os.path.join(root, "infer.cfg")
+    _infer_cfg(cfg_path, config, ("type", "latent_split",
+                                  "matmul_precision"))
+    argv = lambda out, device: ["-c", cfg_path, "-d", data_dir, "-o",
+                                os.path.join(root, out), "-n", "1",
+                                "--device", device]
+    torch.cuda.synchronize()
+    # --- the main path: counts reset just before, read just after --------
+    bsr_spmm.reset_launches()
+    secs, _, _ = _infer_cli(torch, argv("card", "cuda"))
+    launches = dict(bsr_spmm.LAUNCHES)
+    keys = set(bsr_spmm.LAUNCHES_BY_CALL)
+    # ---------------------------------------------------------------------
+    batches = -(-INFER_MESHES // BATCH)
+    want = {m: LAUNCHES_PER_STEP * batches if m == "bf16x3" else 0
+            for m in bsr_spmm.MODES}
+    if launches != want:
+        fail(f"joint inference launched {launches}, expected {want}")
+    cpu_secs, _, _ = _infer_cli(torch, argv("cpu", "cpu"))
+    (pred, inf, objs), (pred_c, inf_c, objs_c) = (
+        _infer_outputs(os.path.join(root, "card")),
+        _infer_outputs(os.path.join(root, "cpu")))
+    dcfg = {"root_dir": data_dir, "checkpoint_dir": ckpt}
+    index, labels = list_meshes(dcfg)
+    scale = float(np.abs(MeshDataset(index, dcfg, labels, ctx["tmpl"].v,
+                                     dtype="test").original).max())
+    bar = TOL_STEP * scale
+    if len(pred) != INFER_MESHES or pred != pred_c:
+        fail("joint inference: pred.json differs between card and CPU")
+    err = max(abs(inf[n]["reconstruction_error"][k]
+                  - inf_c[n]["reconstruction_error"][k])
+              for n in inf for k in ("mean", "max"))
+    if list(objs) != list(objs_c) or len(objs) != 3 * INFER_MESHES:
+        fail("joint inference: the sex_change/ triples differ")
+    mesh_err = max(float(np.abs(objs[f] - objs_c[f]).max()) for f in objs)
+    say(f"joint inference: card {secs:.2f}s, CPU {cpu_secs:.2f}s; pred "
+        f"equal; errors within {err:.3e}, .obj within {mesh_err:.3e} (bar "
+        f"{bar:.3e}); launches {launches}, {LAUNCHES_PER_STEP} per batch")
+    if not (err <= bar and mesh_err <= bar):
+        fail("joint inference: card vs CPU beyond 1e-4 of the mesh scale")
+
+    with np.load(os.path.join(ckpt, "norm.npz")) as z:
+        norm = (z["mean"].astype(np.float32), z["std"].astype(np.float32))
+    state = load_checkpoint(os.path.join(ckpt, "checkpoint_1.pt"))["model"]
+    answers = {}
+    for device in (dev, "cpu"):
+        model, ops, _, template = build_model_and_ops(config, device)
+        model.load_state_dict(state)
+        server = MeshServer(model, ops, *norm, template=template.v,
+                            faces=template.f, batch_size=BATCH,
+                            wire_dtype=np.float32, device=device)
+        fout = io.StringIO()
+        try:
+            server.serve_forever(io.StringIO(data_dir + "\n"), fout)
+        finally:
+            server.close()
+        lines = [json.loads(l) for l in fout.getvalue().splitlines()]
+        if lines[-1].get("done") != INFER_MESHES:
+            fail(f"joint MeshServer answered {lines[-1]}")
+        answers[str(device)] = {l["file"]: l for l in lines[:-1]}
+    card_ans, cpu_ans = answers[str(dev)], answers["cpu"]
+    worst = max(abs(card_ans[n]["reconstruction_error"][k]
+                    - cpu_ans[n]["reconstruction_error"][k])
+                for n in cpu_ans for k in ("mean", "max"))
+    if sorted(card_ans) != sorted(cpu_ans) or any(
+            card_ans[n]["sex"] != cpu_ans[n]["sex"] for n in cpu_ans) or (
+            not worst <= bar):
+        fail(f"joint MeshServer: card and CPU answers differ (errors "
+             f"{worst:.3e}, bar {bar:.3e})")
+    say(f"joint MeshServer: {INFER_MESHES} answers, sex equal, errors "
+        f"within {worst:.3e} of the CPU's (bar {bar:.3e})")
+    return {"launches": launches, "keys": keys}
+
+
+def phase_bf16_paths(torch, dev, models, ops, hier, tmpl, single, many_dir,
+                     norm, s80, tmp, covered, card):
+    """Phase 17 (module docstring): bf16 serving, BASELINE config 4 and a
+    scaled80k inference run, crecon and the joint model in bf16, the joint
+    model through inference; then the kernel against its twin at every new
+    call and the per-step sums of the bf16 kernel. Returns what the
+    kernel line needs."""
+    say("== phase 17: bf16 serving and batch inference (config 4), the "
+        "bf16 classifiers, the joint model through inference")
+    from meshvae_tpu_torch.models import MeshVAE, build_operators
+
+    bf = torch.bfloat16
+    cfg16 = dataclasses.replace(models["high"].cfg, compute_dtype="bfloat16",
+                                precision="default")
+    cfg32 = dataclasses.replace(cfg16, compute_dtype="float32",
+                                precision="highest")
+    weights = {k: v.cpu() for k, v in models["high"].state_dict().items()}
+
+    def model(cfg, device):
+        m = MeshVAE(cfg)
+        m.load_state_dict(weights)
+        return m.to(device).eval()
+
+    ops16 = build_operators(hier, dev, cheb_method="pallas", dtype=bf)
+    ctx = dict(
+        tmp=tmp, hier=hier, tmpl=tmpl, single=single, many_dir=many_dir,
+        norm=norm, s80=s80, card=card, weights=weights,
+        model16=model(cfg16, dev), cpu16=model(cfg16, "cpu"),
+        cpu32=model(cfg32, "cpu"), ops16=ops16,
+        ops16_cpu=build_operators(hier, "cpu", cheb_method="pallas",
+                                  dtype=bf),
+        ops32_cpu=build_operators(hier, "cpu", cheb_method="pallas"),
+        worst_held=[])
+    operands16 = {"L0": ops16.lap[0].bsr, "L1": ops16.lap[1].bsr,
+                  **{f"P{i}T": ops16.up[i].t_bsr for i in (0, 1, 2)}}
+    ctx["names"] = {(b.n_pad, b.n_pad_cols): k for k, b in operands16.items()}
+    seconds = {}
+    out = {}
+    for part, fn in (("a", _p17_serve), ("b", _p17_config4),
+                     ("c", _p17_classifiers), ("d", _p17_joint_infer)):
+        t0 = time.perf_counter()
+        out[part] = fn(torch, dev, ctx)
+        seconds[part] = round(time.perf_counter() - t0, 1)
+    say(f"card vs CPU in bf16 (phase 8's bar) on {len(ctx['worst_held'])} "
+        f"inference quantities; worst margin "
+        f"{max(ctx['worst_held'], default=0.0):.3e}")
+
+    # --- e. the kernel against its twin at every new call ------------------
+    t0 = time.perf_counter()
+    by_shape = {"bf16": {(b.n_pad, b.n_pad_cols): b
+                         for b in list(operands16.values())
+                         + list(_operands80(s80["ops"]).values())},
+                "fp32": {(b.n_pad, b.n_pad_cols): b for b in (
+                    ops.lap[0].bsr, ops.lap[1].bsr,
+                    *(ops.up[i].t_bsr for i in (0, 1, 2)))}}
+    launched = set().union(*(o["keys"] for o in out.values()))
+    new = sorted(launched - covered)
+    gen = torch.Generator(device=dev).manual_seed(171)
+    worst = {"lap": 0.0, "pool": 0.0, "fp32": 0.0}
+    say(f"-- 17e: kernel vs twin at the {len(new)} (mode, operator, C, call "
+        f"kind) that phase 17 launched and phases 3 and 16 did not:")
+    for mode, n, m, c, kind in new:
+        bsr = by_shape["bf16" if mode == "bf16" else "fp32"][(n, m)]
+        dtype = bf if mode == "bf16" else torch.float32
+        x = torch.randn(bsr.n_pad_cols, c, device=dev, generator=gen).to(dtype)
+        err, _ = _hold(torch, bsr, x, mode, kind,
+                       _seeds(torch, bsr, c, gen, dev, dtype),
+                       TOL_BF16 if mode == "bf16" else TOL_KERNEL,
+                       f"{(n, m)} C={c} {mode} {kind}")
+        group = ("fp32" if mode != "bf16" else
+                 "pool" if bsr.n_pad != bsr.n_pad_cols else "lap")
+        worst[group] = max(worst[group], err)
+    rows = []
+    csrs = _with_bf16(torch, {k: csr for k, (_, csr) in _operands(
+        torch, ops, hier, dev).items()}, dev)
+    operands = {k: (operands16[k], csrs[k]) for k in operands16}
+    say("per-call bf16 times at phase 17's shapes (median of %d):" % RUNS)
+    sums = _bf16_sums(torch, {
+        "serve_bf16": SERVE_CALLS, "config4_batch": CONFIG4_CALLS,
+        "crecon_bf16_lap": CRECON_CALLS["lap"],
+        "joint_bf16_lap": JOINT_CALLS["lap"],
+        "joint_bf16_pool_colmajor": JOINT_CALLS["pool_colmajor"],
+        "joint_bf16_pool_grouped": JOINT_CALLS["pool_grouped"]},
+        operands, dev, rows)
+    say("shape_rows_bf16 " + json.dumps(rows))
+    seconds["e"] = round(time.perf_counter() - t0, 1)
+    say(f"phase 17 seconds {json.dumps(seconds)}")
+    return {"out": out, "sums": sums, "worst": worst}
 
 
 def main() -> int:
@@ -4090,6 +4829,11 @@ def main() -> int:
         classifiers = phase_classifiers(torch, dev, ops, hier, tmpl, tmp,
                                         covered, card)
         seconds["classifiers"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bf16_paths = phase_bf16_paths(
+            torch, dev, models, ops, hier, tmpl, single, many_dir,
+            (mean, std), s80, tmp, covered | classifiers["keys"], card)
+        seconds["bf16_paths"] = time.perf_counter() - t0
     say("phase seconds " + json.dumps({k: round(v, 1)
                                        for k, v in seconds.items()}))
 
@@ -4204,33 +4948,62 @@ def main() -> int:
     # (bf16x3, and the joint model's fp32 P^T) from the run() of each; at
     # highest (fp32) from one counted epoch of SCAN_STEPS replayed steps
     cl, err16 = classifiers["per_step"], classifiers["worst"]
+    joint16, joint17 = classifiers["joint"], bf16_paths["out"]["c"]["joint"]
     replay = classifiers["per_replay"]
     pool_err = max(worst_abs["pool"], err16["fp32"])
     kernels += [
         entry("bsr_grouped_spmm[bf16x3] crecon train step: Laplacian",
-              REPLACES["bf16x3"], classifiers["crecon_launches"],
+              REPLACES["bf16x3"], classifiers["crecon"],
               max(worst_abs["bf16x3"], err16["bf16x3"]),
               cl["crecon_lap_bf16x3"]),
         entry("bsr_grouped_spmm[fp32] crecon train step: Laplacian",
-              REPLACES["fp32"], replay["crecon highest"]["fp32"],
+              REPLACES["fp32"], replay["crecon highest"]["lap"],
               max(worst_abs["fp32"], err16["fp32"]), cl["crecon_lap_fp32"]),
         entry("bsr_grouped_spmm[bf16x3] joint train step: Laplacian",
-              REPLACES["bf16x3"], classifiers["joint"]["lap"],
+              REPLACES["bf16x3"], joint16["lap"],
               max(worst_abs["bf16x3"], err16["bf16x3"]),
               cl["joint_lap_bf16x3"]),
         entry("bsr_grouped_spmm[fp32] joint train step: Laplacian",
-              REPLACES["fp32"], replay["joint highest"]["fp32"]
-              - 3 * SCAN_STEPS, max(worst_abs["fp32"], err16["fp32"]),
+              REPLACES["fp32"], replay["joint highest"]["lap"],
+              max(worst_abs["fp32"], err16["fp32"]),
               cl["joint_lap_fp32"]),
         entry("bsr_grouped_spmm[fp32] joint train step: up-pools 0-1 P^T at "
               "2B, column-major", REPLACES["colmajor"],
-              classifiers["joint"]["pool"]["P0T"]
-              + classifiers["joint"]["pool"]["P1T"], pool_err,
+              joint16["pool"]["P0T"] + joint16["pool"]["P1T"], pool_err,
               cl["joint_pool_colmajor"]),
         entry("bsr_grouped_spmm[fp32] joint train step: up-pool 2 P^T at 2B,"
               " grouped", REPLACES["grouped"],
-              classifiers["joint"]["pool"]["P2T"], pool_err,
+              joint16["pool"]["P2T"], pool_err,
               cl["joint_pool_grouped"]),
+    ]
+    # phase 17: the bf16 serving step, a config-4 batch (B = 128) and the
+    # bf16 classifiers' train steps, all mode bf16 (#3b; the joint model's
+    # P^T in bf16 blocks, #7 and #4); launches of the main-path runs
+    p17, sums, err17 = (bf16_paths["out"], bf16_paths["sums"],
+                        bf16_paths["worst"])
+    lap16 = max(worst80["lap"], err17["lap"])
+    pool16 = max(worst80["pool"], err17["pool"])
+    kernels += [
+        entry("bsr_grouped_spmm[bf16] config-1 bf16 serving step",
+              REPLACES["fp32"], p17["a"]["launches"]["bf16"], lap16,
+              sums["serve_bf16"]),
+        entry("bsr_grouped_spmm[bf16] BASELINE config 4 batch inference "
+              "(B=128), per batch", REPLACES["fp32"],
+              p17["b"]["launches"]["bf16"], lap16, sums["config4_batch"]),
+        entry("bsr_grouped_spmm[bf16] crecon bf16 train step: Laplacian",
+              REPLACES["fp32"], p17["c"]["crecon"], lap16,
+              sums["crecon_bf16_lap"]),
+        entry("bsr_grouped_spmm[bf16] joint bf16 train step: Laplacian",
+              REPLACES["fp32"], joint17["lap"], lap16,
+              sums["joint_bf16_lap"]),
+        entry("bsr_grouped_spmm[bf16] joint bf16 train step: up-pools 0-1 "
+              "P^T at 2B, column-major", REPLACES["colmajor"],
+              joint17["pool"]["P0T"] + joint17["pool"]["P1T"], pool16,
+              sums["joint_bf16_pool_colmajor"]),
+        entry("bsr_grouped_spmm[bf16] joint bf16 train step: up-pool 2 P^T "
+              "at 2B, grouped", REPLACES["grouped"],
+              joint17["pool"]["P2T"], pool16,
+              sums["joint_bf16_pool_grouped"]),
     ]
     say(card)
     say(json.dumps({"kernels": kernels}))

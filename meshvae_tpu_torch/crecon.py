@@ -1,9 +1,10 @@
 """python -m meshvae_tpu_torch.crecon -c CFG [-t] [-s] [-p KEY VALUE]
-[--device cpu]: the second-stage reconstruction-difference classifier
-(crecon.py's flags): train (-t) and test (-s) a ChebGCN over 5 folds on the
-difference features of the frozen VAE named by the config's
+[--device cpu | --cpu]: the second-stage reconstruction-difference
+classifier (crecon.py's flags): train (-t) and test (-s) a ChebGCN over 5
+folds on the difference features of the frozen VAE named by the config's
 checkpoint_file (the port's .pt or the JAX package's .msgpack). Runs on
-the CUDA card unless --device cpu is given (train/crecon_driver.py)."""
+the CUDA card unless --device cpu (or --cpu) is given
+(train/crecon_driver.py)."""
 import argparse
 import os
 
@@ -19,6 +20,8 @@ def main(argv=None) -> int:
                         action="append", nargs=2, help="config overrides")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu for the CPU)")
+    parser.add_argument("--cpu", action="store_const", const="cpu",
+                        dest="device", help="the same as --device cpu")
     args = parser.parse_args(argv)
 
     from .config import apply_overrides, read_config

@@ -1,7 +1,8 @@
 """python -m meshvae_tpu_torch.infer -c CFG -d DATA_DIR -o OUT -n FOLD
 [-p KEY VALUE] [--pred] [--error_list] [--inference] [--no-meshes]
-[--serve] [--device cpu]: batch inference with the semantics of the JAX
-package's inference.py.
+[--serve] [--device cpu | --cpu]: batch inference with the semantics of
+the JAX package's inference.py, for a MeshVAE or a joint model (type =
+joint_VAE) at either compute_dtype.
 
   * with no selection flag (--pred, --error_list, --inference) all three
     JSON files are written, else only the selected ones; --no-meshes skips
@@ -16,11 +17,12 @@ package's inference.py.
 
 --export, --export-serve, --artifact and --export-platforms (the JAX
 package's serving artifacts) are not ported yet and exit non-zero. Runs on
-the CUDA card unless --device cpu is given. The config's data_parallel /
+the CUDA card unless --device cpu (or --cpu) is given. The config's data_parallel /
 seq_parallel / multihost give the world as they do for training (as
 inference.py passes trainer.mesh): each rank runs its dp rows with the
 operators row-sharded over sp, and only the primary writes files and, with
---serve, reads stdin and answers.
+--serve, reads stdin and answers. The joint model in a world is refused,
+as in training (train/driver.check_supported).
 """
 import argparse
 import os
@@ -55,6 +57,8 @@ def main(argv=None) -> int:
                             help="not ported yet (ROADMAP.md item 7)")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu for the CPU)")
+    parser.add_argument("--cpu", action="store_const", const="cpu",
+                        dest="device", help="the same as --device cpu")
     args = parser.parse_args(argv)
 
     asked = [f"--{f.replace('_', '-')}" for f in EXPORT_FLAGS
@@ -67,7 +71,7 @@ def main(argv=None) -> int:
 
     from ..config import apply_overrides, read_config
     from ..parallel.sharding import close_world, spawn_local
-    from ..train.driver import maybe_init_multihost
+    from ..train.driver import check_supported, maybe_init_multihost
     from ..validate import validate_config
     from .driver import run_cli
 
@@ -80,6 +84,7 @@ def main(argv=None) -> int:
     config["checkpoint_dir"] = os.path.join(os.path.dirname(args.conf),
                                             config["checkpoint_dir"])
     config["root_dir"] = args.data_dir
+    check_supported(config)
     validate_config(config, args.device)
     dp = int(config.get("data_parallel", 1))
     sp = int(config.get("seq_parallel", 1))

@@ -45,8 +45,10 @@ from ..parallel.sharding import fetch, is_primary, shard_batch, shard_operators
 
 
 class InferenceEngine:
-    """model: an eval-mode MeshVAE; ops: ModelOperators on the model's
-    device; dist: a parallel.World, or None in one process."""
+    """model: an eval-mode MeshVAE or JointMeshVAE (driven through encode,
+    classify, posterior_mean and sample, in its compute dtype); ops:
+    ModelOperators on the model's device; dist: a parallel.World, or None
+    in one process."""
 
     def __init__(self, model, ops: ModelOperators, dist=None):
         self.model = model
@@ -67,7 +69,7 @@ class InferenceEngine:
         y_hat = model.classify(h)
         pred = torch.argmax(y_hat, dim=-1)
         y = F.one_hot(pred, y_hat.shape[-1]).to(x.dtype)
-        mu = model.z_mean(torch.cat([y, h], dim=-1))
+        mu = model.posterior_mean(torch.cat([y, h], dim=-1))
         b = x.shape[0]
         both = model.sample(torch.cat([y, 1.0 - y], dim=0),
                             torch.cat([mu, mu], dim=0), ops)

@@ -75,9 +75,6 @@ class MeshServer:
                  batch_size: int, output_path: str = ".",
                  save_meshes: bool = False, wire_dtype=np.float16,
                  device="cuda", dist=None):
-        if model.cfg.compute_dtype != "float32":
-            raise ValueError("serving with compute_dtype bfloat16 is not "
-                             "ported yet; serve in float32")
         self.device = dist.device if dist is not None else resolve_device(
             device)
         self.dist = dist

@@ -5,6 +5,12 @@ meshvae_tpu/models/gcn.py).
   reconstruction-difference channels, flatten, ReLU(enc_lin -> hidden),
   cls_layer -> logits [B, num_classes] (float32, for cross entropy).
 
+compute_dtype=bfloat16 is the VAE's bf16 mode (models/vae.py): the input
+is cast to bf16, the convs and pools run on bf16 operators with fp32
+accumulation, enc_lin and cls_layer follow flax's Dense(dtype) rule
+(``vae.dense``), the logits go to float32 and the parameters stay float32
+master weights.
+
 The hidden width is ``GCNConfig.hidden`` (128), not the config's
 num_hidden; the flatten width is coarse_verts * filters[-2] of the filter
 chain with the input features prepended (the reference's cheb_cls). The
@@ -28,10 +34,9 @@ import math
 import torch
 from torch import nn
 
-from ..ops.cheb import resolve_precision
 from ..ops.pool import pool_apply
 from .operators import ModelOperators
-from .vae import ChebConvLayer
+from .vae import COMPUTE_DTYPES, ChebConvLayer, dense, dtype_and_precision
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,12 +49,18 @@ class GCNConfig:
     coarse_verts: int
     hidden: int = 128
     precision: str | None = None
+    compute_dtype: str = "float32"   # float32 | bfloat16 (fp32 accumulation)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return COMPUTE_DTYPES[self.compute_dtype]
 
     @staticmethod
     def from_config(cfg: dict, coarse_verts: int,
                     num_features: int = 6) -> "GCNConfig":
-        """The GCN runs in float32 only (compute_dtype bfloat16 is refused
-        by train/driver.check_supported)."""
+        """As VAEConfig.from_config: compute_dtype bfloat16 clamps
+        matmul_precision to "default"."""
+        compute_dtype, precision = dtype_and_precision(cfg)
         return GCNConfig(
             num_features=num_features,
             filters=tuple(cfg["num_conv_filters"]),
@@ -57,7 +68,8 @@ class GCNConfig:
             n_layers=int(cfg["n_layers"]),
             num_classes=int(cfg["num_classes"]),
             coarse_verts=coarse_verts,
-            precision=resolve_precision(cfg.get("matmul_precision")),
+            precision=precision,
+            compute_dtype=compute_dtype,
         )
 
 
@@ -72,7 +84,7 @@ class ChebGCN(nn.Module):
         for i in range(len(filters) - 2):
             setattr(self, f"cheb_{i}", ChebConvLayer(
                 filters[i], filters[i + 1], c.polygon_order[i],
-                precision=c.precision))
+                precision=c.precision, dtype=c.dtype))
         self.enc_lin = nn.Linear(c.coarse_verts * filters[-2], c.hidden)
         self.cls_layer = nn.Linear(c.hidden, c.num_classes)
         self._init_weights(generator or torch.Generator().manual_seed(0))
@@ -96,8 +108,10 @@ class ChebGCN(nn.Module):
 
     def forward(self, x: torch.Tensor, ops: ModelOperators) -> torch.Tensor:
         """x: [B, N, 2 F] difference features -> logits [B, C] (float32)."""
+        dt = self.cfg.dtype
+        x = x.to(dt)
         for i in range(self.cfg.n_layers):
             x = torch.relu(getattr(self, f"cheb_{i}")(x, ops.lap[i]))
             x = pool_apply(x, ops.down[i])
-        x = x.reshape(x.shape[0], -1)
-        return self.cls_layer(torch.relu(self.enc_lin(x))).float()
+        x = torch.relu(dense(self.enc_lin, x.reshape(x.shape[0], -1), dt))
+        return dense(self.cls_layer, x, dt).float()

@@ -17,7 +17,10 @@ explicit generator. The weights come from one torch.Generator: the VAE's,
 then the GCN's, then the heads' (U(+-1/sqrt(fan_in)) weights and biases).
 Parameter names follow the flax tree (``vae.*``, ``gcn.*``, ``sup_head``,
 ``adv_head``), so ``models.vae.params_from_flax`` carries JAX weights
-across. float32 only (train/driver.check_supported refuses bfloat16).
+across. With compute_dtype=bfloat16 the posterior heads and the two
+latent-split heads follow flax's Dense(dtype) rule (``vae.dense``), as the
+VAE's and the GCN's layers do; build_joint_model gives both configs the
+config's compute dtype.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ from torch import nn
 from .gcn import ChebGCN, GCNConfig
 from .losses import vae_loss
 from .operators import ModelOperators
-from .vae import MeshVAE, VAEConfig
+from .vae import MeshVAE, VAEConfig, dense
 
 
 class _GradReverse(torch.autograd.Function):
@@ -96,23 +99,24 @@ class JointMeshVAE(nn.Module):
                generator=None):
         return self.vae.sample(y, z, ops, train, generator)
 
-    def z_mean(self, hy):
-        return self.vae.z_mean(hy)
+    def posterior_mean(self, hy):
+        return self.vae.posterior_mean(hy)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor, ops: ModelOperators,
                 train: bool = False,
                 generator: torch.Generator | None = None) -> dict:
         """MeshVAE's output dict (recon, y_hat, mu, logvar, z) plus
         sup_logits, adv_logits, cls_logits (float32) and recon_oppo."""
-        vae = self.vae
+        vae, dt = self.vae, self.cfg.dtype
         h = vae.encode(x, ops, train, generator)
         y_hat = vae.classify(h, train, generator)
         hy = torch.cat([y.to(h.dtype), h], dim=-1)
-        mu = vae.z_mean(hy).float()
-        logvar = vae.z_log_var(hy).float()
+        mu = vae.posterior_mean(hy).float()
+        logvar = dense(vae.z_log_var, hy, dt).float()
         z = vae.reparameterize(mu, logvar, generator) if train else mu
-        sup_logits = self.sup_head(mu[:, :self.split]).float()
-        adv_logits = self.adv_head(grad_reverse(mu[:, self.split:])).float()
+        sup_logits = dense(self.sup_head, mu[:, :self.split], dt).float()
+        adv_logits = dense(self.adv_head, grad_reverse(mu[:, self.split:]),
+                           dt).float()
         yz = torch.cat([torch.cat([y, z], dim=-1),
                         torch.cat([1.0 - y, z], dim=-1)], dim=0)
         b = x.shape[0]

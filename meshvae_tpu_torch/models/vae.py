@@ -52,6 +52,18 @@ from .operators import ModelOperators
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def dtype_and_precision(cfg: dict) -> tuple[str, str]:
+    """(compute_dtype, matmul_precision) of a config dict: compute_dtype
+    float32 (the default) or bfloat16, the precision resolved for it
+    (ops.cheb.resolve_precision)."""
+    compute_dtype = str(cfg.get("compute_dtype", "float32") or "float32")
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {compute_dtype!r}: expected one "
+                         f"of {sorted(COMPUTE_DTYPES)}")
+    return compute_dtype, resolve_precision(cfg.get("matmul_precision"),
+                                            COMPUTE_DTYPES[compute_dtype])
+
+
 def _draw_buffer(x: torch.Tensor, rows: tuple | None) -> torch.Tensor:
     """An empty tensor like x, or like the whole global batch when rows =
     (start, total) (see the module docstring)."""
@@ -75,6 +87,17 @@ def _dropout(x: torch.Tensor, rate: float, train: bool,
     keep = 1.0 - rate
     mask = _draw_buffer(x, rows).bernoulli_(keep, generator=generator)
     return x * _own_rows(mask, x, rows) / keep
+
+
+def dense(layer: nn.Linear, x: torch.Tensor,
+          dtype: torch.dtype) -> torch.Tensor:
+    """A linear head in the computation dtype, as flax's Dense(dtype=):
+    layer(x) in float32; in bf16, x @ W^T rounded to bf16, then + b in
+    bf16 (two roundings)."""
+    if dtype == torch.float32:
+        return layer(x)
+    return (torch.matmul(x.to(dtype), layer.weight.to(dtype).t())
+            + layer.bias.to(dtype))
 
 
 class ChebConvLayer(nn.Module):
@@ -122,10 +145,7 @@ class VAEConfig:
                     num_features: int = 3) -> "VAEConfig":
         """compute_dtype bfloat16 clamps matmul_precision to "default"
         (resolve_precision); "default" on float32 raises."""
-        compute_dtype = str(cfg.get("compute_dtype", "float32") or "float32")
-        if compute_dtype not in COMPUTE_DTYPES:
-            raise ValueError(f"compute_dtype {compute_dtype!r}: expected one "
-                             f"of {sorted(COMPUTE_DTYPES)}")
+        compute_dtype, precision = dtype_and_precision(cfg)
         return VAEConfig(
             num_features=num_features,
             filters=tuple(cfg["num_conv_filters"]),
@@ -136,8 +156,7 @@ class VAEConfig:
             num_classes=int(cfg["num_classes"]),
             dropout=float(cfg["dropout"]),
             coarse_verts=coarse_verts,
-            precision=resolve_precision(cfg.get("matmul_precision"),
-                                        COMPUTE_DTYPES[compute_dtype]),
+            precision=precision,
             compute_dtype=compute_dtype,
         )
 
@@ -198,14 +217,12 @@ class MeshVAE(nn.Module):
     def cheb_dec(self, i: int) -> ChebConvLayer:
         return getattr(self, f"cheb_dec_{i}")
 
-    def _linear(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-        """A head in the computation dtype: in bf16, x @ W^T rounded to
-        bf16, then + b in bf16 (flax Dense's two roundings)."""
-        dt = self.cfg.dtype
-        if dt == torch.float32:
-            return layer(x)
-        return (torch.matmul(x.to(dt), layer.weight.to(dt).t())
-                + layer.bias.to(dt))
+    def posterior_mean(self, hy: torch.Tensor) -> torch.Tensor:
+        """hy = concat[y, h] -> mu in the computation dtype: the z_mean
+        head (an nn.Linear, so that params_from_flax maps flax's z_mean
+        onto it) through the Dense rule. Callers take mu here, never from
+        z_mean(hy), which would skip the bf16 roundings."""
+        return dense(self.z_mean, hy, self.cfg.dtype)
 
     def encode(self, x: torch.Tensor, ops: ModelOperators,
                train: bool = False,
@@ -216,7 +233,8 @@ class MeshVAE(nn.Module):
         for i in range(self.cfg.n_layers):
             x = torch.relu(self.cheb_enc(i)(x, ops.lap[i]))
             x = pool_apply(x, ops.down[i])
-        h = torch.relu(self._linear(self.enc_lin, x.reshape(x.shape[0], -1)))
+        h = torch.relu(dense(self.enc_lin, x.reshape(x.shape[0], -1),
+                             self.cfg.dtype))
         return _dropout(h, self.cfg.dropout, train, generator, rows)
 
     def classify(self, h: torch.Tensor, train: bool = False,
@@ -224,7 +242,7 @@ class MeshVAE(nn.Module):
                  rows: tuple | None = None) -> torch.Tensor:
         """h: [B, num_hidden] -> y_hat: [B, C] (softmax, in float32)."""
         h = _dropout(h, self.cfg.dropout, train, generator, rows)
-        logits = self._linear(self.classifier_layer, h).float()
+        logits = dense(self.classifier_layer, h, self.cfg.dtype).float()
         return torch.softmax(logits, dim=-1)
 
     def decode(self, z: torch.Tensor, ops: ModelOperators,
@@ -234,9 +252,9 @@ class MeshVAE(nn.Module):
         """z: [B, latent + C] (label-conditioned) -> recon: [B, N, F_in]
         (float32)."""
         c = self.cfg
-        x = _dropout(torch.relu(self._linear(self.dec_lin, z)), c.dropout,
+        x = _dropout(torch.relu(dense(self.dec_lin, z, c.dtype)), c.dropout,
                      train, generator, rows)
-        x = _dropout(torch.relu(self._linear(self.dec_lin_2, x)), c.dropout,
+        x = _dropout(torch.relu(dense(self.dec_lin_2, x, c.dtype)), c.dropout,
                      train, generator, rows)
         x = x.reshape(x.shape[0], c.coarse_verts, self.filters[-1])
         for i in range(c.n_layers):
@@ -268,8 +286,8 @@ class MeshVAE(nn.Module):
         h = self.encode(x, ops, train, generator, rows)
         y_hat = self.classify(h, train, generator, rows)
         hy = torch.cat([y.to(h.dtype), h], dim=-1)
-        mu = self._linear(self.z_mean, hy).float()
-        logvar = self._linear(self.z_log_var, hy).float()
+        mu = self.posterior_mean(hy).float()
+        logvar = dense(self.z_log_var, hy, self.cfg.dtype).float()
         z = self.reparameterize(mu, logvar, generator, rows) if train else mu
         recon = self.sample(y, z, ops, train, generator, rows)
         return {"recon": recon, "y_hat": y_hat, "mu": mu, "logvar": logvar,

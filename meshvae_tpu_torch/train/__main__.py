@@ -1,7 +1,7 @@
 """python -m meshvae_tpu_torch.train -c CFG [-t] [-s] [-v] [-p KEY VALUE]
-[--device cpu]: k-fold training (-t) and testing (-s) with the flags of
-main.py; -v writes the test path's sex-change .obj triples. Runs on the
-CUDA card unless --device cpu is given. With data_parallel x seq_parallel
+[--device cpu | --cpu]: k-fold training (-t) and testing (-s) with the
+flags of main.py; -v writes the test path's sex-change .obj triples. Runs
+on the CUDA card unless --device cpu (or --cpu) is given. With data_parallel x seq_parallel
 > 1 (-p data_parallel 2 -p seq_parallel 2) it starts that many local ranks
 itself, one card each (gloo ranks with --device cpu); with multihost it is
 one rank of a world across hosts (train/driver.py)."""
@@ -22,6 +22,8 @@ def main(argv=None) -> int:
                         action="append", nargs=2, help="config overrides")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu for the CPU)")
+    parser.add_argument("--cpu", action="store_const", const="cpu",
+                        dest="device", help="the same as --device cpu")
     args = parser.parse_args(argv)
 
     from ..config import apply_overrides, read_config

@@ -23,7 +23,10 @@ its own parameters only.
     accuracy is at least the best so far; the test path on the final
     weights after training, or on the fold's checkpoint without -t.
 
-Classifier pipelines run in one process and in float32
+With compute_dtype bfloat16 the frozen VAE and the GCN compute in bf16
+(the difference features stay float32, as the decode returns them, and
+the GCN casts them); the loss, the accuracies and Adam's master weights
+are float32. Classifier pipelines run in one process
 (train/driver.check_supported).
 """
 from __future__ import annotations
@@ -58,7 +61,7 @@ def estimate_diff(vae, x: torch.Tensor, labels: torch.Tensor, ops,
     pred = torch.argmax(y_hat, dim=-1)
     correct = (pred == labels).sum()
     onehot = F.one_hot(labels if train else pred, y_hat.shape[-1]).to(x.dtype)
-    mu = vae.z_mean(torch.cat([onehot, h], dim=-1))
+    mu = vae.posterior_mean(torch.cat([onehot, h], dim=-1))
     b = x.shape[0]
     both = vae.sample(torch.cat([onehot, 1.0 - onehot], dim=0),
                       torch.cat([mu, mu], dim=0), ops)

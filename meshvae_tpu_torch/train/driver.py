@@ -5,7 +5,7 @@ the body of ``python -m meshvae_tpu_torch.train``.
     (cached), the operators in the config's compute dtype and the model:
     the joint VAE + GCN (models/joint.py, trained by train/joint.py) for
     type = joint_VAE, else the MeshVAE; ``check_supported`` refuses what
-    the port does not run yet (the joint model in a world or in bf16);
+    the port does not run yet (crecon and the joint model in a world);
   * an initial-weights snapshot that every fold restarts from;
   * stratified k-fold over the mesh listing and a train/validation split
     of each fold's training part (train/splits.py, scikit-learn's streams);
@@ -77,7 +77,7 @@ def check_supported(config: dict, pipeline: str | None = None) -> None:
     """Raise on settings the port does not run yet (they are queued in
     ROADMAP.md), rather than ignoring them. `pipeline` names a classifier
     pipeline ("crecon"; "joint" is implied by type = joint_VAE), which the
-    port runs in one process and in float32 only."""
+    port runs in one process only."""
     unsupported = {
         "pool_method": (config.get("pool_method", "gather"), "gather"),
         "hierarchy_mode": (config.get("hierarchy_mode", "fast"), "fast"),
@@ -97,10 +97,6 @@ def check_supported(config: dict, pipeline: str | None = None) -> None:
             f"{pipeline} in a world (data_parallel x seq_parallel = {ranks}"
             f", multihost = {config.get('multihost', False)}) is not ported "
             "yet (ROADMAP.md queue 1, item 8); run it in one process")
-    if str(config.get("compute_dtype") or "float32") != "float32":
-        raise ValueError(
-            f"{pipeline} at compute_dtype = {config['compute_dtype']!r} is "
-            "not ported yet (ROADMAP.md queue 1, item 3); it runs float32")
 
 
 def build_model_and_ops(config: dict, device="cuda",

@@ -17,6 +17,10 @@ needs no host work besides ``replay()``:
   * the explicit torch.Generator of the dropout masks and the noise is
     registered with the graph, so each replay draws fresh values and
     advances the generator as the eager step does;
+  * Python's cyclic garbage collector is off during a capture: a cycle
+    holding an earlier graph (a finished fold's staged epoch, a dropped
+    trainer) would otherwise be freed inside the capture, and freeing a
+    CUDA graph there invalidates the capture;
   * the kernel wrappers count their launches in Python, which runs once, at
     capture. The capture's counts are taken back (nothing ran then) and
     each replay adds them, so ``ops.bsr_spmm.LAUNCHES`` and the other
@@ -34,6 +38,7 @@ waiting so that it overlaps the next epoch's replays.
 """
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
@@ -106,6 +111,8 @@ class StepGraph:
         t0 = time.perf_counter()
         before = _read_counters()
         graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             if self.generator is not None:
                 graph.register_generator_state(self.generator)
@@ -115,6 +122,8 @@ class StepGraph:
             raise RuntimeError(f"CUDA graph capture of the {self.name} "
                                f"failed: {exc}") from exc
         finally:
+            if collecting:
+                gc.enable()
             after = _read_counters()
             _set_counters(before)
         self.per_replay = [{k: n - b.get(k, 0) for k, n in a.items()

@@ -11,10 +11,15 @@ about 2 ulps).
 
 Conv, eval forward, train step: the port's bf16 result must be closer to
 JAX's bf16 result than JAX's bf16 is to JAX's fp32 result (up to one bf16
-ulp of the scale, see _closer), and within 5e-2 of max|y| (of the layer's
+ulp of the scale, see torch_port_utils.closer), and within 5e-2 of max|y| (of the layer's
 max|g| for a gradient), the JAX package's own bf16 bar
 (tests/test_models.py:253, tests/test_pallas.py:276). The deltas are
 printed (pytest -s); the measured ones are quoted in the test docstrings."""
+import dataclasses
+import io
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -25,10 +30,15 @@ import jax.numpy as jnp
 import meshvae_tpu.ops.graph as jax_graph
 import meshvae_tpu.ops.pallas_cheb as pc
 from meshvae_tpu.ops.block_sparse import to_block_sparse as jax_to_bsr
+from meshvae_tpu.infer.driver import run_inference as jax_run_inference
+from meshvae_tpu.models.vae import MeshVAE as JaxMeshVAE
 from meshvae_tpu.ops.cheb import cheb_conv as jax_cheb_conv
 from meshvae_tpu.train import loop as jax_loop
 
 from meshvae_tpu_torch.data import BatchIterator, MeshDataset, list_meshes
+from meshvae_tpu_torch.infer.driver import InferenceEngine, run_inference
+from meshvae_tpu_torch.infer.serve import MeshServer
+from meshvae_tpu_torch.mesh import load_obj
 from meshvae_tpu_torch.mesh import TriMesh, build_hierarchy, vertex_adjacency
 from meshvae_tpu_torch.models import VAEConfig, params_from_flax
 from meshvae_tpu_torch.ops import cheb as port_cheb
@@ -40,12 +50,12 @@ from meshvae_tpu_torch.ops.cheb import cheb_conv, resolve_precision
 from meshvae_tpu_torch.train import Trainer, unpack_metrics
 
 from conftest import make_grid_mesh
-from torch_port_utils import (FedNoise, count_kernel_calls, feed_noise,
-                              grid_hierarchy, paired_models, write_requests)
+from torch_port_utils import (ULP, FedNoise, bf16_ulp, closer,
+                              count_kernel_calls, feed_noise, grid_hierarchy,
+                              paired_models, paired_operators, settled_rows,
+                              to_np as _np, write_requests)
 
 BF = torch.bfloat16
-ULP = 2.0 ** -8          # one bf16 ulp relative to the largest |y|
-BAR = 5e-2               # the JAX package's bf16 bar
 BATCH, TGRAD = 16, 6     # as tests/test_torch_train.py: three P^T kernels
 CONFIG = {"num_classes": 2, "learning_rate": 1e-3, "weight_decay": 5e-4}
 
@@ -57,13 +67,6 @@ def interpret_mode(monkeypatch):
 
 def _to_jax_bf16(a: np.ndarray):
     return jnp.asarray(a).astype(jnp.bfloat16)
-
-
-def _np(t) -> np.ndarray:
-    """float32 numpy of a torch tensor or a jax array (bf16 included)."""
-    if isinstance(t, torch.Tensor):
-        return t.detach().float().numpy()
-    return np.asarray(t, np.float32)
 
 
 def _twin_vs_jax(port_bsr, ref_bsr, c, seeds, alpha, seed=0):
@@ -190,27 +193,6 @@ def conv_ops():
     }
 
 
-def _closer(name, got, j16, j32, scale):
-    """The bar of this file (max abs deltas):
-    1. |port - jax_bf16| <= |jax_bf16 - jax_fp32| + one bf16 ulp of the
-       scale. The ulp is the port's own final rounding: where XLA's CPU
-       reduction of bf16 terms (a bias gradient) puts JAX bf16 further
-       from fp32 than the port's fp32 accumulation, the two bf16 results
-       round apart by up to it.
-    2. |port - jax_bf16| <= 5e-2 scale, unless JAX's own bf16 result is
-       further than that from fp32 (gradients deep in the bf16 backward:
-       dec_lin's and dec_lin_2's weights at 7.3e-2 and 1.8e-1 of their
-       layer's max|g|): there 1 holds alone, since a port equal to JAX
-       bf16 could not meet 2."""
-    d_port = np.abs(_np(got) - _np(j16)).max()
-    d_bf16 = np.abs(_np(j16) - _np(j32)).max()
-    print(f"{name}: |port - jax_bf16| {d_port:.3e}, |jax_bf16 - jax_fp32| "
-          f"{d_bf16:.3e}, scale {scale:.3e}")
-    assert d_port <= d_bf16 + ULP * scale, (name, d_port, d_bf16)
-    if d_bf16 <= BAR * scale:
-        assert d_port <= BAR * scale, (name, d_port, scale)
-
-
 @pytest.mark.parametrize("layout", ["bsr", "dense", "corner"])
 def test_cheb_conv_bf16_matches_jax(conv_ops, monkeypatch, layout):
     """cheb_conv forward and its gradients in x, W and the bias, bf16
@@ -247,13 +229,13 @@ def test_cheb_conv_bf16_matches_jax(conv_ops, monkeypatch, layout):
     assert out.dtype == BF and xt.grad.dtype == torch.float32
     n_kernel = 0 if layout == "dense" else k - 1
     assert calls == [("cheb", "bf16")] * (2 * n_kernel)
-    _closer(f"{layout} out", out, out16, out32, np.abs(_np(out32)).max())
+    closer(f"{layout} out", out, out16, out32, np.abs(_np(out32)).max())
     layer = max(np.abs(_np(a)).max() for a in g32[1:])
     for name, got, r16, r32, scale in (
             ("dx", xt.grad, g16[0], g32[0], np.abs(_np(g32[0])).max()),
             ("dW", wt.grad, g16[1], g32[1], layer),
             ("dbias", bt.grad, g16[2], g32[2], layer)):
-        _closer(f"{layout} {name}", got, r16, r32, scale)
+        closer(f"{layout} {name}", got, r16, r32, scale)
 
 
 @pytest.mark.parametrize("precision", ["high", "highest"])
@@ -290,7 +272,8 @@ def test_bf16_precision_clamps_to_default(conv_ops, precision):
 
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
-    """20 synthetic meshes on the grid template; the first batch of 16."""
+    """20 synthetic meshes on the grid template; the first batch of 16,
+    the normalisation and the config (norm.npz in its checkpoint_dir)."""
     _, hier = grid_hierarchy()
     root = tmp_path_factory.mktemp("bf16")
     template = TriMesh(hier.vertices[0], hier.faces[0])
@@ -298,7 +281,8 @@ def data(tmp_path_factory):
            "checkpoint_dir": str(root / "ckpt")}
     index, labels = list_meshes(cfg)
     ds = MeshDataset(index, cfg, labels, template.v)
-    return hier, next(iter(BatchIterator(ds, BATCH))), (ds.mean, ds.std)
+    return (hier, next(iter(BatchIterator(ds, BATCH))), (ds.mean, ds.std),
+            cfg)
 
 
 def _models(hier, dtype):
@@ -310,7 +294,7 @@ def test_eval_forward_bf16_matches_jax(data):
     """MeshVAE eval forward in bf16 (weights through params_from_flax):
     recon, mu, logvar and y_hat, all float32, against the flax model in
     bf16, with the flax fp32 forward as the yardstick."""
-    hier, batch, _ = data
+    hier, batch = data[:2]
     x, y = batch["x"], np.eye(2, dtype=np.float32)[batch["label"]]
     outs = {}
     for dtype in ("bfloat16", "float32"):
@@ -324,7 +308,7 @@ def test_eval_forward_bf16_matches_jax(data):
         got = pmodel(torch.from_numpy(x), torch.from_numpy(y), pops)
     for key in ("recon", "mu", "logvar", "y_hat"):
         assert got[key].dtype == torch.float32
-        _closer(f"eval {key}", got[key], outs["bfloat16"][key],
+        closer(f"eval {key}", got[key], outs["bfloat16"][key],
                 outs["float32"][key], np.abs(_np(outs["float32"][key])).max())
 
 
@@ -335,7 +319,7 @@ def test_train_step_bf16_matches_jax(data, monkeypatch):
     Master params and Adam stay fp32. Every kernel call runs mode bf16:
     2 per block-sparse conv forward (K = 3), 2 per backward but the first
     encoder conv's, and the three pool P^T."""
-    hier, batch, (mean, std) = data
+    hier, batch, (mean, std) = data[:3]
     jbatch = {k: jnp.asarray(batch[k])
               for k in ("x", "label", "r", "s", "m", "mask")}
     losses, grads = {}, {}
@@ -361,7 +345,7 @@ def test_train_step_bf16_matches_jax(data, monkeypatch):
     assert noise.i == 4
     assert [m for _, m in calls] == ["bf16"] * 17, calls
     got = unpack_metrics(packed)
-    _closer("loss", np.float32(got["loss"]), np.float32(losses["bfloat16"]),
+    closer("loss", np.float32(got["loss"]), np.float32(losses["bfloat16"]),
             np.float32(losses["float32"]), abs(losses["float32"]))
     named = dict(ptrainer.model.named_parameters())
     assert set(named) == set(grads["float32"])
@@ -372,5 +356,121 @@ def test_train_step_bf16_matches_jax(data, monkeypatch):
         layer = name.rsplit(".", 1)[0]
         scale = max(np.abs(v).max() for k, v in grads["float32"].items()
                     if k.rsplit(".", 1)[0] == layer)
-        _closer(f"grad {name}", p.grad, grads["bfloat16"][name],
+        closer(f"grad {name}", p.grad, grads["bfloat16"][name],
                 grads["float32"][name], scale)
+
+
+def _jax_outputs(out: str, names: list) -> dict:
+    """A run_inference directory as arrays in `names` order: pred,
+    err_mean, err_max [S] and the recon / counterfactual .obj [S, N, 3]."""
+    with open(os.path.join(out, "inference.json")) as fp:
+        res = json.load(fp)
+    mesh = lambda suffix: np.stack([load_obj(os.path.join(
+        out, "sex_change", n.split(".")[0] + suffix)).v for n in names])
+    return {"pred": np.array([res[n]["sex"] for n in names]),
+            "err_mean": np.array([res[n]["reconstruction_error"]["mean"]
+                                  for n in names]),
+            "err_max": np.array([res[n]["reconstruction_error"]["max"]
+                                 for n in names]),
+            "recon_orig": mesh("_recon.obj"), "oppo_orig": mesh(".obj")}
+
+
+def test_inference_bf16_matches_jax(data, tmp_path, monkeypatch):
+    """Batch inference in bf16 (the model casts the fp32 upload, as the
+    JAX engine's) against the JAX package's run_inference in bf16 on the
+    same weights, its fp32 run (dense path) the yardstick: 20 meshes in
+    batches of 8 (a padded tail). Held on the rows where JAX bf16's
+    logits are settled (torch_port_utils.settled_rows; the excused rows
+    are printed, at most a quarter): pred equal, and recon_orig,
+    oppo_orig, err_mean and err_max by torch_port_utils.closer's rule (the
+    fp32 yardstick over the rows whose pred JAX bf16 and fp32 share; the
+    ulp is one bf16 ulp of the normalized recon's scale, the model's
+    bf16 output, carried to the original pose). Three runs: InferenceEngine.step per
+    batch (its outputs float32), run_inference's files, and one
+    MeshServer request line (the data directory, fp32 wire)."""
+    hier, _, (mean, std), cfg = data
+    jmodel, jops, params, pmodel, pops = paired_models(
+        hier, "default", compute_dtype="bfloat16", jit_init=True)
+    jops32 = paired_operators(hier, "dense")[0]
+    jmodel32 = JaxMeshVAE(dataclasses.replace(
+        jmodel.cfg, cheb_method="dense", compute_dtype="float32",
+        precision="highest"))
+    batch_size = 8
+    common = dict(mean=mean, std=std, config=dict(cfg),
+                  template=hier.vertices[0], batch_size=batch_size,
+                  faces=hier.faces[0])
+    for name, jm, jo in (("j16", jmodel, jops), ("j32", jmodel32, jops32)):
+        jax_run_inference(params, jm, jo, str(tmp_path / name), **common)
+    index, labels = list_meshes(cfg)
+    ds = MeshDataset(index, cfg, labels, hier.vertices[0], dtype="test")
+    names = [p.split("/").pop() for p in ds.filenames]
+    j16 = _jax_outputs(str(tmp_path / "j16"), names)
+    j32 = _jax_outputs(str(tmp_path / "j32"), names)
+    logits = jax.jit(lambda p, x: jmodel.apply(
+        p, jmodel.apply(p, x, jops, method=JaxMeshVAE.encode),
+        method=lambda m, h: m.classifier_layer(h)))(params,
+                                                      jnp.asarray(ds.x))
+    keep = settled_rows(logits)
+    print(f"excused rows (JAX bf16 logits within 2 ulps): "
+          f"{int((~keep).sum())} of {len(keep)}")
+    assert (~keep).sum() <= len(keep) // 4
+    same = keep & (j16["pred"] == j32["pred"])
+    # the model's bf16 output is the normalized recon: one bf16 ulp of its
+    # scale, carried to the original pose (x std, then R s, which mixes
+    # the three coordinates)
+    aligned = np.einsum("snj,sij->sni", j32["recon_orig"] - ds.m,
+                        ds.r) / ds.s[:, None, None]
+    scale = float(np.abs((aligned - mean) / std).max())
+    ulp = np.sqrt(3) * bf16_ulp(scale) * float(std.max() * ds.s.max())
+
+    def hold(label, got):
+        np.testing.assert_array_equal(got["pred"][keep], j16["pred"][keep],
+                                      label)
+        for k in ("recon_orig", "oppo_orig", "err_mean", "err_max"):
+            d_port = np.abs(got[k][keep] - j16[k][keep]).max()
+            d_bf16 = np.abs(j16[k][same] - j32[k][same]).max()
+            print(f"{label} {k}: |port - jax_bf16| {d_port:.3e}, "
+                  f"|jax_bf16 - jax_fp32| {d_bf16:.3e}, ulp {ulp:.3e}")
+            assert d_port <= d_bf16 + ulp, (label, k)
+
+    engine = InferenceEngine(pmodel, pops)
+    mean_t, std_t = torch.from_numpy(mean), torch.from_numpy(std)
+    steps = {k: [] for k in j16}
+    for host in BatchIterator(ds, batch_size):
+        batch = {k: torch.from_numpy(np.asarray(host[k], np.float32))
+                 for k in ("x", "r", "s", "m")}
+        batch["original"] = torch.from_numpy(
+            ds.original[host["index"]].astype(np.float32))
+        out = engine.step(batch, mean_t, std_t)
+        rows = np.asarray(host["mask"]) > 0
+        for k, v in out.items():
+            assert k == "pred" or v.dtype == torch.float32, k
+            steps[k].append(v.numpy()[rows])
+    hold("step", {k: np.concatenate(v) for k, v in steps.items()})
+
+    run_inference(pmodel, pops, str(tmp_path / "port"), device="cpu",
+                  **common)
+    hold("run_inference", _jax_outputs(str(tmp_path / "port"), names))
+
+    server = MeshServer(pmodel, pops, mean, std, template=hier.vertices[0],
+                        faces=hier.faces[0], batch_size=batch_size,
+                        wire_dtype=np.float32, device="cpu")
+    fout = io.StringIO()
+    try:
+        server.serve_forever(io.StringIO(cfg["root_dir"] + "\n"), fout)
+    finally:
+        server.close()
+    lines = [json.loads(l) for l in fout.getvalue().splitlines()]
+    assert lines[-1]["done"] == len(names)
+    served = {l["file"]: l for l in lines[:-1]}
+    got = {"pred": np.array([served[n]["sex"] for n in names])}
+    for k in ("mean", "max"):
+        got[f"err_{k}"] = np.array([served[n]["reconstruction_error"][k]
+                                    for n in names])
+    np.testing.assert_array_equal(got["pred"][keep], j16["pred"][keep])
+    for k in ("err_mean", "err_max"):
+        d_port = np.abs(got[k][keep] - j16[k][keep]).max()
+        d_bf16 = np.abs(j16[k][same] - j32[k][same]).max()
+        print(f"serve {k}: |port - jax_bf16| {d_port:.3e}, "
+              f"|jax_bf16 - jax_fp32| {d_bf16:.3e}")
+        assert d_port <= d_bf16 + ulp, k

@@ -62,11 +62,12 @@ def ref():
     import meshvae_tpu.ops.pallas_cheb as pc
     from meshvae_tpu.train import crecon_driver as jax_crecon
     from meshvae_tpu.train.checkpoint import save_checkpoint as jax_save
-    from meshvae_tpu.train.loop import make_optimizer
+    from meshvae_tpu.train import loop as jax_loop
     import torch_port_utils as utils
 
     return types.SimpleNamespace(jax=jax, jnp=jnp, pc=pc, crecon=jax_crecon,
-                                 save=jax_save, make_optimizer=make_optimizer,
+                                 save=jax_save, loop=jax_loop,
+                                 make_optimizer=jax_loop.make_optimizer,
                                  utils=utils)
 
 
@@ -226,6 +227,108 @@ def test_train_and_eval_steps_match_jax(ref, interpret, env, pairs,
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5)
 
 
+def test_bf16_diff_and_steps_match_jax(ref, interpret, env, pairs):
+    """compute_dtype bfloat16 against the JAX package's bf16 crecon, its
+    fp32 result (dense path) the yardstick (torch_port_utils.closer, one
+    bf16 ulp as bf16_ulp gives it): estimate_diff in train and eval
+    conditioning (float32 features, the mesh scale),
+    then one CreconTrainer train step (loss; Adam's first moment, i.e.
+    every GCN gradient; the count) and one eval step. Predictions and
+    correct counts are held equal where JAX bf16's logits are settled
+    (torch_port_utils.settled_rows). Master weights and Adam stay
+    float32; the frozen VAE keeps its weights."""
+    jax, jnp, utils = ref.jax, ref.jnp, ref.utils
+    hold = lambda name, got, j16, j32, scale: utils.closer(
+        name, got, j16, j32, scale, utils.bf16_ulp(scale))
+    hier, batch = env[0], env[4]
+    (jvae, _, vparams, pvae, _), (jgcn, _, gparams, pgcn, _) = pairs
+    # the same params in bf16, and the fp32 yardstick on the dense path
+    # (within 1e-5 of the block-sparse one, test_estimate_diff_matches_jax),
+    # which compiles faster
+    bf16 = dict(compute_dtype="bfloat16", precision="default")
+    ops16 = utils.paired_operators(hier, "pallas", None,
+                                   *utils.DTYPES["bfloat16"])
+    vae16 = type(pvae)(dataclasses.replace(pvae.cfg, **bf16))
+    vae16.load_state_dict(pvae.state_dict())
+    gcn16 = type(pgcn)(dataclasses.replace(pgcn.cfg, **bf16))
+    gcn16.load_state_dict(pgcn.state_dict())
+    pairs16 = ((type(jvae)(dataclasses.replace(jvae.cfg, **bf16)), ops16[0],
+                vparams, vae16.eval(), ops16[1]),
+               (type(jgcn)(dataclasses.replace(jgcn.cfg, **bf16)), ops16[0],
+                gparams, gcn16, ops16[1]))
+    dense = utils.paired_operators(hier, "dense")
+    pairs32 = ((type(jvae)(dataclasses.replace(jvae.cfg, cheb_method="dense")),
+                *dense[:1], vparams, pvae, dense[1]),
+               (type(jgcn)(dataclasses.replace(jgcn.cfg, cheb_method="dense")),
+                dense[0], gparams, pgcn, dense[1]))
+    jbatch = {k: jnp.asarray(batch[k]) for k in ("x", "label", "mask")}
+    x = torch.from_numpy(batch["x"])
+    scale = float(np.abs(batch["x"]).max())
+    out = {}
+    for dtype, pr in (("bfloat16", pairs16), ("float32", pairs32)):
+        jtr, vparams, gparams, _ = _paired_crecon(ref, pr)
+        jvae, jgcn = jtr.vae, jtr.gcn
+
+        def ref_fn(vp, gp, b, jvae=jvae, jgcn=jgcn, ops=jtr.ops):
+            diffs = [ref.crecon.estimate_diff(jvae, vp, b["x"], b["label"],
+                                              ops, train)
+                     for train in (True, False)]
+            h = jvae.apply(vp, b["x"], ops, method=type(jvae).encode)
+            vae_logits = jvae.apply(vp, h, method=lambda m, v:
+                                    m.classifier_layer(v))
+            return diffs, vae_logits, [jgcn.apply(gp, d[0], ops)
+                                       for d in diffs]
+
+        diffs, vae_logits, gcn_logits = jax.jit(ref_fn)(vparams, gparams,
+                                                        jbatch)
+        jparams, jopt, jm = jax.jit(jtr._train_step_impl)(
+            gparams, jtr.optimizer.init(gparams), vparams, jbatch, jtr.ops)
+        ev = jax.jit(jtr._eval_step_impl)(jparams, vparams, jbatch, jtr.ops)
+        mu = {k: v.numpy() for k, v in params_from_flax(
+            jax.tree_util.tree_map(np.asarray, jopt.inner_state[1].mu)
+            ).items()}
+        out[dtype] = (diffs, vae_logits, gcn_logits, jm, ev, mu)
+    (d16, vl16, gl16, m16, ev16, mu16) = out["bfloat16"]
+    (d32, _, _, m32, ev32, mu32) = out["float32"]
+    vae, pops = pairs16[0][3], pairs16[0][4]
+    labels = torch.from_numpy(batch["label"]).long()
+    vae_rows = utils.settled_rows(vl16)
+    print(f"settled VAE rows {vae_rows.sum()} of {len(vae_rows)}")
+    for i, train in enumerate((True, False)):
+        diff, correct, pred = estimate_diff(vae, x, labels, pops, train)
+        assert diff.dtype == torch.float32
+        hold(f"diff train={train}", diff, d16[i][0], d32[i][0],
+                     scale)
+        np.testing.assert_array_equal(pred.numpy()[vae_rows],
+                                      np.asarray(d16[i][2])[vae_rows])
+        if vae_rows.all():
+            assert int(correct) == int(d16[i][1])
+
+    _, _, _, ptr = _paired_crecon(ref, pairs16)
+    assert ptr.model.cfg.dtype == torch.bfloat16
+    vae_before = {k: v.clone() for k, v in ptr.vae.state_dict().items()}
+    got = ptr.train_step(_port_batch(batch)).numpy()
+    mask = batch["mask"] > 0
+    hold("train loss", got[0], m16[0], m32[0], abs(float(m32[0])))
+    assert got[2] == float(m16[2]) == 3.0
+    if utils.settled_rows(gl16[0])[mask].all():
+        assert got[1] == float(m16[1])
+    named = dict(ptr.model.named_parameters())
+    assert set(named) == set(mu32)
+    for name, p in named.items():
+        exp_avg = ptr.optimizer.state[p]["exp_avg"]
+        assert p.dtype == exp_avg.dtype == torch.float32
+        hold(f"exp_avg {name}", exp_avg, mu16[name], mu32[name],
+                     _layer_max(mu32, name))
+    for k, v in ptr.vae.state_dict().items():
+        torch.testing.assert_close(v, vae_before[k], rtol=0, atol=0)
+    got = ptr.eval_step(_port_batch(batch))["scalars"].numpy()
+    hold("eval loss", got[0], ev16[0], ev32[0], abs(float(ev32[0])))
+    assert got[2] == float(ev16[2])
+    if utils.settled_rows(gl16[1])[mask].all() and vae_rows.all():
+        assert got[1] == float(ev16[1])
+
+
 def test_scanned_epoch_equals_the_per_step_loop(env):
     """run_epoch over a staged split (identity order) and over its loader:
     the same averages and the same GCN afterwards; the reference's loss
@@ -344,19 +447,124 @@ def test_run_reads_a_jax_vae_checkpoint(env, vae_checkpoints, monkeypatch):
         torch.testing.assert_close(frozen[k], v, rtol=0, atol=0)
 
 
+def test_run_trains_and_tests_in_bf16(env, vae_checkpoints):
+    """run() at compute_dtype bfloat16 (the frozen VAE's fp32 checkpoint
+    as its master weights), 5 folds x 1 epoch, train and test: finite
+    test results, the log naming the compute dtype's precision, fp32 GCN
+    checkpoints."""
+    config = _config(env, "bf16", checkpoint_file=vae_checkpoints[0],
+                     epoch=1, compute_dtype="bfloat16")
+    results = crecon_driver.run(config, do_train=True, do_test=True,
+                                device="cpu")
+    assert [r["fold"] for r in results] == [1, 2, 3, 4, 5]
+    for r in results:
+        assert np.isfinite(r["test_loss"]) and 0.0 <= r["test_acc"] <= 1.0
+    with open(config["log_file"]) as fp:
+        assert "matmul precision: default" in fp.read()
+    state = load_checkpoint(os.path.join(config["checkpoint_dir"],
+                                         "checkpoint_1.pt"))
+    assert all(v.dtype == torch.float32 for v in state["model"].values())
+
+
+def test_test_path_takes_the_last_epoch_and_the_train_norm(
+        ref, env, vae_checkpoints, monkeypatch):
+    """The caveat both crecon drivers share on purpose (ROADMAP section
+    3): under -t -s the test path of each fold evaluates the last
+    epoch's in-memory GCN, not the best-validation checkpoint, and its
+    test split is normalised with the fold's train-split statistics
+    (norm.npz). Each package's run_epoch is wrapped so that the
+    validation accuracy falls (1, then 0): the checkpoint keeps epoch 1
+    and the last epoch is 2. The per-step loop (scan_epoch False) on the
+    dense path, 5 folds x 2 epochs."""
+    jax = ref.jax
+    np_params = lambda tree: {k: v.numpy() for k, v in params_from_flax(
+        jax.tree_util.tree_map(np.asarray, tree)).items()}
+    seen = {"port": [], "jax": []}
+
+    def forced(i, acc):
+        """Calls per fold: train, valid, train, valid, test."""
+        return {1: 1.0, 3: 0.0}.get(i % 5, acc)
+
+    port_real = CreconTrainer.run_epoch
+
+    def port_spy(self, loader, train, shuffle_generator=None):
+        loss, acc = port_real(self, loader, train, shuffle_generator)
+        state = {k: v.numpy().copy()
+                 for k, v in self.model.state_dict().items()}
+        seen["port"].append((train, loader.ds.mean, state))
+        return loss, forced(len(seen["port"]) - 1, acc)
+
+    jax_real = ref.crecon.CreconTrainer.run_epoch
+
+    def jax_spy(self, params, opt_state, vae_params, loader, train,
+                shuffle_key=None):
+        out = jax_real(self, params, opt_state, vae_params, loader, train,
+                       shuffle_key)
+        used = out[0] if train else params
+        seen["jax"].append((train, loader.ds.mean, np_params(used)))
+        return (*out[:3], forced(len(seen["jax"]) - 1, out[3]))
+
+    monkeypatch.setattr(CreconTrainer, "run_epoch", port_spy)
+    monkeypatch.setattr(ref.crecon.CreconTrainer, "run_epoch", jax_spy)
+    # the JAX driver draws its init targets eagerly, op by op (~20 s on
+    # the CPU); under jit they take other values, which this test never
+    # compares across packages
+    for cls in (ref.loop.Trainer, ref.crecon.CreconTrainer):
+        monkeypatch.setattr(
+            cls, "init_params", lambda self, key, _init=cls.init_params:
+            jax.jit(lambda k: _init(self, k))(key))
+    configs = {}
+    for side, run, ckpt in (
+            ("port", lambda c: crecon_driver.run(c, True, True, "cpu"),
+             vae_checkpoints[0]),
+            ("jax", lambda c: ref.crecon.run(c, True, True),
+             vae_checkpoints[1])):
+        configs[side] = _config(env, f"caveat_{side}", checkpoint_file=ckpt,
+                                scan_epoch=False, cheb_method="dense")
+        assert len(run(configs[side])) == 5
+    for side, calls in seen.items():
+        assert [c[0] for c in calls] == [True, False, True, False,
+                                         False] * 5, side
+        for n in range(1, 6):
+            (_, norm, epoch1), _, (_, _, epoch2), _, (_, test_norm,
+                                                        tested) = \
+                calls[5 * n - 5:5 * n]
+            ext = ".pt" if side == "port" else ".msgpack"
+            ckpt = load_checkpoint(os.path.join(
+                configs[side]["checkpoint_dir"], f"checkpoint_{n}{ext}"))
+            for k, v in ckpt["model"].items():
+                np.testing.assert_array_equal(v.numpy(), epoch1[k])
+                np.testing.assert_array_equal(tested[k], epoch2[k])
+            assert any(not np.array_equal(epoch1[k], epoch2[k])
+                       for k in epoch1), (side, n)
+            np.testing.assert_array_equal(test_norm, norm)
+
+
 def test_missing_checkpoint_and_refusals(env):
     """No checkpoint_file, or a missing one, raises FileNotFoundError;
-    a world (ROADMAP item 8) and bfloat16 (item 3) are refused."""
+    a world (ROADMAP item 8) is refused."""
     for ckpt in ("", "/nonexistent/checkpoint_1.pt"):
         with pytest.raises(FileNotFoundError, match="checkpoint_file"):
             crecon_driver.run(_config(env, "missing", checkpoint_file=ckpt),
                               do_train=True, do_test=False, device="cpu")
     for key, value, item in (("data_parallel", 2, "item 8"),
-                             ("multihost", True, "item 8"),
-                             ("compute_dtype", "bfloat16", "item 3")):
+                             ("multihost", True, "item 8")):
         with pytest.raises(ValueError, match=item):
             crecon_driver.run(_config(env, "refused", **{key: value}),
                               do_train=True, do_test=False, device="cpu")
+
+
+def test_cli_takes_cpu_for_device_cpu(env, monkeypatch):
+    """--cpu is --device cpu (crecon.py's flag); the default stays cuda."""
+    seen = []
+    monkeypatch.setattr(crecon_driver, "run",
+                        lambda config, do_train, do_test, device:
+                        seen.append(device))
+    cfg = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "files", "crecon.cfg")
+    assert crecon_main(["-c", cfg, "-t", "--cpu"]) == 0
+    assert crecon_main(["-c", cfg, "-t"]) == 0
+    assert seen == ["cpu", "cuda"]
 
 
 def test_cli_runs_crecon(env, vae_checkpoints, capsys):

@@ -114,6 +114,18 @@ def trained(env, tmp_path_factory):
     return config, out.getvalue()
 
 
+def test_cli_takes_cpu_for_device_cpu(monkeypatch):
+    """--cpu is --device cpu (main.py's flag); the default stays cuda."""
+    seen = []
+    monkeypatch.setattr(driver, "run", lambda config, do_train, do_test,
+                        vis, device: seen.append(device))
+    cfg = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "files", "default.cfg")
+    assert train_main(["-c", cfg, "-t", "--cpu"]) == 0
+    assert train_main(["-c", cfg, "-t"]) == 0
+    assert seen == ["cpu", "cuda"]
+
+
 def test_run_writes_history_and_checkpoints(trained):
     """history{1,2}.json carry the JAX package's keys per epoch; the log
     and stdout carry the test line of both folds; each checkpoint reloads

@@ -1,13 +1,15 @@
 """meshvae_tpu_torch.models.gcn (the crecon classifier) against the flax
 ChebGCN: GCNConfig.from_config, the init distributions, the logits and
 every gradient (the input's too) with weights carried by params_from_flax,
-on the block-sparse and the dense path at highest; the kernel calls of a
+on the block-sparse and the dense path at highest, and in bf16 against
+the flax GCN's bf16 mode; the kernel calls of a
 backward with and without an input gradient; a JAX GCN checkpoint (flax
 params and optax Adam state) read by the port's load_checkpoint.
 
 Bars: logits within 1e-5 of max|logit|, each gradient within 1e-4 of its
 layer's max|g| (the input's of its own max), Adam moments name for name
-exactly as carried. The JAX Pallas kernels run in interpret mode.
+exactly as carried; in bf16 torch_port_utils.closer, JAX's fp32 result
+the yardstick. The JAX Pallas kernels run in interpret mode.
 
 The JAX side and the shared set-up (tests/torch_port_utils.py, which
 imports flax) are imported inside fixtures, so the card's test collects
@@ -162,6 +164,65 @@ def test_logits_and_gradients_match_jax(ref, interpret, hier, pair,
         assert delta <= 1e-4 * scale, (name, delta, scale)
     gx = np.asarray(gx)
     assert np.abs(xt.grad.numpy() - gx).max() <= 1e-4 * np.abs(gx).max()
+
+
+def test_bf16_logits_and_gradients_match_jax(ref, interpret, hier, pair,
+                                            monkeypatch):
+    """compute_dtype bfloat16 (bf16 operators, the input cast to bf16, the
+    heads by the Dense rule, fp32 logits and master weights) against the
+    flax GCN in bf16 on the block-sparse path, with its fp32 result as the
+    yardstick (torch_port_utils.closer, one bf16 ulp as bf16_ulp gives
+    it): logits, every parameter gradient and the input gradient; every
+    kernel call in mode bf16. from_config in bf16 gives the JAX
+    package's compute_dtype and precision."""
+    jax, jnp, utils = ref.jax, ref.jnp, ref.utils
+    hold = lambda name, got, j16, j32, scale: utils.closer(
+        name, got, j16, j32, scale, utils.bf16_ulp(scale))
+    path = os.path.join(REPO, "files", "crecon.cfg")
+    cfg16 = dict(read_config(path), compute_dtype="bfloat16")
+    got = GCNConfig.from_config(cfg16, coarse_verts=20)
+    want = ref.GCNConfig.from_config(
+        dict(ref.read_config(path), compute_dtype="bfloat16"),
+        coarse_verts=20)
+    assert (got.compute_dtype, got.precision) == (
+        want.compute_dtype, want.precision) == ("bfloat16", "default")
+    assert got.dtype == torch.bfloat16
+
+    x = _inputs(hier)
+    labels = np.array([0, 1, 1, 0])
+    jmodel16, jops16, params, pmodel, pops = utils.paired_gcn(
+        hier, "default", compute_dtype="bfloat16")
+    outs = {}
+    for dtype, (jmodel, jops, params) in (
+            ("bfloat16", (jmodel16, jops16, params)), ("float32", pair[:3])):
+        def loss_fn(p, xj, jmodel=jmodel, jops=jops):
+            logits = jmodel.apply(p, xj, jops)
+            nll = -jax.nn.log_softmax(logits)[jnp.arange(BATCH), labels]
+            return nll.mean(), logits
+
+        (_, logits), (gp, gx) = jax.jit(jax.value_and_grad(
+            loss_fn, argnums=(0, 1), has_aux=True))(params, jnp.asarray(x))
+        outs[dtype] = (logits, {k: v.numpy() for k, v in params_from_flax(
+            jax.tree_util.tree_map(np.asarray, gp)).items()}, gx)
+    assert pops.lap[0].bsr.blocks.dtype == torch.bfloat16
+    calls = utils.count_kernel_calls(monkeypatch, cheb=port_cheb)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    logits = pmodel(xt, pops)
+    torch.nn.functional.cross_entropy(logits, torch.from_numpy(labels)
+                                      ).backward()
+    assert logits.dtype == torch.float32 and xt.grad.dtype == torch.float32
+    assert calls == [("cheb", "bf16")] * 8, calls
+    (l16, g16, x16), (l32, g32, x32) = outs["bfloat16"], outs["float32"]
+    hold("logits", logits, l16, l32, np.abs(np.asarray(l32)).max())
+    named = dict(pmodel.named_parameters())
+    assert set(named) == set(g32)
+    for name, p in named.items():
+        assert p.dtype == torch.float32
+        layer = name.rsplit(".", 1)[0]
+        scale = max(np.abs(v).max() for k, v in g32.items()
+                    if k.rsplit(".", 1)[0] == layer)
+        hold(f"grad {name}", p.grad, g16[name], g32[name], scale)
+    hold("grad x", xt.grad, x16, x32, np.abs(np.asarray(x32)).max())
 
 
 @pytest.mark.parametrize("input_grad", [False, True])

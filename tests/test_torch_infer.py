@@ -13,6 +13,7 @@ checkpoint, with the selection flags and the export refusal.
 
 Gradient-carrying bars as tests/test_torch_train.py: Adam moments within
 1e-4 of their layer's max (nu: 2e-4), params within 1e-2 lr."""
+import dataclasses
 import io
 import json
 import os
@@ -30,6 +31,7 @@ from flax import serialization
 import meshvae_tpu.ops.pallas_cheb as pc
 from meshvae_tpu.data.dataset import list_meshes as jax_list_meshes
 from meshvae_tpu.infer.driver import run_inference as jax_run_inference
+from meshvae_tpu.models.joint import JointMeshVAE as JaxJointMeshVAE
 from meshvae_tpu.models.operators import build_operators as jax_build_ops
 from meshvae_tpu.models.vae import MeshVAE as JaxMeshVAE
 from meshvae_tpu.models.vae import VAEConfig as JaxVAEConfig
@@ -52,7 +54,8 @@ from meshvae_tpu_torch.train.checkpoint import (checkpoint_path,
 from meshvae_tpu_torch.train.driver import _restart
 
 from conftest import make_grid_mesh
-from torch_port_utils import (FILTERS, ORDERS, FedNoise, feed_noise,
+from torch_port_utils import (FILTERS, JOINT_SPLIT, ORDERS, FedNoise,
+                              _jit_init as jit_init, feed_noise, gcn_configs,
                               grid_hierarchy, jax_hierarchy, paired_models,
                               write_requests)
 
@@ -332,10 +335,11 @@ def test_run_inference_matches_jax(env, tmp_path):
                   float(np.abs(ds.original).max()))
 
 
-def _cli_env(env, root):
+def _cli_env(env, root, joint=False):
     """A config file with a relative checkpoint_dir, the grid template as
     an .obj, a JAX-written checkpoint_1.msgpack and norm.npz there, and the
-    JAX model and operators of that config."""
+    JAX model and operators of that config; joint: type = joint_VAE (the
+    joint VAE + GCN, latent split 2)."""
     _, _, cfg, _ = env
     os.makedirs(root / "ckpt")
     mesh = make_grid_mesh(16, jitter=0.05)
@@ -347,13 +351,15 @@ def _cli_env(env, root):
         "downsampling_factors": [2, 2, 2, 2], "num_conv_filters": FILTERS,
         "polygon_order": ORDERS, "num_hidden": 32, "num_style": 6,
         "batch_size": BATCH, "cheb_method": "pallas",
-        "matmul_precision": "highest"})
+        "matmul_precision": "highest",
+        "type": "joint_VAE" if joint else config["type"],
+        "latent_split": JOINT_SPLIT})
     with open(root / "infer.cfg", "w") as fp:
         fp.write("[All]\n")
         for k in ("template", "checkpoint_dir", "hierarchy_cache_dir",
                   "downsampling_factors", "num_conv_filters", "polygon_order",
                   "num_hidden", "num_style", "batch_size", "cheb_method",
-                  "matmul_precision"):
+                  "matmul_precision", "type", "latent_split"):
             v = config[k]
             v = ", ".join(map(str, v)) if isinstance(v, (list, tuple)) else v
             fp.write(f"{k} = {v}\n")
@@ -365,11 +371,20 @@ def _cli_env(env, root):
                         cheb_method="pallas", precision="highest")
     jops = jax_build_ops(jax_hierarchy(hier), cheb_method="pallas",
                          pool_method="gather")
-    jmodel = JaxMeshVAE(jcfg)
-    params = jax.tree_util.tree_map(np.asarray, jmodel.init(
-        {"params": jax.random.key(1)},
-        jnp.zeros((1, hier.levels[0], 3), jnp.float32),
-        jnp.zeros((1, 2), jnp.float32), jops, train=False))
+    init_args = ({"params": jax.random.key(1)},
+                 jnp.zeros((1, hier.levels[0], 3), jnp.float32),
+                 jnp.zeros((1, 2), jnp.float32))
+    if joint:
+        jgcn = gcn_configs(hier, "highest")[0]
+        jmodel = JaxJointMeshVAE(jcfg, jgcn, JOINT_SPLIT)
+        params = jit_init(JaxJointMeshVAE(
+            dataclasses.replace(jcfg, cheb_method="dense"),
+            dataclasses.replace(jgcn, cheb_method="dense"), JOINT_SPLIT),
+            hier, *init_args, train=False)
+    else:
+        jmodel = JaxMeshVAE(jcfg)
+        params = jax.tree_util.tree_map(np.asarray, jmodel.init(
+            *init_args, jops, train=False))
     jax_save(str(root / "ckpt" / "checkpoint_1.msgpack"), params,
              _adam_state(params), 3, 1.0, 2.0)
     ckpt_cfg = {"root_dir": cfg["root_dir"],
@@ -421,6 +436,24 @@ def test_cli_reads_a_jax_checkpoint(env, tmp_path, capsys):
     assert not os.path.exists(tmp_path / "x")
 
 
+def test_cli_takes_cpu_for_device_cpu(monkeypatch):
+    """--cpu is --device cpu (inference.py's flag); the default stays
+    cuda."""
+    import meshvae_tpu_torch.infer.driver as infer_driver
+    import meshvae_tpu_torch.validate as validate
+
+    seen = []
+    monkeypatch.setattr(infer_driver, "run_cli", lambda world, args,
+                        config: seen.append(args.device) or 0)
+    monkeypatch.setattr(validate, "validate_config", lambda config, device:
+                        None)  # it counts the cards of a cuda run
+    cfg = os.path.join(REPO, "files", "default.cfg")
+    for flags in (["--cpu"], []):
+        assert infer_main(["-c", cfg, "-d", "data", "-o", "out",
+                           *flags]) == 0
+    assert seen == ["cpu", "cuda"]
+
+
 def test_cli_serve_answers_as_the_batch_run(env, tmp_path, capsys,
                                             monkeypatch):
     """--serve on the JAX-written checkpoint (fp32 wire): the data
@@ -447,6 +480,50 @@ def test_cli_serve_answers_as_the_batch_run(env, tmp_path, capsys,
     index, labels = list_meshes(ckpt_cfg)
     ds = MeshDataset(index, ckpt_cfg, labels, hier.vertices[0], dtype="test")
     scale = float(np.abs(ds.original).max())
+    for name, w in want.items():
+        assert served[name]["sex"] == w["sex"]
+        for k in ("mean", "max"):
+            assert abs(served[name]["reconstruction_error"][k]
+                       - w["reconstruction_error"][k]) <= TOL * scale
+
+
+def test_joint_checkpoint_through_inference(env, tmp_path, capsys,
+                                            monkeypatch):
+    """A JAX-written joint checkpoint_1.msgpack (type = joint_VAE, the
+    engine driving the joint model through its MeshVAE delegations, as
+    the JAX engine through type(model).encode, classify, z_mean and
+    sample): python -m meshvae_tpu_torch.infer --cpu against the JAX
+    package's run_inference on the same weights (pred.json equal, errors
+    and every .obj triple within 1e-4 of the mesh scale), then --serve on
+    that checkpoint answers the data directory with the same sex and
+    errors."""
+    hier, ckpt_cfg, (mean, std), (jmodel, jops, params) = _cli_env(
+        env, tmp_path, joint=True)
+    assert isinstance(jmodel, JaxJointMeshVAE)
+    data = ckpt_cfg["root_dir"]
+    args = ["-c", str(tmp_path / "infer.cfg"), "-d", data, "-n", "1",
+            "--cpu", "-p", "serve_wire_dtype", "float32"]
+    assert infer_main([*args, "-o", str(tmp_path / "all")]) == 0
+    jax_out = str(tmp_path / "jax")
+    jax_run_inference(params, jmodel, jops, jax_out, mean, std,
+                      dict(ckpt_cfg), template=hier.vertices[0],
+                      batch_size=BATCH, faces=hier.faces[0])
+    index, labels = list_meshes(ckpt_cfg)
+    ds = MeshDataset(index, ckpt_cfg, labels, hier.vertices[0], dtype="test")
+    scale = float(np.abs(ds.original).max())
+    _held_outputs(str(tmp_path / "all"), jax_out, scale)
+
+    with open(os.path.join(jax_out, "inference.json")) as fp:
+        want = json.load(fp)
+    capsys.readouterr()
+    monkeypatch.setattr(sys, "stdin", io.StringIO(data + "\n"))
+    assert infer_main([*args, "-o", str(tmp_path / "served"), "--serve",
+                       "--no-meshes"]) == 0
+    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()
+             if l.startswith("{")]
+    assert lines[-1]["done"] == N_MESHES
+    served = {l["file"]: l for l in lines[1:-1]}
+    assert sorted(served) == sorted(want)
     for name, w in want.items():
         assert served[name]["sex"] == w["sex"]
         for k in ("mean", "max"):

@@ -54,6 +54,7 @@ CONFIG = {"num_classes": 2, "learning_rate": LR, "weight_decay": WD,
 BATCH = 8      # 2B x F = 128 at F = 8: the pool backward takes P^T's kernel
 TGRAD = 6      # grid up-pool fan-ins 9/7/7/5: three block-sparse P^T
 KEYS = ("x", "label", "r", "s", "m", "mask")
+ULP = 2.0 ** -8  # one bf16 ulp of max|y|
 
 
 @pytest.fixture(scope="module")
@@ -301,6 +302,90 @@ def test_train_and_eval_steps_match_jax(ref, env, pair, jax_steps,
     np.testing.assert_allclose(sc[7:], ref[7:], rtol=1e-5)
 
 
+def test_bf16_forward_and_train_step_match_jax(ref, interpret, env,
+                                              monkeypatch):
+    """compute_dtype bfloat16 (bf16 operators; the VAE, the GCN and the
+    four heads by the Dense rule) against the JAX package's bf16 joint
+    model, its fp32 result (dense path) the yardstick
+    (torch_port_utils.closer, one bf16 ulp as bf16_ulp gives it): the
+    eval forward, every output key, and one deterministic train step (no dropout, z = mu): the loss and every
+    gradient (scale: the layer's max|g|). Master weights and Adam stay
+    float32; every kernel call runs mode bf16 (22 Laplacian, 3 P^T at 2B
+    width). The P^T of the three block-sparse up-pools, the twin against
+    the JAX kernel in bf16 at C = 2B x 16, within (G + 1) bf16 ulps (the
+    TPU kernels' per-block rounding, ROADMAP section 3)."""
+    jax, jnp, utils = ref.jax, ref.jnp, ref.utils
+    hold = lambda name, got, j16, j32, scale: utils.closer(
+        name, got, j16, j32, scale, utils.bf16_ulp(scale))
+    hier, batch, (mean, std) = env[0], env[4], env[5]
+    x, y = batch["x"], np.eye(2, dtype=np.float32)[batch["label"]]
+    jbatch = {k: jnp.asarray(batch[k]) for k in KEYS}
+    jmodel, jops16, params, pmodel, pops = utils.paired_joint(
+        hier, "default", dropout=0.0, tgrad_ell_max=TGRAD,
+        compute_dtype="bfloat16")
+    # the fp32 yardstick: the same params on the dense path, which
+    # compiles faster (within 1e-4 of the block-sparse one,
+    # test_eval_forward_matches_jax)
+    fp32 = dict(cheb_method="dense", compute_dtype="float32",
+                precision="highest")
+    jmodel32 = type(jmodel)(dataclasses.replace(jmodel.cfg, **fp32),
+                            dataclasses.replace(jmodel.gcn_cfg, **fp32),
+                            jmodel.split)
+    out = {}
+    for dtype, jmodel, jops in (
+            ("bfloat16", jmodel, jops16),
+            ("float32", jmodel32, utils.paired_operators(hier, "dense")[0])):
+        jtr = ref.Trainer(jmodel, jops, CONFIG)
+        (loss, (fwd, _, _)), g = jax.jit(jax.value_and_grad(
+            lambda p: jtr._forward_loss(p, jbatch, None, False, jops),
+            has_aux=True))(params)
+        out[dtype] = (float(loss), fwd, _named(g))
+    assert [p.t_bsr is not None for p in pops.up] == [True] * 3 + [False]
+    (l16, f16, g16), (l32, f32, g32) = out["bfloat16"], out["float32"]
+    with torch.no_grad():
+        got = pmodel(torch.from_numpy(x), torch.from_numpy(y), pops)
+    assert set(got) == set(f16)
+    for key, v in got.items():
+        assert v.dtype == torch.float32, key
+        hold(f"eval {key}", v, f16[key], f32[key],
+                     np.abs(np.asarray(f32[key])).max())
+
+    trainer = JointTrainer(pmodel, pops, CONFIG, device="cpu")
+    calls = ref.utils.count_kernel_calls(monkeypatch, cheb=port_cheb,
+                                         pool=port_pool)
+    packed = trainer.train_step(trainer.to_device(batch), None,
+                                *trainer.norm_to_device(mean, std))
+    names = [name for name, _ in calls]
+    assert names.count("cheb") == 22 and names.count("pool") == 3
+    assert {m for _, m in calls} == {"bf16"}, calls
+    hold("loss", np.float32(packed[0]), np.float32(l16),
+                 np.float32(l32), abs(l32))
+    named = dict(trainer.model.named_parameters())
+    assert set(named) == set(g32)
+    for name, p in named.items():
+        assert p.dtype == p.grad.dtype == torch.float32
+        assert trainer.optimizer.state[p]["exp_avg"].dtype == torch.float32
+        hold(f"grad {name}", p.grad, g16[name], g32[name],
+                     _layer_max(g32, name))
+
+    rng = np.random.default_rng(5)
+    for i in range(3):
+        pb, jb = pops.up[i].t_bsr, jops16.up[i].t_bsr
+        xs = rng.standard_normal((pb.n_pad_cols, 2 * BATCH * 16))
+        xs = xs.astype(np.float32)
+        got = bsr_spmm.bsr_grouped_spmm_reference(
+            pb, torch.from_numpy(xs).to(torch.bfloat16), "bf16", 1.0)
+        want = ref.pc._bsr_matmul_impl(
+            jb, jnp.asarray(xs).astype(jnp.bfloat16),
+            jax.lax.Precision.DEFAULT)
+        want = np.asarray(want, np.float32)
+        delta = np.abs(got.float().numpy() - want).max()
+        bar = (pb.g_width + 1) * ULP * np.abs(want).max()
+        print(f"up-pool {i} P^T bf16: {delta / bar * (pb.g_width + 1):.2f}"
+              f" ulps (bar G + 1 = {pb.g_width + 1})")
+        assert got.dtype == torch.bfloat16 and delta <= bar, (i, delta)
+
+
 def test_jax_joint_checkpoint_resumes_in_the_port(ref, env, pair, jax_steps,
                                                   monkeypatch):
     """The JAX checkpoint after one step loads into JointMeshVAE (nested
@@ -413,11 +498,27 @@ def test_cli_trains_the_joint_config(env, capsys):
                                        "checkpoint_2.pt"))
 
 
+def test_driver_runs_the_joint_model_in_bf16(env):
+    """run() with type = joint_VAE at compute_dtype bfloat16: 2 folds x 1
+    epoch, train and test; finite test averages with sup_accuracy and
+    adv_accuracy; float32 checkpoints (the master weights)."""
+    config = _joint_config(env, "bf16", epoch=1, compute_dtype="bfloat16")
+    results = driver.run(config, do_train=True, do_test=True, device="cpu")
+    assert len(results) == 2
+    for r in results:
+        assert all(np.isfinite(v) for v in r.values())
+        assert 0.0 <= r["sup_accuracy"] <= 1.0
+    state = load_checkpoint(os.path.join(config["checkpoint_dir"],
+                                         "checkpoint_1.pt"))
+    assert all(v.dtype == torch.float32 for v in state["model"].values())
+
+
 def test_worlds_and_bf16_are_refused(env):
+    """A world is refused (ROADMAP item 8); bfloat16 runs
+    (test_driver_runs_the_joint_model_in_bf16)."""
     for key, value, item in (("data_parallel", 2, "item 8"),
                              ("seq_parallel", 2, "item 8"),
-                             ("multihost", True, "item 8"),
-                             ("compute_dtype", "bfloat16", "item 3")):
+                             ("multihost", True, "item 8")):
         with pytest.raises(ValueError, match=item):
             driver.run(_joint_config(env, "refused", **{key: value}),
                        do_train=True, do_test=False, device="cpu")

@@ -1,6 +1,8 @@
 """meshvae_tpu_torch.models.vae against the flax MeshVAE: eval forward with
 weights moved by params_from_flax, at both precisions, held to the bars of
-tests/test_parity.py (mu, logvar, y_hat within 1e-5; recon within 1e-4)."""
+tests/test_parity.py (mu, logvar, y_hat within 1e-5; recon within 1e-4);
+the linear-head rule (``vae.dense``) of the VAE's posterior mean, the
+GCN's and the joint model's heads against flax's Dense, bit for bit."""
 import numpy as np
 import pytest
 import torch
@@ -8,11 +10,14 @@ import torch
 import jax.numpy as jnp
 
 import meshvae_tpu.ops.pallas_cheb as pc
+from meshvae_tpu.models.vae import _dense as jax_dense
 
-from meshvae_tpu_torch.models import (MeshVAE, VAEConfig, load_params_npz,
+from meshvae_tpu_torch.models import (GCNConfig, JointMeshVAE, MeshVAE,
+                                      VAEConfig, load_params_npz,
                                       params_from_flax, save_params_npz)
+from meshvae_tpu_torch.models.vae import dense
 
-from torch_port_utils import grid_hierarchy, paired_models
+from torch_port_utils import DTYPES, grid_hierarchy, paired_models
 
 
 @pytest.fixture(autouse=True)
@@ -82,3 +87,61 @@ def test_init_distributions(hier):
         for t in (lin.weight, lin.bias):
             assert t.abs().max().item() <= bound
             assert t.abs().max().item() > 0.5 * bound
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+def test_heads_follow_flax_dense(hier, compute_dtype):
+    """Every head the classifier paths added to the Dense rule, on a tiny
+    joint model: the VAE's posterior_mean (and the joint model's
+    delegation), the GCN's enc_lin and cls_layer and the joint model's
+    sup_head and adv_head, against flax's Dense(dtype=) at the precision
+    the JAX package gives them, bit for bit; in float32 also equal to
+    layer(x). Weights and inputs are small dyadic numbers, so every
+    product and fp32 sum is exact in any order and only the rule's
+    roundings (x @ W^T to bf16, then + b in bf16) can differ; in bf16 one
+    rounding of x @ W^T + b must differ somewhere, so the test sees the
+    second rounding."""
+    jdtype, pdtype = DTYPES[compute_dtype]
+    precision = "default" if compute_dtype == "bfloat16" else "highest"
+    common = dict(filters=(8, 8, 8, 16, 16), polygon_order=(3,) * 5,
+                  n_layers=4, num_classes=2, coarse_verts=hier.levels[-1],
+                  precision=precision, compute_dtype=compute_dtype)
+    model = JointMeshVAE(
+        VAEConfig(num_features=3, num_hidden=32, latent=6, dropout=0.2,
+                  **common),
+        GCNConfig(num_features=6, **common), 2)
+    rng = np.random.default_rng(3)
+    heads = {"posterior_mean": model.vae.z_mean,
+             "gcn.enc_lin": model.gcn.enc_lin,
+             "gcn.cls_layer": model.gcn.cls_layer,
+             "sup_head": model.sup_head, "adv_head": model.adv_head}
+    assert model.gcn.cfg.dtype == model.cfg.dtype == pdtype
+    differs = 0
+    for name, layer in heads.items():
+        w = rng.integers(-8, 9, layer.weight.shape).astype(np.float32) / 16
+        b = rng.integers(-64, 65, layer.bias.shape).astype(np.float32) / 64
+        x = rng.integers(-8, 9, (5, layer.in_features)).astype(np.float32)
+        x /= 8
+        with torch.no_grad():
+            layer.weight.copy_(torch.from_numpy(w))
+            layer.bias.copy_(torch.from_numpy(b))
+            xt = torch.from_numpy(x)
+            if name == "posterior_mean":
+                got = model.vae.posterior_mean(xt)
+                torch.testing.assert_close(model.posterior_mean(xt), got,
+                                           rtol=0, atol=0)
+            else:
+                got = dense(layer, xt, model.cfg.dtype)
+            plain = layer(xt)
+        flax = jax_dense(layer.out_features, layer.in_features,
+                         precision=precision, dtype=jdtype)
+        want = flax.apply({"params": {"kernel": w.T, "bias": b}},
+                          jnp.asarray(x))
+        assert got.dtype == pdtype and want.dtype == jdtype, name
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(want, np.float32), name)
+        if compute_dtype == "float32":
+            torch.testing.assert_close(got, plain, rtol=0, atol=0)
+        else:
+            differs += int((plain.to(pdtype) != got).sum())
+    assert compute_dtype == "float32" or differs > 0

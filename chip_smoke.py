@@ -322,6 +322,52 @@ Phases, one block of output lines each; any failed check exits non-zero:
                bf16 serving step, config-4 batch and bf16 crecon and joint
                train step.
 
+18. reference migration  imported reference weights on the reference
+            hierarchy, and the two remaining operator methods:
+            a. template5k's hierarchy with hierarchy_mode reference (the
+               bit-exact QSlim and the reference up-transfer) built on the
+               host into the cache that holds the fast one (seconds,
+               levels; D must differ from the fast one's and the cache
+               must hold both), its config-1 operators (n_pad, blocks, G
+               of L0, L1 and P0T-P2T, fp32 blocks for modes fp32 and
+               bf16x3);
+            c. a reference-layout checkpoint {'state_dict': ...} at config-1
+               width from a seeded torch.Generator (reference names, [out,
+               in] Linear weights, the dead dec_lin_1 and a buffer) and a
+               cheb_GCN one, each through python -m
+               meshvae_tpu_torch.train.torch_import on the card (the
+               config leaves hierarchy_mode out, so the CLI forces
+               reference; every value lands at its port name); the
+               inference CLI with hierarchy_mode reference over 32
+               synthetic meshes on the card (20 bf16x3 launches per batch)
+               and with --device cpu (phase 12's bars); a MeshServer at
+               high and at highest (20 launches per serving step), card vs
+               CPU on one step (phase 4's bars); one crecon eval step, the
+               imported GCN behind the imported VAE, card vs CPU (loss
+               1e-5 relative, logits 1e-4 of their max);
+            d. one deterministic train step (no dropout, z = mu) from the
+               imported weights at high, card vs CPU at phase 6's bars: 35
+               bf16x3 Laplacian launches and each reference P^T once;
+            e. one deterministic train step at highest on phase 6's seeded
+               weights, card vs CPU at phase 6's bars, for cheb_method ell
+               (no Laplacian launch, the three P^T), pallas with
+               pool_method dense (35 Laplacian launches, no P^T) and ell
+               with the dense pool (no launch); each of them and the
+               default pallas + gather timed per step of a scanned epoch
+               (median of 25 epochs), eager and graphed in turns (A B B A),
+               and the eager step's own peak memory;
+            f. the ELL step at scaled20k fp32 (B=64) and scaled80k bf16
+               (B=32) where validate.ell_step_bytes says it fits: its peak
+               memory beside the formula and beside the block-sparse
+               step's, both steps' host-paced times, the ELL step's top
+               kernels (torch.profiler); validate_config
+               refusing scaled80k fp32 at B=2048 without running it;
+            b. (last) bsr_grouped_spmm against its twin on the reference
+               operators at every (mode, operator, C, call kind) that c-e
+               launched (1e-5 of max|y|), and the kernel, twin,
+               torch.sparse and bound sums per step on them; the phase's
+               seconds.
+
 Phase 3 also holds the bf16 mode on the card at every 80k Laplacian (its C
 values, alpha 1 and 2, no seed, t_prev, t_plus, both) and the four P^T:
 max |kernel - twin| <= 2^-8 max |twin| (one bf16 ulp: both round once),
@@ -354,7 +400,11 @@ modes, the joint model's P^T of up-pools 0-1 and 2 at 2B width: launches
 of the run()s at high, of a counted replayed epoch at highest), and
 phase 17's bf16 serving step, config-4 batch and bf16 crecon and joint
 train steps (Laplacian calls, the joint model's bf16 P^T; launches of the
-main-path runs). The last line is {"ok": true, ...}.
+main-path runs), and phase 18's calls on the reference operators (the
+inference CLI per batch, the MeshServers' serving steps, the fine-tuning
+step's Laplacian and P^T calls, the dense-pool step's Laplacian calls and
+the ELL step's P^T; launches of 18c-e). The last line is {"ok": true,
+...}.
 """
 import dataclasses
 import json
@@ -4737,6 +4787,621 @@ def phase_bf16_paths(torch, dev, models, ops, hier, tmpl, single, many_dir,
     return {"out": out, "sums": sums, "worst": worst}
 
 
+# --- phase 18: reference migration ------------------------------------------
+REF_MESHES = 32          # the inference CLI's synthetic meshes (2 batches)
+# 18e's steps at highest, (cheb_method, pool_method); the default pallas +
+# gather is timed beside them
+REF_METHODS = (("ell", "gather"), ("pallas", "dense"), ("ell", "dense"))
+REF_TIMED = REF_METHODS + (("pallas", "gather"),)
+
+
+def _reference_name(name: str, gcn: bool) -> str:
+    """The reference implementation's name of a port parameter: cheb.{i}
+    for the encoder's convs (the GCN's cheb_{i}), cheb_dec.{i} for the
+    decoder's; the linear heads keep theirs."""
+    layer, kind = name.rsplit(".", 1)
+    prefixes = ((("cheb_", "cheb"),) if gcn
+                else (("cheb_enc_", "cheb"), ("cheb_dec_", "cheb_dec")))
+    for prefix, ref in prefixes:
+        if layer.startswith(prefix) and layer[len(prefix):].isdigit():
+            return f"{ref}.{layer[len(prefix):]}.{kind}"
+    return name
+
+
+def _reference_checkpoint(torch, target: dict, gcn: bool, seed: int,
+                          path: str) -> dict:
+    """A reference-layout checkpoint {'state_dict': ...} of `target`'s
+    shapes from a seeded torch.Generator, saved at `path`: Chebyshev
+    weights and biases ~ N(0, 0.1), Linear weights ([out, in], the
+    reference's layout) and biases ~ U(+-1/sqrt(in)); with the reference's
+    dead dec_lin_1 head and a buffer, which the importer skips."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for name, value in target.items():
+        if name.startswith("cheb"):
+            v = 0.1 * torch.randn(value.shape, generator=gen)
+        else:
+            fan_in = target[name.rsplit(".", 1)[0] + ".weight"].shape[1]
+            v = (2 * torch.rand(value.shape, generator=gen) - 1) / math.sqrt(
+                fan_in)
+        sd[_reference_name(name, gcn)] = v
+    sd["dec_lin_1.weight"] = torch.randn(3, 3, generator=gen)
+    sd["dec_lin_1.bias"] = torch.randn(3, generator=gen)
+    sd["cheb.0.num_batches_tracked"] = torch.tensor(3)
+    torch.save({"state_dict": sd, "epoch_num": 7}, path)
+    return sd
+
+
+def _quiet(fn, *args):
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = fn(*args)
+    return rc, out.getvalue()
+
+
+def _card_vs_cpu_step(torch, label, make, batch, mean, std, bar):
+    """One deterministic train step (no dropout, z = mu) of make(device) on
+    the card, the launch counts reset just before and read just after,
+    and on the CPU: loss within 1e-5 relative, every gradient within `bar`
+    of its layer's max|g|; a second card step from the same weights shows
+    the card's own run-to-run spread (printed, not held). Returns
+    (LAUNCHES, LAUNCHES_BY_SHAPE, the LAUNCHES_BY_CALL keys, worst)."""
+    from meshvae_tpu_torch.ops import bsr_spmm
+
+    out = {}
+    for side, device in (("card", "cuda"), ("cpu", "cpu"), ("again", "cuda")):
+        tr = make(device)
+        dev_batch = tr.to_device(batch)
+        norm = tr.norm_to_device(mean, std)
+        if side == "card":
+            torch.cuda.synchronize()
+            bsr_spmm.reset_launches()
+        loss = tr.train_step(dev_batch, None, *norm)[0].item()
+        if side == "card":
+            torch.cuda.synchronize()
+            counts = (dict(bsr_spmm.LAUNCHES),
+                      dict(bsr_spmm.LAUNCHES_BY_SHAPE),
+                      set(bsr_spmm.LAUNCHES_BY_CALL))
+        out[side] = (loss, {k: v.grad.cpu()
+                            for k, v in tr.model.named_parameters()})
+    rel = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    grads = out["cpu"][1]
+
+    def deltas(side, other="cpu"):
+        """(max |delta| / the layer's max|g|, name), largest first."""
+        return sorted(((out[side][1][k] - g).abs().max().item()
+                       / _layer_scale(grads, k), k)
+                      for k, g in out[other][1].items())[::-1]
+
+    worst = deltas("card")
+    say(f"  {label}: loss {out['card'][0]:.6g}, card vs CPU rel "
+        f"{rel:.2e} (bar 1e-5); worst gradient deltas of the layer's max|g| "
+        f"(bar {bar:g}): "
+        + ", ".join(f"{k} {d:.2e}" for d, k in worst[:3])
+        + "; a second card step against the first: "
+        + ", ".join(f"{k} {d:.2e}" for d, k in deltas("again", "card")[:2])
+        + f"; launches {counts[0]}")
+    if not (rel <= 1e-5 and worst[0][0] <= bar):
+        fail(f"{label}: card and CPU train steps disagree")
+    return (*counts, worst[0][0])
+
+
+def _ref_import(torch, root, cfg_path, hier, gcn_cfg):
+    """18c's imports: the reference VAE and GCN checkpoints through
+    ``python -m meshvae_tpu_torch.train.torch_import`` on the card.
+    Returns (the VAE's params file, its state_dict, the GCN's state)."""
+    from meshvae_tpu_torch.config import read_config
+    from meshvae_tpu_torch.models import ChebGCN, MeshVAE, VAEConfig
+    from meshvae_tpu_torch.train import torch_import
+    from meshvae_tpu_torch.train.checkpoint import (load_model_state,
+                                                    load_params)
+
+    config = read_config(cfg_path)
+    vae = MeshVAE(VAEConfig.from_config(config, hier.levels[-1]))
+    paths = {}
+    for kind, target, gcn in (("cheb_VAE", vae.state_dict(), False),
+                              ("cheb_GCN", ChebGCN(gcn_cfg).state_dict(),
+                               True)):
+        ref = os.path.join(root, f"reference_{kind}.pt")
+        sd = _reference_checkpoint(torch, target, gcn, 18 + gcn, ref)
+        out = (os.path.join(root, "ckpt", "checkpoint_1.pt")
+               if kind == "cheb_VAE" else os.path.join(root, "gcn.pt"))
+        t0 = time.perf_counter()
+        rc, text = _quiet(torch_import.main,
+                          [ref, out, "-c", cfg_path, "--type", kind])
+        got = load_params(out)
+        bad = [k for k, v in got.items()
+               if not torch.equal(v, sd[_reference_name(k, gcn)])]
+        say(f"  torch_import --type {kind}: rc {rc} in "
+            f"{time.perf_counter() - t0:.2f}s, {len(got)} tensors, "
+            f"{'forced hierarchy_mode=reference' if 'reference' in text else 'hierarchy_mode from the config'}"
+            f"; mismatched {bad}")
+        if rc != 0 or bad or set(got) != set(target) or (
+                "hierarchy_mode=reference" not in text):
+            fail(f"torch_import {kind}: rc {rc}, mismatched {bad}, "
+                 f"output {text!r}")
+        paths[kind] = out
+    return paths["cheb_VAE"], load_model_state(paths["cheb_VAE"]), \
+        load_params(paths["cheb_GCN"])
+
+
+def _ref_serving(torch, dev, root, cfg_path, data_dir, scale, tmpl,
+                 many_dir, config, weights, ops_card, ops_cpu, seen):
+    """18c's serving: the inference CLI over REF_MESHES meshes card vs
+    --device cpu (phase 12's bars), then a MeshServer at high and at
+    highest answering many_dir (20 meshes, two steps), card vs CPU on one
+    step (phase 4's bars). Returns the main-path launches; adds their
+    LAUNCHES_BY_CALL keys to `seen`."""
+    import io
+
+    import numpy as np
+
+    from meshvae_tpu_torch.infer.driver import InferenceEngine
+    from meshvae_tpu_torch.infer.serve import MeshServer
+    from meshvae_tpu_torch.models import MeshVAE, VAEConfig
+    from meshvae_tpu_torch.ops import bsr_spmm
+
+    launches = {}
+    outs = {}
+    for device in ("cuda", "cpu"):
+        out = os.path.join(root, f"infer_{device}")
+        torch.cuda.synchronize()
+        bsr_spmm.reset_launches()
+        secs, _, _ = _infer_cli(torch, [
+            "-c", cfg_path, "-d", data_dir, "-o", out, "-n", "1", "-p",
+            "matmul_precision", "high", "--device", device])
+        if device == "cuda":
+            launches["infer"] = dict(bsr_spmm.LAUNCHES)
+            seen |= set(bsr_spmm.LAUNCHES_BY_CALL)
+        outs[device] = _infer_outputs(out)
+        say(f"  inference CLI [{device}]: {secs:.2f}s")
+    (pred, inf, objs), (pred_c, inf_c, objs_c) = outs["cuda"], outs["cpu"]
+    with np.load(os.path.join(root, "ckpt", "norm.npz")) as z:
+        mean, std = z["mean"].astype(np.float32), z["std"].astype(np.float32)
+    err = max(abs(inf[n]["reconstruction_error"][k]
+                  - inf_c[n]["reconstruction_error"][k])
+              for n in inf for k in ("mean", "max"))
+    mesh_err = max(float(np.abs(objs[f] - objs_c[f]).max()) for f in objs)
+    batches = -(-REF_MESHES // BATCH)
+    want = {m: (LAUNCHES_PER_STEP * batches if m == "bf16x3" else 0)
+            for m in bsr_spmm.MODES}
+    say(f"  inference CLI card vs CPU: pred equal {pred == pred_c} "
+        f"({len(pred)} meshes), errors within {err:.3e}, .obj within "
+        f"{mesh_err:.3e} (bar {TOL_STEP * scale:.3e}); launches "
+        f"{launches['infer']} (expected {want})")
+    if (len(pred) != REF_MESHES or pred != pred_c
+            or len(objs) != 3 * REF_MESHES or list(objs) != list(objs_c)):
+        fail("reference inference: card and CPU outputs differ")
+    if not (err <= TOL_STEP * scale and mesh_err <= TOL_STEP * scale):
+        fail("reference inference: card vs CPU beyond the bar")
+    if launches["infer"] != want:
+        fail(f"reference inference launched {launches['infer']}")
+
+    many = sorted(os.path.join(many_dir, f) for f in os.listdir(many_dir))
+    for p, mode in (("high", "bf16x3"), ("highest", "fp32")):
+        cfg = VAEConfig.from_config(dict(config, matmul_precision=p),
+                                    ops_card.num_nodes[-1])
+        models = {}
+        for device in ("cuda", "cpu"):
+            m = MeshVAE(cfg)
+            m.load_state_dict(weights)
+            models[device] = m.to(device).eval()
+        server = MeshServer(models["cuda"], ops_card, mean, std,
+                            template=tmpl.v, faces=tmpl.f, batch_size=BATCH,
+                            output_path=os.path.join(root, f"serve_{p}"),
+                            device=dev)
+        try:
+            server.warmup()
+            fout = io.StringIO()
+            torch.cuda.synchronize()
+            bsr_spmm.reset_launches()
+            server.serve_forever(io.StringIO(f"{many_dir}\n"), fout)
+            torch.cuda.synchronize()
+            launches[f"serve_{p}"] = dict(bsr_spmm.LAUNCHES)
+            seen |= set(bsr_spmm.LAUNCHES_BY_CALL)
+            lines = [json.loads(l) for l in fout.getvalue().splitlines()]
+            host = server.preprocess(many[:BATCH])
+        finally:
+            server.close()
+        want = {m: (2 * LAUNCHES_PER_STEP if m == mode else 0)
+                for m in bsr_spmm.MODES}
+        if [l.get("done") for l in lines if "done" in l] != [20] or \
+                launches[f"serve_{p}"] != want:
+            fail(f"reference MeshServer[{p}]: {len(lines)} lines, launches "
+                 f"{launches[f'serve_{p}']} (expected {want})")
+        batch = {"x": torch.from_numpy(host["x"].astype(np.float32)),
+                 **{k: torch.from_numpy(host[k])
+                    for k in ("r", "s", "m", "original")}}
+        got = InferenceEngine(models["cuda"], ops_card).step(
+            {k: v.to(dev) for k, v in batch.items()},
+            torch.from_numpy(mean).to(dev), torch.from_numpy(std).to(dev))
+        ref = InferenceEngine(models["cpu"], ops_cpu).step(
+            batch, torch.from_numpy(mean), torch.from_numpy(std))
+        bar = TOL_STEP * float(np.abs(host["original"]).max())
+        pred_eq = bool((got["pred"].cpu() == ref["pred"]).all())
+        d = {k: (got[k].cpu() - ref[k]).abs().max().item()
+             for k in ("recon_orig", "err_mean")}
+        say(f"  MeshServer[{p}]: {len(lines)} lines, launches "
+            f"{launches[f'serve_{p}']} ({LAUNCHES_PER_STEP} per step); card "
+            f"vs CPU pred equal {pred_eq}, recon_orig {d['recon_orig']:.3e}, "
+            f"err_mean {d['err_mean']:.3e} (bar {bar:.3e})")
+        if not (pred_eq and max(d.values()) <= bar):
+            fail(f"reference MeshServer[{p}]: card and CPU disagree")
+    return launches
+
+
+def _ref_crecon(torch, config, weights, gcn_state, gcn_cfg, ops_card,
+                ops_cpu, batch, seen):
+    """18c's crecon eval step: the imported GCN behind the imported VAE on
+    the card and on the CPU at high: loss within 1e-5 relative, logits
+    within 1e-4 of their max (phase 16's bars); adds the card's
+    LAUNCHES_BY_CALL keys to `seen`."""
+    from meshvae_tpu_torch.models import ChebGCN, MeshVAE, VAEConfig
+    from meshvae_tpu_torch.ops import bsr_spmm
+    from meshvae_tpu_torch.train.crecon_driver import (CreconTrainer,
+                                                       estimate_diff)
+
+    vcfg = VAEConfig.from_config(config, ops_card.num_nodes[-1])
+    outs = {}
+    for device, ops in (("cuda", ops_card), ("cpu", ops_cpu)):
+        vae, gcn = MeshVAE(vcfg), ChebGCN(gcn_cfg)
+        vae.load_state_dict(weights)
+        gcn.load_state_dict(gcn_state)
+        tr = CreconTrainer(gcn, vae, ops, config, device=device)
+        b = tr.to_device(batch)
+        bsr_spmm.reset_launches()
+        scalars = tr.eval_step(b)["scalars"].cpu()
+        seen |= set(bsr_spmm.LAUNCHES_BY_CALL)
+        with torch.no_grad():
+            diff, _, _ = estimate_diff(tr.vae, b["x"], b["label"], ops,
+                                       train=False)
+            logits = tr.model(diff, ops).cpu()
+        outs[device] = (scalars, logits)
+    (s_card, l_card), (s_cpu, l_cpu) = outs["cuda"], outs["cpu"]
+    rel = abs(s_card[0] - s_cpu[0]).item() / abs(s_cpu[0]).item()
+    d = (l_card - l_cpu).abs().max().item() / l_cpu.abs().max().item()
+    say(f"  crecon eval step (imported GCN behind the imported VAE, high): "
+        f"loss {s_card[0].item():.6g} vs CPU rel {rel:.2e} (bar 1e-5), "
+        f"correct {int(s_card[1])} / {int(s_cpu[1])}, logits {d:.2e} of "
+        f"max|logit| (bar 1e-4)")
+    if not (rel <= 1e-5 and d <= 1e-4):
+        fail("reference crecon eval step: card and CPU disagree")
+
+
+def _ell_memory(torch, dev, label, cfg_file, scaled, dtype, card):
+    """18f at one scaled configuration: the formula's bytes
+    (validate.ell_step_bytes); where they fit the card, one ELL train step
+    at the config's batch with its peak memory beside the formula, and
+    the same step on the block-sparse path (phase 7 / 9's operators) for
+    the ELL path's extra; both steps' host-paced times."""
+    import numpy as np
+
+    from meshvae_tpu_torch import validate
+    from meshvae_tpu_torch.config import read_config
+    from meshvae_tpu_torch.models import MeshVAE, VAEConfig, build_operators
+    from meshvae_tpu_torch.train import Trainer
+
+    config = read_config(os.path.join(ROOT, cfg_file))
+    hier = scaled["hier"]
+    n, d = validate.level0_shape(hier.adjacency[0])
+    b = int(config["batch_size"])
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    pred = validate.ell_step_bytes(b, n, d, validate.level0_convs(config),
+                                   itemsize)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    say(f"  {label}: B={b}, N={n}, D={d}, {dtype}; formula: gather "
+        f"{pred['gather'] / 2**20:.1f} MiB, transient "
+        f"{pred['transient'] / 2**20:.1f}, kept {pred['kept'] / 2**20:.1f}, "
+        f"total {pred['total'] / 2**20:.1f} MiB of the card's "
+        f"{total / 2**30:.1f} GiB")
+    if pred["total"] > total:
+        say(f"  {label}: the formula says it does not fit; not run")
+        return {"predicted": pred, "measured": None}
+    cfg = VAEConfig.from_config(config, hier.levels[-1])
+    weights = MeshVAE(cfg, generator=torch.Generator().manual_seed(5)
+                      ).state_dict()
+    gen = torch.Generator().manual_seed(6)
+    batch = {"x": torch.randn(b, n, 3, generator=gen),
+             "label": torch.randint(0, 2, (b,), generator=gen),
+             "r": torch.eye(3).expand(b, 3, 3).contiguous(),
+             "s": torch.ones(b), "m": torch.zeros(b, 1, 3),
+             "mask": torch.ones(b)}
+    mean = np.zeros((n, 3), np.float32)
+    std = np.ones((n, 3), np.float32)
+    out = {"predicted": pred}
+    for method, ops in (("ell", build_operators(hier, dev, cheb_method="ell",
+                                                dtype=dtype)),
+                        ("pallas", scaled["ops"])):
+        model = MeshVAE(cfg)
+        model.load_state_dict(weights)
+        tr = Trainer(model, ops, config, device=dev)
+        dev_batch, norm = tr.to_device(batch), tr.norm_to_device(mean, std)
+        step_gen = torch.Generator(device=dev).manual_seed(7)
+        step = lambda: tr.train_step(dev_batch, step_gen, *norm)
+        step()  # Adam's state and the autograd buffers exist from here
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = time_ms(torch, step, runs=10, warmup=1, backlog=False)
+        out[method] = {"peak": peak, "ms": ms}
+        say(f"  {label} [{method}]: train step {ms:.3f} ms host-paced "
+            f"({b / ms * 1e3:.1f} meshes/sec), the step's own peak "
+            f"{peak / 2**20:.1f} MiB ({card})")
+        if method == "ell":
+            _profile(torch, step, f"{label} [ell]", ms, n=3, batch=b)
+        del tr, model, ops
+    extra = out["ell"]["peak"] - out["pallas"]["peak"]
+    say(f"  {label}: ELL peak {out['ell']['peak'] / 2**20:.1f} MiB against "
+        f"the formula's {pred['total'] / 2**20:.1f} MiB (ratio "
+        f"{out['ell']['peak'] / pred['total']:.2f}); over the block-sparse "
+        f"step's {out['pallas']['peak'] / 2**20:.1f} MiB: "
+        f"{extra / 2**20:.1f} MiB, against the formula's transient "
+        f"{pred['transient'] / 2**20:.1f} MiB")
+    out["measured"] = out["ell"]["peak"]
+    return out
+
+
+def phase_reference(torch, dev, tmpl, many_dir, s20, s80, tmp, card):
+    """Phase 18 (module docstring): the reference-migration path. Returns
+    what the kernel line needs."""
+    say("== phase 18: reference migration (hierarchy_mode reference, the "
+        "reference-checkpoint importer, cheb_method ell, pool_method dense)")
+    import numpy as np
+
+    from meshvae_tpu_torch import validate
+    from meshvae_tpu_torch.data import (BatchIterator, MeshDataset,
+                                        generate_synthetic_dataset,
+                                        list_meshes)
+    from meshvae_tpu_torch.mesh import load_or_build_hierarchy
+    from meshvae_tpu_torch.models import (GCNConfig, MeshVAE, VAEConfig,
+                                          build_operators)
+    from meshvae_tpu_torch.ops import bsr_spmm
+    from meshvae_tpu_torch.train import Trainer
+
+    seconds = {}
+    t_phase = t0 = time.perf_counter()
+    root = os.path.join(tmp, "reference")
+    config = dict(config_1(tmp), hierarchy_mode="reference")
+    cache = config["hierarchy_cache_dir"]
+
+    # --- a. the reference hierarchy beside the fast one in the cache ------
+    fast = load_or_build_hierarchy(tmpl, [4, 4, 4, 4], cache_dir=cache)
+    before = sorted(os.listdir(cache))
+    t1 = time.perf_counter()
+    hier = load_or_build_hierarchy(tmpl, [4, 4, 4, 4], cache_dir=cache,
+                                   mode="reference")
+    build_s = time.perf_counter() - t1
+    d_diff = [int((a != b).nnz) for a, b in zip(fast.downsample,
+                                                hier.downsample)]
+    u_rows = [float(np.abs(np.asarray(u.sum(axis=1)).ravel() - 1).max())
+              for u in hier.upsample]
+    say(f"18a: reference hierarchy {hier.levels} built in {build_s:.2f}s on "
+        f"the host beside the cached fast one ({before} -> "
+        f"{sorted(os.listdir(cache))}); D differs from fast in {d_diff} "
+        f"entries; U rows off 1 by up to {[f'{v:.2e}' for v in u_rows]}")
+    if (hier.levels != [4998, 1250, 313, 79, 20] or not any(d_diff)
+            or len(os.listdir(cache)) != len(before) + 1):
+        fail("18a: the reference hierarchy came back as the fast one, or "
+             "at other levels")
+    ops = build_operators(hier, dev, cheb_method="pallas")
+    ops_cpu = build_operators(hier, "cpu", cheb_method="pallas")
+    named = {f"L{i}": op.bsr for i, op in enumerate(ops.lap)
+             if op.bsr is not None}
+    named.update({f"P{i}T": up.t_bsr for i, up in enumerate(ops.up)
+                  if up.t_bsr is not None})
+    for name, bsr in named.items():
+        say(f"  {name}: n_pad {bsr.n_pad} x {bsr.n_pad_cols}, "
+            f"{bsr.num_blocks} blocks, G {bsr.g_width} (fp32 blocks; modes "
+            f"fp32 and bf16x3)")
+    if sorted(named) != ["L0", "L1", "P0T", "P1T", "P2T"]:
+        fail(f"18a: reference operators {sorted(named)}")
+    seconds["a"] = time.perf_counter() - t0
+
+    # --- c. imports, inference, serving and crecon on the card ------------
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(root, "ckpt"))
+    data_dir = os.path.join(root, "data")
+    generate_synthetic_dataset(tmpl, data_dir, n_samples=REF_MESHES, seed=18)
+    dcfg = {"root_dir": data_dir, "checkpoint_dir": os.path.join(root, "ckpt")}
+    index, labels = list_meshes(dcfg)
+    ds = MeshDataset(index, dcfg, labels, tmpl.v)  # writes ckpt/norm.npz
+    import_cfg = os.path.join(root, "import.cfg")
+    _infer_cfg(import_cfg, dict(config, checkpoint_dir="ckpt/"))
+    infer_cfg = os.path.join(root, "infer.cfg")
+    _infer_cfg(infer_cfg, dict(config, checkpoint_dir="ckpt/"),
+               extra=("hierarchy_mode",))
+    gcn_cfg = GCNConfig.from_config(config, hier.levels[-1], 6)
+    seen = set()  # the LAUNCHES_BY_CALL keys of 18c-e's card runs
+    say("18c: import, inference and serving of reference weights")
+    _, weights, gcn_state = _ref_import(torch, root, import_cfg, hier,
+                                        gcn_cfg)
+    launches = _ref_serving(torch, dev, root, infer_cfg, data_dir,
+                            float(np.abs(ds.original).max()), tmpl,
+                            many_dir, config, weights, ops, ops_cpu, seen)
+    batch = next(iter(BatchIterator(ds, BATCH)))
+    _ref_crecon(torch, config, weights, gcn_state, gcn_cfg, ops, ops_cpu,
+                batch, seen)
+    seconds["c"] = time.perf_counter() - t0
+
+    # --- d. fine-tuning from the imported weights -------------------------
+    t0 = time.perf_counter()
+    say("18d: fine-tuning from the imported weights (high)")
+    vcfg = VAEConfig.from_config(config, hier.levels[-1])
+
+    def trainer(cfg, operators, device):
+        model = MeshVAE(cfg)
+        model.load_state_dict(weights)
+        return Trainer(model, operators, config, device=device)
+
+    pool_keys = [("fp32", b.n_pad, b.n_pad_cols)
+                 for k, b in named.items() if k.startswith("P")]
+    d_counts, d_shapes, keys, _ = _card_vs_cpu_step(
+        torch, "train step [high]",
+        lambda device: trainer(vcfg, ops if device == "cuda" else ops_cpu,
+                               device),
+        batch, ds.mean, ds.std, 1e-3)
+    seen |= keys
+    want = {"bf16x3": TRAIN_LAP_LAUNCHES, "fp32": len(pool_keys), "bf16": 0}
+    if d_counts != want or any(d_shapes.get(k) != 1 for k in pool_keys):
+        fail(f"18d: launches {d_counts} {d_shapes}, expected {want} and "
+             f"each P^T once")
+    seconds["d"] = time.perf_counter() - t0
+
+    # --- e. cheb_method ell and pool_method dense at highest --------------
+    # on phase 6's seeded weights: with the imported ones (a loss of ~3e4)
+    # a decoder activation sits within rounding of a ReLU's kink, where a
+    # perturbation of x by 1e-7 of itself moves dec_lin_2.bias's gradient
+    # by 5.4e-4 of its layer's max|g| on the CPU alone, in every method
+    t0 = time.perf_counter()
+    say("18e: cheb_method ell and pool_method dense (highest, phase 6's "
+        "seeded weights)")
+    seeded = MeshVAE(vcfg, generator=torch.Generator().manual_seed(1234)
+                     ).state_dict()
+
+    def seeded_trainer(cfg, operators, device):
+        model = MeshVAE(cfg)
+        model.load_state_dict(seeded)
+        return Trainer(model, operators, config, device=device)
+
+    staged_ds = BatchIterator(ds, BATCH, shuffle=True, seed=0)
+    methods = {}
+    for cheb_method, pool_method in REF_TIMED:
+        label = f"{cheb_method} + {pool_method} pool"
+        cfg = dataclasses.replace(vcfg, precision="highest",
+                                  pool_method=pool_method)
+        op_of = {d: build_operators(hier, d, cheb_method=cheb_method,
+                                    pool_method=pool_method)
+                 for d in ("cuda", "cpu")}
+        rec = {}
+        if (cheb_method, pool_method) in REF_METHODS:
+            counts, shapes, keys, worst = _card_vs_cpu_step(
+                torch, f"train step [{label}]",
+                lambda device: seeded_trainer(cfg, op_of[device], device),
+                batch, ds.mean, ds.std, 1e-4)
+            seen |= keys
+            lap = counts["fp32"] - sum(shapes.get(k, 0) for k in pool_keys)
+            pool = sum(shapes.get(k, 0) for k in pool_keys)
+            want = ((0 if cheb_method == "ell" else TRAIN_LAP_LAUNCHES),
+                    (0 if pool_method == "dense" else len(pool_keys)))
+            if (lap, pool) != want or counts["bf16x3"] or counts["bf16"]:
+                fail(f"18e {label}: {lap} Laplacian and {pool} P^T "
+                     f"launches, expected {want}")
+            rec.update(launches=counts, lap=lap, pool=pool, worst=worst)
+        tr = seeded_trainer(cfg, op_of["cuda"], dev)
+        staged = tr.stage_batches(staged_ds)
+        steps = staged["mask"].shape[0]
+        shuffle = torch.Generator(device=dev).manual_seed(9)
+        step_gen = torch.Generator(device=dev).manual_seed(10)
+        run = lambda: tr.train_epoch_scanned_async(
+            staged, step_gen, ds.mean, ds.std, shuffle_generator=shuffle)
+        times = {}
+        for graphs in (False, True, True, False):
+            tr.graphs = graphs
+            run()  # warm-up (and the capture)
+            times.setdefault(graphs, []).append(
+                _epoch_ms(torch, run, steps, epochs=RUNS)[0])
+        tr.graphs = False
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tr.train_step(tr.to_device(batch), step_gen,
+                      *tr.norm_to_device(ds.mean, ds.std))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        rec.update(eager_ms=times[False], graphed_ms=times[True], peak=peak)
+        say(f"  {label}: per step of a scanned epoch of {steps} (CUDA "
+            f"events, median of {RUNS} epochs, eager / graphed in turns A B "
+            f"B A): eager "
+            f"{times[False][0]:.3f} / {times[False][1]:.3f} ms, graphed "
+            f"{times[True][0]:.3f} / {times[True][1]:.3f} ms "
+            f"({BATCH / times[True][0] * 1e3:.1f} meshes/sec at B={BATCH}); "
+            f"the eager step's own peak {peak / 2**20:.1f} MiB ({card})")
+        methods[(cheb_method, pool_method)] = rec
+        del tr, staged, op_of
+    seconds["e"] = time.perf_counter() - t0
+
+    # --- f. the ELL memory formula against the card ----------------------
+    t0 = time.perf_counter()
+    say("18f: the ELL path's memory (validate.ell_step_bytes) at scale")
+    memory = {
+        "scaled20k": _ell_memory(torch, dev, "scaled20k fp32",
+                                 SCALED20_CFG, s20, torch.float32, card),
+        "scaled80k": _ell_memory(torch, dev, "scaled80k bf16", SCALED_CFG,
+                                 s80, torch.bfloat16, card)}
+    from meshvae_tpu_torch.config import read_config
+
+    big = dict(read_config(os.path.join(ROOT, SCALED_CFG)),
+               cheb_method="ell", compute_dtype="float32", batch_size=2048)
+    allocated = torch.cuda.memory_allocated()
+    try:
+        validate.validate_config(
+            big, dev, level0=validate.level0_shape(s80["hier"].adjacency[0]))
+    except validate.ConfigError as exc:
+        say(f"  refused without running (scaled80k, fp32, B=2048): {exc}")
+    else:
+        fail("18f: validate_config admitted an ELL config the formula says "
+             "cannot fit")
+    if torch.cuda.memory_allocated() != allocated:
+        fail("18f: the refusal touched device memory")
+    seconds["f"] = time.perf_counter() - t0
+
+    # --- b. the kernel against its twin at every call phase 18 launched ---
+    t0 = time.perf_counter()
+    say("18b: bsr_grouped_spmm vs its twin on the reference operators, at "
+        "every (mode, operator, C, call kind) that 18c-e launched")
+    calls = sorted(seen)
+    by_shape = {(b.n_pad, b.n_pad_cols): b for b in named.values()}
+    gen = torch.Generator(device=dev).manual_seed(181)
+    worst = {"fp32": 0.0, "bf16x3": 0.0, "pool": 0.0}
+    for mode, n, m, c, kind in calls:
+        bsr = by_shape[(n, m)]
+        x = torch.randn(bsr.n_pad_cols, c, device=dev, generator=gen)
+        err, _ = _hold(torch, bsr, x, mode, kind,
+                       _seeds(torch, bsr, c, gen, dev), TOL_KERNEL,
+                       f"reference {(n, m)} C={c} {mode} {kind}")
+        group = "pool" if n != m else mode
+        worst[group] = max(worst[group], err)
+    say(f"  {len(calls)} calls held; worst abs error {worst}")
+    if len(calls) < 10:
+        fail(f"18b: only {len(calls)} calls to hold")
+
+    # the per-step sums of the kernel line, on the reference operators
+    gen = torch.Generator(device=dev).manual_seed(182)
+    operands = _operands(torch, ops, hier, dev)
+    rows = []
+    say("per-call times on the reference operators (median of %d):" % RUNS)
+    sums = {f"serve_{m}": acc for m, acc in _per_step(
+        torch, SERVE_CALLS, operands, MODES, gen, dev, rows).items()}
+    for name, calls_ in TRAIN_CALLS.items():
+        modes = MODES if name == "lap" else ("fp32",)
+        for m, acc in _per_step(torch, calls_, operands, modes, gen, dev,
+                                rows).items():
+            sums[f"train_{name}_{m}" if name == "lap"
+                 else f"train_{name}"] = acc
+    sums["train_pool"] = {k: sums["train_pool_colmajor"][k]
+                          + sums["train_pool_grouped"][k] for k in ACC_KEYS}
+    say("shape_rows_reference " + json.dumps(rows))
+    for name, acc in sums.items():
+        say(f"per step {name} (reference operators): kernel {acc['ms']:.3f}"
+            f" ms, twin {acc['plain_ms']:.3f} ms, torch.sparse "
+            f"{acc['library_ms']:.3f} ms, bound {acc['bound_ms']:.3f} ms "
+            f"({_bound_by(acc)}; {acc['stored_ms']:.3f} ms with the blocks "
+            f"as stored)")
+    seconds["b"] = time.perf_counter() - t0
+    seconds["total"] = time.perf_counter() - t_phase
+    say(f"phase 18 seconds {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
+    return {"launches": launches, "train": d_counts, "shapes": d_shapes,
+            "pool_keys": pool_keys, "methods": methods, "memory": memory,
+            "worst": worst, "sums": sums}
+
+
 def main() -> int:
     import torch
 
@@ -4834,6 +5499,10 @@ def main() -> int:
             torch, dev, models, ops, hier, tmpl, single, many_dir,
             (mean, std), s80, tmp, covered | classifiers["keys"], card)
         seconds["bf16_paths"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reference = phase_reference(torch, dev, tmpl, many_dir, s20, s80,
+                                    tmp, card)
+        seconds["reference"] = time.perf_counter() - t0
     say("phase seconds " + json.dumps({k: round(v, 1)
                                        for k, v in seconds.items()}))
 
@@ -5004,6 +5673,43 @@ def main() -> int:
               "at 2B, grouped", REPLACES["grouped"],
               joint17["pool"]["P2T"], pool16,
               sums["joint_bf16_pool_grouped"]),
+    ]
+    # phase 18: imported reference weights on the reference hierarchy (the
+    # inference CLI, MeshServers, a fine-tuning step at high) and the
+    # pallas step with the dense pool at highest; the ELL steps launch only
+    # their P^T (pool_method gather)
+    ref, ref_sums, ref_err = (reference["launches"], reference["sums"],
+                              reference["worst"])
+    ref_pool = sum(reference["shapes"].get(k, 0) for k in
+                   reference["pool_keys"])
+    ell = reference["methods"][("ell", "gather")]
+    kernels += [
+        entry("bsr_grouped_spmm[bf16x3] reference hierarchy, imported "
+              "weights: inference CLI at high, per batch", REPLACES["bf16x3"],
+              ref["infer"]["bf16x3"], ref_err["bf16x3"],
+              ref_sums["serve_bf16x3"]),
+        entry("bsr_grouped_spmm[bf16x3] reference hierarchy, imported "
+              "weights: MeshServer serving step at high", REPLACES["bf16x3"],
+              ref["serve_high"]["bf16x3"], ref_err["bf16x3"],
+              ref_sums["serve_bf16x3"]),
+        entry("bsr_grouped_spmm[fp32] reference hierarchy, imported "
+              "weights: MeshServer serving step at highest",
+              REPLACES["fp32"], ref["serve_highest"]["fp32"],
+              ref_err["fp32"], ref_sums["serve_fp32"]),
+        entry("bsr_grouped_spmm[bf16x3] reference hierarchy fine-tuning "
+              "step: Laplacian", REPLACES["bf16x3"],
+              reference["train"]["bf16x3"], ref_err["bf16x3"],
+              ref_sums["train_lap_bf16x3"]),
+        entry("bsr_grouped_spmm[fp32] reference hierarchy fine-tuning step: "
+              "pool P^T", REPLACES["colmajor"], ref_pool, ref_err["pool"],
+              ref_sums["train_pool"]),
+        entry("bsr_grouped_spmm[fp32] pool_method dense train step at "
+              "highest: Laplacian", REPLACES["fp32"],
+              reference["methods"][("pallas", "dense")]["lap"],
+              ref_err["fp32"], ref_sums["train_lap_fp32"]),
+        entry("bsr_grouped_spmm[fp32] cheb_method ell train step at highest:"
+              " pool P^T", REPLACES["colmajor"], ell["pool"], ref_err["pool"],
+              ref_sums["train_pool"]),
     ]
     say(card)
     say(json.dumps({"kernels": kernels}))

@@ -62,14 +62,14 @@ _SCHEMA: dict[str, tuple[Callable, Any]] = {
     "sup_weight": (float, 1.0),
     "adv_weight": (float, 0.1),
     "cls_weight": (float, 1.0),
-    "cheb_method": (str, "dense"),       # dense | pallas (block-sparse kernel)
-    "pool_method": (str, "gather"),      # gather
+    "cheb_method": (str, "dense"),       # dense | ell | pallas (the kernel)
+    "pool_method": (str, "gather"),      # gather | dense
     "compute_dtype": (str, "float32"),   # float32 | bfloat16
     # "" | high | highest on float32; bfloat16 clamps every value to
     # default (ops/cheb.py resolve_precision)
     "matmul_precision": (str, ""),
     "final_conv_adjacency": (str, "reference_quirk"),  # reference_quirk | finest
-    "hierarchy_mode": (str, "fast"),
+    "hierarchy_mode": (str, "fast"),     # fast | reference (bit-exact QSlim)
     "data_parallel": (int, 1),
     "seq_parallel": (int, 1),
     "multihost": (parse_bool, False),

@@ -10,8 +10,10 @@ joint_VAE) at either compute_dtype.
   * checkpoint_dir resolves relative to the config file's directory (the
     reference's quirk), root_dir is DATA_DIR;
   * the fold's checkpoint is checkpoint_{FOLD}.pt, or the JAX package's
-    checkpoint_{FOLD}.msgpack (train/checkpoint.find_checkpoint), and the
-    normalisation is checkpoint_dir/norm.npz;
+    checkpoint_{FOLD}.msgpack (train/checkpoint.find_checkpoint); a params
+    file under that name (an imported reference checkpoint,
+    train/torch_import.py) serves too; the normalisation is
+    checkpoint_dir/norm.npz;
   * --serve starts the port's MeshServer (infer/serve.py) on that
     checkpoint and norm instead: mesh paths on stdin, JSON lines on stdout.
 

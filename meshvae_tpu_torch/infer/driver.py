@@ -201,7 +201,7 @@ def run_cli(world, args, config) -> int:
     (world None: the only process): `args` are the CLI's parsed arguments,
     `config` the resolved config. A module-level function here, so that
     the spawned ranks of a local world can import it."""
-    from ..train.checkpoint import find_checkpoint, load_checkpoint
+    from ..train.checkpoint import find_checkpoint, load_model_state
     from ..train.driver import build_model_and_ops
     from .serve import MeshServer
 
@@ -209,7 +209,7 @@ def run_cli(world, args, config) -> int:
         args.device)
     model, ops, _, template = build_model_and_ops(config, device)
     ckpt = find_checkpoint(config["checkpoint_dir"], args.model)
-    model.load_state_dict(load_checkpoint(ckpt)["model"])
+    model.load_state_dict(load_model_state(ckpt))
     with np.load(os.path.join(config["checkpoint_dir"], "norm.npz")) as norm:
         mean = norm["mean"].astype(np.float32)
         std = norm["std"].astype(np.float32)

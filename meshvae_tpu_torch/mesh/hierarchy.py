@@ -1,10 +1,13 @@
 """Mesh hierarchy construction: the COMA-style multiresolution pyramid
-(counterpart of meshvae_tpu/mesh/hierarchy.py, "fast" mode).
+(counterpart of meshvae_tpu/mesh/hierarchy.py).
 
 Per level, QSlim-decimate the previous mesh by 1/factor, record the binary
-downsampling matrix D, the new adjacency A, and the barycentric upsampling
-matrix U back to the previous level. Results are cached to disk in the same
-npz format as the JAX package.
+downsampling matrix D, the new adjacency A, and the upsampling matrix U
+back to the previous level. Two modes: "fast" (the default; the native
+library when it builds) and "reference", the reference implementation's
+bit-exact collapse order and transfer coefficients, which weights trained
+on its hierarchy need (train/torch_import.py). Results are cached to disk
+in the same npz format, under the same keys, as the JAX package.
 """
 from __future__ import annotations
 
@@ -49,7 +52,10 @@ class MeshHierarchy:
         return len(self.vertices)
 
 
-def build_hierarchy(mesh: TriMesh, factors: list[int]) -> MeshHierarchy:
+def build_hierarchy(mesh: TriMesh, factors: list[int],
+                    mode: str = "fast") -> MeshHierarchy:
+    """mode "fast" or "reference" (qslim.qslim_decimate_exact and the
+    reference transfer, numpy only; module docstring)."""
     vertices = [np.asarray(mesh.v, dtype=np.float64)]
     faces = [np.asarray(mesh.f, dtype=np.int64)]
     adjacency = [vertex_adjacency(mesh.num_vertices, mesh.f)]
@@ -57,23 +63,28 @@ def build_hierarchy(mesh: TriMesh, factors: list[int]) -> MeshHierarchy:
     upsample: list[sp.csr_matrix] = []
 
     for factor in factors:
-        new_f, d = decimate_by_factor(vertices[-1], faces[-1], float(factor))
+        new_f, d = decimate_by_factor(vertices[-1], faces[-1], float(factor),
+                                      mode=mode)
         new_v = d @ vertices[-1]
         downsample.append(d.tocsr())
         vertices.append(new_v)
         faces.append(new_f)
         adjacency.append(vertex_adjacency(new_v.shape[0], new_f))
         # U maps the new (coarse) level back up to the previous (fine) level
-        upsample.append(barycentric_transfer(new_v, new_f, vertices[-2]))
+        upsample.append(barycentric_transfer(
+            new_v, new_f, vertices[-2],
+            mode="reference" if mode == "reference" else "barycentric"))
 
     return MeshHierarchy(vertices, faces, adjacency, downsample, upsample)
 
 
-def _cache_key(mesh: TriMesh, factors: list[int]) -> str:
+def _cache_key(mesh: TriMesh, factors: list[int], mode: str = "fast") -> str:
     h = hashlib.sha256()
     h.update(np.ascontiguousarray(mesh.v).tobytes())
     h.update(np.ascontiguousarray(mesh.f).tobytes())
     h.update(json.dumps([float(f) for f in factors]).encode())
+    if mode != "fast":  # fast-mode keys stay those of earlier cache entries
+        h.update(mode.encode())
     return h.hexdigest()[:16]
 
 
@@ -115,20 +126,21 @@ def _load(path: str) -> MeshHierarchy:
 
 
 def load_or_build_hierarchy(mesh: TriMesh, factors: list[int],
-                            cache_dir: str | None = None) -> MeshHierarchy:
+                            cache_dir: str | None = None,
+                            mode: str = "fast") -> MeshHierarchy:
     """Build the hierarchy, memoized on disk keyed by (template hash,
-    factors). The default cache directory is the port's own."""
+    factors, mode). The default cache directory is the port's own."""
     if cache_dir is None:
         cache_dir = os.path.join(os.path.expanduser("~"), ".cache",
                                  "meshvae_tpu_torch")
     os.makedirs(cache_dir, exist_ok=True)
     path = os.path.join(cache_dir,
-                        f"hierarchy_{_cache_key(mesh, factors)}.npz")
+                        f"hierarchy_{_cache_key(mesh, factors, mode)}.npz")
     if os.path.exists(path):
         try:
             return _load(path)
         except (OSError, KeyError, ValueError, zipfile.BadZipFile):
             pass  # corrupt cache entry: rebuild it
-    hier = build_hierarchy(mesh, factors)
+    hier = build_hierarchy(mesh, factors, mode=mode)
     _save(path, hier)
     return hier

@@ -1,11 +1,13 @@
 """Barycentric upsampling-matrix construction, coarse -> fine (counterpart
-of meshvae_tpu/mesh/transfer.py, "barycentric" mode; the native library
-runs the same projection when it can be built).
+of meshvae_tpu/mesh/transfer.py, both modes; in "barycentric" mode the
+native library runs the same projection when it can be built).
 
 Candidate triangles come from a cKDTree over face centroids plus every face
 incident to the nearest source vertex; the exact closest point on each
 candidate triangle is found by region-based point-triangle projection,
-which yields barycentric coordinates directly.
+which yields barycentric coordinates directly. "reference" mode keeps the
+reference implementation's per-branch coefficients (``_reference_transfer``,
+numpy only), whose edge rows do not sum to 1.
 """
 from __future__ import annotations
 
@@ -62,12 +64,24 @@ def closest_point_triangle(p: np.ndarray, a: np.ndarray, b: np.ndarray, c: np.nd
 
 
 def barycentric_transfer(source_v: np.ndarray, source_f: np.ndarray,
-                         target_v: np.ndarray,
-                         n_candidates: int = 16) -> sp.csr_matrix:
+                         target_v: np.ndarray, n_candidates: int = 16,
+                         mode: str = "barycentric") -> sp.csr_matrix:
     """Build U [n_target, n_source] with U @ source_vertices approximating
-    target_vertices via nearest-surface-point barycentric interpolation
-    (affine rows that sum to 1). The C++ uniform-grid implementation
-    (meshvae_tpu_torch/native) runs when it can be built."""
+    target_vertices via the nearest surface point.
+
+    mode "barycentric" (default) emits the barycentric weights of the
+    nearest point, affine rows that sum to 1; the C++ uniform-grid
+    implementation (meshvae_tpu_torch/native) runs when it can be built.
+    mode "reference" reproduces the reference's per-branch coefficients
+    (``_reference_transfer``, never native): face-interior points solve the
+    3x3 system at the nearest point (= barycentric), but edge-classified
+    points least-squares the ORIGINAL target point onto the linear span of
+    the edge's two vertices, rows that do NOT sum to 1. Weights trained on
+    the reference's hierarchy bake in those rows."""
+    if mode == "reference":
+        return _reference_transfer(source_v, source_f, target_v, n_candidates)
+    if mode != "barycentric":
+        raise ValueError(f"unknown transfer mode: {mode!r}")
     from ..native import barycentric_transfer_native
 
     native = barycentric_transfer_native(source_v, source_f, target_v)
@@ -140,3 +154,66 @@ def _nearest_on_surface(source_v, source_f, target_v, n_candidates: int = 16):
             if d2 < best_d2 - 1e-18:
                 best_d2, best_face, best_q, best_w = d2, fi, q, w
         yield i, best_face, best_q, best_w
+
+
+# psbody AABB "part" ids (mesh_operations.py:227-240): 0 = face interior,
+# 1..3 = edge (f[part-1], f[part % 3]), 4..6 = vertex f[part-4].
+_EDGE_PART = {(0, 1): 1, (1, 2): 2, (0, 2): 3}
+
+
+def classify_part(w, eps: float = 0.0):
+    """Map barycentric weights of a closest point to the psbody part id."""
+    zero = [k for k in range(3) if abs(w[k]) <= eps]
+    if len(zero) == 2:
+        (nz,) = [k for k in range(3) if k not in zero]
+        return 4 + nz
+    if len(zero) == 1:
+        nz = tuple(k for k in range(3) if k not in zero)
+        return _EDGE_PART[nz]
+    return 0
+
+
+def _reference_transfer(source_v, source_f, target_v,
+                        n_candidates: int = 16) -> sp.csr_matrix:
+    """U with the reference's exact per-branch coefficients
+    (mesh_operations.py:213-240), driven by our exact nearest-point query in
+    place of the psbody AABB tree. lstsq with rcond=-1 matches the legacy
+    default the reference runs under."""
+    source_v = np.asarray(source_v, dtype=np.float64)
+    source_f = np.asarray(source_f, dtype=np.int64)
+    target_v = np.asarray(target_v, dtype=np.float64)
+
+    rows, cols, vals = [], [], []
+
+    def emit(i, col, val):
+        rows.append(i)
+        cols.append(int(col))
+        vals.append(float(val))
+
+    for i, fi, q, w in _nearest_on_surface(source_v, source_f, target_v,
+                                           n_candidates):
+        tri = source_f[fi]
+        part = classify_part(w)
+        if part == 0:
+            # interior: 3x3 solve at the nearest point (= barycentric)
+            a = np.vstack((source_v[tri])).T
+            coeffs = np.linalg.lstsq(a, q, rcond=-1)[0]
+            for k in range(3):
+                emit(i, tri[k], coeffs[k])
+        elif part <= 3:
+            # edge: least-squares the ORIGINAL point onto the linear span of
+            # the edge vertices (not affine -> rows need not sum to 1)
+            e0, e1 = tri[part - 1], tri[part % 3]
+            a = np.vstack((source_v[e0], source_v[e1])).T
+            coeffs = np.linalg.lstsq(a, target_v[i], rcond=-1)[0]
+            emit(i, e0, coeffs[0])
+            emit(i, e1, coeffs[1])
+        else:
+            emit(i, tri[part - 4], 1.0)
+
+    u = sp.csr_matrix(
+        (np.array(vals), (np.array(rows), np.array(cols))),
+        shape=(target_v.shape[0], source_v.shape[0]),
+    )
+    u.sum_duplicates()
+    return u

@@ -50,6 +50,7 @@ class GCNConfig:
     hidden: int = 128
     precision: str | None = None
     compute_dtype: str = "float32"   # float32 | bfloat16 (fp32 accumulation)
+    pool_method: str = "gather"      # gather | dense (ops/pool.py)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -70,6 +71,7 @@ class GCNConfig:
             coarse_verts=coarse_verts,
             precision=precision,
             compute_dtype=compute_dtype,
+            pool_method=str(cfg.get("pool_method", "gather")),
         )
 
 
@@ -112,6 +114,6 @@ class ChebGCN(nn.Module):
         x = x.to(dt)
         for i in range(self.cfg.n_layers):
             x = torch.relu(getattr(self, f"cheb_{i}")(x, ops.lap[i]))
-            x = pool_apply(x, ops.down[i])
+            x = pool_apply(x, ops.down[i], self.cfg.pool_method)
         x = torch.relu(dense(self.enc_lin, x.reshape(x.shape[0], -1), dt))
         return dense(self.cls_layer, x, dt).float()

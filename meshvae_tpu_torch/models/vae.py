@@ -135,6 +135,7 @@ class VAEConfig:
     coarse_verts: int          # vertex count at the coarsest level
     precision: str | None = None
     compute_dtype: str = "float32"   # float32 | bfloat16 (fp32 accumulation)
+    pool_method: str = "gather"      # gather | dense (ops/pool.py)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -158,6 +159,7 @@ class VAEConfig:
             coarse_verts=coarse_verts,
             precision=precision,
             compute_dtype=compute_dtype,
+            pool_method=str(cfg.get("pool_method", "gather")),
         )
 
 
@@ -232,7 +234,7 @@ class MeshVAE(nn.Module):
         x = x.to(self.cfg.dtype)
         for i in range(self.cfg.n_layers):
             x = torch.relu(self.cheb_enc(i)(x, ops.lap[i]))
-            x = pool_apply(x, ops.down[i])
+            x = pool_apply(x, ops.down[i], self.cfg.pool_method)
         h = torch.relu(dense(self.enc_lin, x.reshape(x.shape[0], -1),
                              self.cfg.dtype))
         return _dropout(h, self.cfg.dropout, train, generator, rows)
@@ -258,7 +260,7 @@ class MeshVAE(nn.Module):
                      train, generator, rows)
         x = x.reshape(x.shape[0], c.coarse_verts, self.filters[-1])
         for i in range(c.n_layers):
-            x = pool_apply(x, ops.up[-i - 1])
+            x = pool_apply(x, ops.up[-i - 1], c.pool_method)
             x = torch.relu(self.cheb_dec(i)(x, ops.lap[c.n_layers - i - 1]))
         return self.cheb_dec(len(c.filters) - 1)(x, ops.lap_final).float()
 

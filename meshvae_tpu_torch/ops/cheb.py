@@ -4,7 +4,11 @@ meshvae_tpu/ops/pallas_cheb.py).
 
 out = sum_k T_k(L_hat) x @ W_k (+ bias), with T_0 = x, T_1 = L_hat x,
 T_k = 2 L_hat T_{k-1} - T_{k-2}; all K orders are mixed by one
-[.., K*F] @ [K*F, F_out] product.
+[.., K*F] @ [K*F, F_out] product. The operator's layout picks the
+propagation: the block-sparse kernel (``cheb_conv_bsr``, or its row shards
+under seq_parallel), a dense product, or the neighbour-list gather
+``propagate_ell`` (cheb_method ell; plain torch, autograd's backward, as
+the JAX package's ell path is plain XLA).
 
 x: [B, N, F_in]; weight: [K, F_in, F_out]; bias: [F_out] or None.
 """
@@ -59,6 +63,21 @@ def resolve_precision(precision, dtype: torch.dtype = torch.float32) -> str:
     return name or "highest"
 
 
+def propagate_ell(op: GraphOperator, x: torch.Tensor) -> torch.Tensor:
+    """L_hat @ x over the vertex dim from the neighbour list: out[b, i] =
+    sum_d w[i, d] * x[b, idx[i, d]], as one [B, N, D, F] gather and a
+    weighted reduction over D (meshvae_tpu/ops/cheb.py propagate_ell).
+    The gather is an index_select, whose backward is an index_add (no
+    sort, no host sync: it captures in a CUDA graph). Autograd keeps only
+    the operator's own idx and w for the backward; the gather and its
+    reduction's operand are transient (validate.ell_step_bytes counts
+    them)."""
+    b, _, f = x.shape
+    n, d = op.ell_idx.shape
+    gathered = x.index_select(1, op.ell_idx.reshape(-1)).view(b, n, d, f)
+    return torch.einsum("nd,bndf->bnf", op.ell_w, gathered)
+
+
 def cheb_conv(x: torch.Tensor, op: GraphOperator, weight: torch.Tensor,
               bias: torch.Tensor | None = None,
               precision=None) -> torch.Tensor:
@@ -88,12 +107,16 @@ def cheb_conv(x: torch.Tensor, op: GraphOperator, weight: torch.Tensor,
     if op.bsr is not None:
         return cheb_conv_bsr(x, op.bsr, weight, bias, precision=precision)
 
-    resolve_precision(precision, op.dtype)  # validate; dense runs plain
+    resolve_precision(precision, op.dtype)  # validate; dense/ell run plain
+    if op.ell_idx is not None:
+        prop = lambda t: propagate_ell(op, t)
+    else:
+        prop = lambda t: torch.matmul(op.dense, t)
     txs = [x]
     if k > 1:
-        txs.append(torch.matmul(op.dense, x))
+        txs.append(prop(x))
     for _ in range(2, k):
-        txs.append(2.0 * torch.matmul(op.dense, txs[-1]) - txs[-2])
+        txs.append(2.0 * prop(txs[-1]) - txs[-2])
     f_in = x.shape[-1]
     out = torch.matmul(torch.cat(txs, dim=-1),
                        weight.reshape(k * f_in, weight.shape[-1]))

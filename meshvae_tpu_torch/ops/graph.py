@@ -1,16 +1,21 @@
 """Static graph operands (counterpart of meshvae_tpu/ops/graph.py).
 
-  * the scaled Laplacian L_hat = -D^{-1/2} A D^{-1/2} (self-loops removed),
-    dense [N, N] below the hybrid cutoff and block-sparse at or above it;
-  * pool/unpool sampling matrices as gather indices + weights (rows of D are
-    one-hot selections, rows of U have <= 3 barycentric entries), with the
-    transpose P^T for the pool backward: always as gathers, and above a
-    fan-in cutoff also as a rectangular block-sparse operator.
+  * the scaled Laplacian L_hat = -D^{-1/2} A D^{-1/2} (self-loops removed)
+    in the one layout the configured cheb_method reads: "pallas"
+    block-sparse at or above the hybrid cutoff and dense below it, "dense"
+    dense, "ell" a padded neighbour list (self-padded, weight 0 on the
+    padding) at every level;
+  * pool/unpool sampling matrices in the layout the configured pool_method
+    reads: "gather" as gather indices + weights (rows of D are one-hot
+    selections, rows of U have <= 3 barycentric entries), with the
+    transpose P^T for the pool backward, always as gathers and above a
+    fan-in cutoff also as a rectangular block-sparse operator; "dense" as
+    the dense [M, N] matrix.
 
-Every value (dense operator, BSR blocks, pool weights w / t_w, P^T blocks)
-is stored in the operator dtype: float32, or bfloat16 under
-compute_dtype=bfloat16, rounded to nearest even from float32 as the JAX
-package stores them. Indices stay integer.
+Every value (dense operator, neighbour weights, BSR blocks, pool weights w
+/ t_w / dense, P^T blocks) is stored in the operator dtype: float32, or
+bfloat16 under compute_dtype=bfloat16, rounded to nearest even from
+float32 as the JAX package stores them. Indices stay integer.
 """
 from __future__ import annotations
 
@@ -52,10 +57,14 @@ def normalized_neg_adjacency(adjacency: sp.spmatrix) -> sp.csr_matrix:
     return sp.csr_matrix((vals, (row, col)), shape=(n, n))
 
 
+POOL_METHODS = ("gather", "dense")
+
+
 @dataclasses.dataclass(frozen=True)
 class GraphOperator:
     """The Chebyshev propagation operator at one hierarchy level: exactly
-    one of `dense` [active_n, active_n], `bsr` and `bsr_sp` is set.
+    one layout is set, `dense` [active_n, active_n], `bsr`, `bsr_sp`, or
+    the neighbour list `ell_idx` / `ell_w` [active_n, max_degree].
 
     `active_n` < `n` marks the embedded final-conv operator: rows/columns
     at or beyond active_n are empty, and only the corner is stored.
@@ -71,18 +80,27 @@ class GraphOperator:
     active_n: int
     bsr_sp: "ShardedBlockSparse | None" = None
     sp_group: object = None
+    ell_idx: torch.Tensor | None = None   # int64, self-padded rows
+    ell_w: torch.Tensor | None = None     # operator dtype, 0 on padding
 
     @property
     def dtype(self) -> torch.dtype:
         if self.bsr_sp is not None:
             return self.bsr_sp.op.blocks.dtype
+        if self.ell_w is not None:
+            return self.ell_w.dtype
         return (self.dense if self.bsr is None else self.bsr.blocks).dtype
 
 
 def _operator_from_laplacian(lap: sp.csr_matrix, device, n: int,
-                             bsr_min_n: int | None,
-                             dtype: torch.dtype) -> GraphOperator:
+                             bsr_min_n: int | None, dtype: torch.dtype,
+                             ell: bool = False) -> GraphOperator:
     active_n = lap.shape[0]
+    if ell:
+        idx, w = _to_ell(lap, pad_self=True)
+        return GraphOperator(dense=None, bsr=None, n=n, active_n=active_n,
+                             ell_idx=torch.from_numpy(idx).to(device),
+                             ell_w=torch.from_numpy(w).to(device).to(dtype))
     if bsr_min_n is not None and active_n >= bsr_min_n:
         return GraphOperator(dense=None,
                              bsr=to_block_sparse(lap, device, dtype=dtype),
@@ -94,17 +112,20 @@ def _operator_from_laplacian(lap: sp.csr_matrix, device, n: int,
 
 def cheb_operator(adjacency: sp.spmatrix, device,
                   bsr_min_n: int | None = BSR_MIN_N,
-                  dtype: torch.dtype = torch.float32) -> GraphOperator:
+                  dtype: torch.dtype = torch.float32,
+                  ell: bool = False) -> GraphOperator:
     """Block-sparse at or above bsr_min_n vertices, dense below; None keeps
-    the operator dense (cheb_method="dense")."""
+    the operator dense (cheb_method="dense"). ell stores the neighbour
+    list whatever the size (cheb_method="ell")."""
     lap = normalized_neg_adjacency(adjacency)
     return _operator_from_laplacian(lap, device, n=lap.shape[0],
-                                    bsr_min_n=bsr_min_n, dtype=dtype)
+                                    bsr_min_n=bsr_min_n, dtype=dtype, ell=ell)
 
 
 def embed_operator(op_coarse: sp.spmatrix, n_full: int, device,
                    bsr_min_n: int | None = BSR_MIN_N,
-                   dtype: torch.dtype = torch.float32) -> GraphOperator:
+                   dtype: torch.dtype = torch.float32,
+                   ell: bool = False) -> GraphOperator:
     """A coarse-level operator acting on the top-left corner of an
     [n_full, n_full] index space: the reference's final-decoder-conv quirk
     (the last ChebConv sees the coarsest level's adjacency at full
@@ -112,31 +133,37 @@ def embed_operator(op_coarse: sp.spmatrix, n_full: int, device,
     on it and one closed-form product on the rest."""
     lap = normalized_neg_adjacency(op_coarse)
     return _operator_from_laplacian(lap, device, n=n_full,
-                                    bsr_min_n=bsr_min_n, dtype=dtype)
+                                    bsr_min_n=bsr_min_n, dtype=dtype, ell=ell)
 
 
 @dataclasses.dataclass(frozen=True)
 class PoolOperator:
-    """A sampling matrix P applied as out = P @ x per batch item, stored as
-    padded per-row gathers: out[m] = sum_k w[m, k] * x[idx[m, k]].
+    """A sampling matrix P applied as out = P @ x per batch item.
 
-    The backward dx = P^T @ g reads the transpose: `t_idx`/`t_w`, the same
-    gathers over P^T, always; `t_bsr`, P^T as a rectangular block-sparse
-    operator (rows = pool inputs, columns = pool outputs), only when the
-    largest fan-in exceeds TGRAD_ELL_MAX."""
+    pool_method "gather": padded per-row gathers, out[m] = sum_k w[m, k] *
+    x[idx[m, k]]; the backward dx = P^T @ g reads the transpose: `t_idx` /
+    `t_w`, the same gathers over P^T, always; `t_bsr`, P^T as a rectangular
+    block-sparse operator (rows = pool inputs, columns = pool outputs), only
+    when the largest fan-in exceeds TGRAD_ELL_MAX. pool_method "dense":
+    `dense` [M, N] alone, the gather fields None."""
 
-    idx: torch.Tensor     # [M, R] int64
-    w: torch.Tensor       # [M, R] operator dtype (0 on padding)
+    idx: torch.Tensor | None     # [M, R] int64
+    w: torch.Tensor | None       # [M, R] operator dtype (0 on padding)
     n_in: int
     n_out: int
-    t_idx: torch.Tensor   # [N, T] int64 into output rows
-    t_w: torch.Tensor     # [N, T] operator dtype (0 on padding)
+    t_idx: torch.Tensor | None   # [N, T] int64 into output rows
+    t_w: torch.Tensor | None     # [N, T] operator dtype (0 on padding)
     t_bsr: BlockSparseOperator | None = None
+    dense: torch.Tensor | None = None  # [M, N] operator dtype
 
 
-def _to_ell(mat: sp.csr_matrix) -> tuple[np.ndarray, np.ndarray]:
-    """CSR -> padded neighbor list; padding carries weight 0 and index 0."""
-    n = mat.shape[0]
+def _to_ell(mat: sp.csr_matrix,
+            pad_self: bool = False) -> tuple[np.ndarray, np.ndarray]:
+    """CSR -> padded neighbor list; padding carries weight 0 and index 0,
+    or, with pad_self, the row's own index where the row has a column of
+    that number (the Laplacian's self-padded layout, as the JAX package's
+    _to_ell(pad_self=True))."""
+    n, n_cols = mat.shape
     mat = mat.tocsr()
     counts = np.diff(mat.indptr)
     max_deg = max(int(counts.max()) if n else 0, 1)
@@ -146,12 +173,24 @@ def _to_ell(mat: sp.csr_matrix) -> tuple[np.ndarray, np.ndarray]:
         lo, hi = mat.indptr[i], mat.indptr[i + 1]
         idx[i, :hi - lo] = mat.indices[lo:hi]
         w[i, :hi - lo] = mat.data[lo:hi]
+        if pad_self and i < n_cols:
+            idx[i, hi - lo:] = i
     return idx, w
 
 
 def pool_operator(mat: sp.spmatrix, device,
-                  dtype: torch.dtype = torch.float32) -> PoolOperator:
+                  dtype: torch.dtype = torch.float32,
+                  pool_method: str = "gather") -> PoolOperator:
+    """Only the layout that pool_method reads is built (class docstring)."""
+    if pool_method not in POOL_METHODS:
+        raise ValueError(f"unknown pool method: {pool_method!r}; expected "
+                         f"one of {POOL_METHODS}")
     csr = sp.csr_matrix(mat)
+    if pool_method == "dense":
+        dense = torch.from_numpy(csr.toarray().astype(np.float32))
+        return PoolOperator(idx=None, w=None, n_in=csr.shape[1],
+                            n_out=csr.shape[0], t_idx=None, t_w=None,
+                            dense=dense.to(device).to(dtype))
     csr_t = sp.csr_matrix(csr.T)
     idx, w = _to_ell(csr)
     t_idx, t_w = _to_ell(csr_t)

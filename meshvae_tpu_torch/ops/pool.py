@@ -1,12 +1,16 @@
-"""Mesh pool/unpool (counterpart of the gather path of meshvae_tpu/ops/pool.py):
-out = P @ x per batch item as weighted gathers; down-pool rows are one-hot
-selections, barycentric up-pool rows have <= 3 entries.
+"""Mesh pool/unpool (counterpart of meshvae_tpu/ops/pool.py): out = P @ x
+per batch item. pool_method "gather" (the default) applies P as weighted
+gathers (down-pool rows are one-hot selections, barycentric up-pool rows
+have <= 3 entries); "dense" as one dense product with the [M, N] matrix,
+whose backward is autograd's P^T product (no kernel launch), as the JAX
+package's dense pool is a plain einsum.
 
-The backward dx = P^T @ g never scatters: autograd's transpose of a gather
-is an atomic index_add, whose sums depend on thread order. It applies the
-precomputed transpose instead (PoolOperator.t_idx/t_w/t_bsr): through the
-block-sparse kernel when P^T has a block-sparse form and B * F fills a
-column panel, else as weighted gathers over P^T.
+The gather path's backward dx = P^T @ g never scatters: autograd's
+transpose of a gather is an atomic index_add, whose sums depend on thread
+order. It applies the precomputed transpose instead
+(PoolOperator.t_idx/t_w/t_bsr): through the block-sparse kernel when P^T
+has a block-sparse form and B * F fills a column panel, else as weighted
+gathers over P^T.
 
 The operator's dtype sets the arithmetic: with float32 weights the kernel
 runs fp32 (the JAX package pins HIGHEST there at every matmul_precision);
@@ -68,6 +72,19 @@ class _PoolApply(torch.autograd.Function):
         return dx, None
 
 
-def pool_apply(x: torch.Tensor, pool: PoolOperator) -> torch.Tensor:
-    """x: [B, N_in, F] -> [B, N_out, F]."""
+def pool_apply(x: torch.Tensor, pool: PoolOperator,
+               method: str = "gather") -> torch.Tensor:
+    """x: [B, N_in, F] -> [B, N_out, F]; `method` is the pool_method the
+    operator was built for (graph.pool_operator)."""
+    if method == "dense":
+        if pool.dense is None:
+            raise ValueError("pool_method 'dense' on an operator built "
+                             "without its dense layout; rebuild it with "
+                             "pool_operator(..., pool_method='dense')")
+        return torch.matmul(pool.dense, x)
+    if method != "gather":
+        raise ValueError(f"unknown pool method: {method!r}")
+    if pool.idx is None:
+        raise ValueError("pool_method 'gather' on an operator built with "
+                         "only its dense layout")
     return _PoolApply.apply(x, pool)

@@ -5,8 +5,11 @@ with the port's own format).
 (``torch.optim.Adam.state_dict()`` on the CPU, lr a float), ``epoch_num``,
 ``train_loss`` and ``val_loss``; a ``.meta.json`` beside it repeats the
 three scalars. The initial-weights snapshot that every fold restarts from
-is ``initial_weight.pt`` (a state_dict). Normalisation statistics live in
-``norm.npz``, written by ``data.MeshDataset``.
+is ``initial_weight.pt`` (a state_dict, as is every params file:
+``save_params``, train/torch_import.py's output). Normalisation statistics
+live in ``norm.npz``, written by ``data.MeshDataset``. ``load_model_state``
+takes the model's weights from any of the three (a checkpoint, a JAX
+checkpoint, a params file), for the readers that want weights alone.
 
 ``load_checkpoint`` also reads the JAX package's ``checkpoint_{fold}.msgpack``
 (flax bytes of params, optax state, epoch_num, train_loss, val_loss;
@@ -117,6 +120,16 @@ def save_params(path: str, state_dict: dict) -> None:
 def load_params(path: str) -> dict:
     _require(path)
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_model_state(path: str) -> dict:
+    """The model's state_dict from a checkpoint (the port's ``.pt`` or a
+    JAX ``.msgpack``) or from a params file (a bare state_dict)."""
+    if path.endswith(".msgpack"):
+        return load_checkpoint(path)["model"]
+    payload = load_params(path)
+    return payload["model"] if isinstance(payload.get("model"), dict) \
+        else payload
 
 
 def checkpoint_path(checkpoint_dir: str, fold: int) -> str:

@@ -2,8 +2,9 @@
 config 2 (counterpart of meshvae_tpu/train/crecon_driver.py): the body of
 ``python -m meshvae_tpu_torch.crecon``.
 
-A frozen, pretrained VAE (``checkpoint_file``: the port's ``.pt`` or the
-JAX package's ``.msgpack``) turns each batch into difference features
+A frozen, pretrained VAE (``checkpoint_file``: the port's ``.pt``, the
+JAX package's ``.msgpack``, or a params file such as an imported reference
+checkpoint, train/torch_import.py) turns each batch into difference features
 diff = cat(x - recon_oppo, x - recon) [B, N, 6] (``estimate_diff``; train
 mode conditions on the true label, eval mode on the prediction), and a
 ChebGCN (models/gcn.py) is trained on them with cross entropy and Adam on
@@ -41,7 +42,8 @@ from ..config import parse_bool
 from ..data.dataset import BatchIterator, MeshDataset, list_meshes
 from ..models.gcn import ChebGCN, GCNConfig
 from .checkpoint import (checkpoint_path, find_checkpoint, load_checkpoint,
-                         load_params, save_checkpoint, save_params)
+                         load_model_state, load_params, save_checkpoint,
+                         save_params)
 from .driver import build_model_and_ops, check_supported
 from .loop import Trainer, _host
 from .metrics import RunLog
@@ -170,7 +172,7 @@ def run(config: dict, do_train: bool, do_test: bool,
     seed = int(config["random_seeds"])
 
     vae, ops, hier, template = build_model_and_ops(config, device)
-    vae.load_state_dict(load_checkpoint(vae_ckpt)["model"])
+    vae.load_state_dict(load_model_state(vae_ckpt))
     gcn = ChebGCN(GCNConfig.from_config(
         config, coarse_verts=hier.levels[-1],
         num_features=2 * template.v.shape[1]))

@@ -6,6 +6,8 @@ the body of ``python -m meshvae_tpu_torch.train``.
     the joint VAE + GCN (models/joint.py, trained by train/joint.py) for
     type = joint_VAE, else the MeshVAE; ``check_supported`` refuses what
     the port does not run yet (crecon and the joint model in a world);
+    validate.py refuses a cheb_method = ell config whose level-0 convs
+    cannot fit on the card;
   * an initial-weights snapshot that every fold restarts from;
   * stratified k-fold over the mesh listing and a train/validation split
     of each fold's training part (train/splits.py, scikit-learn's streams);
@@ -62,7 +64,7 @@ from ..models.vae import MeshVAE, VAEConfig
 from ..parallel.sharding import (close_world, initialize_multihost,
                                  is_primary, spawn_local, sync_processes)
 from ..tools.make_scaled_template import ensure_template
-from ..validate import validate_config
+from ..validate import level0_shape, validate_config
 from .checkpoint import (checkpoint_path, find_checkpoint, load_checkpoint,
                          load_params, save_checkpoint, save_params)
 from .graphs import HostCopy
@@ -78,14 +80,6 @@ def check_supported(config: dict, pipeline: str | None = None) -> None:
     ROADMAP.md), rather than ignoring them. `pipeline` names a classifier
     pipeline ("crecon"; "joint" is implied by type = joint_VAE), which the
     port runs in one process only."""
-    unsupported = {
-        "pool_method": (config.get("pool_method", "gather"), "gather"),
-        "hierarchy_mode": (config.get("hierarchy_mode", "fast"), "fast"),
-    }
-    for key, (value, ported) in unsupported.items():
-        if value != ported:
-            raise ValueError(f"{key} = {value!r} is not ported yet; the "
-                             f"port runs {key} = {ported!r}")
     if pipeline is None and config.get("type") == "joint_VAE":
         pipeline = "joint"
     if pipeline is None:
@@ -101,11 +95,12 @@ def check_supported(config: dict, pipeline: str | None = None) -> None:
 
 def build_model_and_ops(config: dict, device="cuda",
                         generator: torch.Generator | None = None):
-    """Template -> hierarchy -> operators (in the config's compute dtype)
-    -> the model on `device` in eval mode, weights drawn from `generator`:
-    a JointMeshVAE for type = joint_VAE, a MeshVAE for every other type
-    (crecon's frozen VAE included), as the JAX driver builds them.
-    Returns (model, ops, hier, template)."""
+    """Template -> hierarchy (hierarchy_mode "fast" or "reference") ->
+    operators (in the config's compute dtype, cheb_method and
+    pool_method) -> the model on `device` in eval mode, weights drawn from
+    `generator`: a JointMeshVAE for type = joint_VAE, a MeshVAE for every
+    other type (crecon's frozen VAE included), as the JAX driver builds
+    them. Returns (model, ops, hier, template)."""
     check_supported(config)
     validate_config(config, device)
     device = resolve_device(device)
@@ -113,14 +108,17 @@ def build_model_and_ops(config: dict, device="cuda",
     template = load_obj(config["template"])
     hier = load_or_build_hierarchy(template, config["downsampling_factors"],
                                    cache_dir=config.get("hierarchy_cache_dir")
-                                   or None)
+                                   or None,
+                                   mode=config.get("hierarchy_mode", "fast"))
+    validate_config(config, device, level0=level0_shape(hier.adjacency[0]),
+                    num_features=template.v.shape[1])
     cfg = VAEConfig.from_config(config, coarse_verts=hier.levels[-1],
                                 num_features=template.v.shape[1])
     ops = build_operators(
         hier, device, cheb_method=config.get("cheb_method", "dense"),
         final_conv_adjacency=config.get("final_conv_adjacency",
                                         "reference_quirk"),
-        dtype=cfg.dtype)
+        dtype=cfg.dtype, pool_method=cfg.pool_method)
     if config.get("type") == "joint_VAE":
         model = build_joint_model(config, hier.levels[-1],
                                   template.v.shape[1], generator=generator)

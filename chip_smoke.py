@@ -368,6 +368,36 @@ Phases, one block of output lines each; any failed check exits non-zero:
                torch.sparse and bound sums per step on them; the phase's
                seconds.
 
+19. export  the serving export (infer/export.py) at config 1 (template5k,
+            B=16, phase 4's weights and requests): a. python -m
+            meshvae_tpu_torch.infer's main with --export-serve and --export
+            at high, --export-platforms cuda,cpu, on a checkpoint_1.pt of
+            the weights and phase 4's norm (seconds, MB, the headers); b. a
+            fresh process of --serve --artifact answering phase 4's three
+            request lines, beside a --serve process on the warm hierarchy
+            cache (seconds to the ready line), both against a warm
+            MeshServer (sex equal, errors within 1e-4 of the mesh scale);
+            c. one artifact step: exactly 20 launches in mode bf16x3
+            through the registered operator's CUDA implementation; the
+            artifact's cpu lowering (the twin) against its cuda one at
+            phase 4's bars; a highest artifact (mode fp32, 20 launches)
+            against the live engine at phase 4's bars; d. a compute_dtype
+            bfloat16 artifact of phase 17a's weights: 20 launches in mode
+            bf16, it and the warm bf16 MeshServer each held at phase 17a's
+            bar; then one step of each
+            artifact in a torch.profiler window, in a fresh process (in
+            this one, after the earlier phases' windows, a window saw 10
+            of the 20): 20 bsr_grouped_spmm_kernel launches of the mode's
+            instantiation, none counted by the eager wrapper, and their
+            device time; e. the --export contract against
+            InferenceEngine.step on the same batch at 1e-6; f. host-paced
+            steps (CUDA events, median of 50, in turns A B C C B A, twice):
+            MeshServer.serve_step, the artifact step, and serve_step with
+            every kernel call dispatched through the registered operator;
+            peak memory; the host's cost of one kernel call, direct and
+            through the operator (device backlogged), times the step's 20;
+            the kernel's device time per artifact step.
+
 Phase 3 also holds the bf16 mode on the card at every 80k Laplacian (its C
 values, alpha 1 and 2, no seed, t_prev, t_plus, both) and the four P^T:
 max |kernel - twin| <= 2^-8 max |twin| (one bf16 ulp: both round once),
@@ -403,8 +433,10 @@ train steps (Laplacian calls, the joint model's bf16 P^T; launches of the
 main-path runs), and phase 18's calls on the reference operators (the
 inference CLI per batch, the MeshServers' serving steps, the fine-tuning
 step's Laplacian and P^T calls, the dense-pool step's Laplacian calls and
-the ELL step's P^T; launches of 18c-e). The last line is {"ok": true,
-...}.
+the ELL step's P^T; launches of 18c-e), and phase 19's artifact steps at
+high, highest and bf16 (launches and kernel time from the profiler window
+of one step; the twin, library and bound of the same calls from phases 5
+and 17). The last line is {"ok": true, ...}.
 """
 import dataclasses
 import json
@@ -4697,15 +4729,11 @@ def _p17_joint_infer(torch, dev, ctx):
     return {"launches": launches, "keys": keys}
 
 
-def phase_bf16_paths(torch, dev, models, ops, hier, tmpl, single, many_dir,
-                     norm, s80, tmp, covered, card):
-    """Phase 17 (module docstring): bf16 serving, BASELINE config 4 and a
-    scaled80k inference run, crecon and the joint model in bf16, the joint
-    model through inference; then the kernel against its twin at every new
-    call and the per-step sums of the bf16 kernel. Returns what the
-    kernel line needs."""
-    say("== phase 17: bf16 serving and batch inference (config 4), the "
-        "bf16 classifiers, the joint model through inference")
+def bf16_models(torch, dev, models, hier) -> dict:
+    """Phase 4's seeded weights at compute_dtype bfloat16 on the card
+    (model16, ops16) and on the CPU (cpu16, ops16_cpu), and at fp32
+    highest on the CPU (cpu32, ops32_cpu), the yardstick of phase 8's
+    bar."""
     from meshvae_tpu_torch.models import MeshVAE, build_operators
 
     bf = torch.bfloat16
@@ -4720,16 +4748,29 @@ def phase_bf16_paths(torch, dev, models, ops, hier, tmpl, single, many_dir,
         m.load_state_dict(weights)
         return m.to(device).eval()
 
-    ops16 = build_operators(hier, dev, cheb_method="pallas", dtype=bf)
-    ctx = dict(
-        tmp=tmp, hier=hier, tmpl=tmpl, single=single, many_dir=many_dir,
-        norm=norm, s80=s80, card=card, weights=weights,
-        model16=model(cfg16, dev), cpu16=model(cfg16, "cpu"),
-        cpu32=model(cfg32, "cpu"), ops16=ops16,
+    return dict(
+        weights=weights, model16=model(cfg16, dev),
+        cpu16=model(cfg16, "cpu"), cpu32=model(cfg32, "cpu"),
+        ops16=build_operators(hier, dev, cheb_method="pallas", dtype=bf),
         ops16_cpu=build_operators(hier, "cpu", cheb_method="pallas",
                                   dtype=bf),
-        ops32_cpu=build_operators(hier, "cpu", cheb_method="pallas"),
-        worst_held=[])
+        ops32_cpu=build_operators(hier, "cpu", cheb_method="pallas"))
+
+
+def phase_bf16_paths(torch, dev, models, ops, hier, tmpl, single, many_dir,
+                     norm, s80, tmp, covered, card):
+    """Phase 17 (module docstring): bf16 serving, BASELINE config 4 and a
+    scaled80k inference run, crecon and the joint model in bf16, the joint
+    model through inference; then the kernel against its twin at every new
+    call and the per-step sums of the bf16 kernel. Returns what the
+    kernel line needs."""
+    say("== phase 17: bf16 serving and batch inference (config 4), the "
+        "bf16 classifiers, the joint model through inference")
+    bf = torch.bfloat16
+    ctx = dict(tmp=tmp, hier=hier, tmpl=tmpl, single=single,
+               many_dir=many_dir, norm=norm, s80=s80, card=card,
+               worst_held=[], **bf16_models(torch, dev, models, hier))
+    ops16 = ctx["ops16"]
     operands16 = {"L0": ops16.lap[0].bsr, "L1": ops16.lap[1].bsr,
                   **{f"P{i}T": ops16.up[i].t_bsr for i in (0, 1, 2)}}
     ctx["names"] = {(b.n_pad, b.n_pad_cols): k for k, b in operands16.items()}
@@ -4784,7 +4825,7 @@ def phase_bf16_paths(torch, dev, models, ops, hier, tmpl, single, many_dir,
     say("shape_rows_bf16 " + json.dumps(rows))
     seconds["e"] = round(time.perf_counter() - t0, 1)
     say(f"phase 17 seconds {json.dumps(seconds)}")
-    return {"out": out, "sums": sums, "worst": worst}
+    return {"out": out, "sums": sums, "worst": worst, "ctx": ctx}
 
 
 # --- phase 18: reference migration ------------------------------------------
@@ -5402,6 +5443,532 @@ def phase_reference(torch, dev, tmpl, many_dir, s20, s80, tmp, card):
             "worst": worst, "sums": sums}
 
 
+# --- phase 19: serving export -----------------------------------------------
+KERNEL_NAME = "bsr_grouped_spmm_kernel"  # ops/csrc/bsr_spmm.cu, <MODE, DOT>
+
+
+def _kernel_launches(torch, fn):
+    """One call of fn in a torch.profiler window: (launches, device ms,
+    names) of the kernels whose name holds KERNEL_NAME."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    count, us, names = 0, 0.0, set()
+    for evt in prof.key_averages():
+        if (KERNEL_NAME not in evt.key
+                or "CUDA" not in str(getattr(evt, "device_type", ""))):
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0)
+        count += evt.count
+        us += dev_us
+        names.add(evt.key)
+    return count, us / 1e3, names
+
+
+def _launch_calls(fn):
+    """The modes of the kernel launches that fn makes through the
+    registered operator's CUDA implementation (bsr_spmm._launch), exactly;
+    the eager wrapper's counters do not see them."""
+    from meshvae_tpu_torch.ops import bsr_spmm
+
+    real, modes = bsr_spmm._launch, []
+
+    def counted(bsr, x, mode, *args):
+        modes.append(mode)
+        return real(bsr, x, mode, *args)
+
+    bsr_spmm._launch = counted
+    try:
+        fn()
+    finally:
+        bsr_spmm._launch = real
+    return modes
+
+
+def _hold_launches_of(label, modes, mode):
+    say(f"  {label}: {len(modes)} launches through the registered "
+        f"operator's CUDA implementation, modes {sorted(set(modes))}")
+    if len(modes) != LAUNCHES_PER_STEP or set(modes) != {mode}:
+        fail(f"{label}: {len(modes)} launches in modes {set(modes)}, "
+             f"expected {LAUNCHES_PER_STEP} in {mode} (0 means the lowering "
+             "ran the twin or plain torch)")
+
+
+def profile_artifacts(spec_path: str) -> None:
+    """Run in a fresh process by phase 19 (a process whose profiler has
+    held no earlier window): one step of each artifact of the spec in a
+    torch.profiler window, on its batch; prints one JSON line of the
+    kernel's launches, device ms and names per artifact, and the eager
+    wrapper's counts during the step; and the seconds of this cold
+    process: importing torch, importing the export module, starting the
+    card, loading the first artifact and its first step."""
+    t0 = time.perf_counter()
+    marks = {}
+    import numpy as np
+    import torch
+
+    marks["import torch"] = time.perf_counter()
+    from meshvae_tpu_torch.device import resolve_device
+    from meshvae_tpu_torch.infer import export
+    from meshvae_tpu_torch.ops import bsr_spmm
+
+    marks["import infer.export"] = time.perf_counter()
+    with open(spec_path) as fp:
+        spec = json.load(fp)
+    dev = resolve_device("cuda:0")
+    with np.load(spec["batch"]) as z:
+        args = tuple(torch.from_numpy(z[k]).to(dev) for k in "xrsm")
+    torch.cuda.synchronize()
+    marks["start the card"] = time.perf_counter()
+    out = {}
+    for label, path in spec["artifacts"].items():
+        step = export.load_serving_step(path, dev)
+        marks.setdefault("load_serving_step", time.perf_counter())
+        step(*args)
+        torch.cuda.synchronize()
+        marks.setdefault("first step", time.perf_counter())
+        bsr_spmm.reset_launches()
+        count, ms, names = _kernel_launches(torch, lambda: step(*args))
+        out[label] = {"launches": count, "ms": ms, "names": sorted(names),
+                      "wrapper": dict(bsr_spmm.LAUNCHES)}
+    prev, out["seconds"] = t0, {}
+    for name, t in marks.items():
+        out["seconds"][name] = round(t - prev, 3)
+        prev = t
+    print(json.dumps(out), flush=True)
+
+
+def _hold_profiled(label, got, mode):
+    """The profiler window's count of one artifact step: 20 launches of
+    the kernel's instantiation for `mode` (its MODE index), none counted
+    by the eager wrapper."""
+    from meshvae_tpu_torch.ops.bsr_spmm import MODES
+
+    tag = f"<{MODES.index(mode)},"
+    say(f"  {label}: {got['launches']} {KERNEL_NAME} launches in one step's "
+        f"profiler window, {got['ms']:.3f} ms of device time; the eager "
+        f"wrapper's counts {got['wrapper']}; names {got['names']}")
+    if got["launches"] != LAUNCHES_PER_STEP:
+        fail(f"{label}: {got['launches']} kernel launches in one artifact "
+             f"step, expected {LAUNCHES_PER_STEP} (0 means the lowering ran "
+             "the twin or plain torch)")
+    if not all(tag in name for name in got["names"]):
+        fail(f"{label}: kernels {got['names']} are not all mode {mode}")
+    if any(got["wrapper"].values()):
+        fail(f"{label}: the eager wrapper counted {got['wrapper']} inside "
+             "an artifact step")
+
+
+def _serve_process(args, request, err_path):
+    """python -m meshvae_tpu_torch.infer ARGS in a fresh process with
+    `request` on stdin: (seconds to its ready line, the ready line, the
+    answer lines, seconds to its exit)."""
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "meshvae_tpu_torch.infer", *args],
+            cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=err, text=True)
+        try:
+            ready, first = None, None
+            for line in proc.stdout:
+                if line.startswith('{"ready"'):
+                    ready, first = time.perf_counter() - t0, json.loads(line)
+                    break
+            out, _ = proc.communicate(request, timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    if proc.returncode != 0 or first is None:
+        with open(err_path) as fp:
+            fail(f"serve process {args}: rc {proc.returncode}, ready line "
+                 f"{first}; stderr: {fp.read()[-3000:]}")
+    lines = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
+    return ready, first, lines, time.perf_counter() - t0
+
+
+def _same_answers(label, got, want, scale):
+    """Answer lines of one request stream: files, sex and the error lines
+    equal, errors within phase 4's bar; returns the largest error delta."""
+    if len(got) != len(want):
+        fail(f"{label}: {len(got)} answer lines, the warm server {len(want)}")
+    worst = 0.0
+    for g, w in zip(got, want):
+        if ("file" in g) != ("file" in w):
+            fail(f"{label}: line {g} against {w}")
+        if "file" not in g:
+            if g.get("done") != w.get("done") or ("error" in g) != (
+                    "error" in w):
+                fail(f"{label}: line {g} against {w}")
+            continue
+        if g["file"] != w["file"] or g["sex"] != w["sex"]:
+            fail(f"{label}: {g['file']} sex {g['sex']}, the warm server "
+                 f"{w['file']} sex {w['sex']}")
+        for k in ("mean", "max"):
+            worst = max(worst, abs(g["reconstruction_error"][k]
+                                   - w["reconstruction_error"][k]))
+    if not worst <= TOL_STEP * scale:
+        fail(f"{label}: errors differ by {worst:.3e} > "
+             f"{TOL_STEP * scale:.3e}")
+    return worst
+
+
+def _artifact_rows(torch, out):
+    """A packed artifact's outputs as InferenceEngine.step's keys, on the
+    CPU in float32."""
+    packed = out["packed"].float().cpu()
+    return {"pred": packed[0].long(), "err_mean": packed[1],
+            "err_max": packed[2],
+            **{k: out[k].float().cpu() for k in ("recon_orig", "oppo_orig")}}
+
+
+def _step_memory(torch, fn):
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return peak / 2**20, (peak - base) / 2**20
+
+
+def phase_export(torch, dev, models, ops, hier, tmpl, single, many_dir,
+                 norm, bf16, tmp, card):
+    """Phase 19 (module docstring): the serving export at config 1.
+    Returns the launches and kernel sums of the two artifact steps."""
+    say("== phase 19: serving export (torch.export artifacts; config 1, "
+        "B=16)")
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from meshvae_tpu_torch.infer import driver as infer_driver
+    from meshvae_tpu_torch.infer import export
+    from meshvae_tpu_torch.infer.__main__ import main as infer_main
+    from meshvae_tpu_torch.infer.driver import InferenceEngine
+    from meshvae_tpu_torch.infer.serve import MeshServer, packed_step
+    from meshvae_tpu_torch.ops import bsr_spmm
+    from meshvae_tpu_torch.ops import cheb as port_cheb
+    from meshvae_tpu_torch.ops import pool as port_pool
+    from meshvae_tpu_torch.train.checkpoint import save_params
+
+    seconds = {}
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "export")
+    ckpt = os.path.join(root, "ckpt")
+    os.makedirs(ckpt)
+    save_params(os.path.join(ckpt, "checkpoint_1.pt"),
+                models["high"].state_dict())
+    np.savez(os.path.join(ckpt, "norm.npz"), mean=norm[0], std=norm[1])
+    cfg_path = os.path.join(root, "export.cfg")
+    _infer_cfg(cfg_path, dict(config_1(tmp), checkpoint_dir="ckpt/"),
+               extra=("matmul_precision",))
+    base = ["-c", cfg_path, "-d", root, "-n", "1"]
+    arts = {"--export-serve": os.path.join(root, "serve.pt2"),
+            "--export": os.path.join(root, "plain.pt2")}
+
+    # --- a. both artifacts through the CLI, lowered for cuda and cpu ------
+    say("-- 19a: --export-serve and --export at high, --export-platforms "
+        "cuda,cpu")
+    timed = {}
+    real_export = infer_driver.export_cli
+
+    def export_timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        rc = real_export(*args, **kwargs)
+        timed["export"] = time.perf_counter() - t0
+        return rc
+
+    infer_driver.export_cli = export_timed
+    try:
+        for flag, path in arts.items():
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = infer_main([*base, flag, path, "--export-platforms",
+                                 "cuda,cpu"])
+            secs = time.perf_counter() - t0
+            if rc != 0 or not os.path.exists(path):
+                fail(f"{flag}: rc {rc}, {buf.getvalue()[-500:]}")
+            header = export.load_serving_step(path, "cpu").header
+            say(f"  {flag}: {buf.getvalue().strip()}; CLI {secs:.2f}s, of "
+                f"which export and save {timed['export']:.2f}s; "
+                f"{os.path.getsize(path) / 1e6:.2f} MB; header {header}")
+            if (header["platforms"] != ["cuda", "cpu"]
+                    or header["traced_on"] != "cuda"
+                    or header["matmul_precision"] != "high"):
+                fail(f"{flag}: header {header}")
+    finally:
+        infer_driver.export_cli = real_export
+    seconds["a"] = time.perf_counter() - t_phase
+
+    # --- b. a fresh --serve --artifact process against a --serve one -----
+    say("-- 19b: python -m meshvae_tpu_torch.infer --serve --artifact in a "
+        "fresh process, beside --serve on the warm hierarchy cache")
+    t0 = time.perf_counter()
+    many = [os.path.join(many_dir, f) for f in os.listdir(many_dir)]
+    request = f"{single}\n{many_dir}\n{os.path.join(tmp, 'missing.obj')}\n"
+    warm = MeshServer(models["high"], ops, *norm, template=tmpl.v,
+                      faces=tmpl.f, batch_size=BATCH,
+                      output_path=os.path.join(root, "out_warm"),
+                      save_meshes=False, device=dev)
+    try:
+        warm.warmup()
+        fout = io.StringIO()
+        warm.serve_forever(io.StringIO(request), fout)
+        warm_lines = [json.loads(l) for l in fout.getvalue().splitlines()]
+        _check_lines(warm_lines, single, many)
+        scale = float(np.abs(warm.preprocess(sorted(many) + [single])
+                             ["original"]).max())
+        procs = {}
+        for kind, flags in (("artifact", ["--artifact",
+                                          arts["--export-serve"]]),
+                            ("build", [])):
+            procs[kind] = _serve_process(
+                [*base, "-o", os.path.join(root, f"out_{kind}"),
+                 "--no-meshes", "--serve", *flags], request,
+                os.path.join(root, f"{kind}.stderr"))
+            ready, first, lines, total = procs[kind]
+            _check_lines(lines, single, many)
+            delta = _same_answers(f"--serve {kind}", lines, warm_lines, scale)
+            say(f"  --serve{' --artifact' if kind == 'artifact' else ''}: "
+                f"ready line after {ready:.2f}s ({first}), exit after "
+                f"{total:.2f}s; request seconds "
+                f"{[l['sec'] for l in lines if 'done' in l]}; answers as the "
+                f"warm server's, errors within {delta:.3e} (bar "
+                f"{TOL_STEP * scale:.3e})")
+        if procs["artifact"][1].get("artifact") != arts["--export-serve"]:
+            fail(f"the artifact's ready line {procs['artifact'][1]}")
+        say(f"  seconds to the ready line: artifact "
+            f"{procs['artifact'][0]:.2f}, build {procs['build'][0]:.2f} "
+            f"({procs['build'][0] - procs['artifact'][0]:+.2f}s saved)")
+        seconds["b"] = time.perf_counter() - t0
+
+        # --- c. the kernel inside the artifact; its cpu lowering ---------
+        say("-- 19c: the kernel inside the artifact, the cpu lowering "
+            "against the cuda one, a highest artifact")
+        t0 = time.perf_counter()
+        step = export.load_serving_step(arts["--export-serve"], dev)
+        say(f"  load_serving_step in this process (imports warm): "
+            f"{time.perf_counter() - t0:.2f}s")
+        host = warm.preprocess(sorted(many)[:BATCH])
+        batch = {k: torch.from_numpy(host[k]).to(dev)
+                 for k in ("x", "r", "s", "m")}
+        args = tuple(batch[k] for k in ("x", "r", "s", "m"))
+        step(*args)
+        _hold_launches_of("artifact[high]", _launch_calls(
+            lambda: step(*args)), "bf16x3")
+        out_card = _artifact_rows(torch, step(*args))
+        cpu_step = export.load_serving_step(arts["--export-serve"], "cpu")
+        out_cpu = _artifact_rows(torch, cpu_step(*(a.cpu() for a in args)))
+        pred_eq = bool((out_card["pred"] == out_cpu["pred"]).all())
+        d = {k: (out_card[k] - out_cpu[k]).abs().max().item()
+             for k in ("recon_orig", "oppo_orig", "err_mean", "err_max")}
+        say(f"  cuda vs cpu lowering: pred equal {pred_eq}, max deltas "
+            + ", ".join(f"{k} {v:.3e}" for k, v in d.items())
+            + f" (bar {TOL_STEP * scale:.3e})")
+        if not pred_eq or not all(d[k] <= TOL_STEP * scale
+                                  for k in ("recon_orig", "err_mean")):
+            fail("the artifact's cuda and cpu lowerings disagree")
+        # the same at highest (the kernel's fp32 mode), through the API
+        arts["highest"] = os.path.join(root, "serve_highest.pt2")
+        export.save_serving_artifact(arts["highest"],
+                                     export.export_packed_serving_step(
+                                         models["highest"], ops, *norm,
+                                         BATCH, hier.levels[0]))
+        step32 = export.load_serving_step(arts["highest"], dev)
+        step32(*args)
+        _hold_launches_of("artifact[highest]", _launch_calls(
+            lambda: step32(*args)), "fp32")
+        got32 = _artifact_rows(torch, step32(*args))
+        want32 = _artifact_rows(torch, packed_step(
+            InferenceEngine(models["highest"], ops).step, batch,
+            warm.mean_dev, warm.std_dev, True))
+        d32 = max((got32[k] - want32[k]).abs().max().item()
+                  for k in ("recon_orig", "oppo_orig", "err_mean", "err_max"))
+        say(f"  artifact[highest] against the live engine's packed step: "
+            f"pred equal {bool((got32['pred'] == want32['pred']).all())}, "
+            f"max delta {d32:.3e}")
+        if not bool((got32["pred"] == want32["pred"]).all()) or not (
+                d32 <= TOL_STEP * scale):
+            fail("the highest artifact differs from the live engine")
+        seconds["c"] = time.perf_counter() - t0
+
+        # --- d. a bf16 artifact on phase 17a's weights -------------------
+        say("-- 19d: a compute_dtype bfloat16 artifact (phase 17a's "
+            "weights) against the warm bf16 MeshServer")
+        t0 = time.perf_counter()
+        n = hier.levels[0]
+        t_exp = time.perf_counter()
+        data16 = export.export_packed_serving_step(
+            bf16["model16"], bf16["ops16"], *norm, BATCH, n,
+            platforms=("cuda",))
+        t_exp = time.perf_counter() - t_exp
+        arts["bf16"] = os.path.join(root, "serve_bf16.pt2")
+        export.save_serving_artifact(arts["bf16"], data16)
+        step16 = export.load_serving_step(data16, dev)
+        step16(*args)
+        _hold_launches_of("artifact[bf16]", _launch_calls(
+            lambda: step16(*args)), "bf16")
+        warm16 = MeshServer(bf16["model16"], bf16["ops16"], *norm,
+                            template=tmpl.v, faces=tmpl.f, batch_size=BATCH,
+                            output_path=os.path.join(root, "out_bf16"),
+                            save_meshes=True, device=dev)
+        try:
+            art16 = _artifact_rows(torch, step16(*args))
+            live16 = _artifact_rows(torch, warm16.serve_step(batch))
+        finally:
+            warm16.close()
+        batch_cpu = {"x": torch.from_numpy(host["x"].astype(np.float32)),
+                     **{k: torch.from_numpy(host[k])
+                        for k in ("r", "s", "m", "original")}}
+        mean, std = torch.from_numpy(norm[0]), torch.from_numpy(norm[1])
+        refs = _engine_runs(torch, [
+            ("cpu16", bf16["cpu16"], bf16["ops16_cpu"], "cpu"),
+            ("cpu32", bf16["cpu32"], bf16["ops32_cpu"], "cpu")],
+            batch_cpu, mean, std)
+        worst16 = []
+        keys = ("recon_orig", "oppo_orig", "err_mean", "err_max")
+        _held_rows("bf16 artifact", dict(refs, card=art16), keys, worst16)
+        _held_rows("warm bf16 server", dict(refs, card=live16), keys,
+                   worst16)
+        d16 = max((art16[k] - live16[k]).abs().max().item() for k in keys)
+        say(f"  bf16 artifact exported in {t_exp:.2f}s "
+            f"({len(data16) / 1e6:.2f} MB); pred equal to the warm bf16 "
+            f"server {bool((art16['pred'] == live16['pred']).all())}, max "
+            f"delta {d16:.3e}; worst bf16 margin {max(worst16):.3e}")
+        seconds["d"] = time.perf_counter() - t0
+
+        # --- c/d: the kernel by name inside both artifact steps ----------
+        t0 = time.perf_counter()
+        spec = os.path.join(root, "profile.json")
+        np.savez(os.path.join(root, "batch.npz"),
+                 **{k: host[k] for k in ("x", "r", "s", "m")})
+        with open(spec, "w") as fp:
+            json.dump({"batch": os.path.join(root, "batch.npz"),
+                       "artifacts": {"high": arts["--export-serve"],
+                                     "highest": arts["highest"],
+                                     "bf16": arts["bf16"]}}, fp)
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys; sys.path.insert(0, "
+             f"{ROOT!r}); import chip_smoke; "
+             f"chip_smoke.profile_artifacts({spec!r})"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"the artifacts' profiler process: rc {proc.returncode}: "
+                 f"{proc.stderr[-3000:]}")
+        profiled = json.loads(proc.stdout.strip().splitlines()[-1])
+        say(f"-- 19c/d: one step of each artifact in a torch.profiler "
+            f"window, in a fresh process ({time.perf_counter() - t0:.1f}s; "
+            f"its cold start, seconds per stage: {profiled['seconds']})")
+        _hold_profiled("artifact[high]", profiled["high"], "bf16x3")
+        _hold_profiled("artifact[highest]", profiled["highest"], "fp32")
+        _hold_profiled("artifact[bf16]", profiled["bf16"], "bf16")
+        seconds["profile"] = time.perf_counter() - t0
+
+        # --- e. the plain contract against InferenceEngine.step ----------
+        t0 = time.perf_counter()
+        plain = export.load_serving_step(arts["--export"], dev)
+        xb = batch["x"].float()
+        got = plain(xb, batch["r"], batch["s"], batch["m"])
+        want = InferenceEngine(models["high"], ops).step(
+            {"x": xb, "r": batch["r"], "s": batch["s"], "m": batch["m"]},
+            warm.mean_dev, warm.std_dev)
+        if set(got) != {"pred", "recon_orig", "oppo_orig"}:
+            fail(f"--export outputs {sorted(got)}")
+        rel = {k: ((got[k].float() - want[k].float()).abs()
+                   / (1e-6 + 1e-6 * want[k].float().abs())).max().item()
+               for k in got}
+        say(f"-- 19e: --export against InferenceEngine.step on the same "
+            f"batch: |delta| / (1e-6 + 1e-6 |want|) max {rel} (bar 1)")
+        if not all(v <= 1.0 for v in rel.values()):
+            fail("the --export artifact differs from InferenceEngine.step")
+        seconds["e"] = time.perf_counter() - t0
+
+        # --- f. times ----------------------------------------------------
+        t0 = time.perf_counter()
+        warm.save_meshes = True  # the artifact's contract: meshes out
+        say(f"-- 19f: host-paced steps at B={BATCH} (CUDA events, median "
+            f"of {2 * RUNS}), in turns; peak memory ({card})")
+        fns = {"serve_step": lambda: warm.serve_step(batch),
+               "artifact": lambda: step(*args)}
+
+        def via_op():
+            # the eager step with every kernel call dispatched through the
+            # registered operator, as an exported program calls it
+            saved = port_cheb.bsr_grouped_spmm, port_pool.bsr_grouped_spmm
+            port_cheb.bsr_grouped_spmm = bsr_spmm.through_op
+            port_pool.bsr_grouped_spmm = bsr_spmm.through_op
+            try:
+                return warm.serve_step(batch)
+            finally:
+                port_cheb.bsr_grouped_spmm, port_pool.bsr_grouped_spmm = saved
+
+        fns["serve_step via the operator"] = via_op
+        times = {k: [] for k in fns}
+        for name in ("serve_step", "artifact", "serve_step via the operator",
+                     "serve_step via the operator", "artifact",
+                     "serve_step") * 2:
+            times[name].append(time_ms(torch, fns[name], runs=2 * RUNS,
+                                       backlog=False))
+        for name, fn in fns.items():
+            peak, own = _step_memory(torch, fn)
+            say(f"  {name}: {', '.join(f'{t:.3f}' for t in times[name])} ms "
+                f"per turn ({BATCH / statistics.median(times[name]) * 1e3:.1f}"
+                f" meshes/sec at the median); peak memory {peak:.1f} MiB, the "
+                f"step's own {own:.1f} MiB")
+        ms = {k: statistics.median(v) for k, v in times.items()}
+        # the host's cost of one kernel call, direct and through the
+        # operator, with the device held by a sleep kernel (the serving
+        # step is host-paced, so this is what the dispatch adds to it)
+        bsr = ops.lap[0].bsr
+        xk = torch.randn(bsr.n_pad_cols, 128, device=dev)
+        calls = {"direct": lambda: bsr_spmm.bsr_grouped_spmm(bsr, xk,
+                                                             "bf16x3"),
+                 "through the operator": lambda: bsr_spmm.through_op(
+                     bsr, xk, "bf16x3")}
+        host_us = {k: [] for k in calls}
+        for name in ("direct", "through the operator") * 3:
+            for _ in range(20):
+                calls[name]()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(200_000_000)
+            t1 = time.perf_counter()
+            for _ in range(200):
+                calls[name]()
+            host_us[name].append((time.perf_counter() - t1) / 200 * 1e6)
+            torch.cuda.synchronize()
+        added = LAUNCHES_PER_STEP * (statistics.median(
+            host_us["through the operator"])
+            - statistics.median(host_us["direct"])) / 1e3
+        say(f"  host us per kernel call (L0, C=128, bf16x3; device "
+            f"backlogged): direct {host_us['direct']}, through the operator "
+            f"{host_us['through the operator']}; {LAUNCHES_PER_STEP} calls "
+            f"per step: {added:+.3f} ms, {added / ms['serve_step']:+.2%} of "
+            f"serve_step's median")
+        say(f"  medians: artifact / serve_step "
+            f"{ms['artifact'] / ms['serve_step']:.3f}; serve_step via the "
+            f"operator / serve_step "
+            f"{ms['serve_step via the operator'] / ms['serve_step']:.3f}; the"
+            f" kernel per artifact step {profiled['high']['ms']:.3f} ms "
+            f"(highest {profiled['highest']['ms']:.3f} ms, bf16 "
+            f"{profiled['bf16']['ms']:.3f} ms) in the profiler window")
+        seconds["f"] = time.perf_counter() - t0
+    finally:
+        warm.close()
+    say("phase 19 seconds " + json.dumps({k: round(v, 1)
+                                          for k, v in seconds.items()}))
+    return profiled
+
+
 def main() -> int:
     import torch
 
@@ -5503,6 +6070,11 @@ def main() -> int:
         reference = phase_reference(torch, dev, tmpl, many_dir, s20, s80,
                                     tmp, card)
         seconds["reference"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        exported = phase_export(torch, dev, models, ops, hier, tmpl, single,
+                                many_dir, (mean, std), bf16_paths["ctx"],
+                                tmp, card)
+        seconds["export"] = time.perf_counter() - t0
     say("phase seconds " + json.dumps({k: round(v, 1)
                                        for k, v in seconds.items()}))
 
@@ -5711,6 +6283,21 @@ def main() -> int:
               " pool P^T", REPLACES["colmajor"], ell["pool"], ref_err["pool"],
               ref_sums["train_pool"]),
     ]
+    # phase 19: the serving artifacts' steps (torch.export, the registered
+    # operator): launches counted by torch.profiler by the kernel's name in
+    # one artifact step, ms that window's device time; twin, library and
+    # bound of the same 20 calls (phases 5 and 17)
+    kernels += [
+        dict(entry(f"bsr_grouped_spmm[{mode}] config-1 {label} serving "
+                   "artifact step (torch.export)", REPLACES[tpu],
+                   got["launches"], err, acc), ms=got["ms"])
+        for mode, label, tpu, got, err, acc in (
+            ("bf16x3", "high, --serve --artifact", "bf16x3", exported["high"],
+             worst_abs["bf16x3"], per_step["serve_bf16x3"]),
+            ("fp32", "highest", "fp32", exported["highest"],
+             worst_abs["fp32"], per_step["serve_fp32"]),
+            ("bf16", "bf16", "fp32", exported["bf16"], lap16,
+             sums["serve_bf16"]))]
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

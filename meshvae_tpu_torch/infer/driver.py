@@ -63,6 +63,13 @@ class InferenceEngine:
         s [B], m [B, 1, 3] (inverse similarity), optionally original
         [B, N, 3]. Returns pred [B], recon_orig / oppo_orig [B, N, 3] and,
         with original, err_mean / err_max [B]."""
+        return self._step_impl(batch, norm_mean, norm_std)
+
+    def _step_impl(self, batch: dict, norm_mean: torch.Tensor,
+                   norm_std: torch.Tensor) -> dict:
+        """``step`` outside inference mode, as torch.export traces it
+        (infer/export.py): no host sync and no branch on a tensor's
+        value."""
         model, ops = self.model, self.ops
         x = batch["x"]
         h = model.encode(x, ops)
@@ -215,6 +222,10 @@ def run_cli(world, args, config) -> int:
         std = norm["std"].astype(np.float32)
     batch_size = int(config["batch_size"])
 
+    if args.export or args.export_serve:
+        return export_cli(args, config, model, ops, mean, std,
+                          template.v.shape[0])
+
     if args.serve:
         server = MeshServer(
             model, ops, mean, std, template=template.v, faces=template.f,
@@ -242,4 +253,62 @@ def run_cli(world, args, config) -> int:
         write_inference=args.inference or not any_selected,
         save_meshes=not args.no_meshes,
         engine=InferenceEngine(model, ops, dist=world), device=device)
+    return 0
+
+
+def export_cli(args, config, model, ops, mean, std, num_vertices: int) -> int:
+    """--export / --export-serve of ``python -m meshvae_tpu_torch.infer``:
+    the artifacts of the loaded model for args.export_platforms."""
+    from .export import (export_packed_serving_step, export_serving_step,
+                         save_serving_artifact)
+
+    batch_size = int(config["batch_size"])
+    platforms = args.export_platforms
+    if args.export:
+        data = export_serving_step(model, ops, mean, std, batch_size,
+                                   num_vertices, platforms=platforms)
+        save_serving_artifact(args.export, data)
+        print(f"serving artifact written to {args.export} "
+              f"({len(data) / 1e6:.1f} MB)")
+    if args.export_serve:
+        wire = getattr(torch, config.get("serve_wire_dtype", "float16"))
+        data = export_packed_serving_step(
+            model, ops, mean, std, batch_size, num_vertices,
+            collect_meshes=not args.no_meshes, wire_dtype=wire,
+            platforms=platforms)
+        save_serving_artifact(args.export_serve, data)
+        print(f"serve artifact written to {args.export_serve} "
+              f"({len(data) / 1e6:.1f} MB)")
+    return 0
+
+
+def serve_artifact(args, config) -> int:
+    """``--serve --artifact PATH``: a MeshServer on an --export-serve
+    artifact, in one process. It reads the config, the template and
+    norm.npz, and builds no hierarchy, operators or model."""
+    from ..mesh.io import load_obj
+    from ..tools.make_scaled_template import ensure_template
+    from .export import load_serving_step
+    from .serve import MeshServer
+
+    device = resolve_device(args.device)
+    ensure_template(config["template"])
+    template = load_obj(config["template"])
+    with np.load(os.path.join(config["checkpoint_dir"], "norm.npz")) as norm:
+        mean = norm["mean"].astype(np.float32)
+        std = norm["std"].astype(np.float32)
+    server = MeshServer(
+        None, None, mean, std, template=template.v, faces=template.f,
+        batch_size=int(config["batch_size"]), output_path=args.output_path,
+        save_meshes=not args.no_meshes,
+        wire_dtype=np.dtype(config.get("serve_wire_dtype", "float16")),
+        device=device, serving_step=load_serving_step(args.artifact, device))
+    try:
+        sec = server.warmup()
+        print(json.dumps({"ready": True, "warmup_sec": round(sec, 2),
+                          "batch_size": server.batch_size,
+                          "artifact": args.artifact}), flush=True)
+        server.serve_forever(sys.stdin, sys.stdout)
+    finally:
+        server.close()
     return 0

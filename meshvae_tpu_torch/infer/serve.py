@@ -21,6 +21,10 @@ upcast there; the per-mesh scalars come back as one packed [3, B] array
 the main thread preprocesses chunk i+1 (OBJ parse + Procrustes) while a
 single device-lane thread runs chunk i.
 
+With ``serving_step`` (a loaded --export-serve artifact, infer/export.py)
+the server runs that step on the uploaded chunk and needs no model,
+operators or engine; it runs in one process.
+
 In a world (``dist``, a parallel.World; meshvae_tpu/infer/serve.py:73,83
 takes a mesh): every rank handles every request (the primary reads stdin
 and broadcasts each line), preprocesses the whole chunk and runs its dp
@@ -64,6 +68,26 @@ def list_request_meshes(path: str) -> list[str]:
     return [path]
 
 
+def packed_step(step, batch: dict, norm_mean: torch.Tensor,
+                norm_std: torch.Tensor, collect_meshes: bool) -> dict:
+    """The serving contract around an engine step (``InferenceEngine.step``
+    or ``_step_impl``): x arrives in the wire dtype and is upcast; the
+    ground truth is recomputed on the device from x (aligned @ R * s + m
+    with aligned = x * std + mean); the per-mesh scalars come back as one
+    packed [3, B] (pred, err_mean, err_max), and with collect_meshes the
+    original-pose recon_orig / oppo_orig [B, N, 3]."""
+    x = batch["x"].to(torch.float32)
+    original = apply_inverse_similarity(x * norm_std + norm_mean, batch["r"],
+                                        batch["s"], batch["m"])
+    out = step(dict(batch, x=x, original=original), norm_mean, norm_std)
+    res = {"packed": torch.stack([out["pred"].to(torch.float32),
+                                  out["err_mean"], out["err_max"]])}
+    if collect_meshes:
+        res["recon_orig"] = out["recon_orig"]
+        res["oppo_orig"] = out["oppo_orig"]
+    return res
+
+
 class MeshServer:
     """One warm InferenceEngine + preprocessing, shared across requests:
     OBJ ingest -> Procrustes align to the template -> normalize -> pad/chunk
@@ -74,12 +98,21 @@ class MeshServer:
     def __init__(self, model, ops, norm_mean, norm_std, template, faces,
                  batch_size: int, output_path: str = ".",
                  save_meshes: bool = False, wire_dtype=np.float16,
-                 device="cuda", dist=None):
+                 device="cuda", dist=None, serving_step=None):
+        # serving_step: an (x, r, s, m) -> {packed, ...} callable on
+        # `device`, typically a loaded --export-serve artifact
+        # (export.load_serving_step); model and ops may then be None. One
+        # process only: the artifact is one process's step.
+        if serving_step is not None and dist is not None:
+            raise ValueError("a serving artifact runs in one process, not "
+                             "in a world")
         self.device = dist.device if dist is not None else resolve_device(
             device)
         self.dist = dist
         self.primary = is_primary(dist)
-        self.engine = InferenceEngine(model, ops, dist=dist)
+        self._artifact_step = serving_step
+        self.engine = (InferenceEngine(model, ops, dist=dist)
+                       if serving_step is None else None)
         self.mean_dev = torch.as_tensor(np.asarray(norm_mean, np.float32),
                                         device=self.device)
         self.std_dev = torch.as_tensor(np.asarray(norm_std, np.float32),
@@ -108,20 +141,18 @@ class MeshServer:
     def serve_step(self, batch: dict) -> dict:
         """Device tensors x (wire dtype), r, s, m -> packed [3, B]
         (pred, err_mean, err_max) plus, with save_meshes, the original-pose
-        recon/oppo meshes. The ground truth is recomputed on the device
-        from x: aligned @ R * s + m with aligned = x * std + mean."""
-        x = batch["x"].to(torch.float32)
-        original = apply_inverse_similarity(
-            x * self.std_dev + self.mean_dev, batch["r"], batch["s"],
-            batch["m"])
-        out = self.engine.step(dict(batch, x=x, original=original),
-                               self.mean_dev, self.std_dev)
-        res = {"packed": torch.stack([out["pred"].to(torch.float32),
-                                      out["err_mean"], out["err_max"]])}
-        if self.save_meshes:
-            res["recon_orig"] = out["recon_orig"]
-            res["oppo_orig"] = out["oppo_orig"]
-        return res
+        recon/oppo meshes (packed_step, or the artifact's step)."""
+        if self._artifact_step is not None:
+            out = self._artifact_step(batch["x"], batch["r"], batch["s"],
+                                      batch["m"])
+            if self.save_meshes and "recon_orig" not in out:
+                raise RuntimeError(
+                    "serving artifact was exported without mesh outputs "
+                    "(--no-meshes); re-export with meshes or serve with "
+                    "--no-meshes")
+            return out
+        return packed_step(self.engine.step, batch, self.mean_dev,
+                           self.std_dev, self.save_meshes)
 
     def _device_chunk(self, host: dict) -> dict:
         """Upload one padded chunk (the rank's dp rows of it), run the step,

@@ -39,11 +39,21 @@ The kernel skips every 16x16 tile of a block whose ``tile_mask`` bit is
 clear (block_sparse.py), and the twin zeroes those tiles before its
 product, so a test of the twin against the JAX package also shows that
 the mask drops no nonzero.
+
+The kernel is also the registered operator ``meshvae_torch::bsr_grouped_spmm``
+(``bsr_grouped_spmm_op``: the operator's tensors, x, the optional seeds,
+n_pad, n_pad_cols, the mode's index and alpha), whose CPU implementation
+is the twin and whose CUDA implementation is the launch. ``torch.export``
+records that operator where the wrapper is called while exporting
+(infer/export.py); outside an export the wrapper launches the kernel
+directly and counts the launch (an exported program's launches are counted
+by a profiler, by the kernel's name ``bsr_grouped_spmm_kernel``).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -202,32 +212,13 @@ def _check(name: str, t: torch.Tensor, shape, device, dtype) -> None:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def bsr_grouped_spmm(bsr: BlockSparseOperator, x: torch.Tensor,
-                     mode: str = "fp32", alpha: float = 1.0,
-                     t_plus: torch.Tensor | None = None,
-                     t_prev: torch.Tensor | None = None,
-                     t_plus_dot: tuple | None = None) -> torch.Tensor:
-    """y [n_pad, C] = alpha * (L @ x) + t_plus - t_prev, in the mode's
-    dtype (MODE_DTYPE: fp32, or bf16 in mode "bf16"; blocks, x and the
-    seeds must have it too).
-
-    x is [n_pad_cols, C]; the seeds, when given, are [n_pad, C].
-    t_plus_dot = (gm [n_pad, C], wt [f, f]) replaces t_plus by
-    c = gm @ kron(I, wt), f | C (see the module docstring). A CPU tensor
-    runs the plain twin; a CUDA tensor launches the kernel (C must be a
-    multiple of 64) or raises."""
-    if mode not in MODES:
-        raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
-    dt = MODE_DTYPE[mode]
-    if bsr.blocks.dtype != dt or x.dtype != dt:
-        raise TypeError(f"mode {mode} takes {dt} blocks and x, got "
-                        f"{bsr.blocks.dtype} and {x.dtype}")
-    if x.device.type == "cpu":
-        return bsr_grouped_spmm_reference(bsr, x, mode, alpha, t_plus,
-                                          t_prev, t_plus_dot)
-    t_plus, t_plus_dot = _lazy_or_eager(mode, t_plus, t_plus_dot)
+def _launch(bsr: BlockSparseOperator, x: torch.Tensor, mode: str,
+            alpha: float, t_plus, t_prev, gm, wt) -> torch.Tensor:
+    """One launch of the CUDA kernel on checked operands (the seeds as the
+    kernel takes them, _lazy_or_eager)."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    dt = MODE_DTYPE[mode]
     n_rows, g = bsr.g_idx.shape
     c = x.shape[1] if x.dim() == 2 else -1
     if c % _TILE_COLS or c <= 0:
@@ -240,7 +231,6 @@ def bsr_grouped_spmm(bsr: BlockSparseOperator, x: torch.Tensor,
     _check("g_bcol", bsr.g_bcol, (n_rows * g,), dev, torch.int32)
     _check("tile_mask", bsr.tile_mask, (bsr.num_blocks, TILES), dev,
            torch.uint8)
-    gm, wt = t_plus_dot if t_plus_dot is not None else (None, None)
     for name, seed in (("t_plus", t_plus), ("t_prev", t_prev), ("gm", gm)):
         if seed is not None:
             _check(name, seed, (bsr.n_pad, c), dev, dt)
@@ -261,6 +251,94 @@ def bsr_grouped_spmm(bsr: BlockSparseOperator, x: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"bsr_grouped_spmm[{mode}] launch failed: "
                            f"CUDA error {rc}")
+    return y
+
+
+def _operator_of(blocks, g_idx, g_bcol, tile_mask, n_pad: int,
+                 n_pad_cols: int) -> BlockSparseOperator:
+    """The fields of a BlockSparseOperator that the kernel and the twin
+    read, from the registered operator's arguments."""
+    return BlockSparseOperator(
+        blocks=blocks, block_row=None, block_col=None, g_idx=g_idx,
+        g_bcol=g_bcol, n=n_pad, n_pad=n_pad, n_pad_cols=n_pad_cols,
+        g_width=g_idx.shape[1], tile_mask=tile_mask)
+
+
+@torch.library.custom_op("meshvae_torch::bsr_grouped_spmm", mutates_args=(),
+                         device_types="cpu")
+def bsr_grouped_spmm_op(blocks: torch.Tensor, g_idx: torch.Tensor,
+                        g_bcol: torch.Tensor, tile_mask: torch.Tensor,
+                        x: torch.Tensor, t_plus: Optional[torch.Tensor],
+                        t_prev: Optional[torch.Tensor],
+                        gm: Optional[torch.Tensor],
+                        wt: Optional[torch.Tensor], n_pad: int,
+                        n_pad_cols: int, mode: int,
+                        alpha: float) -> torch.Tensor:
+    """The registered operator; its CPU implementation is the twin. mode is
+    an index into MODES; gm and wt, when given, are the lazy seed
+    (t_plus_dot), which the caller has already resolved with
+    _lazy_or_eager."""
+    bsr = _operator_of(blocks, g_idx, g_bcol, tile_mask, n_pad, n_pad_cols)
+    return bsr_grouped_spmm_reference(
+        bsr, x, MODES[mode], alpha, t_plus, t_prev,
+        None if gm is None else (gm, wt))
+
+
+@bsr_grouped_spmm_op.register_kernel("cuda")
+def _op_cuda(blocks, g_idx, g_bcol, tile_mask, x, t_plus, t_prev, gm, wt,
+             n_pad, n_pad_cols, mode, alpha):
+    bsr = _operator_of(blocks, g_idx, g_bcol, tile_mask, n_pad, n_pad_cols)
+    return _launch(bsr, x, MODES[mode], alpha, t_plus, t_prev, gm, wt)
+
+
+@bsr_grouped_spmm_op.register_fake
+def _op_fake(blocks, g_idx, g_bcol, tile_mask, x, t_plus, t_prev, gm, wt,
+             n_pad, n_pad_cols, mode, alpha):
+    return x.new_empty((n_pad, x.shape[1]), dtype=MODE_DTYPE[MODES[mode]])
+
+
+def through_op(bsr: BlockSparseOperator, x: torch.Tensor, mode: str,
+               alpha: float = 1.0, t_plus=None, t_prev=None,
+               t_plus_dot=None) -> torch.Tensor:
+    """bsr_grouped_spmm's arguments as one call of the registered operator
+    (what an export records; uncounted)."""
+    t_plus, t_plus_dot = _lazy_or_eager(mode, t_plus, t_plus_dot)
+    gm, wt = t_plus_dot if t_plus_dot is not None else (None, None)
+    return bsr_grouped_spmm_op(
+        bsr.blocks, bsr.g_idx, bsr.g_bcol, bsr.tile_mask, x, t_plus, t_prev,
+        gm, wt, bsr.n_pad, bsr.n_pad_cols, MODES.index(mode), float(alpha))
+
+
+def bsr_grouped_spmm(bsr: BlockSparseOperator, x: torch.Tensor,
+                     mode: str = "fp32", alpha: float = 1.0,
+                     t_plus: torch.Tensor | None = None,
+                     t_prev: torch.Tensor | None = None,
+                     t_plus_dot: tuple | None = None) -> torch.Tensor:
+    """y [n_pad, C] = alpha * (L @ x) + t_plus - t_prev, in the mode's
+    dtype (MODE_DTYPE: fp32, or bf16 in mode "bf16"; blocks, x and the
+    seeds must have it too).
+
+    x is [n_pad_cols, C]; the seeds, when given, are [n_pad, C].
+    t_plus_dot = (gm [n_pad, C], wt [f, f]) replaces t_plus by
+    c = gm @ kron(I, wt), f | C (see the module docstring). A CPU tensor
+    runs the plain twin; a CUDA tensor launches the kernel (C must be a
+    multiple of 64) or raises. While torch.export traces, the call is the
+    registered operator instead, which dispatches the same way when the
+    exported program runs."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+    dt = MODE_DTYPE[mode]
+    if bsr.blocks.dtype != dt or x.dtype != dt:
+        raise TypeError(f"mode {mode} takes {dt} blocks and x, got "
+                        f"{bsr.blocks.dtype} and {x.dtype}")
+    if torch.compiler.is_exporting():
+        return through_op(bsr, x, mode, alpha, t_plus, t_prev, t_plus_dot)
+    if x.device.type == "cpu":
+        return bsr_grouped_spmm_reference(bsr, x, mode, alpha, t_plus,
+                                          t_prev, t_plus_dot)
+    t_plus, t_plus_dot = _lazy_or_eager(mode, t_plus, t_plus_dot)
+    gm, wt = t_plus_dot if t_plus_dot is not None else (None, None)
+    y = _launch(bsr, x, mode, alpha, t_plus, t_prev, gm, wt)
     LAUNCHES[mode] += 1
     if gm is not None:
         LAUNCHES_SEED_DOT[mode] += 1
@@ -269,6 +347,6 @@ def bsr_grouped_spmm(bsr: BlockSparseOperator, x: torch.Tensor,
     kind = f"a{alpha:g}" + "".join(
         f" {name}" for name, seed in (("plus", t_plus), ("dot", gm),
                                       ("prev", t_prev)) if seed is not None)
-    key = key + (c, kind)
+    key = key + (x.shape[1], kind)
     LAUNCHES_BY_CALL[key] = LAUNCHES_BY_CALL.get(key, 0) + 1
     return y

@@ -42,6 +42,7 @@ from meshvae_tpu_torch.config import default_config
 from meshvae_tpu_torch.data import MeshDataset, list_meshes
 from meshvae_tpu_torch.infer.__main__ import main as infer_main
 from meshvae_tpu_torch.infer.driver import run_inference
+from meshvae_tpu_torch.infer.export import load_serving_step
 from meshvae_tpu_torch.mesh import (TriMesh, load_obj, load_or_build_hierarchy,
                                     save_obj)
 from meshvae_tpu_torch.models import MeshVAE, params_from_flax
@@ -400,8 +401,9 @@ def test_cli_reads_a_jax_checkpoint(env, tmp_path, capsys):
     """python -m meshvae_tpu_torch.infer in a subprocess with --pred
     --error_list --no-meshes (only those two files), then in process with no
     selection flag (all three and the triples), each against the JAX
-    package's run_inference on the same JAX checkpoint; --export and
-    --artifact are refused."""
+    package's run_inference on the same JAX checkpoint; --export writes an
+    artifact that loads (tests/test_torch_export.py holds its outputs), and
+    --artifact without --serve is refused."""
     hier, ckpt_cfg, (mean, std), (jmodel, jops, params) = _cli_env(
         env, tmp_path)
     data = ckpt_cfg["root_dir"]
@@ -429,10 +431,14 @@ def test_cli_reads_a_jax_checkpoint(env, tmp_path, capsys):
                 open(tmp_path / "all" / name) as b:
             assert json.load(a) == json.load(b)
 
-    for flag in (["--export", "x.bin"], ["--artifact", "a.bin"]):
-        capsys.readouterr()
-        assert infer_main([*args, "-o", str(tmp_path / "x"), *flag]) == 2
-        assert "item 7" in capsys.readouterr().err
+    art = str(tmp_path / "x.pt2")
+    capsys.readouterr()
+    assert infer_main([*args, "-o", str(tmp_path / "x"), "--export", art]) == 0
+    assert f"serving artifact written to {art}" in capsys.readouterr().out
+    assert load_serving_step(art, "cpu").header["contract"] == "plain"
+    assert infer_main([*args, "-o", str(tmp_path / "x"), "--artifact",
+                       art]) == 2
+    assert "--serve" in capsys.readouterr().err
     assert not os.path.exists(tmp_path / "x")
 
 

@@ -196,8 +196,9 @@ def test_package_imports_no_jax():
     infer/__main__.py, train/flax_msgpack.py, ops/cheb_fused.py,
     ops/emitted_spmm.py, bench/, parallel/, ops/bsr_shard.py, validate.py,
     and the classifier pipelines' models/gcn.py, models/joint.py,
-    train/joint.py, train/crecon_driver.py and the crecon CLI, and the
-    reference-checkpoint importer train/torch_import.py included)
+    train/joint.py, train/crecon_driver.py and the crecon CLI, the
+    reference-checkpoint importer train/torch_import.py and the serving
+    export infer/export.py included)
     leaves jax, flax, optax, scikit-learn, msgpack and meshvae_tpu out of
     sys.modules, builds and loads no library (no CUDA kernel, nor the
     native host library) and starts no torch.distributed process group."""
@@ -221,7 +222,7 @@ def test_package_imports_no_jax():
         "for name in ('parallel', 'parallel.sharding', 'ops.bsr_shard',\n"
         "             'validate', 'models.gcn', 'models.joint',\n"
         "             'train.joint', 'train.crecon_driver', 'crecon',\n"
-        "             'train.torch_import'):\n"
+        "             'train.torch_import', 'infer.export'):\n"
         "    if 'meshvae_tpu_torch.' + name not in sys.modules:\n"
         "        bad.append(name + ' not imported')\n"
         "import torch.distributed as dist\n"

@@ -209,7 +209,24 @@ Phases, one block of output lines each; any failed check exits non-zero:
                (labelled a shared-card gloo world, never a scaling
                result); _mapped_product per call at rank 0's sp=2 80k
                shard shapes against its twin, torch.sparse on the shard's
-               CSR rows and both bounds, summed per train step.
+               CSR rows and both bounds, summed per train step;
+            e. crecon (config 2: a seeded config-1 VAE frozen, GCN K=6,
+               hidden 128) and the joint model (config 3, files/joint.cfg)
+               at B=16 and high in a dp=2 and an sp=2 world (two gloo
+               ranks on cuda:0): two deterministic train steps and an eval
+               step of the padded third batch, each train step held
+               against one process on the card at b's bars, the eval loss
+               within 1e-5 relative, every rank's params bit-equal,
+               launches per rank equal to one process's (its Laplacian
+               calls at the shard shapes under sp) and to CRECON_CALLS /
+               JOINT_CALLS (35 / 30 per train / eval step; 55 + 3 P^T /
+               50), each world's step times and collectives as in d;
+            f. the kernel against its twin (1e-5 of max|y|) at every
+               (shape, C, call kind) rank 0 launched in e;
+            g. the classifiers' calls per train step timed at rank 0's
+               shapes (dp=2: B=8 per rank on the whole operators; sp=2:
+               B=16 on the row shards; the joint model's P^T unsharded)
+               beside the twin, torch.sparse and both bounds.
 
 15. scan    the scanned epoch (train/loop.py, train/graphs.py): at config
             1 high and highest (B=16), scaled20k fp32 with FUSED_SEED_DOT
@@ -422,7 +439,10 @@ CLI's calls per batch (the serving step's shapes), and emitted_spmm (#10)
 per call at the probe's three shapes, and _mapped_product (phase 14d,
 per sp=2 80k train step on rank 0's shards, with its shard shapes), with
 the launches of the main-path runs (each probe run's for #10; the sp=2
-world's per rank for _mapped_product), and the train-step calls of phase
+world's per rank for _mapped_product), and phase 14g's crecon and joint
+train steps in the dp=2 and sp=2 worlds (rank 0's Laplacian calls, on its
+row shards under sp, and the joint model's unsharded P^T; launches of
+rank 0 over 14e's steps), and the train-step calls of phase
 15's graphed epochs (config-1 Laplacian in both modes, the 20k lazy seed,
 the 80k Laplacian: launches counted per replay, times as measured above),
 and phase 16's crecon and joint train steps (the Laplacian calls in both
@@ -2560,15 +2580,19 @@ def _world_case(world, spec):
 
     from meshvae_tpu_torch.models import MeshVAE, VAEConfig
     from meshvae_tpu_torch.ops import bsr_spmm
+    from meshvae_tpu_torch.parallel import fetch
     from meshvae_tpu_torch.train import Trainer
 
     dev = world.device
     ops = _world_ops(torch, spec, dev)
-    cfg = VAEConfig.from_config(spec["config"],
-                                coarse_verts=spec["coarse"])
-    model = MeshVAE(cfg)
-    model.load_state_dict(spec["weights"])
-    tr = Trainer(model, ops, spec["config"], dist=world)
+    kind = spec.get("kind", "vae")
+    if kind == "vae":
+        model = MeshVAE(VAEConfig.from_config(spec["config"],
+                                              coarse_verts=spec["coarse"]))
+        model.load_state_dict(spec["weights"])
+        tr = Trainer(model, ops, spec["config"], dist=world)
+    else:
+        tr = _classifier_trainer(spec, ops, dev, world)
     norm = tr.norm_to_device(*spec["norm"])
     out = {"steps": []}
     torch.cuda.synchronize()
@@ -2580,7 +2604,7 @@ def _world_case(world, spec):
         pre = {"model": {k: v.detach().cpu().clone()
                          for k, v in tr.model.state_dict().items()},
                "optimizer": _cpu_state(tr.optimizer.state_dict())}
-        packed = tr.train_step(tr.to_device(host), None, *norm)
+        packed = _train_call(tr, kind, tr.to_device(host), norm)
         out["steps"].append({
             "pre": pre, "metrics": packed.cpu(),
             "grads": {k: v.grad.detach().cpu().clone()
@@ -2588,14 +2612,15 @@ def _world_case(world, spec):
             "params": {k: v.detach().cpu().clone()
                        for k, v in tr.model.named_parameters()}})
     if spec.get("eval_batch") is not None:
-        ev = tr.eval_step(tr.to_device(spec["eval_batch"]), *norm)
-        from meshvae_tpu_torch.parallel import fetch
-
+        ev = _eval_call(tr, kind, tr.to_device(spec["eval_batch"]), norm)
         out["eval"] = {"loss": ev["scalars"][0].item(),
-                       "recon_orig": torch.from_numpy(
-                           fetch(ev["recon_orig"], world))}
+                       "scalars": ev["scalars"].cpu()}
+        if "recon_orig" in ev:
+            out["eval"]["recon_orig"] = torch.from_numpy(
+                fetch(ev["recon_orig"], world))
     torch.cuda.synchronize()
     launches = dict(bsr_spmm.LAUNCHES_BY_SHAPE)
+    out["by_call"] = dict(bsr_spmm.LAUNCHES_BY_CALL)
     stats = dict(world.stats)
     # --------------------------------------------------------------------
     out["serve"] = _world_serve(torch, world, spec.get("serve"))
@@ -2645,7 +2670,7 @@ def _world_times(torch, world, tr, spec, norm):
     import torch.distributed as tdist
 
     batch = tr.to_device(spec["batches"][0])
-    step = lambda: tr.train_step(batch, None, *norm)
+    step = lambda: _train_call(tr, spec.get("kind", "vae"), batch, norm)
     times = []
     for _ in range(TIMED_STEPS):
         torch.cuda.synchronize()
@@ -2724,19 +2749,19 @@ def _adam_on(torch, make_trainer, pre, grads):
     return {k: v.detach().cpu() for k, v in tr.model.named_parameters()}
 
 
-def _single_step(torch, make_trainer, pre, host, norm_host):
+def _single_step(torch, make_trainer, pre, host, norm_host, kind="vae"):
     """The single-process reference of one world step: from `pre` (the
     world's state before it), the full batch, deterministic."""
     tr = _load_state(make_trainer(), pre)
-    packed = tr.train_step(tr.to_device(host), None,
-                           *tr.norm_to_device(*norm_host))
+    packed = _train_call(tr, kind, tr.to_device(host),
+                         tr.norm_to_device(*norm_host))
     return {"metrics": packed.cpu(),
             "grads": {k: v.grad.detach().cpu()
                       for k, v in tr.model.named_parameters()}}
 
 
 def _hold_world(torch, label, world_out, make_trainer, host_batches,
-                norm_host, grad_bar, lr, yardstick=None):
+                norm_host, grad_bar, lr, yardstick=None, kind="vae"):
     """Each world step against the single-process step from the same
     state: the loss within 1e-5 relative (or, with a yardstick, phase 8's
     bf16 bar), every gradient within grad_bar of its layer's max|g| (or
@@ -2745,7 +2770,8 @@ def _hold_world(torch, label, world_out, make_trainer, host_batches,
     params bit-equal."""
     worst = 0.0
     for i, (st, host) in enumerate(zip(world_out["steps"], host_batches)):
-        ref = _single_step(torch, make_trainer, st["pre"], host, norm_host)
+        ref = _single_step(torch, make_trainer, st["pre"], host, norm_host,
+                           kind)
         w_loss = st["metrics"][0].item()
         s_loss = ref["metrics"][0].item()
         if yardstick is None:
@@ -2758,7 +2784,8 @@ def _hold_world(torch, label, world_out, make_trainer, host_batches,
                       f"{g_worst:.2e} of its layer's max|g| (bar "
                       f"{grad_bar:g})")
         else:
-            y32 = _single_step(torch, yardstick, st["pre"], host, norm_host)
+            y32 = _single_step(torch, yardstick, st["pre"], host, norm_host,
+                               kind)
             ulp = 2.0 ** -8
             excess = []
             for name, w, s16, s32, scale in (
@@ -2812,8 +2839,10 @@ def phase_distribution(torch, dev, models, ops, hier, tmpl, norm, many_dir,
                        s20, s80, tmp):
     """Phase 14: the shard products (a), a dp=2 world at config 1 (b), an
     sp=2 world at scaled80k bf16 full width and its MeshServer at config 1
-    (c), and the times of _mapped_product at the sp=2 80k shard shapes
-    (d). Returns the kernels-line entry and the world's launches."""
+    (c), the times of _mapped_product at the sp=2 80k shard shapes (d),
+    and crecon and the joint model in a dp=2 and an sp=2 world (e-g,
+    _classifier_worlds). Returns the kernels-line entry of d and those of
+    g."""
     say("== phase 14: distribution (dp / sp over torch.distributed; "
         "_mapped_product = bsr_grouped_spmm on row shards)")
     import numpy as np
@@ -3066,10 +3095,12 @@ def phase_distribution(torch, dev, models, ops, hier, tmpl, norm, many_dir,
                        for b in shard_ops.values()}))
     say(f"phase 14 worst: kernel vs twin {worst}; dp=2 worst gradient "
         f"delta {dp_worst}; sp=2 worst bf16 excess {sp_worst:.3e}")
-    return entry
+    return entry, _classifier_worlds(torch, dev, models, ops, hier, tmpl,
+                                     tmp, worst)
 
 
-def _launches_of(torch, make_trainer, batches, norm_host, eval_batch=None):
+def _launches_of(torch, make_trainer, batches, norm_host, eval_batch=None,
+                 kind="vae"):
     """LAUNCHES_BY_SHAPE of the single-process deterministic steps (and
     eval step) that a world's main path runs."""
     from meshvae_tpu_torch.ops import bsr_spmm
@@ -3079,12 +3110,286 @@ def _launches_of(torch, make_trainer, batches, norm_host, eval_batch=None):
     torch.cuda.synchronize()
     bsr_spmm.reset_launches()
     for host in batches:
-        tr.train_step(tr.to_device(host), None, *norm)
+        _train_call(tr, kind, tr.to_device(host), norm)
     if eval_batch is not None:
-        tr.eval_step(tr.to_device(eval_batch), *norm)
+        _eval_call(tr, kind, tr.to_device(eval_batch), norm)
     torch.cuda.synchronize()
     return dict(bsr_spmm.LAUNCHES_BY_SHAPE)
 
+
+def _train_call(tr, kind, batch, norm):
+    """One deterministic train step (no dropout, z = mu) of a trainer of
+    `kind` ("vae", "crecon", "joint"); its packed metrics."""
+    if kind == "crecon":
+        return tr.train_step(batch)
+    return tr.train_step(batch, None, *norm)
+
+
+def _eval_call(tr, kind, batch, norm):
+    return tr.eval_step(batch) if kind == "crecon" else tr.eval_step(
+        batch, *norm)
+
+
+def _classifier_trainer(spec, ops, device, dist=None):
+    """spec's crecon (a frozen VAE and a GCN) or joint trainer from its
+    weights."""
+    from meshvae_tpu_torch.models import (ChebGCN, GCNConfig, MeshVAE,
+                                          VAEConfig)
+    from meshvae_tpu_torch.models.joint import build_joint_model
+    from meshvae_tpu_torch.train import JointTrainer
+    from meshvae_tpu_torch.train.crecon_driver import CreconTrainer
+
+    config, coarse, weights = spec["config"], spec["coarse"], spec["weights"]
+    if spec["kind"] == "joint":
+        model = build_joint_model(config, coarse)
+        model.load_state_dict(weights["joint"])
+        return JointTrainer(model, ops, config, device=device, dist=dist)
+    vae = MeshVAE(VAEConfig.from_config(config, coarse_verts=coarse))
+    vae.load_state_dict(weights["vae"])
+    gcn = ChebGCN(GCNConfig.from_config(config, coarse_verts=coarse))
+    gcn.load_state_dict(weights["gcn"])
+    return CreconTrainer(gcn, vae, ops, config, device=device, dist=dist)
+
+
+# --- phase 14e-g: crecon and the joint model in a world --------------------
+CLASSIFIER_WORLDS = {"dp=2": (2, 1), "sp=2": (1, 2)}
+WORLD_TRAIN_STEPS = 2   # then one eval step of the padded third batch
+
+
+def _shard_operands(torch, ops, hier, dev):
+    """_operands with L0 and L1 replaced by rank 0's sp=2 row shards, each
+    with the torch.sparse CSR of its rows (as 14d's); the P^T stay
+    unsharded, as in the world."""
+    from meshvae_tpu_torch.ops.bsr_shard import shard_block_sparse_all
+    from meshvae_tpu_torch.ops.graph import normalized_neg_adjacency
+
+    operands = _operands(torch, ops, hier, dev)
+    for i in (0, 1):
+        shard = shard_block_sparse_all(ops.lap[i].bsr, 2)[0]
+        mat = normalized_neg_adjacency(hier.adjacency[i])
+        rows = mat[:min(shard.rows_local, mat.shape[0])]
+        operands[f"L{i}"] = (shard.op, _csr(torch, rows, shard.rows_local,
+                                            shard.n_pad_global, dev))
+    return operands
+
+
+def _scaled_calls(calls: dict, div: int) -> dict:
+    """A CALLS table at B / div rows per rank: every C divided, but no
+    narrower than the kernel's column panel, which pad_features pads
+    B x F up to."""
+    from meshvae_tpu_torch.ops.bsr_spmm import COL_PANEL
+
+    return {part: [(label, key, max(c // div, COL_PANEL), kinds)
+                   for label, key, c, kinds in table]
+            for part, table in calls.items()}
+
+
+def _classifier_worlds(torch, dev, models, ops, hier, tmpl, tmp, worst14):
+    """Phases 14e-g: crecon (config 2: the frozen config-1 VAE, GCN K = 6,
+    hidden 128) and the joint model (config 3, files/joint.cfg) at B = 16
+    and high in the dp=2 and the sp=2 world (two gloo ranks on cuda:0):
+    two deterministic train steps and one eval step of the padded third
+    batch, each held against one process on the card at 14b's bars, the
+    eval loss within 1e-5 relative, replicas bit-equal, launches per rank
+    against one process's (Laplacian ones at the shard shapes under sp)
+    and against CRECON_CALLS / JOINT_CALLS (35 / 30, 55 + 3 P^T / 50); the
+    kernel against its twin at every (shape, C, call kind) rank 0
+    launched, and its times at rank 0's shapes. Returns the kernels-line
+    entries."""
+    import numpy as np
+
+    from meshvae_tpu_torch.data import (BatchIterator, MeshDataset,
+                                        list_meshes)
+    from meshvae_tpu_torch.models import ChebGCN, GCNConfig
+    from meshvae_tpu_torch.models.joint import build_joint_model
+    from meshvae_tpu_torch.parallel import spawn_local
+
+    say("-- 14e: crecon (config 2) and the joint model (config 3) at "
+        "config-1 width, high, B=16, in a dp=2 and an sp=2 world (2 gloo "
+        "ranks on cuda:0)")
+    configs = _classifier_configs(tmp)
+    data_dir = os.path.join(tmp, "train_data")   # phase 6's meshes
+    dcfg = {"root_dir": data_dir, "checkpoint_dir": os.path.join(tmp, "c14e")}
+    index, labels = list_meshes(dcfg)
+    ds = MeshDataset(index, dcfg, labels, tmpl.v)
+    batches = list(BatchIterator(ds, BATCH))
+    coarse = hier.levels[-1]
+    weights = {
+        "vae": {k: v.cpu() for k, v in models["high"].state_dict().items()},
+        "gcn": ChebGCN(GCNConfig.from_config(configs["crecon"],
+                                             coarse_verts=coarse),
+                       generator=torch.Generator().manual_seed(142)
+                       ).state_dict(),
+        "joint": build_joint_model(configs["joint"], coarse,
+                                   generator=torch.Generator().manual_seed(
+                                       143)).state_dict()}
+    _PREBUILT["c1"] = ops
+    specs = [{"label": name, "kind": name, "config": configs[name],
+              "coarse": coarse, "weights": weights,
+              "norm": (ds.mean, ds.std),
+              "batches": batches[:WORLD_TRAIN_STEPS],
+              "eval_batch": batches[WORLD_TRAIN_STEPS], "batch_size": BATCH,
+              "ops_key": "c1", "template": configs[name]["template"],
+              "factors": configs[name]["downsampling_factors"],
+              "cache": configs[name]["hierarchy_cache_dir"],
+              "dtype": torch.float32} for name in ("crecon", "joint")]
+    per_train = {"crecon": sum(_table_counts(CRECON_CALLS).values()),
+                 "joint": sum(v for (key, _, _), v in
+                              _table_counts(JOINT_CALLS).items()
+                              if key.startswith("L"))}
+    per_eval = {"crecon": CRECON_EVAL_LAUNCHES, "joint": JOINT_EVAL_LAUNCHES}
+    pools = {"crecon": 0, "joint": 3}
+    steps = {"train": WORLD_TRAIN_STEPS, "eval": 1}
+    operands = {"dp=2": _operands(torch, ops, hier, dev),
+                "sp=2": _shard_operands(torch, ops, hier, dev)}
+    shard_of = {}
+    for op in ops.lap:
+        if op.bsr is not None:
+            n_glob = -(-op.bsr.n_pad // 256) * 256
+            shard_of[op.bsr.n_pad] = (n_glob // 2, n_glob)
+    results = {}
+    for world_tag, (dp, sp) in CLASSIFIER_WORLDS.items():
+        t0 = time.perf_counter()
+        outs = spawn_local(_world_rank, dp, sp, "cuda:0", args=(specs,),
+                           timeout=600)
+        say(f"{world_tag}: world of 2 ranks ran crecon and the joint model "
+            f"in {time.perf_counter() - t0:.1f}s (spawn and set-up "
+            f"included)")
+        for spec, out in zip(specs, outs):
+            name, config = spec["kind"], spec["config"]
+            label = f"{world_tag} {name}"
+            make = lambda spec=spec: _classifier_trainer(spec, ops, dev)
+            _hold_world(torch, label, out, make, spec["batches"],
+                        spec["norm"], 1e-3, float(config["learning_rate"]),
+                        kind=name)
+            tr = make()
+            tr.model.load_state_dict(out["steps"][-1]["params"])
+            ev = _eval_call(tr, name, tr.to_device(spec["eval_batch"]),
+                            tr.norm_to_device(*spec["norm"]))
+            s_loss = ev["scalars"][0].item()
+            rel = abs(out["eval"]["loss"] - s_loss) / abs(s_loss)
+            say(f"{label} eval step (padded batch) vs one process from the "
+                f"world's final state: loss {out['eval']['loss']:.6g} vs "
+                f"{s_loss:.6g}, rel {rel:.2e} (bar 1e-5); scalars "
+                f"{out['eval']['scalars'].tolist()} vs "
+                f"{ev['scalars'].cpu().tolist()}")
+            if not rel <= 1e-5:
+                fail(f"{label}: the eval step disagrees with one process")
+            single = _launches_of(torch, make, spec["batches"], spec["norm"],
+                                  eval_batch=spec["eval_batch"], kind=name)
+            by_mode = lambda shapes: {m: sum(v for (mm, _, _), v in
+                                             shapes.items() if mm == m)
+                                      for m in ("fp32", "bf16x3", "bf16")}
+            _hold_launches(f"{label} one process", by_mode(single), steps,
+                           per_train[name], per_eval[name], pool=pools[name])
+            want = {}
+            for (mode, n_pad, cols), count in single.items():
+                key = ((mode, *shard_of[n_pad]) if sp > 1 and n_pad == cols
+                       and n_pad in shard_of else (mode, n_pad, cols))
+                want[key] = want.get(key, 0) + count
+            for r, rank in enumerate(out["ranks"]):
+                if rank["launches"] != want:
+                    fail(f"{label} rank {r} launched {rank['launches']}, "
+                         f"expected one process's {want}")
+            say(f"{label}: launches per rank {out['ranks'][0]['launches']} "
+                f"= one process's {single}"
+                + (" at the shard shapes" if sp > 1 else ""))
+            _world_report(label, out, BATCH)
+            results[(world_tag, name)] = out
+
+    # --- f. the kernel against its twin at every call rank 0 launched ---
+    say("-- 14f: the kernel against its twin at each (shape, C, call kind) "
+        "rank 0 launched in the two worlds")
+    gen = torch.Generator(device=dev).manual_seed(146)
+    worst = {}
+    launched_keys = {}
+    for world_tag in CLASSIFIER_WORLDS:
+        names = {(b.n_pad, b.n_pad_cols): k
+                 for k, (b, _) in operands[world_tag].items()}
+        keys = set()
+        for name in ("crecon", "joint"):
+            keys |= set(results[(world_tag, name)]["by_call"])
+        launched_keys[world_tag] = {(names[(n, m)], c, kind)
+                                 for _, n, m, c, kind in keys}
+        for mode, n, m, c, kind in sorted(keys):
+            bsr = operands[world_tag][names[(n, m)]][0]
+            x = torch.randn(bsr.n_pad_cols, c, device=dev, generator=gen)
+            err, _ = _hold(torch, bsr, x, mode, kind,
+                           _seeds(torch, bsr, c, gen, dev), TOL_KERNEL,
+                           f"{world_tag} {names[(n, m)]} [{n}, {m}] C={c} "
+                           f"{mode} {kind}")
+            part = "lap" if names[(n, m)].startswith("L") else "pool"
+            worst[(world_tag, part)] = max(worst.get((world_tag, part), 0.0),
+                                           err)
+
+    # --- g. per-call times at rank 0's shapes, summed per train step ----
+    say("-- 14g: the classifiers' kernel calls per train step at rank 0's "
+        "shapes (dp=2: B=8 per rank on the whole operators; sp=2: B=16 on "
+        "the row shards), median of %d, CUDA events" % RUNS)
+    entries = []
+    for world_tag, (dp, sp) in CLASSIFIER_WORLDS.items():
+        rows = []
+        tables = {name: _scaled_calls(calls, dp) for name, calls in
+                  (("crecon", CRECON_CALLS), ("joint", JOINT_CALLS))}
+        # the timed calls are the train steps'; rank 0 launched them all
+        # (and, in the eval step, the counterfactual's at B rows)
+        unlaunched = {k for table in tables.values()
+                      for k in _table_counts(table)} - launched_keys[world_tag]
+        if unlaunched:
+            fail(f"{world_tag}: the tables time calls rank 0 never "
+                 f"launched: {sorted(unlaunched)}")
+        for name, table in tables.items():
+            acc = {}
+            for part, tab in table.items():
+                modes = ("bf16x3",) if part == "lap" else ("fp32",)
+                acc[part] = _per_step(torch, tab, operands[world_tag], modes,
+                                      gen, dev, rows)[modes[0]]
+            r0 = results[(world_tag, name)]["ranks"][0]["launches"]
+            lap_launches = sum(v for (m, _, _), v in r0.items()
+                               if m == "bf16x3")
+            shards = " on its row shards" if sp > 1 else ", B=8 per rank"
+            lap_err = max(worst.get((world_tag, "lap"), 0.0),
+                          worst14.get("bf16x3", 0.0) if sp > 1 else 0.0)
+            entries.append(kernel_entry(
+                f"bsr_grouped_spmm[bf16x3] {name} train step in the "
+                f"{world_tag} world (rank 0{shards}): Laplacian",
+                "meshvae_tpu/ops/pallas_shard.py:150" if sp > 1
+                else REPLACES["bf16x3"], lap_launches, lap_err, acc["lap"]))
+            if name == "joint":
+                p_launch = {k: r0.get(("fp32", operands[world_tag][k][0].n_pad,
+                                       operands[world_tag][k][0].n_pad_cols),
+                                      0)
+                            for k in ("P0T", "P1T", "P2T")}
+                p_err = worst.get((world_tag, "pool"), 0.0)
+                entries.append(kernel_entry(
+                    f"bsr_grouped_spmm[fp32] joint train step in the "
+                    f"{world_tag} world (rank 0): up-pools 0-1 P^T, "
+                    "column-major, unsharded", REPLACES["colmajor"],
+                    p_launch["P0T"] + p_launch["P1T"], p_err,
+                    acc["pool_colmajor"]))
+                entries.append(kernel_entry(
+                    f"bsr_grouped_spmm[fp32] joint train step in the "
+                    f"{world_tag} world (rank 0): up-pool 2 P^T, grouped, "
+                    "unsharded", REPLACES["grouped"], p_launch["P2T"], p_err,
+                    acc["pool_grouped"]))
+            for part, a in acc.items():
+                say(f"{world_tag} {name} per train step, {part}: kernel "
+                    f"{a['ms']:.3f} ms, twin {a['plain_ms']:.3f} ms, "
+                    f"torch.sparse {a['library_ms']:.3f} ms, bound "
+                    f"{a['bound_ms']:.3f} ms ({_bound_by(a)}; "
+                    f"{a['stored_ms']:.3f} ms with the blocks as stored)")
+        say(f"shape_rows_{world_tag.replace('=', '')}_classifiers "
+            + json.dumps(rows))
+    return entries
+
+
+def kernel_entry(name, replaces, launched, err, acc, source=SOURCE):
+    """One entry of the kernels line from a per-step sum of times."""
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launched, max_abs_err=err, ms=acc["ms"],
+                plain_ms=acc["plain_ms"], bound_ms=acc["bound_ms"],
+                bound_by=_bound_by(acc), library_ms=acc["library_ms"],
+                bound_stored_ms=acc.get("stored_ms", acc["bound_ms"]))
 
 
 INFER_MESHES = 32   # two batches of 16
@@ -6050,8 +6355,9 @@ def main() -> int:
         phase_tiles(dev, s80, tmp)
         seconds["tiles"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        mapped = phase_distribution(torch, dev, models, ops, hier, tmpl,
-                                    (mean, std), many_dir, s20, s80, tmp)
+        mapped, world_classifiers = phase_distribution(
+            torch, dev, models, ops, hier, tmpl, (mean, std), many_dir, s20,
+            s80, tmp)
         seconds["distribution"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         scan_reports, _ = phase_scan(torch, dev, models, ops, hier, s20, s80,
@@ -6078,13 +6384,7 @@ def main() -> int:
     say("phase seconds " + json.dumps({k: round(v, 1)
                                        for k, v in seconds.items()}))
 
-    def entry(name, replaces, launched, err, acc, source=SOURCE):
-        return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=launched, max_abs_err=err, ms=acc["ms"],
-                    plain_ms=acc["plain_ms"], bound_ms=acc["bound_ms"],
-                    bound_by=_bound_by(acc), library_ms=acc["library_ms"],
-                    bound_stored_ms=acc.get("stored_ms", acc["bound_ms"]))
-
+    entry = kernel_entry
     pool_keys = [("fp32", up.t_bsr.n_pad, up.t_bsr.n_pad_cols)
                  for up in ops.up[:3]]
     pool_launches = [sum(by_shape[p].get(k, 0) for p in by_shape)
@@ -6163,6 +6463,9 @@ def main() -> int:
             bound_stored_ms=e["stored_ms"]))
     # _mapped_product (pallas_shard.py:150): the sp=2 world's kernel calls
     kernels.append(mapped)
+    # phase 14g: crecon's and the joint model's train steps in the dp=2 and
+    # sp=2 worlds (rank 0's launches over 14e's main path; its shapes)
+    kernels += world_classifiers
     # phase 15: the same calls replayed in CUDA graphs (launches counted per
     # replay from what was captured, over 3 epochs of SCAN_STEPS); times as
     # measured per step above

@@ -33,9 +33,8 @@ Runs on the CUDA card unless --device cpu (or --cpu) is given. The config's
 data_parallel / seq_parallel / multihost give the world as they do for
 training (as inference.py passes trainer.mesh): each rank runs its dp rows
 with the operators row-sharded over sp, and only the primary writes files
-and, with --serve, reads stdin and answers. The joint model in a world is
-refused, as in training (train/driver.check_supported); so are export and
---artifact, which are one process's step.
+and, with --serve, reads stdin and answers; either model type runs there.
+Export and --artifact are refused in a world: they are one process's step.
 """
 import argparse
 import os
@@ -104,8 +103,7 @@ def main(argv=None) -> int:
             return 2
 
     from ..config import apply_overrides, read_config
-    from ..parallel.sharding import close_world, spawn_local
-    from ..train.driver import check_supported, maybe_init_multihost
+    from ..train.driver import enter_world, names_world
     from ..validate import validate_config
     from .driver import run_cli, serve_artifact
 
@@ -118,12 +116,10 @@ def main(argv=None) -> int:
     config["checkpoint_dir"] = os.path.join(os.path.dirname(args.conf),
                                             config["checkpoint_dir"])
     config["root_dir"] = args.data_dir
-    check_supported(config)
     validate_config(config, args.device)
-    dp = int(config.get("data_parallel", 1))
-    sp = int(config.get("seq_parallel", 1))
-    if (exporting or args.artifact) and (dp * sp > 1
-                                         or config.get("multihost")):
+    if (exporting or args.artifact) and names_world(config):
+        dp = int(config.get("data_parallel", 1))
+        sp = int(config.get("seq_parallel", 1))
         print("export and --artifact are single-process only: the "
               f"artifact is one process's step (data_parallel x "
               f"seq_parallel = {dp * sp}, multihost = "
@@ -131,14 +127,8 @@ def main(argv=None) -> int:
         return 2
     if args.artifact:
         return serve_artifact(args, config)
-    if config.get("multihost"):
-        world = maybe_init_multihost(config, args.device)
-        try:
-            return run_cli(world, args, config)
-        finally:
-            close_world()
-    if dp * sp > 1:
-        return spawn_local(run_cli, dp, sp, args.device, args=(args, config))
+    if names_world(config):
+        return enter_world(run_cli, config, args.device, (args, config))
     return run_cli(None, args, config)
 
 

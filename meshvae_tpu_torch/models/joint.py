@@ -13,7 +13,10 @@ supervision, BASELINE config 3 (counterpart of meshvae_tpu/models/joint.py).
 
 The true-label and opposite-label decodes run as one decoder pass at 2B
 rows; in train mode every row draws its own dropout masks from the
-explicit generator. The weights come from one torch.Generator: the VAE's,
+explicit generator. In a dp world (``rows``, models/vae.py) a rank's b of
+those rows are two segments of the global 2B: [start, start + b) and
+[B + start, B + start + b), so its masks and noise are the single-process
+ones row for row. The weights come from one torch.Generator: the VAE's,
 then the GCN's, then the heads' (U(+-1/sqrt(fan_in)) weights and biases).
 Parameter names follow the flax tree (``vae.*``, ``gcn.*``, ``sup_head``,
 ``adv_head``), so ``models.vae.params_from_flax`` carries JAX weights
@@ -104,23 +107,26 @@ class JointMeshVAE(nn.Module):
 
     def forward(self, x: torch.Tensor, y: torch.Tensor, ops: ModelOperators,
                 train: bool = False,
-                generator: torch.Generator | None = None) -> dict:
+                generator: torch.Generator | None = None,
+                rows: tuple | None = None) -> dict:
         """MeshVAE's output dict (recon, y_hat, mu, logvar, z) plus
-        sup_logits, adv_logits, cls_logits (float32) and recon_oppo."""
+        sup_logits, adv_logits, cls_logits (float32) and recon_oppo. rows
+        = (start, total): see the module docstring."""
         vae, dt = self.vae, self.cfg.dtype
-        h = vae.encode(x, ops, train, generator)
-        y_hat = vae.classify(h, train, generator)
+        h = vae.encode(x, ops, train, generator, rows)
+        y_hat = vae.classify(h, train, generator, rows)
         hy = torch.cat([y.to(h.dtype), h], dim=-1)
         mu = vae.posterior_mean(hy).float()
         logvar = dense(vae.z_log_var, hy, dt).float()
-        z = vae.reparameterize(mu, logvar, generator) if train else mu
+        z = vae.reparameterize(mu, logvar, generator, rows) if train else mu
         sup_logits = dense(self.sup_head, mu[:, :self.split], dt).float()
         adv_logits = dense(self.adv_head, grad_reverse(mu[:, self.split:]),
                            dt).float()
         yz = torch.cat([torch.cat([y, z], dim=-1),
                         torch.cat([1.0 - y, z], dim=-1)], dim=0)
         b = x.shape[0]
-        both = vae.decode(yz, ops, train, generator)
+        both = vae.decode(yz, ops, train, generator, None if rows is None
+                          else ((rows[0], rows[1] + rows[0]), 2 * rows[1]))
         recon, recon_oppo = both[:b], both[b:]
         diff = torch.cat([x - recon_oppo, x - recon], dim=-1)
         cls_logits = self.gcn(diff, ops)

@@ -25,7 +25,9 @@ again in ``classify``; the posterior sees h after the first. Under data
 parallelism a rank holds rows [start, start + b) of a global batch of
 `total` rows; with ``rows=(start, total)`` every draw is made for the whole
 global batch and the rank keeps its rows, so the masks and the noise are
-the single-process ones.
+the single-process ones. A rank's batch made of several equal segments of
+the global one (the joint model's decode of both labels at 2B rows) gives
+their starts, ``rows=((start_0, start_1, ...), total)``.
 
 compute_dtype=bfloat16 follows the JAX package's bf16 mode: parameters stay
 float32 (the master weights) and are cast to bf16 at use; every product
@@ -74,7 +76,14 @@ def _draw_buffer(x: torch.Tensor, rows: tuple | None) -> torch.Tensor:
 
 def _own_rows(t: torch.Tensor, x: torch.Tensor,
               rows: tuple | None) -> torch.Tensor:
-    return t if rows is None else t[rows[0]:rows[0] + x.shape[0]]
+    """The rank's rows of a global draw t (see the module docstring)."""
+    if rows is None:
+        return t
+    starts, n = rows[0], x.shape[0]
+    if isinstance(starts, int):
+        return t[starts:starts + n]
+    seg = n // len(starts)
+    return torch.cat([t[s:s + seg] for s in starts])
 
 
 def _dropout(x: torch.Tensor, rate: float, train: bool,

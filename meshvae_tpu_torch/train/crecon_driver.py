@@ -15,8 +15,9 @@ its own parameters only.
     of steps, as the reference reports it;
   * ``scan_epoch`` (default True): each fold's splits are staged on the
     device once and the train split is reshuffled there every epoch; the
-    steps run as CUDA graphs on a card (train/graphs.py, as Trainer's),
-    eagerly on the CPU. ``scan_epoch = False`` runs the per-step loop;
+    steps run as CUDA graphs on a card in one process (train/graphs.py,
+    as Trainer's), eagerly on the CPU and in a world. ``scan_epoch =
+    False`` runs the per-step loop;
   * ``run`` always runs 5 stratified folds, whatever ``folds`` says, with
     a train/validation split of each fold's training part (the
     reference's, and the JAX driver's); an initial-weights snapshot every
@@ -27,8 +28,18 @@ its own parameters only.
 With compute_dtype bfloat16 the frozen VAE and the GCN compute in bf16
 (the difference features stay float32, as the decode returns them, and
 the GCN casts them); the loss, the accuracies and Adam's master weights
-are float32. Classifier pipelines run in one process
-(train/driver.check_supported).
+are float32.
+
+In a ("dp", "sp") world (``dist``, parallel/sharding.py), as the JAX
+package's CreconTrainer under a mesh and the VAE Trainer's world: each
+rank runs its dp rows with the frozen VAE's and the GCN's operators
+row-sharded over sp; the frozen VAE's weights are replicated from rank
+0; the loss is the masked mean over the global batch, the GCN's gradients
+are reduced over the world (Trainer._reduce_gradients), and the packed
+[loss, correct, count] are summed over dp, so every rank reports the
+single-process numbers. ``run`` enters the world as train/driver.run does
+(data_parallel x seq_parallel local ranks, or ``multihost``), and only the
+primary writes the initial weights, norm.npz, checkpoints and the log.
 """
 from __future__ import annotations
 
@@ -41,10 +52,12 @@ import torch.nn.functional as F
 from ..config import parse_bool
 from ..data.dataset import BatchIterator, MeshDataset, list_meshes
 from ..models.gcn import ChebGCN, GCNConfig
+from ..parallel.sharding import is_primary, replicate, sync_processes
+from ..validate import validate_config
 from .checkpoint import (checkpoint_path, find_checkpoint, load_checkpoint,
                          load_model_state, load_params, save_checkpoint,
                          save_params)
-from .driver import build_model_and_ops, check_supported
+from .driver import build_model_and_ops, enter_world, names_world
 from .loop import Trainer, _host
 from .metrics import RunLog
 from .splits import stratified_kfold, train_test_split
@@ -79,22 +92,25 @@ class CreconTrainer(Trainer):
 
     BATCH_KEYS = ("x", "label", "mask")
 
-    def __init__(self, gcn: ChebGCN, vae, ops, config: dict, device="cuda"):
-        super().__init__(gcn, ops, config, device=device)
+    def __init__(self, gcn: ChebGCN, vae, ops, config: dict, device="cuda",
+                 dist=None):
+        super().__init__(gcn, ops, config, device=device, dist=dist)
         self.vae = vae.to(self.device).eval().requires_grad_(False)
+        replicate(self.vae.state_dict().values(), dist)
         self.scan_epoch = parse_bool(config.get("scan_epoch", True))
 
     def _loss(self, diff, labels, mask):
         logits = self.model(diff, self.ops)
         nll = -F.log_softmax(logits, dim=-1).gather(1, labels[:, None])[:, 0]
-        return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0), logits
+        return torch.sum(nll * mask) / self._denominator(mask), logits
 
-    @staticmethod
-    def _packed(loss, logits, batch) -> torch.Tensor:
+    def _packed(self, loss, logits, batch) -> torch.Tensor:
+        """[loss, correct, count] over the global batch."""
         mask = batch["mask"]
         pred = torch.argmax(torch.softmax(logits, dim=-1), dim=-1)
         correct = ((pred == batch["label"]).to(mask.dtype) * mask).sum()
-        return torch.stack([loss.detach(), correct, mask.sum()])
+        return self._dp_sum_(torch.stack([loss.detach(), correct,
+                                          mask.sum()]))
 
     def train_step(self, batch: dict, generator=None) -> torch.Tensor:
         """One Adam update of the GCN from a device batch; returns the
@@ -105,6 +121,7 @@ class CreconTrainer(Trainer):
                                    self.ops, train=True)
         loss, logits = self._loss(diff, batch["label"], batch["mask"])
         loss.backward()
+        self._reduce_gradients()
         self.optimizer.step()
         with torch.no_grad():
             return self._packed(loss, logits, batch)
@@ -157,16 +174,27 @@ class CreconTrainer(Trainer):
         return self._averages(np.stack(rows)) if rows else (0.0, 0.0)
 
 
-def run(config: dict, do_train: bool, do_test: bool,
-        device="cuda") -> list[dict]:
+def _run_rank(world, config, do_train, do_test):
+    return run(config, do_train, do_test, device=world.device, dist=world)
+
+
+def run(config: dict, do_train: bool, do_test: bool, device="cuda",
+        dist=None) -> list[dict]:
     """Train and/or test the GCN over 5 folds; returns one dict per tested
-    fold: fold, test_loss, test_acc."""
-    check_supported(config, "crecon")
+    fold: fold, test_loss, test_acc. `dist` is this rank's World; without
+    it the config's data_parallel / seq_parallel / multihost decide, as
+    in train/driver.run."""
     vae_ckpt = config.get("checkpoint_file")
     if not vae_ckpt or not os.path.exists(vae_ckpt):
         raise FileNotFoundError(
             f"crecon needs a pretrained VAE checkpoint; checkpoint_file="
             f"{vae_ckpt!r} not found")
+    if dist is None:
+        validate_config(config, device)
+        if names_world(config):
+            return enter_world(_run_rank, config, device,
+                               (config, do_train, do_test))
+    primary = is_primary(dist)
     checkpoint_dir = config["checkpoint_dir"]
     os.makedirs(checkpoint_dir, exist_ok=True)
     seed = int(config["random_seeds"])
@@ -176,9 +204,9 @@ def run(config: dict, do_train: bool, do_test: bool,
     gcn = ChebGCN(GCNConfig.from_config(
         config, coarse_verts=hier.levels[-1],
         num_features=2 * template.v.shape[1]))
-    trainer = CreconTrainer(gcn, vae, ops, config, device=device)
+    trainer = CreconTrainer(gcn, vae, ops, config, device=device, dist=dist)
 
-    log = RunLog(config["log_file"])
+    log = RunLog(config["log_file"] if primary else None)
     try:
         log.print("model type:", config["type"])
         log.print("frozen VAE:", vae_ckpt, "matmul precision:",
@@ -188,7 +216,11 @@ def run(config: dict, do_train: bool, do_test: bool,
                               if trainer.scan_epoch else
                               "per-step epoch loop (scan_epoch = False)"))
         init_path = os.path.join(checkpoint_dir, "initial_weight_gcn.pt")
-        save_params(init_path, trainer.init_params(seed))
+        init = trainer.init_params(seed)
+        if primary:
+            save_params(init_path, init)
+        # every rank reloads the snapshot at each fold start
+        sync_processes(dist)
 
         dataset_index, labels = list_meshes(config)
         if not dataset_index:
@@ -207,6 +239,8 @@ def run(config: dict, do_train: bool, do_test: bool,
                 _train_fold(trainer, config, log, n, list(train_names),
                             list(valid_names), labels, tv, seed)
             if do_test:
+                # the primary's checkpoint and norm.npz are read back
+                sync_processes(dist)
                 if not do_train:
                     trainer.model.load_state_dict(load_checkpoint(
                         find_checkpoint(checkpoint_dir, n))["model"])
@@ -235,8 +269,11 @@ def _train_fold(trainer: CreconTrainer, config: dict, log: RunLog, n: int,
                 train_names: list[str], valid_names: list[str], labels: dict,
                 tv: np.ndarray, seed: int) -> None:
     checkpoint_dir = config["checkpoint_dir"]
+    primary = is_primary(trainer.dist)
     train_ds = MeshDataset(train_names, config, labels, template=tv,
-                           dtype="train")
+                           dtype="train", write_norm=primary)
+    # the primary's norm.npz is read back by the validation split
+    sync_processes(trainer.dist)
     valid_ds = MeshDataset(valid_names, config, labels, template=tv,
                            dtype="test")
     train_loader = _loader(trainer, train_ds, config, shuffle=True,
@@ -249,10 +286,11 @@ def _train_fold(trainer: CreconTrainer, config: dict, log: RunLog, n: int,
         tr_loss, tr_acc = trainer.run_epoch(train_loader, True, shuffle)
         va_loss, va_acc = trainer.run_epoch(valid_loader, False)
         if va_acc >= best_val_acc:
-            save_checkpoint(checkpoint_path(checkpoint_dir, n),
-                            trainer.model.state_dict(),
-                            trainer.optimizer.state_dict(), epoch, tr_loss,
-                            va_loss)
+            if primary:
+                save_checkpoint(checkpoint_path(checkpoint_dir, n),
+                                trainer.model.state_dict(),
+                                trainer.optimizer.state_dict(), epoch,
+                                tr_loss, va_loss)
             best_val_acc = va_acc
         log.print("epoch ", epoch, " Train loss ", tr_loss, "train acc",
                   tr_acc, " Val loss ", va_loss, "acc ", va_acc)

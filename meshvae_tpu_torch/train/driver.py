@@ -4,10 +4,8 @@ the body of ``python -m meshvae_tpu_torch.train``.
   * the template (a missing scaled one is generated), the hierarchy
     (cached), the operators in the config's compute dtype and the model:
     the joint VAE + GCN (models/joint.py, trained by train/joint.py) for
-    type = joint_VAE, else the MeshVAE; ``check_supported`` refuses what
-    the port does not run yet (crecon and the joint model in a world);
-    validate.py refuses a cheb_method = ell config whose level-0 convs
-    cannot fit on the card;
+    type = joint_VAE, else the MeshVAE; validate.py refuses a cheb_method
+    = ell config whose level-0 convs cannot fit on the card;
   * an initial-weights snapshot that every fold restarts from;
   * stratified k-fold over the mesh listing and a train/validation split
     of each fold's training part (train/splits.py, scikit-learn's streams);
@@ -39,10 +37,11 @@ the body of ``python -m meshvae_tpu_torch.train``.
     ``multihost`` this process is one rank of a world that meets over
     tcp:// at coordinator_address (num_processes, process_id) or, with
     those unset, over the env:// a launcher such as torchrun sets, as
-    jax.distributed.initialize auto-detects. Every rank trains; only the
-    primary (rank 0) writes the initial weights, norm stats, checkpoints,
-    history, log and .obj dumps, with barriers where the JAX driver has
-    them, before the other ranks read a file back.
+    jax.distributed.initialize auto-detects (``enter_world``, which
+    crecon's run shares). Either model type runs in a world. Every rank
+    trains; only the primary (rank 0) writes the initial weights, norm
+    stats, checkpoints, history, log and .obj dumps, with barriers where
+    the JAX driver has them, before the other ranks read a file back.
 
 """
 from __future__ import annotations
@@ -75,24 +74,6 @@ from .metrics import (RunLog, epoch_line, history_record, is_profiled,
 from .splits import stratified_kfold, train_test_split
 
 
-def check_supported(config: dict, pipeline: str | None = None) -> None:
-    """Raise on settings the port does not run yet (they are queued in
-    ROADMAP.md), rather than ignoring them. `pipeline` names a classifier
-    pipeline ("crecon"; "joint" is implied by type = joint_VAE), which the
-    port runs in one process only."""
-    if pipeline is None and config.get("type") == "joint_VAE":
-        pipeline = "joint"
-    if pipeline is None:
-        return
-    ranks = int(config.get("data_parallel", 1)) * int(
-        config.get("seq_parallel", 1))
-    if ranks > 1 or parse_bool(config.get("multihost", False)):
-        raise ValueError(
-            f"{pipeline} in a world (data_parallel x seq_parallel = {ranks}"
-            f", multihost = {config.get('multihost', False)}) is not ported "
-            "yet (ROADMAP.md queue 1, item 8); run it in one process")
-
-
 def build_model_and_ops(config: dict, device="cuda",
                         generator: torch.Generator | None = None):
     """Template -> hierarchy (hierarchy_mode "fast" or "reference") ->
@@ -101,7 +82,6 @@ def build_model_and_ops(config: dict, device="cuda",
     `generator`: a JointMeshVAE for type = joint_VAE, a MeshVAE for every
     other type (crecon's frozen VAE included), as the JAX driver builds
     them. Returns (model, ops, hier, template)."""
-    check_supported(config)
     validate_config(config, device)
     device = resolve_device(device)
     ensure_template(config["template"])
@@ -168,6 +148,30 @@ def maybe_init_multihost(config: dict, device="cuda"):
         process_id=pid if pid >= 0 else None)
 
 
+def names_world(config: dict) -> bool:
+    """True when the config asks for more than one process: data_parallel
+    x seq_parallel > 1, or multihost."""
+    return bool(config.get("multihost")) or int(
+        config.get("data_parallel", 1)) * int(
+        config.get("seq_parallel", 1)) > 1
+
+
+def enter_world(rank_fn, config: dict, device, args: tuple):
+    """rank_fn(world, *args) as this process's part of the world the
+    config names (names_world; see the module docstring): with multihost
+    this process joins the world; else it starts data_parallel x
+    seq_parallel local ranks, rank 0 here. Returns this process's
+    result."""
+    if config.get("multihost"):
+        world = maybe_init_multihost(config, device)
+        try:
+            return rank_fn(world, *args)
+        finally:
+            close_world()
+    return spawn_local(rank_fn, int(config.get("data_parallel", 1)),
+                       int(config.get("seq_parallel", 1)), device, args=args)
+
+
 def _run_rank(world, config, do_train, do_test, vis):
     return run(config, do_train, do_test, vis, device=world.device,
                dist=world)
@@ -180,20 +184,10 @@ def run(config: dict, do_train: bool, do_test: bool, vis: bool = False,
     it the config's data_parallel / seq_parallel / multihost decide (see
     the module docstring)."""
     if dist is None:
-        check_supported(config)
         validate_config(config, device)
-        dp = int(config.get("data_parallel", 1))
-        sp = int(config.get("seq_parallel", 1))
-        if config.get("multihost"):
-            world = maybe_init_multihost(config, device)
-            try:
-                return run(config, do_train, do_test, vis, world.device,
-                           world)
-            finally:
-                close_world()
-        if dp * sp > 1:
-            return spawn_local(_run_rank, dp, sp, device,
-                               args=(config, do_train, do_test, vis))
+        if names_world(config):
+            return enter_world(_run_rank, config, device,
+                               (config, do_train, do_test, vis))
     primary = is_primary(dist)
     checkpoint_dir = config["checkpoint_dir"]
     os.makedirs(checkpoint_dir, exist_ok=True)

@@ -35,7 +35,8 @@ class JointTrainer(Trainer):
                       generator: torch.Generator | None):
         x, labels, mask = batch["x"], batch["label"], batch["mask"]
         y = F.one_hot(labels, self.num_classes).to(x.dtype)
-        out = self.model(x, y, self.ops, train=train, generator=generator)
+        out = self.model(x, y, self.ops, train=train, generator=generator,
+                         rows=self._rows(x, train))
         denom = self._denominator(mask)
         loss, aux = joint_loss(x, out, y, labels, mask=mask,
                                sup_weight=self.sup_weight,

@@ -303,18 +303,22 @@ class Trainer:
         """max(global mask sum, 1): the masked means' denominator."""
         return torch.clamp(self._dp_sum_(mask.sum()), min=1.0)
 
+    def _rows(self, x: torch.Tensor, train: bool):
+        """The model's ``rows`` (models/vae.py): this rank's dp rows of the
+        global batch when a dp world trains, else None."""
+        if train and self.dist is not None and self.dist.dp > 1:
+            b = x.shape[0]
+            return (self.dist.dp_rank * b, self.dist.dp * b)
+        return None
+
     def _forward_loss(self, batch: dict, train: bool,
                       generator: torch.Generator | None):
         """(loss, out, aux, y, denom) of the model on a device batch: the
         objective the steps differentiate and report."""
         x = batch["x"]
         y = F.one_hot(batch["label"], self.num_classes).to(x.dtype)
-        rows = None
-        if train and self.dist is not None and self.dist.dp > 1:
-            b = x.shape[0]
-            rows = (self.dist.dp_rank * b, self.dist.dp * b)
         out = self.model(x, y, self.ops, train=train, generator=generator,
-                         rows=rows)
+                         rows=self._rows(x, train))
         denom = self._denominator(batch["mask"])
         loss, aux = vae_loss(x, out["recon"], out["mu"], out["logvar"], y,
                              out["y_hat"], mask=batch["mask"], denom=denom)

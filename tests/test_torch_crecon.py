@@ -7,7 +7,7 @@ after Adam, the frozen VAE untouched, the kernel calls), the scanned
 epoch against the per-step loop; run() end to end (5 folds whatever
 `folds` says, checkpoints, the test path with and without training), a
 JAX-written VAE .msgpack as the frozen VAE, the missing-checkpoint error,
-the refusals, and the CLI.
+the world entry, and the CLI.
 
 Bars: difference features within 1e-4 of the mesh scale; loss and packed
 metrics rtol 1e-5; gradients within 1e-4 of the layer's max|g|; params
@@ -35,7 +35,7 @@ from meshvae_tpu_torch.models import (ChebGCN, GCNConfig, MeshVAE, VAEConfig,
                                       build_operators, params_from_flax)
 from meshvae_tpu_torch.ops import bsr_spmm
 from meshvae_tpu_torch.ops import cheb as port_cheb
-from meshvae_tpu_torch.train import crecon_driver
+from meshvae_tpu_torch.train import crecon_driver, driver
 from meshvae_tpu_torch.train.checkpoint import (load_checkpoint,
                                                 save_checkpoint)
 from meshvae_tpu_torch.train.crecon_driver import (CreconTrainer,
@@ -540,18 +540,31 @@ def test_test_path_takes_the_last_epoch_and_the_train_norm(
             np.testing.assert_array_equal(test_norm, norm)
 
 
-def test_missing_checkpoint_and_refusals(env):
+def test_missing_checkpoint_and_refusals(env, vae_checkpoints, monkeypatch):
     """No checkpoint_file, or a missing one, raises FileNotFoundError;
-    a world (ROADMAP item 8) is refused."""
+    data_parallel 2 and multihost are no longer refused: run() enters the
+    world they name (a local world of 2 ranks; this process's rank of a
+    multihost world), whose ranks run crecon
+    (tests/test_torch_world_classifiers.py)."""
     for ckpt in ("", "/nonexistent/checkpoint_1.pt"):
         with pytest.raises(FileNotFoundError, match="checkpoint_file"):
             crecon_driver.run(_config(env, "missing", checkpoint_file=ckpt),
                               do_train=True, do_test=False, device="cpu")
-    for key, value, item in (("data_parallel", 2, "item 8"),
-                             ("multihost", True, "item 8")):
-        with pytest.raises(ValueError, match=item):
-            crecon_driver.run(_config(env, "refused", **{key: value}),
-                              do_train=True, do_test=False, device="cpu")
+    seen = []
+    monkeypatch.setattr(driver, "spawn_local",
+                        lambda fn, dp, sp, device, args:
+                        seen.append(("local", dp, sp)) or fn("world", *args))
+    monkeypatch.setattr(driver, "maybe_init_multihost",
+                        lambda config, device:
+                        seen.append("multihost") or "world")
+    monkeypatch.setattr(crecon_driver, "_run_rank",
+                        lambda world, *args: [world])
+    for key, value in (("data_parallel", 2), ("multihost", True)):
+        assert crecon_driver.run(
+            _config(env, "world", checkpoint_file=vae_checkpoints[0],
+                    **{key: value}),
+            do_train=True, do_test=False, device="cpu") == ["world"]
+    assert seen == [("local", 2, 1), "multihost"]
 
 
 def test_cli_takes_cpu_for_device_cpu(env, monkeypatch):

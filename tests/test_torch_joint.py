@@ -6,7 +6,8 @@ fed to both (loss, metrics, every gradient through Adam's first moment,
 the params after Adam, the kernel calls) and one eval step with the extra
 scalars; a JAX joint checkpoint loaded and one more step from it; the
 driver's run() and CLI with type = joint_VAE (sup_accuracy and
-adv_accuracy in the history); the latent_split check and the refusals.
+adv_accuracy in the history); the latent_split check and the world
+entry.
 
 Bars (ROADMAP ground rules): recon within 1e-4, the other outputs 1e-5;
 loss and metrics rtol 1e-5 (pose error 1e-4); gradients and moments within
@@ -513,15 +514,24 @@ def test_driver_runs_the_joint_model_in_bf16(env):
     assert all(v.dtype == torch.float32 for v in state["model"].values())
 
 
-def test_worlds_and_bf16_are_refused(env):
-    """A world is refused (ROADMAP item 8); bfloat16 runs
-    (test_driver_runs_the_joint_model_in_bf16)."""
-    for key, value, item in (("data_parallel", 2, "item 8"),
-                             ("seq_parallel", 2, "item 8"),
-                             ("multihost", True, "item 8")):
-        with pytest.raises(ValueError, match=item):
-            driver.run(_joint_config(env, "refused", **{key: value}),
-                       do_train=True, do_test=False, device="cpu")
+def test_worlds_are_entered(env, monkeypatch):
+    """data_parallel, seq_parallel and multihost are no longer refused for
+    type = joint_VAE: run() enters the world each names, whose ranks run
+    the joint model (tests/test_torch_world_classifiers.py)."""
+    seen = []
+    monkeypatch.setattr(driver, "spawn_local",
+                        lambda fn, dp, sp, device, args:
+                        seen.append(("local", dp, sp)) or fn("world", *args))
+    monkeypatch.setattr(driver, "maybe_init_multihost",
+                        lambda config, device:
+                        seen.append("multihost") or "world")
+    monkeypatch.setattr(driver, "_run_rank", lambda world, *args: [world])
+    for key, value in (("data_parallel", 2), ("seq_parallel", 2),
+                       ("multihost", True)):
+        assert driver.run(_joint_config(env, "world", **{key: value}),
+                          do_train=True, do_test=False,
+                          device="cpu") == ["world"]
+    assert seen == [("local", 2, 1), ("local", 1, 2), "multihost"]
 
 
 @pytest.mark.cuda

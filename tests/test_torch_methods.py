@@ -36,7 +36,6 @@ from meshvae_tpu_torch.ops import pool as port_pool
 from meshvae_tpu_torch.ops.cheb import cheb_conv
 from meshvae_tpu_torch.ops.pool import pool_apply
 from meshvae_tpu_torch.train import Trainer
-from meshvae_tpu_torch.train.driver import check_supported
 
 from torch_port_utils import (BSR_MIN_N, FILTERS, ORDERS, count_kernel_calls,
                               grid_hierarchy, jax_hierarchy)
@@ -283,16 +282,15 @@ def test_validate_refuses_an_ell_config_that_cannot_fit():
 
 
 def test_driver_admits_both_methods_and_the_reference_hierarchy():
-    """check_supported no longer refuses pool_method, cheb_method ell or
-    hierarchy_mode reference (only the world cases of the classifiers);
-    build_operators knows every JAX cheb_method."""
+    """The drivers' preflight (validate_config) admits pool_method dense,
+    cheb_method ell and hierarchy_mode reference, in one process and in a
+    world (no key of the JAX config schema is refused since the
+    classifiers run in a world); build_operators knows every JAX
+    cheb_method."""
     assert set(CHEB_METHODS) == {"dense", "ell", "pallas"}
-    check_supported({"pool_method": "dense", "cheb_method": "ell",
-                     "hierarchy_mode": "reference"})
-    check_supported({"pool_method": "dense", "hierarchy_mode": "reference"},
-                    "crecon")
-    with pytest.raises(ValueError, match="world"):
-        check_supported({"pool_method": "dense", "data_parallel": 2},
-                        "crecon")
+    methods = {"pool_method": "dense", "cheb_method": "ell",
+               "hierarchy_mode": "reference", "batch_size": 16}
+    validate.validate_config(methods, "cpu")
+    validate.validate_config(dict(methods, data_parallel=2), "cpu")
     with pytest.raises(ValueError, match="unknown pool method"):
         build_operators(grid_hierarchy()[1], "cpu", pool_method="scatter")

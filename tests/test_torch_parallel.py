@@ -667,8 +667,15 @@ def test_multihost_config_keys_parse(tmp_path):
 
 
 def test_check_supported_takes_the_distribution_keys():
-    port_driver.check_supported({"data_parallel": 2, "seq_parallel": 2,
-                                 "multihost": True})
+    """The distribution keys name a world (driver.names_world) for any
+    model type: nothing refuses them since the classifiers run in a world
+    (tests/test_torch_world_classifiers.py)."""
+    for config in ({"data_parallel": 2, "seq_parallel": 2, "multihost": True},
+                   {"data_parallel": 2}, {"seq_parallel": 2},
+                   {"multihost": True, "type": "joint_VAE"}):
+        assert port_driver.names_world(config), config
+    assert not port_driver.names_world({"data_parallel": 1,
+                                        "seq_parallel": 1, "multihost": False})
 
 
 @pytest.mark.parametrize("config,device,cards,match", [

@@ -402,9 +402,10 @@ Phases, one block of output lines each; any failed check exits non-zero:
             bfloat16 artifact of phase 17a's weights: 20 launches in mode
             bf16, it and the warm bf16 MeshServer each held at phase 17a's
             bar; then one step of each
-            artifact in a torch.profiler window, in a fresh process (in
-            this one, after the earlier phases' windows, a window saw 10
-            of the 20): 20 bsr_grouped_spmm_kernel launches of the mode's
+            artifact in a torch.profiler window, each in a fresh process
+            of its own (in this one, after the earlier phases' windows, a
+            window saw 10 of the 20, and so did the third window of one
+            fresh process): 20 bsr_grouped_spmm_kernel launches of the mode's
             instantiation, none counted by the eager wrapper, and their
             device time; e. the --export contract against
             InferenceEngine.step on the same batch at 1e-6; f. host-paced
@@ -414,6 +415,35 @@ Phases, one block of output lines each; any failed check exits non-zero:
             peak memory; the host's cost of one kernel call, direct and
             through the operator (device backlogged), times the step's 20;
             the kernel's device time per artifact step.
+20. experimental  models/experimental.py and the post-hoc entry points, on
+            the dense path (no kernel of the port may launch: every launch
+            counter is read before and after the phase and must not move).
+            Weights in flax's layout drawn by numpy from a fixed seed,
+            carried across by params_from_flax, one copy on the card and
+            one on the CPU. Template5k's level-0 (4,998) and level-1
+            (1,250) operators with cheb_method dense. At B=16:
+            EqualLinear 512->512 and GraphNorm on [16, 512],
+            AdaptiveInstanceNorm on [16, 4998, 16] with a style of 16,
+            SpatialConv 16->16 on level 0, GraphAttention 16->16 on level 1
+            at B=16 and on level 0 at B=4 (16 x 4998^2 fp32 logits are
+            1.6 GB per tensor on the CPU side), DiffPool 4998->1250 with
+            adj = |sign(L0)|, sort_pool with k=1250 and PointCNN over
+            [16, 4998, 3] in train mode, then eval mode on the updated
+            statistics. Card against CPU: forward within 1e-5 of max|y|,
+            the gradient of the output's sum within 1e-4 of each layer's
+            max|g|, PointCNN's batch_stats within 1e-6 of their max,
+            sort_pool bit for bit; each module's card ms (CUDA events,
+            median of 10, forward + backward), CPU ms (one call) and peak
+            device memory. The two sums the port writes its own way
+            against fp64 (printed): DiffPool's link loss on the CPU
+            (torch.linalg.norm beside the root of the summed squares)
+            and PointCNN's conv on the card (F.conv1d beside the one
+            einsum product). pc2mesh on the template's vertices (host
+            seconds, faces). python -m meshvae_tpu_torch.report -p -e -j
+            on phase 12's inference.json (its counts against that file),
+            and plot_losses's data part on phase 15's history files (the
+            metric names and epochs; drawn when matplotlib imports, else
+            "plot: matplotlib absent, not drawn").
 
 Phase 3 also holds the bf16 mode on the card at every 80k Laplacian (its C
 values, alpha 1 and 2, no seed, t_prev, t_plus, both) and the four P^T:
@@ -5807,8 +5837,9 @@ def _hold_launches_of(label, modes, mode):
 
 def profile_artifacts(spec_path: str) -> None:
     """Run in a fresh process by phase 19 (a process whose profiler has
-    held no earlier window): one step of each artifact of the spec in a
-    torch.profiler window, on its batch; prints one JSON line of the
+    held no earlier window; phase 19 gives each process one artifact):
+    one step of each artifact of the spec in a torch.profiler window, on
+    its batch; prints one JSON line of the
     kernel's launches, device ms and names per artifact, and the eager
     wrapper's counts during the step; and the seconds of this cold
     process: importing torch, importing the export module, starting the
@@ -6153,27 +6184,35 @@ def phase_export(torch, dev, models, ops, hier, tmpl, single, many_dir,
         seconds["d"] = time.perf_counter() - t0
 
         # --- c/d: the kernel by name inside both artifact steps ----------
+        # one fresh process per artifact: the third window of one process
+        # once saw 10 of the 20 launches, as a window late in this long
+        # process had; the first window of a process never has
         t0 = time.perf_counter()
-        spec = os.path.join(root, "profile.json")
         np.savez(os.path.join(root, "batch.npz"),
                  **{k: host[k] for k in ("x", "r", "s", "m")})
-        with open(spec, "w") as fp:
-            json.dump({"batch": os.path.join(root, "batch.npz"),
-                       "artifacts": {"high": arts["--export-serve"],
-                                     "highest": arts["highest"],
-                                     "bf16": arts["bf16"]}}, fp)
-        proc = subprocess.run(
-            [sys.executable, "-c", "import sys; sys.path.insert(0, "
-             f"{ROOT!r}); import chip_smoke; "
-             f"chip_smoke.profile_artifacts({spec!r})"],
-            cwd=ROOT, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            fail(f"the artifacts' profiler process: rc {proc.returncode}: "
-                 f"{proc.stderr[-3000:]}")
-        profiled = json.loads(proc.stdout.strip().splitlines()[-1])
+        profiled = {}
+        for label, path in (("high", arts["--export-serve"]),
+                            ("highest", arts["highest"]),
+                            ("bf16", arts["bf16"])):
+            spec = os.path.join(root, f"profile_{label}.json")
+            with open(spec, "w") as fp:
+                json.dump({"batch": os.path.join(root, "batch.npz"),
+                           "artifacts": {label: path}}, fp)
+            proc = subprocess.run(
+                [sys.executable, "-c", "import sys; sys.path.insert(0, "
+                 f"{ROOT!r}); import chip_smoke; "
+                 f"chip_smoke.profile_artifacts({spec!r})"],
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                fail(f"the {label} artifact's profiler process: rc "
+                     f"{proc.returncode}: {proc.stderr[-3000:]}")
+            out = json.loads(proc.stdout.strip().splitlines()[-1])
+            profiled[label] = out[label]
+            profiled.setdefault("seconds", out["seconds"])
         say(f"-- 19c/d: one step of each artifact in a torch.profiler "
-            f"window, in a fresh process ({time.perf_counter() - t0:.1f}s; "
-            f"its cold start, seconds per stage: {profiled['seconds']})")
+            f"window, each in a fresh process ({time.perf_counter() - t0:.1f}"
+            f"s; the first's cold start, seconds per stage: "
+            f"{profiled['seconds']})")
         _hold_profiled("artifact[high]", profiled["high"], "bf16x3")
         _hold_profiled("artifact[highest]", profiled["highest"], "fp32")
         _hold_profiled("artifact[bf16]", profiled["bf16"], "bf16")
@@ -6272,6 +6311,394 @@ def phase_export(torch, dev, models, ops, hier, tmpl, single, many_dir,
     say("phase 19 seconds " + json.dumps({k: round(v, 1)
                                           for k, v in seconds.items()}))
     return profiled
+
+
+# --- phase 20: models/experimental.py and the post-hoc entry points ----------
+EXP_BATCH = 16
+EXP_GAT_L0_BATCH = 4   # the CPU side's logits: 4 x 4998^2 fp32, 0.4 GB each
+EXP_STYLE = 16
+EXP_FWD, EXP_GRAD, EXP_STATS = 1e-5, 1e-4, 1e-6
+EXP_CARD_RUNS = 10
+
+
+def _flax_tree(shapes: dict, rng) -> dict:
+    """A flax variable tree of numpy leaves for nested `shapes`: kernels
+    (2-D and up) ~ N(0, 1 / fan_in), vectors ~ 0.5 N(0, 1); batch_stats
+    means ~ 0.1 N(0, 1), variances ~ U(0.5, 1.5)."""
+    import numpy as np
+
+    def draw(name, shape):
+        if isinstance(shape, dict):
+            return {k: draw(k, v) for k, v in shape.items()}
+        if name == "var":
+            return rng.uniform(0.5, 1.5, shape).astype(np.float32)
+        std = (0.1 if name == "mean" else 0.5 if len(shape) == 1
+               else 1.0 / math.sqrt(math.prod(shape[:-1])))
+        return (std * rng.standard_normal(shape)).astype(np.float32)
+
+    return draw("", shapes)
+
+
+def _exp_scalar(out, weights=None):
+    """out.sum(), or sum_i (out_i * w_i).sum() over a tuple's outputs (a
+    None weight: the plain sum)."""
+    if weights is None:
+        return out.sum()
+    return sum(o.sum() if w is None else (o * w).sum()
+               for o, w in zip(out, weights))
+
+
+def _exp_grad_err(named_card: dict, named_cpu: dict) -> float:
+    """max over parameters of |card - CPU| / the layer's max|g_CPU| (a
+    layer: the parameter name up to its last dot)."""
+    layer = lambda n: n.rsplit(".", 1)[0] if "." in n else ""
+    scale = {}
+    for n, p in named_cpu.items():
+        scale[layer(n)] = max(scale.get(layer(n), 0.0),
+                              float(p.grad.abs().max()))
+    return max(float((named_card[n].grad.cpu() - p.grad).abs().max())
+               / max(scale[layer(n)], 1e-30) for n, p in named_cpu.items())
+
+
+def _exp_fwd_err(card, cpu) -> float:
+    pairs = zip(card, cpu) if isinstance(cpu, tuple) else [(card, cpu)]
+    return max(float((a.detach().cpu() - b.detach()).abs().max())
+               / max(float(b.detach().abs().max()), 1e-30) for a, b in pairs)
+
+
+def _exp_case(torch, dev, label, make, tree, args, call=None, weights=None):
+    """One module card vs CPU from the same flax-layout weights: make(device)
+    builds it, args(device) gives its call arguments, call(module, *args)
+    runs it (module(*args) by default), and the gradients are those of
+    _exp_scalar(out, weights) (numpy weights). Prints the errors, the
+    card's forward + backward ms (CUDA events), the CPU's (one call) and
+    the step's device memory peak over what was allocated before."""
+    from meshvae_tpu_torch.models.vae import params_from_flax
+
+    state = params_from_flax(tree)
+    call = call or (lambda m, *a: m(*a))
+    on = lambda d: None if weights is None else [
+        None if w is None else torch.from_numpy(w).to(d) for w in weights]
+    mods, outs, cpu_ms = {}, {}, None
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        m = make(device)
+        m.load_state_dict(state)  # strict: the names and shapes of the tree
+        a, w = args(device), on(device)
+        t0 = time.perf_counter()
+        out = call(m, *a)
+        _exp_scalar(out, w).backward()
+        if where == "cpu":
+            cpu_ms = 1e3 * (time.perf_counter() - t0)
+        mods[where], outs[where] = m, out
+    fwd = _exp_fwd_err(outs["card"], outs["cpu"])
+    grad = _exp_grad_err(dict(mods["card"].named_parameters()),
+                         dict(mods["cpu"].named_parameters()))
+    m, a, w = mods["card"], args(dev), on(dev)
+
+    def step():
+        m.zero_grad(set_to_none=True)
+        _exp_scalar(call(m, *a), w).backward()
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    card_ms = time_ms(torch, step, runs=EXP_CARD_RUNS, warmup=1)
+    say(f"  {label}: forward within {fwd:.2e} of max|y| (bar {EXP_FWD:g}), "
+        f"gradients within {grad:.2e} of the layer's max|g| (bar "
+        f"{EXP_GRAD:g}); forward + backward card {card_ms:.3f} ms, CPU "
+        f"{cpu_ms:.1f} ms (one call), device peak +{peak:.1f} MiB")
+    if not (fwd <= EXP_FWD and grad <= EXP_GRAD):
+        fail(f"experimental {label}: card vs CPU beyond the bars")
+
+
+def _exp_reductions(torch, dev, adj, pts, rng):
+    """The two sums the port writes its own way, against fp64 on the
+    phase's inputs: DiffPool's link loss on the CPU (torch.linalg.norm
+    against the root of the summed squares, which the port takes) and
+    PointCNN's 4998-term 1-wide conv on the card (F.conv1d against the
+    one einsum product the port takes). Printed, not held: the modules'
+    own bars are."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    n0, n1 = adj.shape[0], (adj.shape[0] + 3) // 4
+    s = torch.softmax(torch.from_numpy((rng.standard_normal((n0, n1))
+                                        / math.sqrt(n0)).astype(np.float32)),
+                      dim=-1)
+    d = torch.from_numpy(adj) - s @ s.T
+    ref = float(torch.sqrt((d.double() ** 2).sum()))
+    norm_err = abs(float(torch.linalg.norm(d)) - ref) / ref
+    sq_err = abs(float(torch.sqrt(torch.sum(d * d))) - ref) / ref
+    w = torch.from_numpy((rng.standard_normal((3, n0)) / math.sqrt(n0))
+                         .astype(np.float32))
+    x = torch.from_numpy(pts)
+    ref = torch.einsum("bnl,on->blo", x.double(), w.double())
+    rel = lambda t: float((t.double().cpu() - ref).abs().max()
+                          / ref.abs().max())
+    xd, wd = x.to(dev), w.to(dev)
+    conv = rel(F.conv1d(xd, wd[:, :, None]).transpose(1, 2))
+    ein = rel(torch.einsum("bnl,on->blo", xd, wd))
+    say(f"  the port's sums against fp64: DiffPool's link loss on the CPU, "
+        f"torch.linalg.norm {norm_err:.2e}, sqrt(sum(d * d)) {sq_err:.2e} "
+        f"(taken); PointCNN's conv on template coordinates on the card, "
+        f"F.conv1d {conv:.2e}, the einsum {ein:.2e} (taken), of max|y|")
+
+
+def _exp_point_cnn(torch, dev, pts, rng):
+    """PointCNN over pts [16, 4998, 3] card vs CPU: train mode (the output,
+    the gradients, the batch_stats it updates), then eval mode on them."""
+    from meshvae_tpu_torch.models.experimental import PointCNN
+    from meshvae_tpu_torch.models.vae import params_from_flax
+
+    n = pts.shape[1]
+    dense = lambda i, o: {"kernel": (i, o), "bias": (o,)}
+    tree = _flax_tree({"params": {
+        "Conv_0": {"kernel": (1, n, 3), "bias": (3,)},
+        "BatchNorm_0": {"scale": (3,), "bias": (3,)},
+        "Dense_0": dense(9, 90), "Dense_1": dense(90, 10),
+        "Dense_2": dense(10, 5), "Dense_3": dense(5, 1)},
+        "batch_stats": {"BatchNorm_0": {"mean": (3,), "var": (3,)}}}, rng)
+    make = lambda d: PointCNN(n, device=d)
+    args = lambda d: (torch.from_numpy(pts).to(d),)
+    _exp_case(torch, dev, f"PointCNN train mode [{EXP_BATCH}, {n}, 3]", make,
+              tree, args, call=lambda m, x: m(x, train=True)[0])
+    # the timed card steps updated the card's statistics again: compare one
+    # update on each side, from a fresh module each
+    fresh = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        m = make(device)
+        m.load_state_dict(params_from_flax(tree))
+        with torch.no_grad():
+            m(*args(device), train=True)
+        fresh[where] = {k: v.cpu() for k, v in
+                        m.batch_stats()["BatchNorm_0"].items()}
+    err = max(float((fresh["card"][k] - fresh["cpu"][k]).abs().max())
+              / float(fresh["cpu"][k].abs().max()) for k in ("mean", "var"))
+    say(f"  PointCNN batch_stats after one train step: within {err:.2e} of "
+        f"their max (bar {EXP_STATS:g}); mean "
+        f"{[round(v, 4) for v in fresh['cpu']['mean'].tolist()]}, var "
+        f"{[round(v, 4) for v in fresh['cpu']['var'].tolist()]}")
+    if not err <= EXP_STATS:
+        fail("experimental PointCNN: batch_stats card vs CPU beyond the bar")
+    updated = {"params": tree["params"], "batch_stats": {"BatchNorm_0": {
+        k: v.numpy() for k, v in fresh["cpu"].items()}}}
+    _exp_case(torch, dev, "PointCNN eval mode on the updated statistics",
+              make, updated, args)
+
+
+def _exp_report(infer_json: str):
+    """python -m meshvae_tpu_torch.report -p -e -j on an inference.json the
+    inference CLI wrote on the card: its counts against that file."""
+    with open(infer_json) as fp:
+        data = json.load(fp)
+    proc = subprocess.run([sys.executable, "-m", "meshvae_tpu_torch.report",
+                           infer_json, "-p", "-e", "-j"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0:
+        fail(f"report -p -e -j: rc {proc.returncode}: {proc.stderr[-2000:]}")
+    got = json.loads(proc.stdout)
+    wrong = [n for n, r in data.items()
+             if (0 if n.split("_")[1] == "f" else 1) != r["sex"]]
+    by_max = sorted(data, key=lambda n: data[n]["reconstruction_error"]["max"])
+    if (got["predictions"] != len(data) or got["errors"]["count"] != len(data)
+            or got["prediction"]["wrong"] != wrong
+            or [e["name"] for e in got["sorted_max_errors"]] != by_max):
+        fail(f"report's summary disagrees with {infer_json}")
+    text = subprocess.run([sys.executable, "-m", "meshvae_tpu_torch.report",
+                           infer_json, "-p"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    if text.returncode != 0 or f"{len(data)} predictions" not in text.stdout:
+        fail(f"report -p: rc {text.returncode}: {text.stdout[-500:]}")
+    say(f"  report -p -e -j: {got['predictions']} predictions, "
+        f"{len(got['prediction']['wrong'])} wrong, accuracy "
+        f"{got['prediction']['accuracy_pct']:.2f}%, worst max error "
+        f"{got['errors']['max_error']['worst']:.4f}; counts equal to the "
+        f"file's")
+
+
+def _exp_plot(histories: list, tmp: str):
+    """plot_losses's data part on history files a driver wrote on the card:
+    the metric names and the epochs of every curve; drawn when matplotlib
+    imports, else its absence is printed and -o must exit 2 naming it."""
+    from meshvae_tpu_torch import plot_losses
+
+    cfg = os.path.join(ROOT, "files", "default.cfg")
+    folds = plot_losses.load_histories(histories)
+    panels = plot_losses.curves(folds)
+    metrics = list(folds[0][1][0]["validation"])
+    if [p["metric"] for p in panels] != metrics:
+        fail(f"plot_losses panels {[p['metric'] for p in panels]} != "
+             f"{metrics}")
+    for p in panels:
+        want = [(split, [e["epoch"] for e in fold])
+                for _, fold in folds for split in plot_losses.SPLITS
+                if p["metric"] in fold[0][split]]
+        got = [(ln["label"].split(" ")[0], ln["x"]) for ln in p["lines"]]
+        if got != want or any(len(ln["y"]) != len(ln["x"])
+                              for ln in p["lines"]):
+            fail(f"plot_losses {p['metric']}: curves {got} != {want}")
+    text = plot_losses.text_block(folds, cfg)
+    if not (text.startswith("Total training time : ")
+            and "\nConfig : {" in text):
+        fail(f"plot_losses text block: {text[:200]}")
+    out = os.path.join(tmp, "losses.png")
+    proc = subprocess.run([sys.executable, "-m",
+                           "meshvae_tpu_torch.plot_losses", *histories, "-c",
+                           cfg, "-o", out], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    try:
+        import matplotlib  # noqa: F401
+        drawn = True
+    except ImportError:
+        drawn = False
+    if drawn and (proc.returncode != 0 or not os.path.getsize(out)):
+        fail(f"plot_losses -o: rc {proc.returncode}: {proc.stderr[-1000:]}")
+    if not drawn and (proc.returncode != 2
+                      or "matplotlib" not in proc.stderr):
+        fail(f"plot_losses -o without matplotlib: rc {proc.returncode}, "
+             f"{proc.stderr[-500:]}")
+    say(f"  plot_losses: {len(panels)} panels "
+        f"({', '.join(metrics)}), {sum(len(p['lines']) for p in panels)} "
+        f"curves over {[len(f) for _, f in folds]} epochs; "
+        f"{text.splitlines()[0]}")
+    say(f"plot: drawn, {os.path.getsize(out)} bytes" if drawn
+        else "plot: matplotlib absent, not drawn")
+
+
+def phase_experimental(torch, dev, hier, tmpl, tmp, card, infer_json,
+                       histories):
+    """Phase 20 (see the module docstring)."""
+    say("== phase 20: models/experimental.py (dense path, card vs CPU) and "
+        "the report / plot_losses entry points")
+    import numpy as np
+
+    from meshvae_tpu_torch.models import experimental as exp
+    from meshvae_tpu_torch.ops import bsr_spmm, cheb_fused, emitted_spmm
+    from meshvae_tpu_torch.ops.graph import cheb_operator
+
+    def counters():
+        return (dict(bsr_spmm.LAUNCHES), dict(bsr_spmm.LAUNCHES_SEED_DOT),
+                sum(bsr_spmm.LAUNCHES_BY_CALL.values()),
+                dict(cheb_fused.LAUNCHES), dict(emitted_spmm.LAUNCHES))
+
+    t0 = time.perf_counter()
+    before = counters()
+    ops = {w: [cheb_operator(hier.adjacency[i], d, bsr_min_n=None)
+               for i in (0, 1)]
+           for w, d in (("card", dev), ("cpu", torch.device("cpu")))}
+    on = lambda d: "card" if d.type == "cuda" else "cpu"
+    n0, n1 = ops["cpu"][0].n, ops["cpu"][1].n
+    say(f"  dense operators: level 0 {n0}, level 1 {n1} (cheb_method dense)")
+    rng = np.random.default_rng(20)
+    b, f, h = EXP_BATCH, 16, 512
+    rows = (3.0 * rng.standard_normal((b, h)) + 1.0).astype(np.float32)
+    x0 = rng.standard_normal((b, n0, f)).astype(np.float32)
+    x1 = rng.standard_normal((b, n1, f)).astype(np.float32)
+    style = rng.standard_normal((b, EXP_STYLE)).astype(np.float32)
+    adj = np.abs(np.sign(ops["cpu"][0].dense.numpy()))
+    t = lambda a, d: torch.from_numpy(a).to(d)
+    dense = lambda i, o: {"kernel": (i, o), "bias": (o,)}
+    gat = lambda: {"params": {"Dense_0": {"kernel": (f, f)},
+                              "a_src": (f, 1), "a_dst": (f, 1)}}
+    cases = [
+        (f"EqualLinear {h}->{h} [{b}, {h}]",
+         lambda d: exp.EqualLinear(h, h, device=d),
+         {"params": {"kernel": (h, h), "bias": (h,)}},
+         lambda d: (t(rows, d),)),
+        (f"GraphNorm [{b}, {h}]", lambda d: exp.GraphNorm(h, device=d),
+         {"params": {"gamma": (h,), "beta": (h,)}}, lambda d: (t(rows, d),)),
+        (f"AdaptiveInstanceNorm [{b}, {n0}, {f}], style {EXP_STYLE}",
+         lambda d: exp.AdaptiveInstanceNorm(f, EXP_STYLE, device=d),
+         {"params": {"style_kernel": (EXP_STYLE, 2 * f),
+                     "style_bias": (2 * f,)}},
+         lambda d: (t(x0, d), t(style, d))),
+        (f"SpatialConv {f}->{f} on level 0 [{b}, {n0}, {f}]",
+         lambda d: exp.SpatialConv(f, f, device=d),
+         {"params": {"Dense_0": dense(f, f)}},
+         lambda d: (t(x0, d), ops[on(d)][0])),
+        (f"GraphAttention {f}->{f} on level 1 [{b}, {n1}, {f}]",
+         lambda d: exp.GraphAttention(f, f, device=d), gat(),
+         lambda d: (t(x1, d), ops[on(d)][1])),
+        (f"GraphAttention {f}->{f} on level 0 at B={EXP_GAT_L0_BATCH} "
+         f"[{EXP_GAT_L0_BATCH}, {n0}, {f}]",
+         lambda d: exp.GraphAttention(f, f, device=d), gat(),
+         lambda d: (t(x0[:EXP_GAT_L0_BATCH], d), ops[on(d)][0])),
+    ]
+    # DiffPool's pooled.sum() and coarse_adj.sum() do not depend on s (its
+    # softmax rows sum to 1): their gradient is rounding noise, larger
+    # than link_loss's. The gradients are of fixed random weightings of
+    # the two and of link_loss.
+    dp_weights = (rng.standard_normal((b, n1, f)).astype(np.float32),
+                  rng.standard_normal((n1, n1)).astype(np.float32), None)
+    cases = [c + (None,) for c in cases] + [
+        (f"DiffPool {n0}->{n1} [{b}, {n0}, {f}], adj = |sign(L0)|",
+         lambda d: exp.DiffPool(n0, n1, device=d),
+         {"params": {"s": (n0, n1)}},
+         lambda d: (t(x0, d), t(adj.astype(np.float32), d)), dp_weights)]
+    for label, make, shapes, args, weights in cases:
+        _exp_case(torch, dev, label, make, _flax_tree(shapes, rng), args,
+                  weights=weights)
+        torch.cuda.empty_cache()
+    # GraphAttention at level 0 and B=16 on the card alone: time and memory
+    gat0 = exp.GraphAttention(f, f, device=dev)
+    xg = t(x0, dev)
+
+    def gat_step():
+        gat0.zero_grad(set_to_none=True)
+        gat0(xg, ops["card"][0]).sum().backward()
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gat_step()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    gat_ms = time_ms(torch, gat_step, runs=EXP_CARD_RUNS, warmup=1)
+    say(f"  GraphAttention {f}->{f} on level 0 at B={b} (card only): "
+        f"forward + backward {gat_ms:.3f} ms, device peak +{peak:.1f} MiB")
+    del gat0, xg
+    torch.cuda.empty_cache()
+
+    # sort_pool, k = level 1's count, with ties in the sort channel
+    xs = x0.copy()
+    xs[:, :, -1] = np.round(4 * xs[:, :, -1]) / 4
+    got = exp.sort_pool(t(xs, dev), n1).cpu()
+    want = exp.sort_pool(t(xs, torch.device("cpu")), n1)
+    if got.shape != (b, n1 * f) or not torch.equal(got, want):
+        fail("experimental sort_pool: card and CPU differ")
+    sp_ms = time_ms(torch, lambda: exp.sort_pool(t(xs, dev), n1),
+                    runs=EXP_CARD_RUNS, warmup=1)
+    say(f"  sort_pool k={n1} on [{b}, {n0}, {f}] (ties in the sort channel):"
+        f" card and CPU bit-equal; card {sp_ms:.3f} ms with the upload")
+
+    pts = (tmpl.v[None] + 0.01 * rng.standard_normal(
+        (b, n0, 3))).astype(np.float32)
+    _exp_point_cnn(torch, dev, pts, rng)
+    _exp_reductions(torch, dev, adj.astype(np.float32), pts, rng)
+    t1 = time.perf_counter()
+    verts, faces = exp.pc2mesh(tmpl.v)
+    pc_secs = time.perf_counter() - t1
+    if (faces.ndim != 2 or faces.shape[0] == 0 or faces.min() < 0
+            or faces.max() >= verts.shape[0]):
+        fail(f"pc2mesh on the template: faces {faces.shape}")
+    say(f"  pc2mesh on the template's {verts.shape[0]} vertices: "
+        f"{faces.shape[0]} faces in {pc_secs:.2f} s (host)")
+    after = counters()
+    if after != before:
+        fail(f"phase 20 launched a kernel of the port: {before} -> {after}")
+    say(f"  launch counters unchanged across the modules: {after[0]}, seed "
+        f"{after[1]}, fused {after[3]}, emitted {after[4]}")
+    for path in (infer_json, *histories):
+        if not os.path.isfile(path):
+            fail(f"phase 20 reads {path}, which an earlier phase writes")
+    _exp_report(infer_json)
+    _exp_plot(histories, tmp)
+    if counters() != before:
+        fail("phase 20's entry points launched a kernel of the port")
+    say(f"  ({card}) phase 20 {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -6381,6 +6808,13 @@ def main() -> int:
                                 many_dir, (mean, std), bf16_paths["ctx"],
                                 tmp, card)
         seconds["export"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase_experimental(
+            torch, dev, hier, tmpl, tmp, card,
+            os.path.join(tmp, "infer", "card_high", "inference.json"),
+            [os.path.join(tmp, "ckpt_default", f"history{n}.json")
+             for n in (1, 2)])
+        seconds["experimental"] = time.perf_counter() - t0
     say("phase seconds " + json.dumps({k: round(v, 1)
                                        for k, v in seconds.items()}))
 

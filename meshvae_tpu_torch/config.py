@@ -133,3 +133,45 @@ def apply_overrides(config: dict, overrides: list[tuple[str, str]] | None) -> di
             value = json.loads(value)
         config[key] = value
     return config
+
+
+# write_default_config's layout: the reference's three sections and the
+# JAX package's fourth, with its section names (two spaces in "ChebModel
+# Parameters"), so a file either package writes reads back the same in both.
+_SECTIONS = {
+    "Input Output": [
+        "checkpoint_dir", "template", "root_dir", "error_file", "log_file",
+        "type", "num_classes", "num_style", "model", "folds", "test_size",
+        "random_seeds",
+    ],
+    "ChebModel  Parameters": [
+        "checkpoint_file", "n_layers", "num_hidden", "downsampling_factors",
+        "polygon_order", "num_conv_filters", "workers_thread",
+    ],
+    "Learning Parameters": [
+        "optimizer", "batch_size", "learning_rate", "learning_rates",
+        "learning_rates_epochs", "learning_rate_decay", "weight_decay",
+        "dropout", "epoch",
+    ],
+    "TPU Parameters": [
+        "cheb_method", "pool_method", "compute_dtype", "matmul_precision",
+        "final_conv_adjacency", "hierarchy_mode", "data_parallel",
+    ],
+}
+
+
+def write_default_config(fname: str) -> None:
+    """Write the default .cfg: the schema's defaults for the keys of
+    _SECTIONS, lists comma-separated."""
+    parser = configparser.RawConfigParser()
+    for section, keys in _SECTIONS.items():
+        parser.add_section(section)
+        for key in keys:
+            _, default = _SCHEMA[key]
+            if isinstance(default, list):
+                value = ", ".join(str(x) for x in default)
+            else:
+                value = str(default)
+            parser.set(section, key, value)
+    with open(fname, "w") as fp:
+        parser.write(fp)

@@ -26,3 +26,13 @@ def unique_edges(num_vertices: int, faces: np.ndarray) -> np.ndarray:
     edges = np.stack([adj.row[mask], adj.col[mask]], axis=1)
     order = np.lexsort((edges[:, 1], edges[:, 0]))
     return edges[order]
+
+
+def edge_list(adjacency: sp.spmatrix) -> np.ndarray:
+    """Directed edge list [2, nnz] (row; col) from a sparse adjacency, with
+    self-loops removed, in deterministic (row-major) order."""
+    coo = sp.coo_matrix(adjacency)
+    mask = coo.row != coo.col
+    row, col = coo.row[mask], coo.col[mask]
+    order = np.lexsort((col, row))
+    return np.stack([row[order], col[order]], axis=0).astype(np.int64)

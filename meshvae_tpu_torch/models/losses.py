@@ -26,6 +26,23 @@ def gaussian_nll(mu: torch.Tensor, log_sigma, x: torch.Tensor) -> torch.Tensor:
             + _HALF_LOG_2PI)
 
 
+def bernoulli_nll(x_hat: torch.Tensor, x: torch.Tensor,
+                  eps: float = 1e-8) -> torch.Tensor:
+    """Bernoulli negative log-likelihood of x under probabilities x_hat,
+    summed over the last two axes ([B, N, F] -> [B]); eps sits inside
+    both logs."""
+    return -(torch.log(x_hat + eps) * x
+             + torch.log(1.0 - x_hat + eps) * (1.0 - x)).sum(-1).sum(-1)
+
+
+def softclip(value, min_value: float) -> torch.Tensor:
+    """Soft lower clip: min + softplus(value - min); a Python number
+    becomes a float32 tensor."""
+    if not isinstance(value, torch.Tensor):
+        value = torch.tensor(value, dtype=torch.float32)
+    return min_value + torch.nn.functional.softplus(value - min_value)
+
+
 def fixed_log_sigma() -> float:
     """The reference trains with a constant observation log-sigma of
     softclip(1.0, -6) = -6 + log1p(exp(7)) ~= 1.00091."""

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -336,12 +337,24 @@ def params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
     """flax param tree (``{"params": {...}}`` or its inner dict, leaves as
     numpy arrays) -> the port model's state_dict; a nested tree (the joint
     model's ``vae``, ``gcn``) gives dotted names. Chebyshev ``weight [K,
-    F_in, F_out]`` and ``bias`` keep their shapes; a Dense ``kernel [in,
-    out]`` becomes ``nn.Linear.weight [out, in]``."""
+    F_in, F_out]`` and ``bias`` keep their shapes; a layer's ``kernel``
+    has its axes reversed: a Dense ``[in, out]`` becomes
+    ``nn.Linear.weight [out, in]``, a 1-wide Conv ``[1, in, out]``
+    ``nn.Conv1d.weight [out, in, 1]``. A leaf beside submodules rather
+    than inside a layer (models/experimental.py: EqualLinear's
+    ``kernel``, AdaIN's ``style_kernel``, GAT's ``a_src``, DiffPool's
+    ``s``, BatchNorm's ``scale``) keeps its flax name and layout. A
+    ``batch_stats`` collection beside ``params`` adds its leaves under the
+    same names (BatchNorm's ``mean`` and ``var`` buffers)."""
     params = tree.get("params", tree)
     arr = lambda v: torch.from_numpy(np.array(v, dtype=np.float32))
     out = {}
+    if "params" in tree and "batch_stats" in tree:
+        out.update(params_from_flax(tree["batch_stats"]))
     for name, leaves in params.items():
+        if not isinstance(leaves, Mapping):
+            out[name] = arr(leaves)
+            continue
         if not any(k in leaves for k in ("kernel", "weight")):
             out.update({f"{name}.{k}": v
                         for k, v in params_from_flax(leaves).items()})

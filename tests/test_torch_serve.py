@@ -197,11 +197,13 @@ def test_package_imports_no_jax():
     ops/emitted_spmm.py, bench/, parallel/, ops/bsr_shard.py, validate.py,
     and the classifier pipelines' models/gcn.py, models/joint.py,
     train/joint.py, train/crecon_driver.py and the crecon CLI, the
-    reference-checkpoint importer train/torch_import.py and the serving
-    export infer/export.py included)
-    leaves jax, flax, optax, scikit-learn, msgpack and meshvae_tpu out of
-    sys.modules, builds and loads no library (no CUDA kernel, nor the
-    native host library) and starts no torch.distributed process group."""
+    reference-checkpoint importer train/torch_import.py, the serving
+    export infer/export.py, models/experimental.py and the host-only
+    report and plot_losses entry points included)
+    leaves jax, flax, optax, scikit-learn, msgpack, meshvae_tpu and
+    matplotlib out of sys.modules, builds and loads no library (no CUDA
+    kernel, nor the native host library) and starts no torch.distributed
+    process group."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import meshvae_tpu_torch as pkg\n"
@@ -209,7 +211,7 @@ def test_package_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'sklearn',\n"
-        "              'msgpack', 'meshvae_tpu'))\n"
+        "              'msgpack', 'meshvae_tpu', 'matplotlib'))\n"
         "from meshvae_tpu_torch import native\n"
         "from meshvae_tpu_torch.ops import bsr_spmm, cheb_fused, "
         "emitted_spmm\n"
@@ -222,7 +224,8 @@ def test_package_imports_no_jax():
         "for name in ('parallel', 'parallel.sharding', 'ops.bsr_shard',\n"
         "             'validate', 'models.gcn', 'models.joint',\n"
         "             'train.joint', 'train.crecon_driver', 'crecon',\n"
-        "             'train.torch_import', 'infer.export'):\n"
+        "             'train.torch_import', 'infer.export',\n"
+        "             'models.experimental', 'report', 'plot_losses'):\n"
         "    if 'meshvae_tpu_torch.' + name not in sys.modules:\n"
         "        bad.append(name + ' not imported')\n"
         "import torch.distributed as dist\n"

@@ -6,24 +6,38 @@
 Phases, one block of output lines each; any failed check exits non-zero:
 
  1. device  the card's name and power limit (nvidia-smi).
- 2. build   compile the three CUDA kernels from ops/csrc (nvcc, sm_90a, one
-            process per source, started together; all three include the
-            occupied-tile engine csrc/tile_engine.cuh) and print the build
-            seconds and ptxas' registers, shared memory and spills for
-            every instantiation.
+ 2. build   compile the four CUDA kernels from ops/csrc (nvcc, sm_90a, one
+            process per source, started together; all but pool_transpose.cu
+            include the occupied-tile engine csrc/tile_engine.cuh) and
+            print the build seconds and ptxas' registers, shared memory and
+            spills for every instantiation.
  3. kernel  bsr_grouped_spmm in both modes (fp32, bf16x3) against its plain
             PyTorch twin on the card: the real template5k level-0 and
             level-1 Laplacians at C in {128, 256, 512}, alpha in {1, 2}, with
             and without t_prev; at C = 256 also the backward's calls (t_plus
-            alone, t_plus and t_prev together); and the pool backward's
-            rectangular P^T of up-pools 0-2 at their training widths
+            alone, t_plus and t_prev together); and its rectangular case
+            on the block-sparse P^T of up-pools 0-2 at their training widths
             ([1280, 5120] and [384, 1280] at C = 256, [128, 384] at C = 512;
-            the first also at C = 512 with every seed case). Fails above
-            1e-5 of max |y|. The lazy seed (#4b, t_plus_dot) in mode fp32 at
-            the config-1 L0/L1 Laplacians (C = 256, f = 16; L0 also at
-            f = 128) and the scaled20k L0/L1 (C = 1024, f = 16), alpha 1
+            the first also at C = 512 with every seed case; no model path
+            runs it since pool_transpose took the pool backward). Fails
+            above 1e-5 of max |y|. The lazy seed (#4b, t_plus_dot) in mode
+            fp32 at the config-1 L0/L1 Laplacians (C = 256, f = 16; L0 also
+            at f = 128) and the scaled20k L0/L1 (C = 1024, f = 16), alpha 1
             and 2, with and without t_prev; each call must take the kernel's
             lazy seed (LAUNCHES_SEED_DOT).
+3b. pool_transpose  the pool backward's P^T kernel (ops/csrc/
+            pool_transpose.cu, a CSR row gather; TPU kernels #7, #5 and #4's
+            P^T call) at every P^T shape of the model paths: config 1's
+            up-pools 0-2 at B=16 (C = 256, 256, 512) and at the joint
+            model's 2B, scaled20k fp32 at B=64 and scaled80k bf16 at B=32:
+            fp32 bit-equal to bsr_grouped_spmm on t_bsr (else the first
+            differing element), within 1e-5 (fp32) or one bf16 ulp (bf16)
+            of max |y| of its twin; its time per call (CUDA events, median
+            of 25) beside the twin, the earlier bsr_grouped_spmm call,
+            torch.sparse (cuSPARSE CSR) and the byte bound (g, y and the
+            CSR once each), after the events' own floor (a zero_ of 16
+            floats). Every later P^T time comes from the same
+            check-and-time (_pt_case) at that phase's shapes.
  4. serve   BASELINE config 1 at full width (template5k, factors 4,4,4,4,
             K=6, filters 16/16/16/32/32, hidden 512, latent 16, batch 16,
             cheb_method pallas), weights from a fixed seed. The main path:
@@ -50,8 +64,9 @@ Phases, one block of output lines each; any failed check exits non-zero:
             meshes (3 batches of 16 per epoch, the last padded), three
             train_epochs at high and three at highest from the same seeded
             weights, the counts reset just before and read just after each.
-            Per train step: 35 bf16x3 + 3 fp32 launches at high, 38 fp32 at
-            highest, and each of the three P^T once. The eval loss of a fixed
+            Per train step: 35 bsr_grouped_spmm launches (bf16x3 at high,
+            fp32 at highest) and 3 fp32 pool_transpose launches, each P^T
+            once. The eval loss of a fixed
             batch must fall; evaluate() gives finite averages and a
             sex-change rate in [0, 1]. One deterministic step (no dropout,
             z = mu) on the card and on the CPU from the same weights: loss
@@ -77,13 +92,14 @@ Phases, one block of output lines each; any failed check exits non-zero:
             (and scan_epoch False: the per-step loop, whose readings phase
             15 compares with the scanned epoch's),
             train and test, the counts reset just before and read just
-            after: 139 bf16 launches per train step, 144 per eval step, each
-            P^T once per train step, no fp32 or bf16x3. History, checkpoint
+            after: 135 bf16 bsr_grouped_spmm and 4 bf16 pool_transpose
+            launches per train step (each P^T once), 144 per eval step, no
+            fp32 or bf16x3. History, checkpoint
             reload, finite test averages and a sex-change rate in [0, 1] are
             checked; the loss of a fixed batch falls over 5 more steps. Then
             the host-paced train step (CUDA events, median of 25),
             meshes/sec, peak memory, device busy and idle share. Three
-            train steps with FUSED_SEED_DOT on: 139 launches per step, 45
+            train steps with FUSED_SEED_DOT on: 135 + 4 launches per step, 45
             of them lazy-seed (enc_1, enc_2, dec_0, dec_2, dec_3 x 9), and
             the host-paced step beside the flag-off one. Then the bf16
             kernel per 80k shape and call kind (the lazy-seed kinds too)
@@ -105,7 +121,7 @@ Phases, one block of output lines each; any failed check exits non-zero:
             overrides for paths, folds 2, epoch 2, profile_dir and
             scan_epoch False (the per-step loop, as phase 7), the
             counts reset just before and read just after: per train step
-            54 forward + 45 backward Laplacian calls + one P^T per
+            54 forward + 45 backward Laplacian calls + one pool_transpose per
             block-sparse up-pool, 36 of them lazy-seed; 108 per eval step;
             history, finite test averages, the loss of a fixed batch
             falling; one torch.profiler trace per fold, of epoch 2 only,
@@ -257,7 +273,8 @@ Phases, one block of output lines each; any failed check exits non-zero:
             seconds. Last, run() with files/default.cfg (scan_epoch left at
             its default) at config-1 width on the block-sparse path, train,
             test and -v on phase 6's 40 meshes, 2 folds x 2 epochs, with
-            profile_dir: 38 launches per train step and 40 per eval step,
+            profile_dir: 35 + 3 pool_transpose launches per train step and
+            40 per eval step,
             never the per-step loop, the history, checkpoints and .obj
             triples, epoch 2's trace holding bsr_grouped_spmm, and the log
             line naming the graphs.
@@ -283,8 +300,9 @@ Phases, one block of output lines each; any failed check exits non-zero:
             c. bsr_grouped_spmm against its twin at every (mode, operator,
                C, call kind) that a, b and d launched (LAUNCHES_BY_CALL) and
                phase 3 did not (GCN cheb_0's dx at C = 128, the 2B
-               decoder's backward at C = 512, P^T at C = 512 and 1024; in
-               fp32 too), 1e-5 of max|y|; and one deterministic crecon and
+               decoder's backward at C = 512; in fp32 too), 1e-5 of max|y|
+               (pool_transpose is held at the P^T's C = 512 and 1024 in
+               d's timings); and one deterministic crecon and
                joint train step
                (no dropout, z = mu) on the card and on the CPU from the
                same weights at high and highest: loss within 1e-5
@@ -450,18 +468,23 @@ values, alpha 1 and 2, no seed, t_prev, t_plus, both) and the four P^T:
 max |kernel - twin| <= 2^-8 max |twin| (one bf16 ulp: both round once),
 and prints the share of bit-equal outputs.
 
-Every kernel table gives two bounds: bytes with only the occupied 16x16
-tiles (the kernel's bound_ms) and bytes with the blocks as stored (the
-bound of the earlier design, bound_stored_ms).
+Every bsr_grouped_spmm table gives two bounds: bytes with only the
+occupied 16x16 tiles (the kernel's bound_ms) and bytes with the blocks as
+stored (the bound of the earlier design, bound_stored_ms). Every P^T
+launch is pool_transpose's, counted by its own LAUNCHES (per mode) and
+LAUNCHES_BY_SHAPE; the launch tables hold them as "pool fp32" / "pool
+bf16" (launch_modes, launch_shapes, launch_calls), beside
+bsr_grouped_spmm's modes.
 
 The line before the last is {"kernels": [...]}: per serving step (the two
 bsr_grouped_spmm[mode] entries, summed over the step's 20 calls), per
-config-1 train step (the Laplacian calls in each mode, the
-column-major-class P^T of up-pools 0-1 and the grouped P^T of up-pool 2),
-per 80k bf16 train step (the Laplacian calls, #3b; the P^T of up-pool 0,
-which the JAX package runs per block, #5; those of up-pools 1-3, which it
-runs column-major, #7), the bf16x3 P^T at phase 3's shapes (#8, and #6 at
-the both-seed shape where the JAX package runs per block), per scaled20k
+config-1 train step (the Laplacian calls in each mode; pool_transpose on
+the P^T of up-pools 0-1, which the JAX package runs column-major, #7, and
+of up-pool 2, grouped, #4), per 80k bf16 train step (the Laplacian calls,
+#3b; pool_transpose on the P^T of up-pool 0, which the JAX package runs per
+block, #5, and of up-pools 1-3, #7), bsr_grouped_spmm's bf16x3 P^T at phase
+3's shapes (#8, and #6 at the both-seed shape where the JAX package runs
+per block; no model path launches them), per scaled20k
 train step (the plain Laplacian calls, the lazy-seed calls #4b in fp32,
 the P^T), the lazy-seed calls of an 80k bf16 step with the flag on (#4b in
 bf16), the fused step (#9) per scaled20k L0 conv forward, the inference
@@ -473,8 +496,9 @@ world's per rank for _mapped_product), and phase 14g's crecon and joint
 train steps in the dp=2 and sp=2 worlds (rank 0's Laplacian calls, on its
 row shards under sp, and the joint model's unsharded P^T; launches of
 rank 0 over 14e's steps), and the train-step calls of phase
-15's graphed epochs (config-1 Laplacian in both modes, the 20k lazy seed,
-the 80k Laplacian: launches counted per replay, times as measured above),
+15's graphed epochs (config-1 Laplacian in both modes and its P^T, the 20k
+lazy seed, the 80k Laplacian: launches counted per replay, times as
+measured above),
 and phase 16's crecon and joint train steps (the Laplacian calls in both
 modes, the joint model's P^T of up-pools 0-1 and 2 at 2B width: launches
 of the run()s at high, of a counted replayed epoch at highest), and
@@ -486,7 +510,9 @@ step's Laplacian and P^T calls, the dense-pool step's Laplacian calls and
 the ELL step's P^T; launches of 18c-e), and phase 19's artifact steps at
 high, highest and bf16 (launches and kernel time from the profiler window
 of one step; the twin, library and bound of the same calls from phases 5
-and 17). The last line is {"ok": true, ...}.
+and 17). Each pool_transpose entry also carries earlier_ms, the time of
+the bsr_grouped_spmm calls it replaced at the same shapes. The last line
+is {"ok": true, ...}.
 """
 import dataclasses
 import json
@@ -543,7 +569,8 @@ SCALED_CFG = os.path.join("files", "scaled80k.cfg")
 SCALED_LEVELS = [79968, 19992, 4998, 1250, 313]
 SCALED_BATCH = 32
 SCALED_MESHES = 40      # per fold: 14 train (1 step), 6 valid, 20 test
-SCALED_TRAIN_LAUNCHES = 139  # 8 convs x 9 forward, 7 x 9 backward, 4 P^T
+SCALED_TRAIN_LAUNCHES = 135  # 8 convs x 9 forward, 7 x 9 backward
+SCALED_POOL_LAUNCHES = 4     # and each up-pool's P^T (pool_transpose)
 SCALED_EVAL_LAUNCHES = 144   # 72 forward + the counterfactual's 36 + 36
 # with FUSED_SEED_DOT: the square mixes cheb_enc_1 (L1), cheb_enc_2 (L2),
 # cheb_dec_0 (L3, 32 -> 32), cheb_dec_2 (L1) and cheb_dec_3 (L0) x 9;
@@ -572,6 +599,60 @@ def fail(msg: str):
 
 def say(msg: str):
     print(msg, flush=True)
+
+
+def reset_launches():
+    """Zero the launch counts of the model paths' two kernels,
+    bsr_grouped_spmm and pool_transpose (the pool backward's P^T), just
+    before a main-path run."""
+    from meshvae_tpu_torch.ops import bsr_spmm, pool_transpose
+
+    bsr_spmm.reset_launches()
+    pool_transpose.reset_launches()
+
+
+def pt_counts() -> tuple[dict, dict]:
+    """pool_transpose's launches per mode and per (mode, n_in, n_out, C)."""
+    from meshvae_tpu_torch.ops import pool_transpose
+
+    return (dict(pool_transpose.LAUNCHES),
+            dict(pool_transpose.LAUNCHES_BY_SHAPE))
+
+
+# the keys of launch_modes(): bsr_grouped_spmm's modes, then
+# pool_transpose's as "pool " + its mode
+LAUNCH_KEYS = ("fp32", "bf16x3", "bf16", "pool fp32", "pool bf16")
+
+
+def launch_modes() -> dict:
+    """Launches per LAUNCH_KEYS entry: bsr_grouped_spmm's per mode and
+    pool_transpose's (the P^T) per "pool " + mode."""
+    from meshvae_tpu_torch.ops import bsr_spmm
+
+    return {**bsr_spmm.LAUNCHES,
+            **{f"pool {m}": v for m, v in pt_counts()[0].items()}}
+
+
+def launch_shapes() -> dict:
+    """bsr_grouped_spmm's LAUNCHES_BY_SHAPE with pool_transpose's launches
+    added under ("pool " + mode, n_in, n_out), summed over C."""
+    from meshvae_tpu_torch.ops import bsr_spmm
+
+    out = dict(bsr_spmm.LAUNCHES_BY_SHAPE)
+    for (mode, n_in, n_out, _), v in pt_counts()[1].items():
+        key = (f"pool {mode}", n_in, n_out)
+        out[key] = out.get(key, 0) + v
+    return out
+
+
+def launch_calls() -> dict:
+    """bsr_grouped_spmm's LAUNCHES_BY_CALL with pool_transpose's launches
+    added as calls ("pool " + mode, n_in, n_out, C, "a1")."""
+    from meshvae_tpu_torch.ops import bsr_spmm
+
+    return {**bsr_spmm.LAUNCHES_BY_CALL,
+            **{(f"pool {m}", n_in, n_out, c, "a1"): v
+               for (m, n_in, n_out, c), v in pt_counts()[1].items()}}
 
 
 def time_ms(torch, fn, runs=RUNS, warmup=3, backlog=True):
@@ -619,7 +700,7 @@ def phase_build():
     say("== phase 2: build")
     from meshvae_tpu_torch.ops import _build
 
-    names = ["bsr_spmm", "cheb_fused", "emitted_spmm"]
+    names = ["bsr_spmm", "cheb_fused", "emitted_spmm", "pool_transpose"]
     t0 = time.perf_counter()
     logs = _build.build_libraries(names)
     for name in names:
@@ -765,6 +846,43 @@ def phase_kernel(torch, ops, ops20, dev):
     return worst_abs
 
 
+def phase_pool_transpose(torch, ops, s20, s80, dev):
+    """Phase 3b: pool_transpose at every P^T shape of the model paths: the
+    config-1 train step (B=16: C = 256, 256, 512), the joint model at 2B
+    (B=32), scaled20k fp32 (B=64) and scaled80k bf16 (B=32); each held
+    (bit-equal to bsr_grouped_spmm on t_bsr in fp32, one bf16 ulp of the
+    twin in bf16) and timed beside its twin, the earlier
+    bsr_grouped_spmm call, torch.sparse and the byte bound (_pt_case),
+    after the events' floor (a one-kernel zero_). Returns the worst
+    absolute error per mode."""
+    say("== phase 3b: pool_transpose (the pool backward's P^T) vs "
+        "bsr_grouped_spmm and its twin, per call (median of %d, CUDA "
+        "events)" % RUNS)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    cases = [(f"config-1 up-pool {i} P^T", ops.up[i], BATCH) for i in
+             (0, 1, 2)]
+    cases += [(f"joint 2B up-pool {i} P^T", ops.up[i], 2 * BATCH)
+              for i in (0, 1, 2)]
+    cases += [(f"scaled20k up-pool {i} P^T", up, SCALED20_BATCH)
+              for i, up in enumerate(s20["ops"].up) if up.t_ptr is not None]
+    cases += [(f"scaled80k up-pool {i} P^T", up, SCALED_BATCH)
+              for i, up in enumerate(s80["ops"].up)]
+    tiny = torch.zeros(16, device=dev)
+    say(f"  the timing's floor: one zero_ of 16 floats "
+        f"{1e3 * time_ms(torch, tiny.zero_):.1f} us between its events")
+    worst, rows = {"fp32": 0.0, "bf16": 0.0}, []
+    for tag, up, b in cases:
+        f = POOL_F[int(tag.split("up-pool ")[1][0])]
+        got = _pt_case(torch, up, b, f, dev, gen, tag)
+        worst[got["row"]["mode"]] = max(worst[got["row"]["mode"]],
+                                        got["err_abs"])
+        rows.append(got["row"])
+    say("shape_rows_pool_transpose " + json.dumps(rows))
+    say(f"checked pool_transpose at {len(rows)} shapes: worst abs error "
+        f"{worst}; fp32 bit-equal to bsr_grouped_spmm at every shape")
+    return worst
+
+
 def config_1(tmp: str) -> dict:
     from meshvae_tpu_torch.config import default_config
 
@@ -856,7 +974,7 @@ def phase_serve(torch, dev, servers, models, ops, hier, single, many_dir,
         say(f"warmup[{p}] {server.warmup():.2f}s")
     request = f"{single}\n{many_dir}\n{os.path.join(tmp, 'missing.obj')}\n"
     # --- the main path: counts reset just before, read just after -------
-    bsr_spmm.reset_launches()
+    reset_launches()
     outs = {}
     for p, server in servers.items():
         fout = io.StringIO()
@@ -1017,6 +1135,110 @@ def _time_kind(torch, bsr, csr, c, kind, modes, gen, dev, f=16):
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class PoolT:
+    """An up-pool's P^T as the pool backward calls it: pool_transpose
+    (ops/csrc/pool_transpose.cu) on its CSR form, g [B, N_out, f] with B =
+    C / f. The call tables name it in the place of a block-sparse
+    operand."""
+    pool: object
+    f: int
+
+
+# the features entering up-pool i in every configuration the script runs
+# (filters 16/16/16/32/32): P^T calls run at C = B * POOL_F[i]
+POOL_F = (16, 16, 32, 32)
+SOURCE_POOL = "meshvae_tpu_torch/ops/csrc/pool_transpose.cu"
+
+
+def _pt_library(torch, pool, g2):
+    """The torch.sparse (cuSPARSE) yardstick of P^T @ g on g's [N_out,
+    B * f] layout, in the operator's dtype where cuSPARSE takes it, else
+    fp32: (callable, its dtype)."""
+    crow, col = pool.t_ptr.long(), pool.t_col.long()
+    shape = (pool.n_in, pool.n_out)
+    csr = torch.sparse_csr_tensor(crow, col, pool.t_val, size=shape,
+                                  check_invariants=True)
+    try:
+        torch.sparse.mm(csr, g2)
+        torch.cuda.synchronize()
+        return (lambda: torch.sparse.mm(csr, g2)), str(g2.dtype)[6:]
+    except (RuntimeError, NotImplementedError):
+        csr32 = torch.sparse_csr_tensor(crow, col, pool.t_val.float(),
+                                        size=shape, check_invariants=True)
+        g32 = g2.float()
+        return (lambda: torch.sparse.mm(csr32, g32)), "float32"
+
+
+def _pt_case(torch, pool, b, f, dev, gen, tag):
+    """pool_transpose at one shape: the kernel bit-equal to the earlier
+    bsr_grouped_spmm call on t_bsr in fp32 (else the first differing
+    element), within TOL_KERNEL (fp32) or one bf16 ulp (bf16) of max |y|
+    of its twin; then its time per call beside the twin, the earlier call
+    (bsr_grouped_spmm on the padded [N_out, B * f_pad] layout, without the
+    copies around it), torch.sparse and the byte bound (CSR, g and y once
+    each). Returns the per-call dict of ACC_KEYS plus old_ms, err_abs and
+    row."""
+    import torch.nn.functional as F
+
+    from meshvae_tpu_torch.ops import pool_transpose as pt
+    from meshvae_tpu_torch.ops.bsr_spmm import bsr_grouped_spmm, pad_features
+
+    dt = pool.t_val.dtype
+    mode = pt.DTYPES[dt]
+    g = torch.randn(b, pool.n_out, f, device=dev, generator=gen).to(dt)
+    bsr, f_pad = pool.t_bsr, pad_features(b, f)
+    gt = F.pad(g.transpose(0, 1), (0, f_pad - f, 0, 0, 0,
+                                   bsr.n_pad_cols - pool.n_out))
+    gt = gt.reshape(bsr.n_pad_cols, b * f_pad).contiguous()
+    y = pt.pool_transpose(pool, g)
+    old = bsr_grouped_spmm(bsr, gt, mode).reshape(
+        bsr.n_pad, b, f_pad)[:pool.n_in, :, :f].transpose(0, 1)
+    torch.cuda.synchronize()
+    twin = pt.pool_transpose_reference(pool, g)
+    scale = twin.float().abs().max().item()
+    err_abs = (y.float() - twin.float()).abs().max().item()
+    old_err = (old.float() - twin.float()).abs().max().item()
+    bar = TOL_KERNEL if mode == "fp32" else TOL_BF16
+    if not err_abs <= bar * scale:
+        fail(f"pool_transpose disagrees with its twin: {tag} "
+             f"{err_abs / scale:.3e} > {bar:.3e} of max|y|")
+    equal = bool(torch.equal(y, old))
+    if mode == "fp32" and not equal:
+        at = tuple(int(i) for i in (y != old).nonzero()[0])
+        fail(f"pool_transpose not bit-equal to bsr_grouped_spmm: {tag} first "
+             f"at {at}: {y[at].item()!r} vs {old[at].item()!r}")
+    lib, lib_dtype = _pt_library(
+        torch, pool, g.transpose(0, 1).reshape(pool.n_out, b * f)
+        .contiguous())
+    k_ms = time_ms(torch, lambda: pt.pool_transpose(pool, g))
+    p_ms = time_ms(torch, lambda: pt.pool_transpose_reference(pool, g))
+    o_ms = time_ms(torch, lambda: bsr_grouped_spmm(bsr, gt, mode))
+    l_ms = time_ms(torch, lib)
+    nnz, es = pool.t_col.shape[0], g.element_size()
+    n_bytes = (es * b * f * (pool.n_out + pool.n_in) + 4 * (pool.n_in + 1)
+               + (4 + es) * nnz)
+    ops_n = 2 * nnz * b * f  # fp32 FMAs in both modes
+    bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops_n / PEAK_OPS["fp32"]
+    bound = max(bytes_ms, ops_ms)
+    say(f"  {tag} [{pool.n_in} x {pool.n_out}, nnz {nnz}, B={b}, f={f}] "
+        f"{mode}: pool_transpose {1e3 * k_ms:.1f} us (max_err/max|y| "
+        f"{err_abs / scale:.2e}, "
+        f"{'bit-equal to' if equal else 'vs'} bsr_grouped_spmm "
+        f"{old_err / scale:.2e}), twin {1e3 * p_ms:.1f} us, "
+        f"bsr_grouped_spmm {1e3 * o_ms:.1f} us, torch.sparse[{lib_dtype}] "
+        f"{1e3 * l_ms:.1f} us, bound {1e3 * bound:.2f} us")
+    row = dict(shape=tag, n_in=pool.n_in, n_out=pool.n_out, nnz=nnz, B=b,
+               f=f, mode=mode, kernel_us=1e3 * k_ms, plain_us=1e3 * p_ms,
+               old_us=1e3 * o_ms, library_us=1e3 * l_ms,
+               library_dtype=lib_dtype, bound_us=1e3 * bound, bytes=n_bytes,
+               ops=ops_n, err=err_abs / scale, bit_equal_old=equal)
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, old_ms=o_ms,
+                bound_ms=bound, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                stored_ms=bound, err_abs=err_abs, row=row)
+
+
 # calls per step at config 1 (K = 6), by (label, operand, C, kind counts).
 # Serving: per conv one alpha-1 call and four seeded ones; the decoder runs
 # at 2B (the counterfactual rides along), hence C = 512 there.
@@ -1044,15 +1266,45 @@ def _per_step(torch, calls, operands, modes, gen, dev, rows):
     bound_ms and the bytes and operations parts of the bound."""
     acc = {m: dict.fromkeys(ACC_KEYS, 0.0) for m in modes}
     for label, key, c, kinds in calls:
+        if isinstance(operands[key], PoolT):
+            mode = ("bf16" if operands[key].pool.t_val.dtype
+                    == torch.bfloat16 else "fp32")
+            if mode not in acc:
+                fail(f"{label}: a {mode} P^T in a table of {sorted(acc)}")
+            _pool_calls(torch, acc[mode], operands[key], label, c, kinds,
+                        gen, dev, rows)
+            continue
         bsr, csr = operands[key]
         say(f" {label} ({key}, n_pad {bsr.n_pad} x {bsr.n_pad_cols}):")
         for kind, count in kinds.items():
             got = _time_kind(torch, bsr, csr, c, kind, modes, gen, dev)
             for mode in modes:
-                for k in acc[mode]:
+                for k in ACC_KEYS:
                     acc[mode][k] += count * got[mode][k]
                 rows.append(dict(got[mode]["row"], shape=label, per_step=count))
     return acc
+
+
+def _pool_calls(torch, acc, op, label, c, kinds, gen, dev, rows):
+    """A P^T entry of a call table (PoolT): each call is one pool_transpose
+    at B = C / f, added to acc, the sums of its mode (with old_ms, the
+    earlier bsr_grouped_spmm call's time, and err_abs, the worst absolute
+    error against the twin)."""
+    got = _pt_case(torch, op.pool, c // op.f, op.f, dev, gen, label)
+    count = sum(kinds.values())
+    for k in ACC_KEYS + ("old_ms",):
+        acc[k] = acc.get(k, 0.0) + count * got[k]
+    acc["err_abs"] = max(acc.get("err_abs", 0.0), got["err_abs"])
+    rows.append(dict(got["row"], per_step=count))
+
+
+def _acc_tail(acc: dict) -> str:
+    """The end of a per-step sum's line: the stored-block bound of a
+    bsr_grouped_spmm sum, the earlier call's time of a P^T (pool_transpose)
+    sum."""
+    if "old_ms" in acc:
+        return f"earlier bsr_grouped_spmm {acc['old_ms']:.3f} ms)"
+    return f"{acc['stored_ms']:.3f} ms with the blocks as stored)"
 
 
 def _bound_by(entry: dict) -> str:
@@ -1107,8 +1359,11 @@ def _profile(torch, fn, label, step_ms, n=5, batch=BATCH):
 
 
 def _operands(torch, ops, hier, dev) -> dict:
-    """Config 1's block-sparse operators by name (L0, L1 and the P^T of
-    up-pools 0-2, P0T-P2T), each with its torch.sparse CSR form."""
+    """Config 1's operands by name: L0 and L1 block-sparse, each with its
+    torch.sparse CSR form; the P^T of up-pools 0-2 as the pool backward
+    calls them (P0T-P2T: PoolT, pool_transpose) and as the earlier
+    block-sparse operator with its CSR (P0T bsr-P2T bsr: bsr_grouped_spmm's
+    rectangular case, still held and timed in mode bf16x3)."""
     from meshvae_tpu_torch.ops.graph import normalized_neg_adjacency
 
     operands = {}
@@ -1118,9 +1373,19 @@ def _operands(torch, ops, hier, dev) -> dict:
             hier.adjacency[i]), bsr.n_pad, bsr.n_pad_cols, dev))
     for i in (0, 1, 2):
         bsr = ops.up[i].t_bsr
-        operands[f"P{i}T"] = (bsr, _csr(torch, hier.upsample[i].T,
-                                        bsr.n_pad, bsr.n_pad_cols, dev))
+        operands[f"P{i}T"] = PoolT(ops.up[i], POOL_F[i])
+        operands[f"P{i}T bsr"] = (bsr, _csr(torch, hier.upsample[i].T,
+                                            bsr.n_pad, bsr.n_pad_cols, dev))
     return operands
+
+
+def _operand_names(operands: dict) -> dict:
+    """{shape: name} of an operand map: (n_pad, n_pad_cols) of each
+    block-sparse operand, (n_in, n_out) of each PoolT, as the launch
+    tables key them."""
+    return {((op.pool.n_in, op.pool.n_out) if isinstance(op, PoolT)
+             else (op[0].n_pad, op[0].n_pad_cols)): k
+            for k, op in operands.items()}
 
 
 def phase_times(torch, servers, ops, hier, dev, host):
@@ -1144,10 +1409,11 @@ def phase_times(torch, servers, ops, hier, dev, host):
         "pool backward to fp32): the JAX package's column-major #8, and its "
         "per-block #6 where both seeds shrink the resident panel:")
     for name, calls in (
-            ("pool_bf16x3_colmajor", [("up-pool 0 P^T", "P0T", 256, {"a1": 1}),
-                                      ("up-pool 1 P^T", "P1T", 256,
+            ("pool_bf16x3_colmajor", [("up-pool 0 P^T", "P0T bsr", 256,
+                                       {"a1": 1}),
+                                      ("up-pool 1 P^T", "P1T bsr", 256,
                                        {"a1": 1})]),
-            ("pool_bf16x3_perblock", [("up-pool 0 P^T", "P0T", 512,
+            ("pool_bf16x3_perblock", [("up-pool 0 P^T", "P0T bsr", 512,
                                        {"a2 plus prev": 1})])):
         per_step[name] = _per_step(torch, calls, operands, ("bf16x3",), gen,
                                    dev, rows)["bf16x3"]
@@ -1156,7 +1422,7 @@ def phase_times(torch, servers, ops, hier, dev, host):
         say(f"per step {name}: kernel {acc['ms']:.3f} ms, twin "
             f"{acc['plain_ms']:.3f} ms, torch.sparse {acc['library_ms']:.3f}"
             f" ms, bound {acc['bound_ms']:.3f} ms ({_bound_by(acc)}; "
-            f"{acc['stored_ms']:.3f} ms with the blocks as stored)")
+            + _acc_tail(acc))
 
     # --- the serving step, device side, B = 16 --------------------------
     batch = {"x": torch.from_numpy(host["x"]).to(dev),
@@ -1227,9 +1493,9 @@ def phase_train(torch, dev, models, ops, hier, tmpl, tmp):
         model.load_state_dict(weights)
         return Trainer(model, operators, config, device=device)
 
-    pool_keys = [("fp32", up.t_bsr.n_pad, up.t_bsr.n_pad_cols)
-                 for up in ops.up[:3]]
-    trainers, launches, by_shape = {}, {}, {}
+    pool_keys = [("fp32", up.n_in, up.n_out, BATCH * POOL_F[i])
+                 for i, up in enumerate(ops.up[:3])]
+    trainers, launches, pt_launches, by_shape = {}, {}, {}, {}
     for p in models:
         tr = trainer_for(p, dev, ops)
         norm = tr.norm_to_device(ds.mean, ds.std)
@@ -1238,14 +1504,14 @@ def phase_train(torch, dev, models, ops, hier, tmpl, tmp):
         gen = torch.Generator(device=dev).manual_seed(0)
         torch.cuda.synchronize()
         # --- the main path: counts reset just before, read just after ---
-        bsr_spmm.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         epochs = [tr.train_epoch(loader, gen, ds.mean, ds.std)
                   for _ in range(TRAIN_EPOCHS)]
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches[p] = dict(bsr_spmm.LAUNCHES)
-        by_shape[p] = dict(bsr_spmm.LAUNCHES_BY_SHAPE)
+        pt_launches[p], by_shape[p] = pt_counts()
         # ----------------------------------------------------------------
         after = tr.eval_step(fixed_dev, *norm)["scalars"][0].item()
         avg, errors = tr.evaluate(BatchIterator(ds, BATCH), ds.mean, ds.std)
@@ -1255,13 +1521,15 @@ def phase_train(torch, dev, models, ops, hier, tmpl, tmp):
             f"loss {before:.2f} -> {after:.2f}")
         say(f"  evaluate: " + ", ".join(f"{k} {v:.4g}" for k, v in
                                          avg.items()))
-        say(f"  launches {launches[p]}; by (mode, n_pad, n_pad_cols) "
+        say(f"  launches: bsr_grouped_spmm {launches[p]}, pool_transpose "
+            f"{pt_launches[p]}; P^T by (mode, n_in, n_out, C) "
             f"{sorted(by_shape[p].items())}")
         lap, pool = TRAIN_LAP_LAUNCHES * steps, TRAIN_POOL_LAUNCHES * steps
-        want = ({"bf16x3": lap, "fp32": pool, "bf16": 0} if p == "high"
-                else {"bf16x3": 0, "fp32": lap + pool, "bf16": 0})
-        if launches[p] != want:
-            fail(f"train[{p}] launched {launches[p]}, expected {want} "
+        want = ({"bf16x3": lap, "fp32": 0, "bf16": 0} if p == "high"
+                else {"bf16x3": 0, "fp32": lap, "bf16": 0})
+        if (launches[p], pt_launches[p]) != (want, {"fp32": pool, "bf16": 0}):
+            fail(f"train[{p}] launched {launches[p]} and P^T "
+                 f"{pt_launches[p]}, expected {want} and {pool} fp32 "
                  f"({steps} steps)")
         for key in pool_keys:
             if by_shape[p].get(key) != steps:
@@ -1328,12 +1596,13 @@ def phase_train(torch, dev, models, ops, hier, tmpl, tmp):
         tr = trainer_for("highest", device, operators)
         port_cheb.FUSED_SEED_DOT = flag
         try:
-            bsr_spmm.reset_launches()
+            reset_launches()
             tr.train_step(tr.to_device(fixed), None,
                           *tr.norm_to_device(ds.mean, ds.std))
             torch.cuda.synchronize()
             counts[side] = (bsr_spmm.LAUNCHES["fp32"],
-                            bsr_spmm.LAUNCHES_SEED_DOT["fp32"])
+                            bsr_spmm.LAUNCHES_SEED_DOT["fp32"],
+                            pt_counts()[0]["fp32"])
         finally:
             port_cheb.FUSED_SEED_DOT = False
         grads[side] = {k: v.grad.cpu()
@@ -1342,15 +1611,16 @@ def phase_train(torch, dev, models, ops, hier, tmpl, tmp):
                         / _layer_scale(grads[other], k)
                         for k, g in grads[other].items())
              for other in ("cpu", "card, flag off")}
-    say(f"lazy seed at config 1, highest: launches (all, lazy) {counts}; "
+    say(f"lazy seed at config 1, highest: launches (all, lazy, P^T) "
+        f"{counts}; "
         f"worst gradient delta vs the CPU {worst['cpu']:.2e}, vs the card "
         f"with the flag off {worst['card, flag off']:.2e} of the layer's "
         f"max|g| (bar 1e-4)")
-    want_all = TRAIN_LAP_LAUNCHES + TRAIN_POOL_LAUNCHES
-    if counts["card"] != (want_all, CONFIG1_SEED_DOT) or counts[
-            "card, flag off"] != (want_all, 0):
+    lap, pool = TRAIN_LAP_LAUNCHES, TRAIN_POOL_LAUNCHES
+    if counts["card"] != (lap, CONFIG1_SEED_DOT, pool) or counts[
+            "card, flag off"] != (lap, 0, pool):
         fail(f"config-1 lazy-seed step launched {counts}, expected "
-             f"({want_all}, {CONFIG1_SEED_DOT}) with the flag on")
+             f"({lap}, {CONFIG1_SEED_DOT}, {pool}) with the flag on")
     if not max(worst.values()) <= 1e-4:
         fail(f"config-1 lazy-seed gradients disagree: {worst}")
 
@@ -1646,14 +1916,14 @@ def phase_scaled80k(torch, dev, s80, tmp):
 
     results, secs, steps, launches, _, by_shape = _run_driver(torch, config,
                                                               dev)
-    want = {"fp32": 0, "bf16x3": 0,
+    want = {**dict.fromkeys(LAUNCH_KEYS, 0),
             "bf16": SCALED_TRAIN_LAUNCHES * steps["train"]
-            + SCALED_EVAL_LAUNCHES * steps["eval"]}
+            + SCALED_EVAL_LAUNCHES * steps["eval"],
+            "pool bf16": SCALED_POOL_LAUNCHES * steps["train"]}
     if steps["train"] < 1 or launches != want:
         fail(f"scaled80k launched {launches}, expected {want} "
              f"({steps['train']} train, {steps['eval']} eval steps)")
-    pool_keys = [("bf16", up.t_bsr.n_pad, up.t_bsr.n_pad_cols)
-                 for up in s80["ops"].up]
+    pool_keys = [("pool bf16", up.n_in, up.n_out) for up in s80["ops"].up]
     for key in pool_keys:
         if by_shape.get(key) != steps["train"]:
             fail(f"scaled80k P^T {key} launched {by_shape.get(key)} times, "
@@ -1672,20 +1942,23 @@ def phase_scaled80k(torch, dev, s80, tmp):
     port_cheb.FUSED_SEED_DOT = True
     try:
         torch.cuda.synchronize()
-        bsr_spmm.reset_launches()
+        reset_launches()
         for _ in range(FLAG_STEPS):
             step()
         torch.cuda.synchronize()
-        on = (dict(bsr_spmm.LAUNCHES), dict(bsr_spmm.LAUNCHES_SEED_DOT))
+        on = (dict(bsr_spmm.LAUNCHES), dict(bsr_spmm.LAUNCHES_SEED_DOT),
+              pt_counts()[0])
         ms_on = time_ms(torch, step, backlog=False)
     finally:
         port_cheb.FUSED_SEED_DOT = False
     say(f"train step [scaled80k bf16, FUSED_SEED_DOT]: {ms_on:.3f} ms "
         f"host-paced ({ms:.3f} ms with the flag off, same call); "
-        f"launches over {FLAG_STEPS} steps {on[0]}, lazy seed {on[1]}")
+        f"launches over {FLAG_STEPS} steps {on[0]}, lazy seed {on[1]}, "
+        f"pool_transpose {on[2]}")
     want = ({"fp32": 0, "bf16x3": 0, "bf16": SCALED_TRAIN_LAUNCHES
              * FLAG_STEPS}, {"fp32": 0, "bf16x3": 0,
-                             "bf16": SCALED_SEED_DOT * FLAG_STEPS})
+                             "bf16": SCALED_SEED_DOT * FLAG_STEPS},
+            {"fp32": 0, "bf16": SCALED_POOL_LAUNCHES * FLAG_STEPS})
     if on != want:
         fail(f"scaled80k with the lazy seed launched {on}, expected {want}")
 
@@ -1693,29 +1966,35 @@ def phase_scaled80k(torch, dev, s80, tmp):
     say("80k bf16 train step, per call (median of %d, CUDA events):" % RUNS)
     csr = _csr80(torch, s80, dev)
     operands = _operands80(s80["ops"])
+    pools = {f"P{i}T": PoolT(up, POOL_F[i])
+             for i, up in enumerate(s80["ops"].up)}
     gen = torch.Generator(device=dev).manual_seed(3)
     rows, per_step = [], {}
     for name, calls in {**SCALED_CALLS,
                         "lap_seed_dot": SCALED_DOT_CALLS}.items():
         acc = dict.fromkeys(ACC_KEYS, 0.0)
         for label, key, c, kinds, *f in calls:
+            if key in pools:
+                _pool_calls(torch, acc, pools[key], label, c, kinds, gen,
+                            dev, rows)
+                continue
             bsr = operands[key]
             say(f" {label} ({key}, n_pad {bsr.n_pad} x {bsr.n_pad_cols}, "
                 f"G {bsr.g_width}):")
             for kind, count in kinds.items():
                 got = _time_kind_bf16(torch, bsr, csr[key], c, kind, gen,
                                       dev, *f)
-                for k in acc:
+                for k in ACC_KEYS:
                     acc[k] += count * got[k]
                 rows.append(dict(got["row"], shape=label, per_step=count))
         per_step[name] = acc
         say(f"per 80k train step {name}: kernel {acc['ms']:.3f} ms, twin "
             f"{acc['plain_ms']:.3f} ms, torch.sparse {acc['library_ms']:.3f}"
             f" ms, bound {acc['bound_ms']:.3f} ms ({_bound_by(acc)}; "
-            f"{acc['stored_ms']:.3f} ms with the blocks as stored)")
+            + _acc_tail(acc))
     say("shape_rows_80k " + json.dumps(rows))
-    lap = (launches["bf16"] - sum(by_shape.get(k, 0) for k in pool_keys))
-    counts = {"lap": lap, "pool_perblock": by_shape.get(pool_keys[0], 0),
+    counts = {"lap": launches["bf16"],
+              "pool_perblock": by_shape.get(pool_keys[0], 0),
               "pool_colmajor": sum(by_shape.get(k, 0)
                                    for k in pool_keys[1:]),
               "seed_dot": on[1]["bf16"]}
@@ -1728,7 +2007,8 @@ def _run_driver(torch, config, dev, vis=False, run=None):
     after, and the train and eval steps counted (the per-step loop's
     calls; a scanned epoch's steps, replays included, by staged epoch).
     Returns (results, seconds, steps, launches, lazy-seed launches,
-    launches by shape)."""
+    launches by shape): bsr_grouped_spmm's and pool_transpose's
+    (launch_modes, launch_shapes)."""
     from meshvae_tpu_torch.ops import bsr_spmm
     from meshvae_tpu_torch.train import Trainer
     from meshvae_tpu_torch.train import driver
@@ -1754,15 +2034,15 @@ def _run_driver(torch, config, dev, vis=False, run=None):
     try:
         torch.cuda.synchronize()
         # --- the main path: counts reset just before, read just after ----
-        bsr_spmm.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         results = (run() if run is not None else driver.run(
             config, do_train=True, do_test=True, vis=vis, device=dev))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        launches = dict(bsr_spmm.LAUNCHES)
+        launches = launch_modes()
         seed_dot = dict(bsr_spmm.LAUNCHES_SEED_DOT)
-        by_shape = dict(bsr_spmm.LAUNCHES_BY_SHAPE)
+        by_shape = launch_shapes()
         # -----------------------------------------------------------------
     finally:
         Trainer.train_step, Trainer.eval_step = (real["train"],
@@ -2013,9 +2293,9 @@ def phase_scaled20k(torch, dev, s20, tmp):
         fail(f"{SCALED20_CFG} no longer is fp32 at highest, B=64, K=10")
     ops = s20["ops"]
     pools = [i for i, up in enumerate(ops.up) if up.t_bsr is not None]
-    pool_keys = [("fp32", ops.up[i].t_bsr.n_pad, ops.up[i].t_bsr.n_pad_cols)
+    pool_keys = [("pool fp32", ops.up[i].n_in, ops.up[i].n_out)
                  for i in pools]
-    per_train = SCALED20_FWD + SCALED20_BWD + len(pools)
+    per_train = SCALED20_FWD + SCALED20_BWD
 
     port_cheb.FUSED_SEED_DOT = True
     try:
@@ -2023,13 +2303,16 @@ def phase_scaled20k(torch, dev, s20, tmp):
             torch, config, dev)
     finally:
         port_cheb.FUSED_SEED_DOT = False
-    want = ({"fp32": per_train * steps["train"]
-             + SCALED20_EVAL * steps["eval"], "bf16x3": 0, "bf16": 0},
+    want = ({**dict.fromkeys(LAUNCH_KEYS, 0),
+             "fp32": per_train * steps["train"]
+             + SCALED20_EVAL * steps["eval"],
+             "pool fp32": len(pools) * steps["train"]},
             {"fp32": SCALED20_SEED_DOT * steps["train"], "bf16x3": 0,
              "bf16": 0})
     say(f"expected per train step {per_train} = {SCALED20_FWD} forward + "
-        f"{SCALED20_BWD} backward + {len(pools)} P^T (up-pools {pools}), "
-        f"{SCALED20_SEED_DOT} of them lazy-seed; {SCALED20_EVAL} per eval")
+        f"{SCALED20_BWD} backward, {SCALED20_SEED_DOT} of them lazy-seed, "
+        f"and {len(pools)} pool_transpose (up-pools {pools}); "
+        f"{SCALED20_EVAL} per eval")
     if steps["train"] < 1 or (launches, seed_dot) != want:
         fail(f"scaled20k launched {launches}, lazy seed {seed_dot}, expected "
              f"{want} ({steps['train']} train, {steps['eval']} eval steps)")
@@ -2072,43 +2355,53 @@ def phase_scaled20k(torch, dev, s20, tmp):
     for name, group in calls.items():
         acc = dict.fromkeys(ACC_KEYS, 0.0)
         for label, key, c, kinds, f in group:
+            if key.startswith("P"):
+                i = int(key[1])
+                _pool_calls(torch, acc, PoolT(ops.up[i], POOL_F[i]), label,
+                            c, kinds, gen, dev, rows)
+                continue
             bsr = operands[key]
             say(f" {label} ({key}, n_pad {bsr.n_pad} x {bsr.n_pad_cols}, "
                 f"G {bsr.g_width}):")
             for kind, count in kinds.items():
                 got = _time_kind(torch, bsr, csr[key], c, kind, ("fp32",),
                                  gen, dev, f)["fp32"]
-                for k in acc:
+                for k in ACC_KEYS:
                     acc[k] += count * got[k]
                 rows.append(dict(got["row"], shape=label, per_step=count))
         per_step[name] = acc
         say(f"per 20k train step {name}: kernel {acc['ms']:.3f} ms, twin "
             f"{acc['plain_ms']:.3f} ms, torch.sparse {acc['library_ms']:.3f}"
             f" ms, bound {acc['bound_ms']:.3f} ms ({_bound_by(acc)}; "
-            f"{acc['stored_ms']:.3f} ms with the blocks as stored)")
+            + _acc_tail(acc))
     say("shape_rows_20k " + json.dumps(rows))
     pool_n = sum(by_shape.get(k, 0) for k in pool_keys)
-    counts = {"lap": launches["fp32"] - pool_n - seed_dot["fp32"],
+    counts = {"lap": launches["fp32"] - seed_dot["fp32"],
               "seed_dot": seed_dot["fp32"], "pool": pool_n}
     return per_step, counts
 
 
 def _twins():
-    """Context: the fused step and every SpMM of the conv backward run
-    their plain twins, on whatever device the tensors are."""
+    """Context: the fused step, every SpMM of the conv backward and the
+    pool backward's P^T run their plain twins, on whatever device the
+    tensors are."""
     import contextlib
 
-    from meshvae_tpu_torch.ops import bsr_spmm, cheb, cheb_fused
+    from meshvae_tpu_torch.ops import (bsr_spmm, cheb, cheb_fused, pool,
+                                       pool_transpose)
 
     @contextlib.contextmanager
     def ctx():
-        real = cheb_fused.cheb_fused_step, cheb.bsr_grouped_spmm
+        real = (cheb_fused.cheb_fused_step, cheb.bsr_grouped_spmm,
+                pool.pool_transpose)
         cheb_fused.cheb_fused_step = cheb_fused.cheb_fused_step_reference
         cheb.bsr_grouped_spmm = bsr_spmm.bsr_grouped_spmm_reference
+        pool.pool_transpose = pool_transpose.pool_transpose_reference
         try:
             yield
         finally:
-            cheb_fused.cheb_fused_step, cheb.bsr_grouped_spmm = real
+            (cheb_fused.cheb_fused_step, cheb.bsr_grouped_spmm,
+             pool.pool_transpose) = real
 
     return ctx()
 
@@ -2609,7 +2902,6 @@ def _world_case(world, spec):
     import torch.distributed as tdist
 
     from meshvae_tpu_torch.models import MeshVAE, VAEConfig
-    from meshvae_tpu_torch.ops import bsr_spmm
     from meshvae_tpu_torch.parallel import fetch
     from meshvae_tpu_torch.train import Trainer
 
@@ -2628,7 +2920,7 @@ def _world_case(world, spec):
     torch.cuda.synchronize()
     tdist.barrier()
     # --- the main path: counts reset just before, read just after -------
-    bsr_spmm.reset_launches()
+    reset_launches()
     world.reset_stats()
     for i, host in enumerate(spec["batches"]):
         pre = {"model": {k: v.detach().cpu().clone()
@@ -2649,8 +2941,8 @@ def _world_case(world, spec):
             out["eval"]["recon_orig"] = torch.from_numpy(
                 fetch(ev["recon_orig"], world))
     torch.cuda.synchronize()
-    launches = dict(bsr_spmm.LAUNCHES_BY_SHAPE)
-    out["by_call"] = dict(bsr_spmm.LAUNCHES_BY_CALL)
+    launches = launch_shapes()
+    out["by_call"] = launch_calls()
     stats = dict(world.stats)
     # --------------------------------------------------------------------
     out["serve"] = _world_serve(torch, world, spec.get("serve"))
@@ -3131,20 +3423,18 @@ def phase_distribution(torch, dev, models, ops, hier, tmpl, norm, many_dir,
 
 def _launches_of(torch, make_trainer, batches, norm_host, eval_batch=None,
                  kind="vae"):
-    """LAUNCHES_BY_SHAPE of the single-process deterministic steps (and
+    """launch_shapes() of the single-process deterministic steps (and
     eval step) that a world's main path runs."""
-    from meshvae_tpu_torch.ops import bsr_spmm
-
     tr = make_trainer()
     norm = tr.norm_to_device(*norm_host)
     torch.cuda.synchronize()
-    bsr_spmm.reset_launches()
+    reset_launches()
     for host in batches:
         _train_call(tr, kind, tr.to_device(host), norm)
     if eval_batch is not None:
         _eval_call(tr, kind, tr.to_device(eval_batch), norm)
     torch.cuda.synchronize()
-    return dict(bsr_spmm.LAUNCHES_BY_SHAPE)
+    return launch_shapes()
 
 
 def _train_call(tr, kind, batch, norm):
@@ -3309,7 +3599,7 @@ def _classifier_worlds(torch, dev, models, ops, hier, tmpl, tmp, worst14):
                                   eval_batch=spec["eval_batch"], kind=name)
             by_mode = lambda shapes: {m: sum(v for (mm, _, _), v in
                                              shapes.items() if mm == m)
-                                      for m in ("fp32", "bf16x3", "bf16")}
+                                      for m in LAUNCH_KEYS}
             _hold_launches(f"{label} one process", by_mode(single), steps,
                            per_train[name], per_eval[name], pool=pools[name])
             want = {}
@@ -3334,14 +3624,15 @@ def _classifier_worlds(torch, dev, models, ops, hier, tmpl, tmp, worst14):
     worst = {}
     launched_keys = {}
     for world_tag in CLASSIFIER_WORLDS:
-        names = {(b.n_pad, b.n_pad_cols): k
-                 for k, (b, _) in operands[world_tag].items()}
+        names = _operand_names(operands[world_tag])
         keys = set()
         for name in ("crecon", "joint"):
             keys |= set(results[(world_tag, name)]["by_call"])
         launched_keys[world_tag] = {(names[(n, m)], c, kind)
                                  for _, n, m, c, kind in keys}
         for mode, n, m, c, kind in sorted(keys):
+            if mode.startswith("pool"):  # 14g holds pool_transpose's calls
+                continue
             bsr = operands[world_tag][names[(n, m)]][0]
             x = torch.randn(bsr.n_pad_cols, c, device=dev, generator=gen)
             err, _ = _hold(torch, bsr, x, mode, kind,
@@ -3386,28 +3677,29 @@ def _classifier_worlds(torch, dev, models, ops, hier, tmpl, tmp, worst14):
                 "meshvae_tpu/ops/pallas_shard.py:150" if sp > 1
                 else REPLACES["bf16x3"], lap_launches, lap_err, acc["lap"]))
             if name == "joint":
-                p_launch = {k: r0.get(("fp32", operands[world_tag][k][0].n_pad,
-                                       operands[world_tag][k][0].n_pad_cols),
-                                      0)
+                p_launch = {k: r0.get(("pool fp32", operands[world_tag][k]
+                                       .pool.n_in,
+                                       operands[world_tag][k].pool.n_out), 0)
                             for k in ("P0T", "P1T", "P2T")}
-                p_err = worst.get((world_tag, "pool"), 0.0)
+                p_err = max(acc["pool_colmajor"]["err_abs"],
+                            acc["pool_grouped"]["err_abs"])
                 entries.append(kernel_entry(
-                    f"bsr_grouped_spmm[fp32] joint train step in the "
+                    f"pool_transpose[fp32] joint train step in the "
                     f"{world_tag} world (rank 0): up-pools 0-1 P^T, "
-                    "column-major, unsharded", REPLACES["colmajor"],
+                    "unsharded", REPLACES["colmajor"],
                     p_launch["P0T"] + p_launch["P1T"], p_err,
-                    acc["pool_colmajor"]))
+                    acc["pool_colmajor"], source=SOURCE_POOL))
                 entries.append(kernel_entry(
-                    f"bsr_grouped_spmm[fp32] joint train step in the "
-                    f"{world_tag} world (rank 0): up-pool 2 P^T, grouped, "
+                    f"pool_transpose[fp32] joint train step in the "
+                    f"{world_tag} world (rank 0): up-pool 2 P^T, "
                     "unsharded", REPLACES["grouped"], p_launch["P2T"], p_err,
-                    acc["pool_grouped"]))
+                    acc["pool_grouped"], source=SOURCE_POOL))
             for part, a in acc.items():
                 say(f"{world_tag} {name} per train step, {part}: kernel "
                     f"{a['ms']:.3f} ms, twin {a['plain_ms']:.3f} ms, "
                     f"torch.sparse {a['library_ms']:.3f} ms, bound "
                     f"{a['bound_ms']:.3f} ms ({_bound_by(a)}; "
-                    f"{a['stored_ms']:.3f} ms with the blocks as stored)")
+                    + _acc_tail(a))
         say(f"shape_rows_{world_tag.replace('=', '')}_classifiers "
             + json.dumps(rows))
     return entries
@@ -3415,11 +3707,14 @@ def _classifier_worlds(torch, dev, models, ops, hier, tmpl, tmp, worst14):
 
 def kernel_entry(name, replaces, launched, err, acc, source=SOURCE):
     """One entry of the kernels line from a per-step sum of times."""
-    return dict(name=name, route="cuda", source=source, replaces=replaces,
-                launches=launched, max_abs_err=err, ms=acc["ms"],
-                plain_ms=acc["plain_ms"], bound_ms=acc["bound_ms"],
-                bound_by=_bound_by(acc), library_ms=acc["library_ms"],
-                bound_stored_ms=acc.get("stored_ms", acc["bound_ms"]))
+    out = dict(name=name, route="cuda", source=source, replaces=replaces,
+               launches=launched, max_abs_err=err, ms=acc["ms"],
+               plain_ms=acc["plain_ms"], bound_ms=acc["bound_ms"],
+               bound_by=_bound_by(acc), library_ms=acc["library_ms"],
+               bound_stored_ms=acc.get("stored_ms", acc["bound_ms"]))
+    if "old_ms" in acc:  # a P^T: the earlier bsr_grouped_spmm call's time
+        out["earlier_ms"] = acc["old_ms"]
+    return out
 
 
 INFER_MESHES = 32   # two batches of 16
@@ -3473,7 +3768,7 @@ def phase_infer(torch, dev, models, hier, tmpl, tmp):
         card_out = os.path.join(root, f"card_{p}")
         torch.cuda.synchronize()
         # --- the main path: counts reset just before, read just after ----
-        bsr_spmm.reset_launches()
+        reset_launches()
         secs, pass_secs, _ = cli(card_out, "cuda", p)
         launches[p] = dict(bsr_spmm.LAUNCHES)
         # -----------------------------------------------------------------
@@ -3743,7 +4038,7 @@ def _scan_case(torch, dev, label, model_cfg, ops, config, ds, batch, bar,
             gen = torch.Generator(device=dev).manual_seed(7)
             torch.cuda.synchronize()
             # the main path: counts reset just before, read just after
-            bsr_spmm.reset_launches()
+            reset_launches()
             epochs[graphs] = []
             for rate, perm in zip(lrs, perms):
                 set_learning_rate(t.optimizer, rate)
@@ -3752,7 +4047,7 @@ def _scan_case(torch, dev, label, model_cfg, ops, config, ds, batch, bar,
                 epochs[graphs].append((rows.wait().clone(),
                                        _scan_snapshot(t)))
             torch.cuda.synchronize()
-            launches[graphs] = (dict(bsr_spmm.LAUNCHES),
+            launches[graphs] = (launch_modes(),
                                 dict(bsr_spmm.LAUNCHES_SEED_DOT))
         for e in range(3):
             _scan_hold(label, f"epoch {e + 1} at lr {lrs[e]:g}",
@@ -3787,7 +4082,7 @@ def _scan_case(torch, dev, label, model_cfg, ops, config, ds, batch, bar,
 
         # --- the eval variants, graphed vs eager vs evaluate() -------------
         evals = {}
-        bsr_spmm.reset_launches()
+        reset_launches()
         ev_launches = {}
         for graphs, t in tr.items():
             before = sum(bsr_spmm.LAUNCHES.values())
@@ -3873,7 +4168,10 @@ def _scan_case(torch, dev, label, model_cfg, ops, config, ds, batch, bar,
         torch.cuda.empty_cache()
         report["pools_gib"] = (torch.cuda.memory_reserved()
                                - reserved) / 2**30
-        bsr = sum(per_step["all"].values())
+        bsr = sum(v for k, v in per_step["all"].items()
+                  if not k.startswith("pool"))
+        pt_step = sum(v for k, v in per_step["all"].items()
+                      if k.startswith("pool"))
         for graphs, name in ((False, "eager"), (True, "graphed")):
             ms = [d for d, _ in times[graphs]]
             report[name] = {
@@ -3887,6 +4185,7 @@ def _scan_case(torch, dev, label, model_cfg, ops, config, ds, batch, bar,
                 "peak_reserved_gib": mem[graphs][1] / 2**30}
         report["per_step_loop_ms"] = loop_ms[0]
         report["bsr_grouped_spmm_per_step"] = bsr
+        report["pool_transpose_per_step"] = pt_step
         e, g = report["eager"], report["graphed"]
         say(f"  per step A B B A: eager {e['step_ms'][0]:.3f} / "
             f"{e['step_ms'][1]:.3f} ms, graphed {g['step_ms'][0]:.3f} / "
@@ -3896,7 +4195,8 @@ def _scan_case(torch, dev, label, model_cfg, ops, config, ds, batch, bar,
         say(f"  device busy {e['busy_ms']:.3f} / {g['busy_ms']:.3f} ms per "
             f"step, idle share {e['idle'][0]:.2f} / {g['idle'][0]:.2f}; "
             f"kernels per step {e['kernels_per_step']:.0f} / "
-            f"{g['kernels_per_step']:.0f} (bsr_grouped_spmm {bsr:.0f}); host"
+            f"{g['kernels_per_step']:.0f} (bsr_grouped_spmm {bsr:.0f}, "
+            f"pool_transpose {pt_step:.0f}); host"
             f" calls per step {e['host_calls_per_step']:.1f} / "
             f"{g['host_calls_per_step']:.1f}; peak allocated "
             f"{e['peak_allocated_gib']:.2f} / {g['peak_allocated_gib']:.2f} "
@@ -3962,9 +4262,10 @@ def _scan_driver_run(torch, dev, hier, tmp):
     finally:
         Trainer.train_epoch, Trainer.evaluate = per_step_loop
     _trace_report(prof, folds=2)  # epoch 2's replayed kernels, traced
-    want = {"fp32": (TRAIN_LAP_LAUNCHES + TRAIN_POOL_LAUNCHES)
-            * steps["train"] + CONFIG1_EVAL_LAUNCHES * steps["eval"],
-            "bf16x3": 0, "bf16": 0}
+    want = {**dict.fromkeys(LAUNCH_KEYS, 0),
+            "fp32": TRAIN_LAP_LAUNCHES * steps["train"]
+            + CONFIG1_EVAL_LAUNCHES * steps["eval"],
+            "pool fp32": TRAIN_POOL_LAUNCHES * steps["train"]}
     if steps["train"] < 1 or launches != want:
         fail(f"default.cfg run launched {launches}, expected {want} "
              f"({steps})")
@@ -4017,24 +4318,27 @@ def phase_scan(torch, dev, models, ops, hier, s20, s80, tmp):
     cases = [
         ("config-1 high", models["high"].cfg, ops, config1, ds1, BATCH,
          1e-3, {"train": {"all": {"bf16x3": TRAIN_LAP_LAUNCHES,
-                                  "fp32": TRAIN_POOL_LAUNCHES},
+                                  "pool fp32": TRAIN_POOL_LAUNCHES},
                           "lazy seed": {}}, "eval": CONFIG1_EVAL_LAUNCHES},
          False),
         ("config-1 highest", models["highest"].cfg, ops,
          dict(config1, matmul_precision="highest"), ds1, BATCH, 1e-4,
-         {"train": {"all": {"fp32": TRAIN_LAP_LAUNCHES
-                            + TRAIN_POOL_LAUNCHES}, "lazy seed": {}},
+         {"train": {"all": {"fp32": TRAIN_LAP_LAUNCHES,
+                            "pool fp32": TRAIN_POOL_LAUNCHES},
+                    "lazy seed": {}},
           "eval": CONFIG1_EVAL_LAUNCHES}, False),
         ("scaled20k fp32, FUSED_SEED_DOT",
          VAEConfig.from_config(c20, coarse_verts=s20["hier"].levels[-1]),
          s20["ops"], c20, None, SCALED20_BATCH, 1e-4,
-         {"train": {"all": {"fp32": SCALED20_FWD + SCALED20_BWD + pools20},
+         {"train": {"all": {"fp32": SCALED20_FWD + SCALED20_BWD,
+                            "pool fp32": pools20},
                     "lazy seed": {"fp32": SCALED20_SEED_DOT}},
           "eval": SCALED20_EVAL}, True),
         ("scaled80k bf16",
          VAEConfig.from_config(c80, coarse_verts=s80["hier"].levels[-1]),
          s80["ops"], c80, None, SCALED_BATCH, 2.0 ** -8,
-         {"train": {"all": {"bf16": SCALED_TRAIN_LAUNCHES},
+         {"train": {"all": {"bf16": SCALED_TRAIN_LAUNCHES,
+                            "pool bf16": SCALED_POOL_LAUNCHES},
                     "lazy seed": {}}, "eval": SCALED_EVAL_LAUNCHES}, False),
     ]
     reports = []
@@ -4130,12 +4434,12 @@ def _classifier_configs(tmp, bf16=False):
 
 def _hold_launches(label, launches, steps, per_train, per_eval, pool=0,
                    lap="bf16x3", pool_mode="fp32"):
-    """A main-path run's launches against its per-step counts: at high the
-    Laplacian calls are bf16x3 and the P^T fp32; in bf16 both are
-    bf16."""
-    want = dict.fromkeys(("fp32", "bf16x3", "bf16"), 0)
+    """A main-path run's launches (launch_modes) against its per-step
+    counts: at high the Laplacian calls are bf16x3 and the P^T
+    (pool_transpose) fp32; in bf16 both are bf16."""
+    want = dict.fromkeys(LAUNCH_KEYS, 0)
     want[lap] += per_train * steps["train"] + per_eval * steps["eval"]
-    want[pool_mode] += pool * steps["train"]
+    want[f"pool {pool_mode}"] += pool * steps["train"]
     say(f"  {label} launches {launches} over {steps} steps (expected "
         f"{want}: {per_train} Laplacian + {pool} P^T per train step, "
         f"{per_eval} per eval step)")
@@ -4157,20 +4461,18 @@ def _steps(torch, make, batch_of, sides):
     """One deterministic train step (no dropout, z = mu) of make(side) on
     each side from the same weights: {side: {"loss": loss, name:
     gradient}}, on the CPU. The side "twin" runs on the card with every
-    Laplacian call through the kernel's plain twin, and launches nothing."""
+    kernel call through its plain twin, and launches nothing."""
     import contextlib
-
-    from meshvae_tpu_torch.ops import bsr_spmm
 
     out = {}
     for side in sides:
         twin = side == "twin"
         with _twins() if twin else contextlib.nullcontext():
-            bsr_spmm.reset_launches()
+            reset_launches()
             tr = make(side)
             loss = tr.train_step(*batch_of(tr))[0].float().cpu()
-        if twin and any(bsr_spmm.LAUNCHES.values()):
-            fail(f"the twin's step launched {bsr_spmm.LAUNCHES}")
+        if twin and any(launch_modes().values()):
+            fail(f"the twin's step launched {launch_modes()}")
         out[side] = {"loss": loss, **{k: v.grad.cpu() for k, v in
                                       tr.model.named_parameters()}}
     return out
@@ -4227,20 +4529,18 @@ def _classifier_times(torch, label, trainer, staged, args, card,
     """Per-step time of a train epoch of SCAN_STEPS: a first epoch warms
     up and captures, one more counts the launches per replayed step; then
     CUDA events in turns eager, graphed, graphed, eager and the profiler's
-    device busy time and idle share. Returns (report, LAUNCHES,
-    LAUNCHES_BY_CALL) of the counted epoch."""
-    from meshvae_tpu_torch.ops import bsr_spmm
-
+    device busy time and idle share. Returns (report, launch_modes(),
+    launch_calls()) of the counted epoch."""
     shuffle = torch.Generator(device=trainer.device).manual_seed(9)
     run = lambda: trainer.train_epoch_scanned_async(
         staged, *args, shuffle_generator=shuffle)
     trainer.graphs = True
     run()  # warm-up, capture and replays
     torch.cuda.synchronize()
-    bsr_spmm.reset_launches()
+    reset_launches()
     run()
     torch.cuda.synchronize()
-    counts = (dict(bsr_spmm.LAUNCHES), dict(bsr_spmm.LAUNCHES_BY_CALL))
+    counts = (launch_modes(), launch_calls())
     times = {}
     for graphs in (False, True, True, False):
         trainer.graphs = graphs
@@ -4279,10 +4579,11 @@ def _classifier_paths(torch, dev, hier, tmpl, tmp, card, ops_of, names,
     """Phase 16a, b, the card-vs-CPU steps and d at high, or phase 17c at
     compute_dtype bfloat16 (module docstring). ops_of: operators by side
     ("card", "cpu"; in bf16 also "cpu32", fp32), in the computation
-    dtype; names: {(n_pad, n_pad_cols): operand}. Returns the run()s'
-    launches (the joint model's by operand, as counted), every
-    LAUNCHES_BY_CALL key launched, the time reports and the Laplacian
-    and P^T launches per replayed epoch of each timed case."""
+    dtype; names: {(n_pad, n_pad_cols): operand} of the Laplacians and
+    {(n_in, n_out): operand} of the P^T. Returns the run()s' launches (the
+    joint model's by operand, as counted), every bsr_grouped_spmm
+    LAUNCHES_BY_CALL key launched, the time reports and the Laplacian and
+    P^T launches per replayed epoch of each timed case."""
     import numpy as np
 
     from meshvae_tpu_torch.data import MeshDataset, list_meshes
@@ -4470,10 +4771,10 @@ def _classifier_paths(torch, dev, hier, tmpl, tmp, card, ops_of, names,
                      f"{name} {precision}")
             report, (counts, by_call) = _classifier_times(
                 torch, label, tr, staged, args, card, batch=batch)
-            keys |= set(by_call)
-            want = dict.fromkeys(bsr_spmm.MODES, 0)
+            keys |= {k for k in by_call if not k[0].startswith("pool")}
+            want = dict.fromkeys(LAUNCH_KEYS, 0)
             want[lap_mode] += n_lap * SCAN_STEPS
-            want[pool_mode] += n_pool * SCAN_STEPS
+            want[f"pool {pool_mode}"] += n_pool * SCAN_STEPS
             if counts != want:
                 fail(f"{label}: launches per replayed epoch {counts}, "
                      f"expected {want}")
@@ -4506,9 +4807,10 @@ def phase_classifiers(torch, dev, ops, hier, tmpl, tmp, covered, card):
         "config-1 width, cheb_method pallas)")
     from meshvae_tpu_torch.models import build_operators
 
-    operands = {"L0": ops.lap[0].bsr, "L1": ops.lap[1].bsr,
-                **{f"P{i}T": ops.up[i].t_bsr for i in (0, 1, 2)}}
+    operands = {"L0": ops.lap[0].bsr, "L1": ops.lap[1].bsr}
     names = {(b.n_pad, b.n_pad_cols): k for k, b in operands.items()}
+    names.update({(ops.up[i].n_in, ops.up[i].n_out): f"P{i}T"
+                  for i in (0, 1, 2)})
     paths = _classifier_paths(
         torch, dev, hier, tmpl, tmp, card,
         {"card": ops, "cpu": build_operators(hier, "cpu",
@@ -4516,7 +4818,8 @@ def phase_classifiers(torch, dev, ops, hier, tmpl, tmp, covered, card):
     reports = paths["reports"]
 
     # --- (c) the kernel against its twin at the new (operator, C, kind):
-    # after d, whose epochs at highest add the fp32 shapes ------------------
+    # after d, whose epochs at highest add the fp32 shapes (the P^T, which
+    # pool_transpose runs, are held at their shapes in the timings below)
     gen = torch.Generator(device=dev).manual_seed(16)
     new = sorted(paths["keys"] - covered)
     worst = {"bf16x3": 0.0, "fp32": 0.0}
@@ -4545,7 +4848,7 @@ def phase_classifiers(torch, dev, ops, hier, tmpl, tmp, covered, card):
         say(f"per step {key}: kernel {acc['ms']:.3f} ms, twin "
             f"{acc['plain_ms']:.3f} ms, torch.sparse {acc['library_ms']:.3f}"
             f" ms, bound {acc['bound_ms']:.3f} ms ({_bound_by(acc)}; "
-            f"{acc['stored_ms']:.3f} ms with the blocks as stored)")
+            + _acc_tail(acc))
     for r in reports:
         mode = "bf16x3" if r["case"].endswith(" high") else "fp32"
         name = r["case"].split()[0]
@@ -4635,10 +4938,14 @@ def _bf16_sums(torch, tables, operands, dev, rows):
         acc = dict.fromkeys(ACC_KEYS, 0.0)
         say(f" {name}:")
         for label, key, c, kinds in calls:
+            if isinstance(operands[key], PoolT):
+                _pool_calls(torch, acc, operands[key], label, c, kinds, gen,
+                            dev, rows)
+                continue
             bsr, csr = operands[key]
             for kind, count in kinds.items():
                 got = _time_kind_bf16(torch, bsr, csr, c, kind, gen, dev)
-                for k in acc:
+                for k in ACC_KEYS:
                     acc[k] += count * got[k]
                 rows.append(dict(got["row"], shape=label, step=name,
                                  per_step=count))
@@ -4646,7 +4953,7 @@ def _bf16_sums(torch, tables, operands, dev, rows):
         say(f"per step {name}: kernel {acc['ms']:.3f} ms, twin "
             f"{acc['plain_ms']:.3f} ms, torch.sparse {acc['library_ms']:.3f}"
             f" ms, bound {acc['bound_ms']:.3f} ms ({_bound_by(acc)}; "
-            f"{acc['stored_ms']:.3f} ms with the blocks as stored)")
+            + _acc_tail(acc))
     return sums
 
 
@@ -4746,7 +5053,7 @@ def _p17_serve(torch, dev, ctx):
                    f"{os.path.join(ctx['tmp'], 'missing.obj')}\n")
         torch.cuda.synchronize()
         # --- the main path: counts reset just before, read just after ----
-        bsr_spmm.reset_launches()
+        reset_launches()
         fout = io.StringIO()
         server.serve_forever(io.StringIO(request), fout)
         launches = dict(bsr_spmm.LAUNCHES)
@@ -4853,7 +5160,7 @@ def _p17_config4(torch, dev, ctx):
 
     torch.cuda.synchronize()
     # --- the main path: counts reset just before, read just after --------
-    bsr_spmm.reset_launches()
+    reset_launches()
     secs, run_secs, dev_secs = _infer_cli(torch, argv(data_dir, "card", "cuda",
                                                       *bf16))
     launches = dict(bsr_spmm.LAUNCHES)
@@ -4930,7 +5237,7 @@ def _p17_config4(torch, dev, ctx):
               "checkpoint_dir", os.path.join(tmp, "ckpt80k")]
     torch.cuda.synchronize()
     # --- the main path: counts reset just before, read just after --------
-    bsr_spmm.reset_launches()
+    reset_launches()
     secs80, run80, dev80 = _infer_cli(torch, argv80)
     launches80 = dict(bsr_spmm.LAUNCHES)
     by_call80 = dict(bsr_spmm.LAUNCHES_BY_CALL)
@@ -4998,7 +5305,7 @@ def _p17_joint_infer(torch, dev, ctx):
                                 "--device", device]
     torch.cuda.synchronize()
     # --- the main path: counts reset just before, read just after --------
-    bsr_spmm.reset_launches()
+    reset_launches()
     secs, _, _ = _infer_cli(torch, argv("card", "cuda"))
     launches = dict(bsr_spmm.LAUNCHES)
     keys = set(bsr_spmm.LAUNCHES_BY_CALL)
@@ -5109,6 +5416,8 @@ def phase_bf16_paths(torch, dev, models, ops, hier, tmpl, single, many_dir,
     operands16 = {"L0": ops16.lap[0].bsr, "L1": ops16.lap[1].bsr,
                   **{f"P{i}T": ops16.up[i].t_bsr for i in (0, 1, 2)}}
     ctx["names"] = {(b.n_pad, b.n_pad_cols): k for k, b in operands16.items()}
+    ctx["names"].update({(ops16.up[i].n_in, ops16.up[i].n_out): f"P{i}T"
+                         for i in (0, 1, 2)})
     seconds = {}
     out = {}
     for part, fn in (("a", _p17_serve), ("b", _p17_config4),
@@ -5146,9 +5455,11 @@ def phase_bf16_paths(torch, dev, models, ops, hier, tmpl, single, many_dir,
                  "pool" if bsr.n_pad != bsr.n_pad_cols else "lap")
         worst[group] = max(worst[group], err)
     rows = []
-    csrs = _with_bf16(torch, {k: csr for k, (_, csr) in _operands(
-        torch, ops, hier, dev).items()}, dev)
-    operands = {k: (operands16[k], csrs[k]) for k in operands16}
+    csrs = _with_bf16(torch, {k: op[1] for k, op in _operands(
+        torch, ops, hier, dev).items() if k in ("L0", "L1")}, dev)
+    operands = {k: (operands16[k], csrs[k]) for k in ("L0", "L1")}
+    operands.update({f"P{i}T": PoolT(ops16.up[i], POOL_F[i])
+                     for i in (0, 1, 2)})
     say("per-call bf16 times at phase 17's shapes (median of %d):" % RUNS)
     sums = _bf16_sums(torch, {
         "serve_bf16": SERVE_CALLS, "config4_batch": CONFIG4_CALLS,
@@ -5223,7 +5534,8 @@ def _card_vs_cpu_step(torch, label, make, batch, mean, std, bar):
     and on the CPU: loss within 1e-5 relative, every gradient within `bar`
     of its layer's max|g|; a second card step from the same weights shows
     the card's own run-to-run spread (printed, not held). Returns
-    (LAUNCHES, LAUNCHES_BY_SHAPE, the LAUNCHES_BY_CALL keys, worst)."""
+    (launch_modes(), launch_shapes(), bsr_grouped_spmm's LAUNCHES_BY_CALL
+    keys, worst)."""
     from meshvae_tpu_torch.ops import bsr_spmm
 
     out = {}
@@ -5233,12 +5545,11 @@ def _card_vs_cpu_step(torch, label, make, batch, mean, std, bar):
         norm = tr.norm_to_device(mean, std)
         if side == "card":
             torch.cuda.synchronize()
-            bsr_spmm.reset_launches()
+            reset_launches()
         loss = tr.train_step(dev_batch, None, *norm)[0].item()
         if side == "card":
             torch.cuda.synchronize()
-            counts = (dict(bsr_spmm.LAUNCHES),
-                      dict(bsr_spmm.LAUNCHES_BY_SHAPE),
+            counts = (launch_modes(), launch_shapes(),
                       set(bsr_spmm.LAUNCHES_BY_CALL))
         out[side] = (loss, {k: v.grad.cpu()
                             for k, v in tr.model.named_parameters()})
@@ -5324,7 +5635,7 @@ def _ref_serving(torch, dev, root, cfg_path, data_dir, scale, tmpl,
     for device in ("cuda", "cpu"):
         out = os.path.join(root, f"infer_{device}")
         torch.cuda.synchronize()
-        bsr_spmm.reset_launches()
+        reset_launches()
         secs, _, _ = _infer_cli(torch, [
             "-c", cfg_path, "-d", data_dir, "-o", out, "-n", "1", "-p",
             "matmul_precision", "high", "--device", device])
@@ -5372,7 +5683,7 @@ def _ref_serving(torch, dev, root, cfg_path, data_dir, scale, tmpl,
             server.warmup()
             fout = io.StringIO()
             torch.cuda.synchronize()
-            bsr_spmm.reset_launches()
+            reset_launches()
             server.serve_forever(io.StringIO(f"{many_dir}\n"), fout)
             torch.cuda.synchronize()
             launches[f"serve_{p}"] = dict(bsr_spmm.LAUNCHES)
@@ -5427,7 +5738,7 @@ def _ref_crecon(torch, config, weights, gcn_state, gcn_cfg, ops_card,
         gcn.load_state_dict(gcn_state)
         tr = CreconTrainer(gcn, vae, ops, config, device=device)
         b = tr.to_device(batch)
-        bsr_spmm.reset_launches()
+        reset_launches()
         scalars = tr.eval_step(b)["scalars"].cpu()
         seen |= set(bsr_spmm.LAUNCHES_BY_CALL)
         with torch.no_grad():
@@ -5615,15 +5926,16 @@ def phase_reference(torch, dev, tmpl, many_dir, s20, s80, tmp, card):
         model.load_state_dict(weights)
         return Trainer(model, operators, config, device=device)
 
-    pool_keys = [("fp32", b.n_pad, b.n_pad_cols)
-                 for k, b in named.items() if k.startswith("P")]
+    pool_keys = [("pool fp32", up.n_in, up.n_out) for up in ops.up
+                 if up.t_ptr is not None]
     d_counts, d_shapes, keys, _ = _card_vs_cpu_step(
         torch, "train step [high]",
         lambda device: trainer(vcfg, ops if device == "cuda" else ops_cpu,
                                device),
         batch, ds.mean, ds.std, 1e-3)
     seen |= keys
-    want = {"bf16x3": TRAIN_LAP_LAUNCHES, "fp32": len(pool_keys), "bf16": 0}
+    want = {**dict.fromkeys(LAUNCH_KEYS, 0), "bf16x3": TRAIN_LAP_LAUNCHES,
+            "pool fp32": len(pool_keys)}
     if d_counts != want or any(d_shapes.get(k) != 1 for k in pool_keys):
         fail(f"18d: launches {d_counts} {d_shapes}, expected {want} and "
              f"each P^T once")
@@ -5661,7 +5973,7 @@ def phase_reference(torch, dev, tmpl, many_dir, s20, s80, tmp, card):
                 lambda device: seeded_trainer(cfg, op_of[device], device),
                 batch, ds.mean, ds.std, 1e-4)
             seen |= keys
-            lap = counts["fp32"] - sum(shapes.get(k, 0) for k in pool_keys)
+            lap = counts["fp32"]
             pool = sum(shapes.get(k, 0) for k in pool_keys)
             want = ((0 if cheb_method == "ell" else TRAIN_LAP_LAUNCHES),
                     (0 if pool_method == "dense" else len(pool_keys)))
@@ -5762,14 +6074,16 @@ def phase_reference(torch, dev, tmpl, many_dir, s20, s80, tmp, card):
             sums[f"train_{name}_{m}" if name == "lap"
                  else f"train_{name}"] = acc
     sums["train_pool"] = {k: sums["train_pool_colmajor"][k]
-                          + sums["train_pool_grouped"][k] for k in ACC_KEYS}
+                          + sums["train_pool_grouped"][k]
+                          for k in ACC_KEYS + ("old_ms",)}
+    worst["pool"] = max(sums["train_pool_colmajor"]["err_abs"],
+                        sums["train_pool_grouped"]["err_abs"])
     say("shape_rows_reference " + json.dumps(rows))
     for name, acc in sums.items():
         say(f"per step {name} (reference operators): kernel {acc['ms']:.3f}"
             f" ms, twin {acc['plain_ms']:.3f} ms, torch.sparse "
             f"{acc['library_ms']:.3f} ms, bound {acc['bound_ms']:.3f} ms "
-            f"({_bound_by(acc)}; {acc['stored_ms']:.3f} ms with the blocks "
-            f"as stored)")
+            f"({_bound_by(acc)}; " + _acc_tail(acc))
     seconds["b"] = time.perf_counter() - t0
     seconds["total"] = time.perf_counter() - t_phase
     say(f"phase 18 seconds {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
@@ -5869,7 +6183,7 @@ def profile_artifacts(spec_path: str) -> None:
         step(*args)
         torch.cuda.synchronize()
         marks.setdefault("first step", time.perf_counter())
-        bsr_spmm.reset_launches()
+        reset_launches()
         count, ms, names = _kernel_launches(torch, lambda: step(*args))
         out[label] = {"launches": count, "ms": ms, "names": sorted(names),
                       "wrapper": dict(bsr_spmm.LAUNCHES)}
@@ -5993,7 +6307,6 @@ def phase_export(torch, dev, models, ops, hier, tmpl, single, many_dir,
     from meshvae_tpu_torch.infer.serve import MeshServer, packed_step
     from meshvae_tpu_torch.ops import bsr_spmm
     from meshvae_tpu_torch.ops import cheb as port_cheb
-    from meshvae_tpu_torch.ops import pool as port_pool
     from meshvae_tpu_torch.train.checkpoint import save_params
 
     seconds = {}
@@ -6247,14 +6560,14 @@ def phase_export(torch, dev, models, ops, hier, tmpl, single, many_dir,
 
         def via_op():
             # the eager step with every kernel call dispatched through the
-            # registered operator, as an exported program calls it
-            saved = port_cheb.bsr_grouped_spmm, port_pool.bsr_grouped_spmm
+            # registered operator, as an exported program calls it (a
+            # serving step has no pool backward)
+            saved = port_cheb.bsr_grouped_spmm
             port_cheb.bsr_grouped_spmm = bsr_spmm.through_op
-            port_pool.bsr_grouped_spmm = bsr_spmm.through_op
             try:
                 return warm.serve_step(batch)
             finally:
-                port_cheb.bsr_grouped_spmm, port_pool.bsr_grouped_spmm = saved
+                port_cheb.bsr_grouped_spmm = saved
 
         fns["serve_step via the operator"] = via_op
         times = {k: [] for k in fns}
@@ -6582,7 +6895,8 @@ def phase_experimental(torch, dev, hier, tmpl, tmp, card, infer_json,
     def counters():
         return (dict(bsr_spmm.LAUNCHES), dict(bsr_spmm.LAUNCHES_SEED_DOT),
                 sum(bsr_spmm.LAUNCHES_BY_CALL.values()),
-                dict(cheb_fused.LAUNCHES), dict(emitted_spmm.LAUNCHES))
+                dict(cheb_fused.LAUNCHES), dict(emitted_spmm.LAUNCHES),
+                pt_counts()[0])
 
     t0 = time.perf_counter()
     before = counters()
@@ -6690,7 +7004,8 @@ def phase_experimental(torch, dev, hier, tmpl, tmp, card, infer_json,
     if after != before:
         fail(f"phase 20 launched a kernel of the port: {before} -> {after}")
     say(f"  launch counters unchanged across the modules: {after[0]}, seed "
-        f"{after[1]}, fused {after[3]}, emitted {after[4]}")
+        f"{after[1]}, fused {after[3]}, emitted {after[4]}, pool_transpose "
+        f"{after[5]}")
     for path in (infer_json, *histories):
         if not os.path.isfile(path):
             fail(f"phase 20 reads {path}, which an earlier phase writes")
@@ -6733,10 +7048,11 @@ def main() -> int:
                            torch.float32)
         seconds["setup"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        bsr_spmm.reset_launches()
+        reset_launches()
         worst_abs = phase_kernel(torch, ops, s20["ops"], dev)
         worst80 = phase_kernel_bf16(torch, s80["ops"], dev)
         covered = set(bsr_spmm.LAUNCHES_BY_CALL)  # phase 16 holds the rest
+        pt_err = phase_pool_transpose(torch, ops, s20, s80, dev)
         seconds["kernel"] = time.perf_counter() - t0
         servers = {p: MeshServer(m, ops, mean, std, template=tmpl.v,
                                  faces=tmpl.f, batch_size=BATCH,
@@ -6755,8 +7071,8 @@ def main() -> int:
             for server in servers.values():
                 server.close()
         t0 = time.perf_counter()
-        train_launches, by_shape = phase_train(torch, dev, models, ops, hier,
-                                               tmpl, tmp)
+        train_launches, pt_shapes = phase_train(torch, dev, models, ops,
+                                                hier, tmpl, tmp)
         seconds["train"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         per_step80, launches80 = phase_scaled80k(torch, dev, s80, tmp)
@@ -6819,12 +7135,16 @@ def main() -> int:
                                        for k, v in seconds.items()}))
 
     entry = kernel_entry
-    pool_keys = [("fp32", up.t_bsr.n_pad, up.t_bsr.n_pad_cols)
-                 for up in ops.up[:3]]
-    pool_launches = [sum(by_shape[p].get(k, 0) for p in by_shape)
-                     for k in pool_keys]
-    lap_fp32 = train_launches["highest"]["fp32"] - sum(
-        by_shape["highest"].get(k, 0) for k in pool_keys)
+
+    def pool_entry(name, replaces, launched, err, acc):
+        return kernel_entry(f"pool_transpose[{name}", replaces, launched,
+                            err, acc, source=SOURCE_POOL)
+
+    # phase 6's P^T launches per up-pool, over both precisions' runs
+    pool_launches = [sum(v for (_, n_in, _, _), v in
+                         (kv for p in pt_shapes for kv in pt_shapes[p].items())
+                         if n_in == up.n_in) for up in ops.up[:3]]
+    lap_fp32 = train_launches["highest"]["fp32"]
     kernels = [entry(f"bsr_grouped_spmm[{m}]", REPLACES[m], launches[m],
                      worst_abs[m], per_step[f"serve_{m}"])
                for m in ("fp32", "bf16x3")]
@@ -6835,24 +7155,25 @@ def main() -> int:
         entry("bsr_grouped_spmm[fp32] train step: Laplacian",
               REPLACES["fp32"], lap_fp32, worst_abs["fp32"],
               per_step["train_lap_fp32"]),
-        entry("bsr_grouped_spmm[fp32] train step: pool P^T, column-major",
-              REPLACES["colmajor"], pool_launches[0] + pool_launches[1],
-              worst_abs["pool"], per_step["train_pool_colmajor"]),
-        entry("bsr_grouped_spmm[fp32] train step: pool P^T, grouped",
-              REPLACES["grouped"], pool_launches[2], worst_abs["pool"],
-              per_step["train_pool_grouped"]),
+        pool_entry("fp32] train step: up-pools 0-1 P^T (#7's calls)",
+                   REPLACES["colmajor"], pool_launches[0] + pool_launches[1],
+                   pt_err["fp32"], per_step["train_pool_colmajor"]),
+        pool_entry("fp32] train step: up-pool 2 P^T (#4's call)",
+                   REPLACES["grouped"], pool_launches[2], pt_err["fp32"],
+                   per_step["train_pool_grouped"]),
         entry("bsr_grouped_spmm[bf16] scaled80k train step: Laplacian",
               REPLACES["fp32"], launches80["lap"], worst80["lap"],
               per_step80["lap"]),
-        entry("bsr_grouped_spmm[bf16] scaled80k train step: up-pool 0 P^T, "
-              "per-block", REPLACES["perblock"], launches80["pool_perblock"],
-              worst80["pool"], per_step80["pool_perblock"]),
-        entry("bsr_grouped_spmm[bf16] scaled80k train step: up-pools 1-3 "
-              "P^T, column-major", REPLACES["colmajor"],
-              launches80["pool_colmajor"], worst80["pool"],
-              per_step80["pool_colmajor"]),
+        pool_entry("bf16] scaled80k train step: up-pool 0 P^T (#5's call)",
+                   REPLACES["perblock"], launches80["pool_perblock"],
+                   pt_err["bf16"], per_step80["pool_perblock"]),
+        pool_entry("bf16] scaled80k train step: up-pools 1-3 P^T (#7's "
+                   "calls)", REPLACES["colmajor"],
+                   launches80["pool_colmajor"], pt_err["bf16"],
+                   per_step80["pool_colmajor"]),
         # the bf16x3 mode's launches on the main path (serving); the P^T
-        # case itself runs on no main path (the pool backward is fp32)
+        # case itself runs on no main path (the pool backward is fp32 and
+        # takes pool_transpose)
         entry("bsr_grouped_spmm[bf16x3] pool P^T, column-major form "
               "(phase 3 shapes, off the main path)",
               REPLACES["colmajor_bf16x3"], launches["bf16x3"],
@@ -6867,9 +7188,9 @@ def main() -> int:
         entry("bsr_grouped_spmm[fp32] scaled20k train step: lazy seed",
               REPLACES["seed_dot"], launches20["seed_dot"],
               worst_abs["seed_fp32"], per_step20["lap_seed_dot"]),
-        entry("bsr_grouped_spmm[fp32] scaled20k train step: pool P^T",
-              REPLACES["colmajor"], launches20["pool"], worst_abs["pool"],
-              per_step20["pool"]),
+        pool_entry("fp32] scaled20k train step: P^T (#7's calls)",
+                   REPLACES["colmajor"], launches20["pool"], pt_err["fp32"],
+                   per_step20["pool"]),
         entry("bsr_grouped_spmm[bf16] scaled80k train step (FUSED_SEED_DOT):"
               " lazy seed", REPLACES["seed_dot"], launches80["seed_dot"],
               worst80["seed"], per_step80["lap_seed_dot"]),
@@ -6904,31 +7225,36 @@ def main() -> int:
     # replay from what was captured, over 3 epochs of SCAN_STEPS); times as
     # measured per step above
     scan = {r["case"]: r["train_launches"] for r in scan_reports}
-    steps15 = 3 * SCAN_STEPS
     graphed = [
         ("config-1 high", "bf16x3", "bf16x3", per_step["train_lap_bf16x3"],
          worst_abs["bf16x3"], scan["config-1 high"][0]["bf16x3"]),
         ("config-1 highest", "fp32", "fp32", per_step["train_lap_fp32"],
-         worst_abs["fp32"], scan["config-1 highest"][0]["fp32"]
-         - TRAIN_POOL_LAUNCHES * steps15),
+         worst_abs["fp32"], scan["config-1 highest"][0]["fp32"]),
         ("scaled20k fp32, FUSED_SEED_DOT", "fp32", "seed_dot",
          per_step20["lap_seed_dot"], worst_abs["seed_fp32"],
          scan["scaled20k fp32, FUSED_SEED_DOT"][1]["fp32"]),
         ("scaled80k bf16", "bf16", "fp32", per_step80["lap"], worst80["lap"],
-         scan["scaled80k bf16"][0]["bf16"] - len(s80["ops"].up) * steps15)]
+         scan["scaled80k bf16"][0]["bf16"])]
     for case, mode, replaces, acc, err, launched in graphed:
         part = "lazy seed" if replaces == "seed_dot" else "Laplacian"
         kernels.append(entry(
             f"bsr_grouped_spmm[{mode}] {case} train step replayed in a CUDA "
             f"graph (scanned epoch): {part}", REPLACES[replaces], launched,
             err, acc))
+    kernels.append(pool_entry(
+        "fp32] config-1 high train step replayed in a CUDA graph (scanned "
+        "epoch): up-pools 0-2 P^T", REPLACES["colmajor"],
+        scan["config-1 high"][0]["pool fp32"], pt_err["fp32"],
+        {k: per_step["train_pool_colmajor"][k]
+         + per_step["train_pool_grouped"][k] for k in ACC_KEYS + ("old_ms",)}))
     # phase 16: the classifier pipelines' train steps. Launches at high
     # (bf16x3, and the joint model's fp32 P^T) from the run() of each; at
     # highest (fp32) from one counted epoch of SCAN_STEPS replayed steps
     cl, err16 = classifiers["per_step"], classifiers["worst"]
     joint16, joint17 = classifiers["joint"], bf16_paths["out"]["c"]["joint"]
     replay = classifiers["per_replay"]
-    pool_err = max(worst_abs["pool"], err16["fp32"])
+    pool_err = max(pt_err["fp32"], cl["joint_pool_colmajor"]["err_abs"],
+                   cl["joint_pool_grouped"]["err_abs"])
     kernels += [
         entry("bsr_grouped_spmm[bf16x3] crecon train step: Laplacian",
               REPLACES["bf16x3"], classifiers["crecon"],
@@ -6945,14 +7271,13 @@ def main() -> int:
               REPLACES["fp32"], replay["joint highest"]["lap"],
               max(worst_abs["fp32"], err16["fp32"]),
               cl["joint_lap_fp32"]),
-        entry("bsr_grouped_spmm[fp32] joint train step: up-pools 0-1 P^T at "
-              "2B, column-major", REPLACES["colmajor"],
-              joint16["pool"]["P0T"] + joint16["pool"]["P1T"], pool_err,
-              cl["joint_pool_colmajor"]),
-        entry("bsr_grouped_spmm[fp32] joint train step: up-pool 2 P^T at 2B,"
-              " grouped", REPLACES["grouped"],
-              joint16["pool"]["P2T"], pool_err,
-              cl["joint_pool_grouped"]),
+        pool_entry("fp32] joint train step: up-pools 0-1 P^T at 2B",
+                   REPLACES["colmajor"],
+                   joint16["pool"]["P0T"] + joint16["pool"]["P1T"], pool_err,
+                   cl["joint_pool_colmajor"]),
+        pool_entry("fp32] joint train step: up-pool 2 P^T at 2B",
+                   REPLACES["grouped"], joint16["pool"]["P2T"], pool_err,
+                   cl["joint_pool_grouped"]),
     ]
     # phase 17: the bf16 serving step, a config-4 batch (B = 128) and the
     # bf16 classifiers' train steps, all mode bf16 (#3b; the joint model's
@@ -6960,7 +7285,8 @@ def main() -> int:
     p17, sums, err17 = (bf16_paths["out"], bf16_paths["sums"],
                         bf16_paths["worst"])
     lap16 = max(worst80["lap"], err17["lap"])
-    pool16 = max(worst80["pool"], err17["pool"])
+    pool16 = max(pt_err["bf16"], sums["joint_bf16_pool_colmajor"]["err_abs"],
+                 sums["joint_bf16_pool_grouped"]["err_abs"])
     kernels += [
         entry("bsr_grouped_spmm[bf16] config-1 bf16 serving step",
               REPLACES["fp32"], p17["a"]["launches"]["bf16"], lap16,
@@ -6974,14 +7300,13 @@ def main() -> int:
         entry("bsr_grouped_spmm[bf16] joint bf16 train step: Laplacian",
               REPLACES["fp32"], joint17["lap"], lap16,
               sums["joint_bf16_lap"]),
-        entry("bsr_grouped_spmm[bf16] joint bf16 train step: up-pools 0-1 "
-              "P^T at 2B, column-major", REPLACES["colmajor"],
-              joint17["pool"]["P0T"] + joint17["pool"]["P1T"], pool16,
-              sums["joint_bf16_pool_colmajor"]),
-        entry("bsr_grouped_spmm[bf16] joint bf16 train step: up-pool 2 P^T "
-              "at 2B, grouped", REPLACES["grouped"],
-              joint17["pool"]["P2T"], pool16,
-              sums["joint_bf16_pool_grouped"]),
+        pool_entry("bf16] joint bf16 train step: up-pools 0-1 P^T at 2B",
+                   REPLACES["colmajor"],
+                   joint17["pool"]["P0T"] + joint17["pool"]["P1T"], pool16,
+                   sums["joint_bf16_pool_colmajor"]),
+        pool_entry("bf16] joint bf16 train step: up-pool 2 P^T at 2B",
+                   REPLACES["grouped"], joint17["pool"]["P2T"], pool16,
+                   sums["joint_bf16_pool_grouped"]),
     ]
     # phase 18: imported reference weights on the reference hierarchy (the
     # inference CLI, MeshServers, a fine-tuning step at high) and the
@@ -7009,16 +7334,16 @@ def main() -> int:
               "step: Laplacian", REPLACES["bf16x3"],
               reference["train"]["bf16x3"], ref_err["bf16x3"],
               ref_sums["train_lap_bf16x3"]),
-        entry("bsr_grouped_spmm[fp32] reference hierarchy fine-tuning step: "
-              "pool P^T", REPLACES["colmajor"], ref_pool, ref_err["pool"],
-              ref_sums["train_pool"]),
+        pool_entry("fp32] reference hierarchy fine-tuning step: P^T",
+                   REPLACES["colmajor"], ref_pool, ref_err["pool"],
+                   ref_sums["train_pool"]),
         entry("bsr_grouped_spmm[fp32] pool_method dense train step at "
               "highest: Laplacian", REPLACES["fp32"],
               reference["methods"][("pallas", "dense")]["lap"],
               ref_err["fp32"], ref_sums["train_lap_fp32"]),
-        entry("bsr_grouped_spmm[fp32] cheb_method ell train step at highest:"
-              " pool P^T", REPLACES["colmajor"], ell["pool"], ref_err["pool"],
-              ref_sums["train_pool"]),
+        pool_entry("fp32] cheb_method ell train step at highest: P^T",
+                   REPLACES["colmajor"], ell["pool"], ref_err["pool"],
+                   ref_sums["train_pool"]),
     ]
     # phase 19: the serving artifacts' steps (torch.export, the registered
     # operator): launches counted by torch.profiler by the kernel's name in

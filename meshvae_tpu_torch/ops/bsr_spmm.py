@@ -19,8 +19,9 @@ that meshvae_tpu/ops/pallas_cheb.py ``_grouped_matmul`` launches:
 
 It also stands in for the TPU kernels that ``_bsr_matmul_impl`` takes when
 a row spans more than 8 column blocks or grouping is off: the column-major
-``_make_colmajor_kernel`` (the pool backward's rectangular P^T of the wide
-up-pools, fp32 or bf16) and ``_make_colmajor_kernel_bf16x3``, and the
+``_make_colmajor_kernel`` (on the rectangular P^T of the wide up-pools,
+fp32 or bf16; the pool backward itself runs ops/pool_transpose.py, bit for
+bit the same in fp32) and ``_make_colmajor_kernel_bf16x3``, and the
 per-block ``_make_spmm_kernel`` / ``_make_spmm_kernel_bf16x3``. The row-
 grouped layout keeps any number of slots per row, so one kernel covers
 them; tests/test_torch_grad.py and tests/test_torch_bf16.py hold the twin

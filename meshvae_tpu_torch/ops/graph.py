@@ -9,8 +9,9 @@
     reads: "gather" as gather indices + weights (rows of D are one-hot
     selections, rows of U have <= 3 barycentric entries), with the
     transpose P^T for the pool backward, always as gathers and above a
-    fan-in cutoff also as a rectangular block-sparse operator; "dense" as
-    the dense [M, N] matrix.
+    fan-in cutoff also in CSR (the pool backward's kernel reads it) and as
+    a rectangular block-sparse operator (the JAX package's layout); "dense"
+    as the dense [M, N] matrix.
 
 Every value (dense operator, neighbour weights, BSR blocks, pool weights w
 / t_w / dense, P^T blocks) is stored in the operator dtype: float32, or
@@ -35,8 +36,8 @@ BSR_MIN_N = 1024
 
 # Pool-backward layout cutoff: P^T fan-ins at or below this run as unrolled
 # weighted gathers; above it (hub coarse vertices: config 1's three finest
-# up-pools reach 51, 28 and 19) the backward runs P^T through the
-# block-sparse kernel. Read when a PoolOperator is built.
+# up-pools reach 51, 28 and 19) the backward runs P^T through its CSR
+# kernel (ops/pool_transpose.py). Read when a PoolOperator is built.
 TGRAD_ELL_MAX = 16
 
 
@@ -142,10 +143,12 @@ class PoolOperator:
 
     pool_method "gather": padded per-row gathers, out[m] = sum_k w[m, k] *
     x[idx[m, k]]; the backward dx = P^T @ g reads the transpose: `t_idx` /
-    `t_w`, the same gathers over P^T, always; `t_bsr`, P^T as a rectangular
-    block-sparse operator (rows = pool inputs, columns = pool outputs), only
-    when the largest fan-in exceeds TGRAD_ELL_MAX. pool_method "dense":
-    `dense` [M, N] alone, the gather fields None."""
+    `t_w`, the same gathers over P^T, always; only when the largest fan-in
+    exceeds TGRAD_ELL_MAX, P^T in CSR, `t_ptr` / `t_col` / `t_val`
+    (transpose_csr), and `t_bsr`, P^T as a rectangular block-sparse
+    operator (rows = pool inputs, columns = pool outputs; the JAX package's
+    layout, held against it in the tests). pool_method "dense": `dense`
+    [M, N] alone, the gather fields None."""
 
     idx: torch.Tensor | None     # [M, R] int64
     w: torch.Tensor | None       # [M, R] operator dtype (0 on padding)
@@ -155,6 +158,21 @@ class PoolOperator:
     t_w: torch.Tensor | None     # [N, T] operator dtype (0 on padding)
     t_bsr: BlockSparseOperator | None = None
     dense: torch.Tensor | None = None  # [M, N] operator dtype
+    t_ptr: torch.Tensor | None = None  # [N + 1] int32
+    t_col: torch.Tensor | None = None  # [nnz] int32, ascending in a row
+    t_val: torch.Tensor | None = None  # [nnz] operator dtype
+
+
+def transpose_csr(csr_t: sp.spmatrix) -> tuple[np.ndarray, ...]:
+    """P^T as (t_ptr [N + 1] int32, t_col int32, t_val float32), scipy's
+    canonical CSR: columns ascending within each row, one entry each. A
+    value is its entry rounded to float32, as block_sparse_arrays stores
+    it in t_bsr's blocks (the two would differ only where the matrix holds
+    duplicate entries, which the hierarchy's pool matrices do not)."""
+    t = sp.csr_matrix(csr_t, copy=True)
+    t.sum_duplicates()
+    return (t.indptr.astype(np.int32), t.indices.astype(np.int32),
+            t.data.astype(np.float32))
 
 
 def _to_ell(mat: sp.csr_matrix,
@@ -196,8 +214,12 @@ def pool_operator(mat: sp.spmatrix, device,
     t_idx, t_w = _to_ell(csr_t)
     fan_in = int(np.diff(csr_t.indptr).max()) if csr_t.shape[0] else 0
     t = lambda a: torch.from_numpy(a).to(device)
+    sparse = {}
+    if fan_in > TGRAD_ELL_MAX:
+        t_ptr, t_col, t_val = transpose_csr(csr_t)
+        sparse = dict(t_ptr=t(t_ptr), t_col=t(t_col), t_val=t(t_val).to(dtype),
+                      t_bsr=to_block_sparse(csr_t, device, allow_rect=True,
+                                            dtype=dtype))
     return PoolOperator(
         idx=t(idx), w=t(w).to(dtype), n_in=csr.shape[1], n_out=csr.shape[0],
-        t_idx=t(t_idx), t_w=t(t_w).to(dtype),
-        t_bsr=(to_block_sparse(csr_t, device, allow_rect=True, dtype=dtype)
-               if fan_in > TGRAD_ELL_MAX else None))
+        t_idx=t(t_idx), t_w=t(t_w).to(dtype), **sparse)

@@ -7,24 +7,25 @@ package's dense pool is a plain einsum.
 
 The gather path's backward dx = P^T @ g never scatters: autograd's
 transpose of a gather is an atomic index_add, whose sums depend on thread
-order. It applies the precomputed transpose instead
-(PoolOperator.t_idx/t_w/t_bsr): through the block-sparse kernel when P^T
-has a block-sparse form and B * F fills a column panel, else as weighted
-gathers over P^T.
+order. It applies the precomputed transpose instead: where the JAX package
+takes its block-sparse kernel (above the fan-in cutoff, where P^T is also
+built in CSR, and where B * F fills a column panel), through the CSR kernel
+``pool_transpose`` (ops/pool_transpose.py, on PoolOperator.t_ptr / t_col /
+t_val), else as weighted gathers over P^T (t_idx / t_w).
 
 The operator's dtype sets the arithmetic: with float32 weights the kernel
 runs fp32 (the JAX package pins HIGHEST there at every matmul_precision);
 with bfloat16 weights (compute_dtype=bfloat16) the gathers multiply and add
-in bf16 and the kernel runs its "bf16" mode, as the JAX package's bf16
-blocks run DEFAULT with a bf16 result.
+in bf16 and the kernel runs its "bf16" mode (fp32 sums, one rounding), as
+the JAX package's bf16 blocks run DEFAULT with a bf16 result.
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from .bsr_spmm import COL_PANEL, bsr_grouped_spmm, pad_features
+from .bsr_spmm import COL_PANEL
 from .graph import PoolOperator
+from .pool_transpose import pool_transpose
 
 
 def _gather_apply(x: torch.Tensor, idx: torch.Tensor,
@@ -39,21 +40,6 @@ def _gather_apply(x: torch.Tensor, idx: torch.Tensor,
     return acc
 
 
-def _bsr_transpose_apply(g: torch.Tensor, pool: PoolOperator) -> torch.Tensor:
-    """dx = P^T @ g through the kernel, in fp32 or bf16 as P^T is stored:
-    [B, N_out, F] -> [N_out(pad), B * F_pad] -> kernel -> [B, N_in, F]."""
-    t_bsr = pool.t_bsr
-    dtype = t_bsr.blocks.dtype
-    b, n_out, f = g.shape
-    f_pad = pad_features(b, f)
-    gt = F.pad(g.transpose(0, 1),
-               (0, f_pad - f, 0, 0, 0, t_bsr.n_pad_cols - n_out))
-    y = bsr_grouped_spmm(
-        t_bsr, gt.reshape(t_bsr.n_pad_cols, b * f_pad).contiguous(),
-        "bf16" if dtype == torch.bfloat16 else "fp32")
-    return y.reshape(t_bsr.n_pad, b, f_pad)[:pool.n_in, :, :f].transpose(0, 1)
-
-
 class _PoolApply(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, pool):
@@ -63,10 +49,11 @@ class _PoolApply(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         pool = ctx.pool
-        # below one column panel of B * F the kernel would pad most of its
-        # work away
-        if pool.t_bsr is not None and g.shape[0] * g.shape[2] >= COL_PANEL:
-            dx = _bsr_transpose_apply(g, pool)
+        # the JAX package's condition for its block-sparse kernel (below
+        # one column panel of B * F that kernel would pad most of its work
+        # away)
+        if pool.t_ptr is not None and g.shape[0] * g.shape[2] >= COL_PANEL:
+            dx = pool_transpose(pool, g)
         else:
             dx = _gather_apply(g, pool.t_idx, pool.t_w)
         return dx, None

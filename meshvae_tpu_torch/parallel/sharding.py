@@ -19,7 +19,7 @@ axes ("dp", "sp"); the port runs one process per rank, PyTorch's idiom:
     activations stay replicated over sp in this port (pools, dense
     levels, heads, losses and Adam).
 
-The pool backward keeps its block-sparse P^T kernel under any world: the
+The pool backward keeps its P^T kernel (pool_transpose) under any world: the
 JAX package drops it there (``_strip_pool_bsr``) because the TPU kernel has
 no sharding rule inside the GSPMD graph, and runs P^T as ELL gathers. The
 port's pools are not vertex-sharded, so that reason does not hold; the two

@@ -43,13 +43,14 @@ import time
 
 import torch
 
-from ..ops import bsr_spmm, cheb_fused, emitted_spmm
+from ..ops import bsr_spmm, cheb_fused, emitted_spmm, pool_transpose
 
 
 def _counters() -> tuple[dict, ...]:
     return (bsr_spmm.LAUNCHES, bsr_spmm.LAUNCHES_SEED_DOT,
             bsr_spmm.LAUNCHES_BY_SHAPE, bsr_spmm.LAUNCHES_BY_CALL,
-            cheb_fused.LAUNCHES, emitted_spmm.LAUNCHES)
+            cheb_fused.LAUNCHES, emitted_spmm.LAUNCHES,
+            pool_transpose.LAUNCHES, pool_transpose.LAUNCHES_BY_SHAPE)
 
 
 def _read_counters() -> list[dict]:

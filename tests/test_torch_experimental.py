@@ -2,7 +2,9 @@
 meshvae_tpu.models.experimental on the 6x6 grid of test_experimental.py,
 with the same weights on both sides (a flax tree drawn by numpy, carried
 across by params_from_flax): forward within 1e-5 of max|y|, the gradient
-of the output's sum within 1e-4 of each layer's max|g|, PointCNN's
+of the output's sum (of the outputs weighted at random where the plain
+sum does not depend on the input) within 1e-4 of each layer's max|g| and
+of the input's, PointCNN's
 updated batch_stats within 1e-6 of their max, sort_pool and pc2mesh bit
 for bit. Also the four other helpers the port copies: softclip,
 bernoulli_nll, edge_list and write_default_config."""
@@ -31,9 +33,6 @@ from conftest import make_grid_mesh
 
 B, F = 2, 8
 FWD_BAR, GRAD_BAR, STATS_BAR = 1e-5, 1e-4, 1e-6
-# the sum of a normalised output does not depend on the input (its input
-# gradient is 0 up to rounding), so only their parameter gradients count
-SUM_FREE_OF_INPUT = ("AdaptiveInstanceNorm", "GraphNorm")
 
 
 @pytest.fixture(scope="module")
@@ -98,12 +97,13 @@ def _hold_grads(port_module, jax_grads):
 
 
 def _scalar(out, weights=None):
-    """out.sum(), or sum_i (out_i * w_i).sum() over a tuple's outputs (a
-    None weight: the plain sum)."""
+    """out.sum(), or sum_i (out_i * w_i).sum() over the outputs (one, or a
+    tuple's; a None weight: the plain sum)."""
     if weights is None:
         return out.sum()
+    outs = out if isinstance(out, tuple) else (out,)
     return sum(o.sum() if w is None else (o * w).sum()
-               for o, w in zip(out, weights))
+               for o, w in zip(outs, weights))
 
 
 def _cases(graph):
@@ -117,14 +117,20 @@ def _cases(graph):
     # them at random, beside link_loss
     dp_weights = (rng.standard_normal((B, 8, F)).astype(np.float32),
                   rng.standard_normal((8, 8)).astype(np.float32), None)
+    # the sum of a normalised output does not depend on the input (its
+    # input gradient is 0 up to rounding): weigh it at random too
+    norm_weights = {"AdaptiveInstanceNorm": (rng.standard_normal(
+        x.shape).astype(np.float32),), "GraphNorm": (rng.standard_normal(
+            rows.shape).astype(np.float32),)}
     return {
         "EqualLinear": (jexp.EqualLinear(4), pexp.EqualLinear(F, 4), (x,),
                         (), None),
         "AdaptiveInstanceNorm": (jexp.AdaptiveInstanceNorm(F),
                                  pexp.AdaptiveInstanceNorm(F, 4),
-                                 (x, style), (), None),
+                                 (x, style), (),
+                                 norm_weights["AdaptiveInstanceNorm"]),
         "GraphNorm": (jexp.GraphNorm(F), pexp.GraphNorm(F), (rows,), (),
-                      None),
+                      norm_weights["GraphNorm"]),
         "SpatialConv": (jexp.SpatialConv(F), pexp.SpatialConv(F, F), (x,),
                         ((jop, pop),), None),
         "GraphAttention": (jexp.GraphAttention(F), pexp.GraphAttention(F, F),
@@ -163,8 +169,7 @@ def test_module_matches_jax(graph, name):
                                    else (want,))):
         _close(f"{name} output {i}", g, w, FWD_BAR)
     _hold_grads(pm, g_params)
-    if name not in SUM_FREE_OF_INPUT:
-        _close(f"{name} d input", first.grad, g_x, GRAD_BAR)
+    _close(f"{name} d input", first.grad, g_x, GRAD_BAR)
 
 
 def test_point_cnn_train_then_eval():

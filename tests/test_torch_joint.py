@@ -39,6 +39,7 @@ from meshvae_tpu_torch.ops import bsr_spmm
 from meshvae_tpu_torch.ops import cheb as port_cheb
 from meshvae_tpu_torch.ops import graph as port_graph
 from meshvae_tpu_torch.ops import pool as port_pool
+from meshvae_tpu_torch.ops import pool_transpose
 from meshvae_tpu_torch.train import JointTrainer, driver
 from meshvae_tpu_torch.train.__main__ import main as train_main
 from meshvae_tpu_torch.train.checkpoint import load_checkpoint
@@ -540,7 +541,8 @@ def test_cuda_train_step_matches_the_cpu(env):
     against the CPU twin, both precisions: the kernel at the GCN's shapes,
     the 2B decoder's backward and the P^T at 2B width. Loss within 1e-5
     relative, every gradient within 1e-4 (highest) / 1e-3 (high) of the
-    layer's max|g|; 22 Laplacian launches and 3 P^T."""
+    layer's max|g|; 22 bsr_grouped_spmm launches in the precision's mode
+    and 3 fp32 pool_transpose (the P^T)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     hier, batch, (mean, std) = env[0], env[4], env[5]
@@ -556,14 +558,17 @@ def test_cuda_train_step_matches_the_cpu(env):
             m.load_state_dict(model.state_dict())
             tr = JointTrainer(m, ops, CONFIG, device=side)
             bsr_spmm.reset_launches()
+            pool_transpose.reset_launches()
             packed = tr.train_step(tr.to_device(batch), None,
                                    *tr.norm_to_device(mean, std)).cpu()
             out[side] = (packed, {k: p.grad.cpu() for k, p in
                                   tr.model.named_parameters()},
-                         dict(bsr_spmm.LAUNCHES))
+                         (dict(bsr_spmm.LAUNCHES),
+                          dict(pool_transpose.LAUNCHES)))
         mode = "fp32" if precision == "highest" else "bf16x3"
-        lap = out["cuda"][2][mode] - (3 if mode == "fp32" else 0)
-        assert lap == 22 and out["cuda"][2]["fp32"] >= 3, out["cuda"][2]
+        lap, pool = out["cuda"][2]
+        assert lap[mode] == 22 and sum(lap.values()) == 22, lap
+        assert pool == {"fp32": 3, "bf16": 0}, pool
         loss = out["cpu"][0][0]
         assert abs(out["cuda"][0][0] - loss) <= 1e-5 * abs(loss)
         grads = out["cpu"][1]

@@ -199,7 +199,8 @@ def test_package_imports_no_jax():
     train/joint.py, train/crecon_driver.py and the crecon CLI, the
     reference-checkpoint importer train/torch_import.py, the serving
     export infer/export.py, models/experimental.py and the host-only
-    report and plot_losses entry points included)
+    report and plot_losses entry points and the pool backward's kernel
+    ops/pool_transpose.py included)
     leaves jax, flax, optax, scikit-learn, msgpack, meshvae_tpu and
     matplotlib out of sys.modules, builds and loads no library (no CUDA
     kernel, nor the native host library) and starts no torch.distributed
@@ -214,18 +215,20 @@ def test_package_imports_no_jax():
         "              'msgpack', 'meshvae_tpu', 'matplotlib'))\n"
         "from meshvae_tpu_torch import native\n"
         "from meshvae_tpu_torch.ops import bsr_spmm, cheb_fused, "
-        "emitted_spmm\n"
+        "emitted_spmm, pool_transpose\n"
         "for name, fn in (('native', native.library),\n"
         "                 ('kernel', bsr_spmm._lib),\n"
         "                 ('fused kernel', cheb_fused._lib),\n"
-        "                 ('emitted kernel', emitted_spmm._lib)):\n"
+        "                 ('emitted kernel', emitted_spmm._lib),\n"
+        "                 ('pool transpose kernel', pool_transpose._lib)):\n"
         "    if fn.cache_info().currsize:\n"
         "        bad.append(name + ' loaded at import')\n"
         "for name in ('parallel', 'parallel.sharding', 'ops.bsr_shard',\n"
         "             'validate', 'models.gcn', 'models.joint',\n"
         "             'train.joint', 'train.crecon_driver', 'crecon',\n"
         "             'train.torch_import', 'infer.export',\n"
-        "             'models.experimental', 'report', 'plot_losses'):\n"
+        "             'models.experimental', 'report', 'plot_losses',\n"
+        "             'ops.pool_transpose'):\n"
         "    if 'meshvae_tpu_torch.' + name not in sys.modules:\n"
         "        bad.append(name + ' not imported')\n"
         "import torch.distributed as dist\n"

@@ -259,18 +259,29 @@ def write_requests(template: TriMesh, root: str, n: int = 6) -> str:
 
 
 def count_kernel_calls(monkeypatch, **modules):
-    """Wrap bsr_grouped_spmm where each named module calls it; returns the
-    calls in order as (name, mode) pairs."""
+    """Wrap bsr_grouped_spmm, and pool_transpose (the pool backward's
+    kernel), where each named module calls them; returns the calls in
+    order as (name, mode) pairs."""
     calls = []
     for name, module in modules.items():
-        real = module.bsr_grouped_spmm
+        if hasattr(module, "bsr_grouped_spmm"):
+            real = module.bsr_grouped_spmm
 
-        def counted(*args, _real=real, _name=name, **kwargs):
-            calls.append((_name, args[2] if len(args) > 2
-                          else kwargs.get("mode", "fp32")))
-            return _real(*args, **kwargs)
+            def counted(*args, _real=real, _name=name, **kwargs):
+                calls.append((_name, args[2] if len(args) > 2
+                              else kwargs.get("mode", "fp32")))
+                return _real(*args, **kwargs)
 
-        monkeypatch.setattr(module, "bsr_grouped_spmm", counted)
+            monkeypatch.setattr(module, "bsr_grouped_spmm", counted)
+        if hasattr(module, "pool_transpose"):
+            real_t = module.pool_transpose
+
+            def counted_t(pool, g, _real=real_t, _name=name):
+                calls.append((_name, "bf16" if pool.t_val.dtype
+                              == torch.bfloat16 else "fp32"))
+                return _real(pool, g)
+
+            monkeypatch.setattr(module, "pool_transpose", counted_t)
     return calls
 
 

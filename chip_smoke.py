@@ -212,20 +212,27 @@ Phases, one block of output lines each; any failed check exits non-zero:
                rank's params bit-equal, launches per rank equal to one
                process's;
             c. sp=2: the same at scaled80k bf16, full width (K=10, B=32),
-               two steps and one eval step at phase 8's bar (closer to one
-               process in bf16 than that is to fp32, plus one bf16 ulp of
-               the scale), launches per rank = one process's Laplacian
-               calls at the shard shapes plus its P^T calls; then a
-               MeshServer in that world (dp=1, sp=2) at config 1 high
-               answering 20 meshes: pred equal, errors within 1e-4 of the
-               mesh scale;
+               in the row layout (x and every activation at a
+               block-sparse level are the rank's rows of it), two steps
+               and one eval step at phase 8's bar (closer to one process
+               in bf16 than that is to fp32, plus one bf16 ulp of the
+               scale), launches per rank = one process's Laplacian calls
+               at the shard shapes plus its P^T calls at the pool shards'
+               (the input level's rows of P^T, the output level's gathered
+               rows of g); each rank's memory per train step (the peak of
+               its process and the step's own) beside one process's step
+               from the same state; then a MeshServer in that world
+               (dp=1, sp=2) at config 1 high answering 20 meshes: pred
+               equal, errors within 1e-4 of the mesh scale;
             d. times: each world's step (host clock), its all-gathers and
                all-reduces per step with their bytes, replayed one by one
                for their time, rank 0's device busy time and idle share
                (labelled a shared-card gloo world, never a scaling
                result); _mapped_product per call at rank 0's sp=2 80k
                shard shapes against its twin, torch.sparse on the shard's
-               CSR rows and both bounds, summed per train step;
+               CSR rows and both bounds, summed per train step; and
+               pool_transpose on rank 0's shard of each 80k up-pool's P^T
+               against its twin, torch.sparse and the byte bound;
             e. crecon (config 2: a seeded config-1 VAE frozen, GCN K=6,
                hidden 128) and the joint model (config 3, files/joint.cfg)
                at B=16 and high in a dp=2 and an sp=2 world (two gloo
@@ -1153,10 +1160,10 @@ SOURCE_POOL = "meshvae_tpu_torch/ops/csrc/pool_transpose.cu"
 
 def _pt_library(torch, pool, g2):
     """The torch.sparse (cuSPARSE) yardstick of P^T @ g on g's [N_out,
-    B * f] layout, in the operator's dtype where cuSPARSE takes it, else
-    fp32: (callable, its dtype)."""
+    B * f] layout (a row shard's [g_rows, B * f]), in the operator's dtype
+    where cuSPARSE takes it, else fp32: (callable, its dtype)."""
     crow, col = pool.t_ptr.long(), pool.t_col.long()
-    shape = (pool.n_in, pool.n_out)
+    shape = (pool.x_rows, pool.g_rows)
     csr = torch.sparse_csr_tensor(crow, col, pool.t_val, size=shape,
                                   check_invariants=True)
     try:
@@ -2897,7 +2904,8 @@ def _world_case(world, spec):
     one eval step and the MeshServer request; the launch counts and the
     world's collective counts reset just before and read just after; then
     the step's time, its collectives replayed, and the idle share. Returns
-    the results, with every rank's launches and digests."""
+    the results, with every rank's launches, digests and per-step memory
+    (peak and the step's own, of the rank's process)."""
     import torch
     import torch.distributed as tdist
 
@@ -2926,9 +2934,13 @@ def _world_case(world, spec):
         pre = {"model": {k: v.detach().cpu().clone()
                          for k, v in tr.model.state_dict().items()},
                "optimizer": _cpu_state(tr.optimizer.state_dict())}
-        packed = _train_call(tr, kind, tr.to_device(host), norm)
+        batch, res = tr.to_device(host), []
+        # (peak, the step's own) MiB of this process: per rank
+        mem = _step_memory(torch, lambda: res.append(
+            _train_call(tr, kind, batch, norm)))
+        packed = res[0]
         out["steps"].append({
-            "pre": pre, "metrics": packed.cpu(),
+            "pre": pre, "metrics": packed.cpu(), "mem_mib": mem,
             "grads": {k: v.grad.detach().cpu().clone()
                       for k, v in tr.model.named_parameters()},
             "params": {k: v.detach().cpu().clone()
@@ -2939,7 +2951,7 @@ def _world_case(world, spec):
                        "scalars": ev["scalars"].cpu()}
         if "recon_orig" in ev:
             out["eval"]["recon_orig"] = torch.from_numpy(
-                fetch(ev["recon_orig"], world))
+                fetch(ev["recon_orig"], world, rows=tr.vertex_shard))
     torch.cuda.synchronize()
     launches = launch_shapes()
     out["by_call"] = launch_calls()
@@ -2948,7 +2960,9 @@ def _world_case(world, spec):
     out["serve"] = _world_serve(torch, world, spec.get("serve"))
     ranks = [None] * world.size
     tdist.all_gather_object(ranks, {"launches": launches, "stats": stats,
-                                    "digest": _digest(tr.model)})
+                                    "digest": _digest(tr.model),
+                                    "mem_mib": [st["mem_mib"]
+                                                for st in out["steps"]]})
     out["ranks"] = ranks
     out.update(_world_times(torch, world, tr, spec, norm))
     return out
@@ -3158,10 +3172,13 @@ def _world_report(label, out, batch):
 
 
 def phase_distribution(torch, dev, models, ops, hier, tmpl, norm, many_dir,
-                       s20, s80, tmp):
+                       s20, s80, tmp, card):
     """Phase 14: the shard products (a), a dp=2 world at config 1 (b), an
-    sp=2 world at scaled80k bf16 full width and its MeshServer at config 1
-    (c), the times of _mapped_product at the sp=2 80k shard shapes (d),
+    sp=2 world at scaled80k bf16 full width in the row layout (activations
+    at the block-sparse levels are each rank's rows: its launches and each
+    rank's memory beside one process's) and its MeshServer at config 1
+    (c), the times of _mapped_product and of pool_transpose at the sp=2
+    80k shard shapes (d),
     and crecon and the joint model in a dp=2 and an sp=2 world (e-g,
     _classifier_worlds). Returns the kernels-line entry of d and those of
     g."""
@@ -3311,18 +3328,25 @@ def phase_distribution(torch, dev, models, ops, hier, tmpl, norm, many_dir,
             fail(f"sp=2 {name}: {d_w:.3e} > {d_b:.3e} + one ulp of "
                  f"{scale:.3e}")
     # launches per rank: the single process's Laplacian calls at the shard
-    # shapes, its P^T calls as they are
+    # shapes, and its P^T calls at the pool shards' (the input level's
+    # rows of P^T, the output level's gathered rows of g)
     single = _launches_of(torch, make80, batches80, (ds80.mean, ds80.std),
                           eval_batch=batches80[0])
-    shard_of = {}
+    shard_of, level_of = {}, {}
     for i, op in enumerate(s80["ops"].lap):
         if op.bsr is not None:
             n_glob = -(-op.bsr.n_pad // 256) * 256
             shard_of[op.bsr.n_pad] = (n_glob // 2, n_glob)
+            level_of[op.n] = (n_glob // 2, n_glob)
     want = {}
-    for (mode, n_pad, cols), count in single.items():
-        key = ((mode, *shard_of[n_pad]) if n_pad == cols and n_pad in
-               shard_of else (mode, n_pad, cols))
+    for (mode, a, b), count in single.items():
+        if mode.startswith("pool"):
+            key = (mode, level_of.get(a, (a,))[0],
+                   level_of.get(b, (None, b))[1])
+        elif a == b and a in shard_of:
+            key = (mode, *shard_of[a])
+        else:
+            key = (mode, a, b)
         want[key] = want.get(key, 0) + count
     for r, rank in enumerate(out["ranks"]):
         if rank["launches"] != want:
@@ -3331,10 +3355,27 @@ def phase_distribution(torch, dev, models, ops, hier, tmpl, norm, many_dir,
     lap_launches = sum(v for (m, n_pad, cols), v in
                        out["ranks"][0]["launches"].items()
                        if cols == 2 * n_pad)
+    pool_launches = {k: v for k, v in out["ranks"][0]["launches"].items()
+                     if k[0].startswith("pool")}
     say(f"sp=2: launches per rank {out['ranks'][0]['launches']} = one "
         f"process's {single} at the shard shapes ({lap_launches} "
         f"_mapped_product launches per rank over {SP_STEPS} train steps "
-        f"and one eval step)")
+        f"and one eval step; pool_transpose at the pool shards' [rows of "
+        f"P^T, gathered rows of g]: {pool_launches})")
+    # each rank's memory over the main path's train steps, beside one
+    # process's step from the same state (step 2: Adam's state exists)
+    mem_single = _single_memory(torch, make80, out["steps"][-1]["pre"],
+                                batches80[-1], (ds80.mean, ds80.std))
+    for r, rank in enumerate(out["ranks"]):
+        (peak, own) = rank["mem_mib"][-1]
+        say(f"sp=2 rank {r} memory, train step {SP_STEPS}: peak {peak:.1f} "
+            f"MiB of its process, the step's own {own:.1f} MiB; one "
+            f"process: peak {mem_single[0]:.1f} MiB, the step's own "
+            f"{mem_single[1]:.1f} MiB ({card}; rank 0 shares this "
+            f"process, whose earlier phases hold memory)")
+    say("sp_memory " + json.dumps({
+        "ranks": [rank["mem_mib"] for rank in out["ranks"]],
+        "single": mem_single, "unit": "MiB (peak, own) per train step"}))
     _world_report("sp=2 scaled80k bf16", out, SCALED_BATCH)
     # the sp=2 MeshServer against one process
     from meshvae_tpu_torch.infer.serve import MeshServer
@@ -3403,6 +3444,8 @@ def phase_distribution(torch, dev, models, ops, hier, tmpl, norm, many_dir,
         f"({_bound_by(acc)}; {acc['stored_ms']:.3f} ms with the blocks as "
         f"stored)")
     say("shape_rows_sp2_80k " + json.dumps(rows_out))
+    pool_rows = _pool_shard_times(torch, s80, dev, gen)
+    say("shape_rows_sp2_80k_pool_transpose " + json.dumps(pool_rows))
     err = max(worst.values())
     entry = dict(
         name="_mapped_product: bsr_grouped_spmm[bf16] on rank 0's sp=2 "
@@ -3419,6 +3462,66 @@ def phase_distribution(torch, dev, models, ops, hier, tmpl, norm, many_dir,
         f"delta {dp_worst}; sp=2 worst bf16 excess {sp_worst:.3e}")
     return entry, _classifier_worlds(torch, dev, models, ops, hier, tmpl,
                                      tmp, worst)
+
+
+def _pool_shard_times(torch, s80, dev, gen):
+    """pool_transpose on rank 0's sp=2 shard of each 80k up-pool's P^T
+    (the input level's rows of the CSR; g gathered to the output level's
+    n_pad_global rows): held against its twin at one bf16 ulp and timed
+    beside the twin and torch.sparse on the same CSR rows; the bound
+    counts the CSR, y and the rows of g that the shard reads, once each.
+    Returns the rows."""
+    from meshvae_tpu_torch.ops import pool_transpose as pt
+    from meshvae_tpu_torch.ops.bsr_shard import RowShard, shard_block_sparse
+    from meshvae_tpu_torch.ops.graph import shard_pool_operator
+
+    levels = [None if op.bsr is None else
+              RowShard.of(shard_block_sparse(op.bsr, 2, 0), None)
+              for op in s80["ops"].lap]
+    rows = []
+    for i, up in enumerate(s80["ops"].up):
+        pool = shard_pool_operator(up, levels[i + 1], levels[i])
+        b, f = SCALED_BATCH, POOL_F[i]
+        g = torch.randn(b, pool.g_rows, f, device=dev, generator=gen).to(
+            pool.t_val.dtype)
+        y = pt.pool_transpose(pool, g)
+        twin = pt.pool_transpose_reference(pool, g)
+        scale = twin.float().abs().max().item()
+        err = (y.float() - twin.float()).abs().max().item()
+        if not err <= TOL_BF16 * scale:
+            fail(f"pool_transpose on the up-pool {i} shard disagrees with "
+                 f"its twin: {err / scale:.3e} of max|y|")
+        lib, lib_dtype = _pt_library(torch, pool, g.transpose(0, 1).reshape(
+            pool.g_rows, b * f).contiguous())
+        k_ms = time_ms(torch, lambda: pt.pool_transpose(pool, g))
+        p_ms = time_ms(torch, lambda: pt.pool_transpose_reference(pool, g))
+        l_ms = time_ms(torch, lib)
+        nnz, es = pool.t_col.shape[0], g.element_size()
+        g_read = int(torch.unique(pool.t_col).numel())
+        n_bytes = (es * b * f * (g_read + pool.x_rows)
+                   + 4 * (pool.x_rows + 1) + (4 + es) * nnz)
+        bound = max(1e3 * n_bytes / HBM_BYTES_PER_S,
+                    1e3 * 2 * nnz * b * f / PEAK_OPS["fp32"])
+        say(f"  up-pool {i} P^T shard 0 of 2 [{pool.x_rows} x {pool.g_rows},"
+            f" nnz {nnz}, g rows read {g_read}, B={b}, f={f}] bf16: "
+            f"pool_transpose {1e3 * k_ms:.1f} us (max_err/max|y| "
+            f"{err / scale:.2e}), twin {1e3 * p_ms:.1f} us, torch.sparse["
+            f"{lib_dtype}] {1e3 * l_ms:.1f} us, bound {1e3 * bound:.2f} us")
+        rows.append(dict(shape=f"up-pool {i} P^T sp=2 shard 0",
+                         x_rows=pool.x_rows, g_rows=pool.g_rows, nnz=nnz,
+                         g_rows_read=g_read, B=b, f=f, mode="bf16",
+                         kernel_us=1e3 * k_ms, plain_us=1e3 * p_ms,
+                         library_us=1e3 * l_ms, library_dtype=lib_dtype,
+                         bound_us=1e3 * bound, err=err / scale))
+    return rows
+
+
+def _single_memory(torch, make_trainer, pre, host, norm_host):
+    """_step_memory of one process's deterministic train step from state
+    `pre` (model and Adam)."""
+    tr = _load_state(make_trainer(), pre)
+    batch, norm = tr.to_device(host), tr.norm_to_device(*norm_host)
+    return _step_memory(torch, lambda: _train_call(tr, "vae", batch, norm))
 
 
 def _launches_of(torch, make_trainer, batches, norm_host, eval_batch=None,
@@ -7100,7 +7203,7 @@ def main() -> int:
         t0 = time.perf_counter()
         mapped, world_classifiers = phase_distribution(
             torch, dev, models, ops, hier, tmpl, (mean, std), many_dir, s20,
-            s80, tmp)
+            s80, tmp, card)
         seconds["distribution"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         scan_reports, _ = phase_scan(torch, dev, models, ops, hier, s20, s80,

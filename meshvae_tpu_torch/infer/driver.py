@@ -23,8 +23,11 @@ and key order.
 
 In a world (``dist``, a parallel.World), as the JAX engine under a mesh:
 each rank runs its dp rows of every batch, with the operators row-sharded
-over sp; the packed results and the mesh stacks are all-gathered over dp
-(parallel.fetch), and only the primary rank writes files.
+over sp in the row layout (x, the normalisation, the activations at
+row-sharded levels and the meshes are the rank's vertex rows; the error
+mean and max reduce over sp); the packed results and the mesh stacks are
+all-gathered over dp, the meshes over sp first (parallel.fetch), and only
+the primary rank writes files.
 """
 from __future__ import annotations
 
@@ -41,7 +44,9 @@ from ..device import resolve_device
 from ..mesh.io import save_obj
 from ..mesh.procrustes import apply_inverse_similarity
 from ..models.operators import ModelOperators
-from ..parallel.sharding import fetch, is_primary, shard_batch, shard_operators
+from ..parallel.sharding import (fetch, is_primary, shard_batch,
+                                 shard_operators, vertex_max, vertex_mean,
+                                 vertex_rows)
 
 
 class InferenceEngine:
@@ -52,9 +57,19 @@ class InferenceEngine:
 
     def __init__(self, model, ops: ModelOperators, dist=None):
         self.model = model
-        self.ops = shard_operators(ops, dist)
+        self.ops = shard_operators(ops, dist, rows=True)
         self.dist = dist
+        self.vertex_shard = vertex_rows(self.ops, dist)
         self.device = next(model.parameters()).device
+
+    def norm_to_device(self, norm_mean, norm_std, device) -> tuple:
+        """The normalisation [N, 3] on `device` as the steps read it: the
+        rank's vertex rows in the row layout."""
+        out = tuple(torch.as_tensor(np.asarray(a, np.float32), device=device)
+                    for a in (norm_mean, norm_std))
+        if self.vertex_shard is None:
+            return out
+        return tuple(self.vertex_shard.local(t, dim=0) for t in out)
 
     @torch.inference_mode()
     def step(self, batch: dict, norm_mean: torch.Tensor,
@@ -91,8 +106,8 @@ class InferenceEngine:
         if "original" in batch:
             err = torch.sqrt(torch.sum(
                 (out["recon_orig"] - batch["original"]) ** 2, dim=-1))
-            out["err_mean"] = err.mean(dim=-1)
-            out["err_max"] = err.max(dim=-1).values
+            out["err_mean"] = vertex_mean(err, self.vertex_shard)
+            out["err_max"] = vertex_max(err, self.vertex_shard)
         return out
 
     @torch.inference_mode()
@@ -110,7 +125,7 @@ class InferenceEngine:
         meshes = {"recon_orig": [], "oppo_orig": []}
         for host in loader:
             rows = shard_batch({k: host[k] for k in ("x", "r", "s", "m")},
-                               self.dist)
+                               self.dist, self.vertex_shard)
             batch = {k: torch.as_tensor(np.asarray(rows[k]),
                                         dtype=torch.float32).to(self.device)
                      for k in ("x", "r", "s", "m")}
@@ -130,7 +145,8 @@ class InferenceEngine:
         res = {"packed": fetch(torch.stack(packed), self.dist, dim=2),
                "mask": np.stack(masks), "index": np.stack(index)}
         if collect_meshes:
-            res.update({k: fetch(torch.stack(v), self.dist, dim=1)
+            res.update({k: fetch(torch.stack(v), self.dist, dim=1,
+                                 rows=self.vertex_shard)
                         for k, v in meshes.items()})
         return res
 
@@ -154,8 +170,7 @@ def run_inference(model, ops: ModelOperators, output_path: str, mean, std,
     if engine is None:
         engine = InferenceEngine(model, ops)
     write = is_primary(engine.dist)
-    mean_dev, std_dev = (torch.as_tensor(np.asarray(a, np.float32),
-                                         device=device) for a in (mean, std))
+    mean_dev, std_dev = engine.norm_to_device(mean, std, device)
 
     results: dict[str, dict] = {}
     pred_sex: dict[str, str] = {}

@@ -28,8 +28,9 @@ operators or engine; it runs in one process.
 In a world (``dist``, a parallel.World; meshvae_tpu/infer/serve.py:73,83
 takes a mesh): every rank handles every request (the primary reads stdin
 and broadcasts each line), preprocesses the whole chunk and runs its dp
-rows; the packed results and meshes are all-gathered over dp and only the
-primary writes meshes and JSON lines.
+rows, under sp its vertex rows of them (the engine's row layout); the
+packed results and meshes are all-gathered over dp, the meshes over sp
+first, and only the primary writes meshes and JSON lines.
 
 Run: ``python -m meshvae_tpu_torch.infer.serve -c cfg [-p key value]
 [--params file.npz] [--norm norm.npz] [--seed N] [--no-meshes]
@@ -113,10 +114,15 @@ class MeshServer:
         self._artifact_step = serving_step
         self.engine = (InferenceEngine(model, ops, dist=dist)
                        if serving_step is None else None)
-        self.mean_dev = torch.as_tensor(np.asarray(norm_mean, np.float32),
-                                        device=self.device)
-        self.std_dev = torch.as_tensor(np.asarray(norm_std, np.float32),
-                                       device=self.device)
+        if self.engine is not None:
+            self.mean_dev, self.std_dev = self.engine.norm_to_device(
+                norm_mean, norm_std, self.device)
+        else:
+            self.mean_dev, self.std_dev = (
+                torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+                for a in (norm_mean, norm_std))
+        self.vertex_shard = (self.engine.vertex_shard
+                             if self.engine is not None else None)
         self.mean = np.asarray(norm_mean, np.float32)
         self.std = np.asarray(norm_std, np.float32)
         self.template = np.asarray(template, np.float32)
@@ -159,14 +165,16 @@ class MeshServer:
         pull the results of the whole chunk. Runs on the device-lane
         thread."""
         rows = shard_batch({k: host[k] for k in ("x", "r", "s", "m")},
-                           self.dist)
+                           self.dist, self.vertex_shard)
         batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                  for k, v in rows.items()}
         out = self.serve_step(batch)
         pulled = {"packed": fetch(out["packed"], self.dist, dim=1)}
         if self.save_meshes:
-            pulled["recon"] = fetch(out["recon_orig"], self.dist)
-            pulled["oppo"] = fetch(out["oppo_orig"], self.dist)
+            pulled["recon"] = fetch(out["recon_orig"], self.dist,
+                                    rows=self.vertex_shard)
+            pulled["oppo"] = fetch(out["oppo_orig"], self.dist,
+                                   rows=self.vertex_shard)
         return pulled
 
     # --- host side --------------------------------------------------------

@@ -6,6 +6,8 @@ import math
 
 import torch
 
+from ..ops.bsr_shard import group_sum
+
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
@@ -52,7 +54,7 @@ def fixed_log_sigma() -> float:
 def vae_loss(x: torch.Tensor, recon: torch.Tensor, mu: torch.Tensor,
              logvar: torch.Tensor, y: torch.Tensor, y_hat: torch.Tensor,
              log_sigma=None, mask: torch.Tensor | None = None,
-             denom: torch.Tensor | None = None):
+             denom: torch.Tensor | None = None, shard=None):
     """mean_B(KLD + sum_{N,3} NLL - 2 log q(y)); x, recon [B, N, 3], mu,
     logvar [B, Z], y one-hot and y_hat softmax [B, C].
 
@@ -60,12 +62,20 @@ def vae_loss(x: torch.Tensor, recon: torch.Tensor, mu: torch.Tensor,
     into a masked mean; `denom` replaces its denominator max(mask.sum(), 1)
     (under data parallelism: the global batch's, so the ranks' losses sum
     to the global mean). log q(y) is log(sum(y_hat * y)) on the softmax
-    output, as in the reference. Returns (loss, aux) with aux = dict(kld
-    [B], rec_loss [B], correct scalar, logqy [B])."""
+    output, as in the reference. `shard` (an ops.bsr_shard.RowShard) says
+    that x and recon are this rank's vertex rows of level 0: the NLL sums
+    the rows below n, then sums over the sp group with an identity
+    backward (ops.bsr_shard.group_sum). Returns (loss, aux) with aux =
+    dict(kld [B], rec_loss [B], correct scalar, logqy [B])."""
     if log_sigma is None:
         log_sigma = fixed_log_sigma()
     kl = kld(mu, logvar)
-    rec = gaussian_nll(recon, log_sigma, x).sum(-1).sum(-1)
+    if shard is None:
+        rec = gaussian_nll(recon, log_sigma, x).sum(-1).sum(-1)
+    else:
+        c = shard.count()
+        rec = group_sum(gaussian_nll(recon[:, :c], log_sigma,
+                                     x[:, :c]).sum(-1).sum(-1), shard.group)
     logqy = torch.log(torch.sum(y_hat * y, dim=-1))
     per_sample = kl + rec - 2.0 * logqy
     hits = (torch.argmax(y_hat, dim=-1) == torch.argmax(y, dim=-1)).to(

@@ -36,6 +36,14 @@ head's bias is added after that rounding, in bf16, as flax's Dense does);
 the logits, mu and logvar (so z), and recon go to float32, so the loss and
 the pose error are float32. The operators must be built in bf16
 (``build_operators(..., dtype=VAEConfig.dtype)``).
+
+Under seq_parallel's row layout (parallel.sharding.shard_operators(...,
+rows=True)) x, every activation at a row-sharded level and recon are the
+rank's rows of their level (ops/bsr_shard.py RowShard): the convs and
+pools take and return them, the flatten into enc_lin all-gathers the
+coarsest level's rows when that level is row-sharded, and the decoder's
+reshape to coarse_verts is whole, of which the first up-pool keeps the
+rank's rows. The heads, h, z and the draws are whole on every rank.
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.bsr_shard import from_rows, to_rows
 from ..ops.cheb import cheb_conv, resolve_precision
 from ..ops.graph import GraphOperator
 from ..ops.pool import pool_apply
@@ -245,6 +254,9 @@ class MeshVAE(nn.Module):
         for i in range(self.cfg.n_layers):
             x = torch.relu(self.cheb_enc(i)(x, ops.lap[i]))
             x = pool_apply(x, ops.down[i], self.cfg.pool_method)
+        coarse = ops.down[self.cfg.n_layers - 1].out_rows
+        if coarse is not None:   # the flatten reads the whole level
+            x = from_rows(x, coarse)
         h = torch.relu(dense(self.enc_lin, x.reshape(x.shape[0], -1),
                              self.cfg.dtype))
         return _dropout(h, self.cfg.dropout, train, generator, rows)
@@ -269,6 +281,9 @@ class MeshVAE(nn.Module):
         x = _dropout(torch.relu(dense(self.dec_lin_2, x, c.dtype)), c.dropout,
                      train, generator, rows)
         x = x.reshape(x.shape[0], c.coarse_verts, self.filters[-1])
+        coarse = ops.up[c.n_layers - 1].in_rows
+        if coarse is not None:
+            x = to_rows(x, coarse)
         for i in range(c.n_layers):
             x = pool_apply(x, ops.up[-i - 1], c.pool_method)
             x = torch.relu(self.cheb_dec(i)(x, ops.lap[c.n_layers - i - 1]))

@@ -23,16 +23,24 @@ seed. The local column count is always whole (batch item, f_pad) pairs
 (the batch is not split inside a conv), so the JAX package's
 ``(c // dp) % f_pad`` condition (pallas_shard.py:328-329) always holds.
 
-``cheb_conv_bsr_sharded`` takes and returns activations replicated over the
-``sp`` group (the rest of the model is not vertex-sharded): it keeps the
-rank's rows of the padded input, runs the sharded basis and mix, and
-all-gathers the output rows. Autograd follows: the gradient of the
-replicated input is the all-gather of the local rows' gradients, the
-output's gradient is sliced to the local rows, and dW, contracted over the
-local rows only, is summed over the group, where the JAX package's
-partitioner sums it over "sp". The JAX package pads each dp shard's columns
-to 128 (pallas_shard.py:368-372, TPU tuning); the port keeps its own
-``pad_features``.
+Activations between the convs (``RowShard``): under the row layout
+(parallel.sharding.shard_operators(..., rows=True), the VAE's paths) a
+tensor at a row-sharded level holds only the rank's rows [row0, row0 +
+rows_local) of the level, the rows the Laplacian shard computes, and
+``cheb_conv_bsr_sharded`` takes and returns them: a product or a pool
+all-gathers its input for the call only, and nothing whole is kept. Where
+a row-sharded level meets a whole-tensor consumer ``from_rows``
+all-gathers its rows, and ``to_rows`` cuts a whole tensor's rows out
+again; their adjoints are each other's (a whole tensor's
+gradient is the same full gradient on every rank). A replicated parameter
+used on the rank's rows (dW of the basis mix, ``rows_matmul``,
+``add_bias_rows``) has its gradient contracted over the local rows and
+summed over the group in fp32, where the JAX package's partitioner sums it
+over "sp". Without the row layout (crecon and the joint model's GCN) the
+conv takes and returns activations whole on every rank, cutting the rank's
+rows out on the way in and all-gathering them on the way out. The JAX
+package pads each dp shard's columns to 128 (pallas_shard.py:368-372, TPU
+tuning); the port keeps its own ``pad_features``.
 """
 from __future__ import annotations
 
@@ -280,33 +288,180 @@ class _BasisMixSharded(torch.autograd.Function):
         return dx.reshape(rows, b, f_pad), dw, None, None, None
 
 
-class _LocalRows(torch.autograd.Function):
-    """Replicated [n_pad_global, ...] -> this rank's rows; the gradient of
-    the replicated input is the all-gather of the local gradients."""
+@dataclasses.dataclass(frozen=True, eq=False)
+class RowShard:
+    """The vertex rows of one level that an sp rank holds when the
+    activations are row-sharded: global rows [row0, row0 + rows_local) of
+    the level's `n` vertices padded to n_pad_global = sp * rows_local, the
+    rows of the level's Laplacian shard. A row-sharded tensor is
+    [B, rows_local, F] in the model layout; its rows at or past n are
+    padding and hold zeros. `group` is the sp communicator."""
+
+    n: int
+    n_pad_global: int
+    row0: int
+    rows_local: int
+    group: object
 
     @staticmethod
-    def forward(ctx, t, group, row0, rows):
+    def of(sbsr: ShardedBlockSparse, group) -> "RowShard":
+        return RowShard(n=sbsr.n, n_pad_global=sbsr.n_pad_global,
+                        row0=sbsr.row0, rows_local=sbsr.rows_local,
+                        group=group)
+
+    def count(self, n: int | None = None) -> int:
+        """This rank's rows below n (default: the level's n)."""
+        n = self.n if n is None else n
+        return max(0, min(n - self.row0, self.rows_local))
+
+    def gather(self, t: torch.Tensor, dim: int = 1,
+               n: int | None = None) -> torch.Tensor:
+        """Rows [0, n) of a row-sharded tensor, whole on every rank (no
+        autograd): each rank's first min(rows_local, n) rows (t's missing
+        rows taken as zeros), all-gathered in rank order. Rank 0 holds all
+        of [0, n) when n <= rows_local, so the gathered rows start with
+        [0, n) either way."""
+        n = self.n if n is None else n
+        m = min(self.rows_local, n)
+        have = t.shape[dim]
+        if have > m:
+            t = t.narrow(dim, 0, m)
+        elif have < m:
+            shape = list(t.shape)
+            shape[dim] = m - have
+            t = torch.cat([t, t.new_zeros(shape)], dim=dim)
+        return self.group.all_gather(t, dim=dim).narrow(dim, 0, n)
+
+    def local(self, t: torch.Tensor, dim: int = 1, n: int | None = None,
+              rows: int | None = None) -> torch.Tensor:
+        """This rank's rows of a whole tensor of rows [0, n) (no
+        autograd; host tensors too), padded with zero rows to `rows`
+        (default rows_local)."""
+        c = self.count(n)
+        rows = self.rows_local if rows is None else rows
+        own = t.narrow(dim, self.row0 if c else 0, c)
+        if rows > c:
+            shape = list(t.shape)
+            shape[dim] = rows - c
+            own = torch.cat([own, t.new_zeros(shape)], dim=dim)
+        return own.contiguous()
+
+
+class _ToRows(torch.autograd.Function):
+    """A whole tensor of rows [0, n) -> this rank's rows; the gradient of
+    the whole tensor is the all-gather of the ranks' row gradients (every
+    rank then holds the same full gradient)."""
+
+    @staticmethod
+    def forward(ctx, t, shard, dim, n, rows):
+        ctx.args = (shard, dim, n)
+        return shard.local(t, dim, n, rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        shard, dim, n = ctx.args
+        return shard.gather(g, dim, n), None, None, None, None
+
+
+class _FromRows(torch.autograd.Function):
+    """This rank's rows -> the whole tensor of rows [0, n) on every rank;
+    every rank computes the same full gradient of the whole tensor and
+    keeps its own rows of it."""
+
+    @staticmethod
+    def forward(ctx, t, shard, dim, n):
+        ctx.args = (shard, dim, n, t.shape[dim])
+        return shard.gather(t, dim, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        shard, dim, n, rows = ctx.args
+        return shard.local(g, dim, n, rows), None, None, None
+
+
+def to_rows(t: torch.Tensor, shard: RowShard, dim: int = 1,
+            n: int | None = None, rows: int | None = None) -> torch.Tensor:
+    """This rank's rows of a whole tensor (RowShard.local), differentiable:
+    where a whole tensor feeds a row-sharded level."""
+    return _ToRows.apply(t, shard, dim, n, rows)
+
+
+def from_rows(t: torch.Tensor, shard: RowShard, dim: int = 1,
+              n: int | None = None) -> torch.Tensor:
+    """The whole tensor of rows [0, n) from every rank's rows
+    (RowShard.gather), differentiable: where a row-sharded level feeds a
+    whole-tensor consumer."""
+    return _FromRows.apply(t, shard, dim, n)
+
+
+class _GroupSum(torch.autograd.Function):
+    """The sum over the group of every rank's t; the backward is the
+    identity: each rank's t is a partial sum of one scalar per item (the
+    loss's vertex sums), so its gradient is the sum's."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        return group.all_reduce_(t.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def group_sum(t: torch.Tensor, group) -> torch.Tensor:
+    return _GroupSum.apply(t, group)
+
+
+class _BiasRows(torch.autograd.Function):
+    """t + bias on the first `valid` rows of a row-sharded [B, rows, F]
+    tensor (the padding rows keep their zeros). bias is replicated: its
+    gradient, contracted over this rank's rows in fp32, is summed over the
+    group and rounded to bias's dtype once."""
+
+    @staticmethod
+    def forward(ctx, t, bias, valid, group):
+        ctx.valid, ctx.group, ctx.dtype = valid, group, bias.dtype
+        mask = torch.zeros((t.shape[1], 1), dtype=t.dtype, device=t.device)
+        mask[:valid] = 1
+        return t + mask * bias
+
+    @staticmethod
+    def backward(ctx, g):
+        gb = g[:, :ctx.valid].float().sum(dim=(0, 1))
+        gb = ctx.group.all_reduce_(gb).to(ctx.dtype)
+        return g, gb, None, None
+
+
+def add_bias_rows(t: torch.Tensor, bias: torch.Tensor, valid: int,
+                  group) -> torch.Tensor:
+    return _BiasRows.apply(t, bias, valid, group)
+
+
+class _RowsMatmul(torch.autograd.Function):
+    """x @ w with x's rows row-sharded and w replicated: dW, contracted over
+    this rank's rows in fp32, is summed over the group and rounded once
+    (as _BasisMixSharded's dW)."""
+
+    @staticmethod
+    def forward(ctx, x, w, group):
+        ctx.save_for_backward(x, w)
         ctx.group = group
-        return t[row0:row0 + rows].contiguous()
+        return torch.matmul(x, w)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.group.all_gather(g.contiguous()), None, None, None
+        x, w = ctx.saved_tensors
+        dx = torch.matmul(g, w.t()) if ctx.needs_input_grad[0] else None
+        dw = None
+        if ctx.needs_input_grad[1]:
+            dw = torch.matmul(x.reshape(-1, w.shape[0]).t().float(),
+                              g.reshape(-1, w.shape[1]).float())
+            dw = ctx.group.all_reduce_(dw).to(w.dtype)
+        return dx, dw, None
 
 
-class _GatherRows(torch.autograd.Function):
-    """This rank's rows -> replicated [n_pad_global, ...]; every rank
-    computes the same gradient of the replicated output, and keeps its own
-    rows of it."""
-
-    @staticmethod
-    def forward(ctx, t, group, row0):
-        ctx.row0, ctx.rows = row0, t.shape[0]
-        return group.all_gather(t.contiguous())
-
-    @staticmethod
-    def backward(ctx, g):
-        return g[ctx.row0:ctx.row0 + ctx.rows].contiguous(), None, None
+def rows_matmul(x: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
+    return _RowsMatmul.apply(x, w, group)
 
 
 def cheb_conv_bsr_sharded(x: torch.Tensor, op, weight: torch.Tensor,
@@ -314,22 +469,31 @@ def cheb_conv_bsr_sharded(x: torch.Tensor, op, weight: torch.Tensor,
                           precision=None) -> torch.Tensor:
     """Chebyshev conv with the vertex-sharded kernel (the counterpart of
     pallas_shard.cheb_conv_pallas_sharded): `op` is a GraphOperator with
-    bsr_sp and sp_group set; x [B, n, F_in] is replicated over the group
-    and so is the result [B, n, F_out]. The recurrence state, the seeds and
-    the basis are row-sharded; bf16 blocks keep a bf16 state."""
+    bsr_sp and sp_group set. With op.rows set (the row layout) x is this
+    rank's rows [B, rows_local, F_in], zero past the level's n, and so is
+    the result; bias is added to the rows below n only, and its gradient
+    summed over the group. Without it x [B, n, F_in] and the result are
+    whole on every rank: the rank's rows are cut out on the way in and
+    all-gathered on the way out (to_rows / from_rows). The recurrence
+    state, the seeds and the basis are row-sharded; bf16 blocks keep a
+    bf16 state."""
     from .cheb import _KERNEL_MODE, resolve_precision
 
     sbsr: ShardedBlockSparse = op.bsr_sp
     group = op.sp_group
     mode = _KERNEL_MODE[resolve_precision(precision, sbsr.op.blocks.dtype)]
-    b, n, f_in = x.shape
+    shard = op.rows
+    whole = shard is None
+    if whole:
+        shard = RowShard.of(sbsr, group)
+        x = to_rows(x, shard)
+    b, _, f_in = x.shape
     f_pad = pad_features(b, f_in)
-    xt = F.pad(x.transpose(0, 1),
-               (0, f_pad - f_in, 0, 0, 0, sbsr.n_pad_global - n))
+    xt = F.pad(x.transpose(0, 1), (0, f_pad - f_in))
     w = F.pad(weight, (0, 0, 0, f_pad - f_in))
-    xt_local = _LocalRows.apply(xt, group, sbsr.row0, sbsr.rows_local)
-    out_local = _BasisMixSharded.apply(xt_local, w, sbsr, group, mode)
-    out = _GatherRows.apply(out_local, group, sbsr.row0)[:n].transpose(0, 1)
-    if bias is not None:
-        out = out + bias
-    return out
+    out = _BasisMixSharded.apply(xt, w, sbsr, group, mode).transpose(0, 1)
+    if whole:
+        out = from_rows(out, shard)
+        return out if bias is None else out + bias
+    return out if bias is None else add_bias_rows(out, bias, shard.count(),
+                                                  group)

@@ -6,9 +6,10 @@ out = sum_k T_k(L_hat) x @ W_k (+ bias), with T_0 = x, T_1 = L_hat x,
 T_k = 2 L_hat T_{k-1} - T_{k-2}; all K orders are mixed by one
 [.., K*F] @ [K*F, F_out] product. The operator's layout picks the
 propagation: the block-sparse kernel (``cheb_conv_bsr``, or its row shards
-under seq_parallel), a dense product, or the neighbour-list gather
-``propagate_ell`` (cheb_method ell; plain torch, autograd's backward, as
-the JAX package's ell path is plain XLA).
+under seq_parallel, whose row layout gives x and the result as the rank's
+rows too: ``cheb_conv_bsr_sharded``, ``_embedded_rows``), a dense product,
+or the neighbour-list gather ``propagate_ell`` (cheb_method ell; plain
+torch, autograd's backward, as the JAX package's ell path is plain XLA).
 
 x: [B, N, F_in]; weight: [K, F_in, F_out]; bias: [F_out] or None.
 """
@@ -21,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from .block_sparse import BlockSparseOperator
-from .bsr_shard import cheb_conv_bsr_sharded
+from .bsr_shard import (add_bias_rows, cheb_conv_bsr_sharded, from_rows,
+                        rows_matmul, to_rows)
 from .bsr_spmm import bsr_grouped_spmm, pad_features
 from .graph import GraphOperator
 
@@ -90,12 +92,14 @@ def cheb_conv(x: torch.Tensor, op: GraphOperator, weight: torch.Tensor,
         # operator stores only its corner): those vertices sit at
         # eigenvalue 0, where T_k(0) = (1, 0, -1, 0, ...), so the rest is
         # one product with sum_k T_k(0) W_k.
-        corner = dataclasses.replace(op, n=op.active_n)
-        inner = cheb_conv(x[:, :op.active_n], corner, weight, bias,
-                          precision=precision)
         coeffs = [1.0 if i % 4 == 0 else (-1.0 if i % 4 == 2 else 0.0)
                   for i in range(k)]
         w_eff = sum(c * weight[i] for i, c in enumerate(coeffs) if c != 0.0)
+        if op.rows is not None:
+            return _embedded_rows(x, op, weight, bias, w_eff, precision)
+        corner = dataclasses.replace(op, n=op.active_n)
+        inner = cheb_conv(x[:, :op.active_n], corner, weight, bias,
+                          precision=precision)
         rest = torch.matmul(x[:, op.active_n:], w_eff)
         if bias is not None:
             rest = rest + bias
@@ -123,6 +127,29 @@ def cheb_conv(x: torch.Tensor, op: GraphOperator, weight: torch.Tensor,
     if bias is not None:
         out = out + bias
     return out
+
+
+def _embedded_rows(x: torch.Tensor, op: GraphOperator, weight: torch.Tensor,
+                   bias: torch.Tensor | None, w_eff: torch.Tensor,
+                   precision) -> torch.Tensor:
+    """The embedded operator on row-sharded level-0 activations (op.rows):
+    the corner rows [0, active_n) all-gathered whole from the ranks that
+    hold them (a few hundred rows, rank 0's alone at scaled80k), the
+    corner conv on that whole tensor in the corner's own layout (dense, or
+    its own row shard in the whole-tensor form, which cuts the corner's
+    n_pad into other rows than level 0's), and this rank's rows of its
+    result; the closed form on this rank's other rows, whose dW and bias
+    gradient are summed over the group."""
+    shard, a = op.rows, op.active_n
+    corner = dataclasses.replace(op, n=a, row_layout=False,
+                                 embedded_rows=None)
+    inner = cheb_conv(from_rows(x, shard, n=a), corner, weight, bias,
+                      precision=precision)
+    c = shard.count(a)
+    rest = rows_matmul(x[:, c:], w_eff, shard.group)
+    if bias is not None:
+        rest = add_bias_rows(rest, bias, shard.count() - c, shard.group)
+    return torch.cat([to_rows(inner, shard, n=a, rows=c), rest], dim=1)
 
 
 class _BasisMix(torch.autograd.Function):

@@ -27,7 +27,7 @@ import scipy.sparse as sp
 import torch
 
 from .block_sparse import BlockSparseOperator, to_block_sparse
-from .bsr_shard import ShardedBlockSparse  # noqa: F401 (annotation)
+from .bsr_shard import RowShard, ShardedBlockSparse  # noqa: F401
 
 # Hybrid cutoff of cheb_method="pallas": levels with fewer vertices use a
 # dense operator (the whole operator is tiny and one dense product beats a
@@ -73,7 +73,10 @@ class GraphOperator:
     `bsr_sp` is this rank's row shard of the block-sparse operator under
     seq_parallel > 1 (ops/bsr_shard.py; parallel.sharding.shard_operators
     sets it) and `sp_group` the communicator of the ranks that hold the
-    other shards."""
+    other shards. `row_layout` marks the row layout (shard_operators(...,
+    rows=True)): the activations at this level are this rank's rows,
+    ``rows``, those of bsr_sp; for the embedded operator those of level 0
+    (`embedded_rows`), whose corner keeps its own shard."""
 
     dense: torch.Tensor | None
     bsr: BlockSparseOperator | None
@@ -81,8 +84,18 @@ class GraphOperator:
     active_n: int
     bsr_sp: "ShardedBlockSparse | None" = None
     sp_group: object = None
+    row_layout: bool = False
+    embedded_rows: RowShard | None = None
     ell_idx: torch.Tensor | None = None   # int64, self-padded rows
     ell_w: torch.Tensor | None = None     # operator dtype, 0 on padding
+
+    @property
+    def rows(self) -> RowShard | None:
+        """The RowShard of the activations at this level (None outside the
+        row layout)."""
+        if not self.row_layout:
+            return None
+        return self.embedded_rows or RowShard.of(self.bsr_sp, self.sp_group)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -148,7 +161,13 @@ class PoolOperator:
     (transpose_csr), and `t_bsr`, P^T as a rectangular block-sparse
     operator (rows = pool inputs, columns = pool outputs; the JAX package's
     layout, held against it in the tests). pool_method "dense": `dense`
-    [M, N] alone, the gather fields None."""
+    [M, N] alone, the gather fields None.
+
+    Under the row layout (``shard_pool_operator``) `in_rows` / `out_rows`
+    are the RowShard of the input / output level when it is row-sharded:
+    then idx / w hold P's rows of the output level's shard, and t_idx /
+    t_w and the CSR P^T's rows of the input level's shard (t_ptr rebased
+    to 0), zero-weight rows past the level's n; t_bsr is dropped."""
 
     idx: torch.Tensor | None     # [M, R] int64
     w: torch.Tensor | None       # [M, R] operator dtype (0 on padding)
@@ -161,6 +180,20 @@ class PoolOperator:
     t_ptr: torch.Tensor | None = None  # [N + 1] int32
     t_col: torch.Tensor | None = None  # [nnz] int32, ascending in a row
     t_val: torch.Tensor | None = None  # [nnz] operator dtype
+    in_rows: RowShard | None = None
+    out_rows: RowShard | None = None
+
+    @property
+    def x_rows(self) -> int:
+        """Rows of x (and of dx) that this rank holds."""
+        return self.n_in if self.in_rows is None else self.in_rows.rows_local
+
+    @property
+    def g_rows(self) -> int:
+        """Rows of the cotangent the backward reads: the output level's
+        n_pad_global after its all-gather when it is row-sharded."""
+        return (self.n_out if self.out_rows is None
+                else self.out_rows.n_pad_global)
 
 
 def transpose_csr(csr_t: sp.spmatrix) -> tuple[np.ndarray, ...]:
@@ -223,3 +256,32 @@ def pool_operator(mat: sp.spmatrix, device,
     return PoolOperator(
         idx=t(idx), w=t(w).to(dtype), n_in=csr.shape[1], n_out=csr.shape[0],
         t_idx=t(t_idx), t_w=t(t_w).to(dtype), **sparse)
+
+
+def shard_pool_operator(pool: PoolOperator, in_rows: RowShard | None,
+                        out_rows: RowShard | None) -> PoolOperator:
+    """The pool operator of the row layout (PoolOperator docstring), cut
+    once: P's gather rows of the output level's shard, P^T's gather and
+    CSR rows of the input level's shard. A padding row of P gathers row 0
+    with weight 0; one of P^T has no entries."""
+    if in_rows is None and out_rows is None:
+        return pool
+    fields = dict(in_rows=in_rows, out_rows=out_rows, t_bsr=None)
+    if pool.idx is not None and out_rows is not None:
+        fields.update(idx=out_rows.local(pool.idx, dim=0),
+                      w=out_rows.local(pool.w, dim=0))
+    if pool.t_idx is not None and in_rows is not None:
+        fields.update(t_idx=in_rows.local(pool.t_idx, dim=0),
+                      t_w=in_rows.local(pool.t_w, dim=0))
+        if pool.t_ptr is not None:
+            r0, c = in_rows.row0, in_rows.count()
+            ptr = pool.t_ptr.cpu().long()
+            own = ptr[r0:r0 + c + 1] if c else torch.zeros(1, dtype=ptr.dtype)
+            lo, hi = int(own[0]), int(own[-1])
+            t_ptr = torch.full((in_rows.rows_local + 1,), hi - lo,
+                               dtype=torch.int32)
+            t_ptr[:c + 1] = own - lo
+            fields.update(t_ptr=t_ptr.to(pool.t_ptr.device),
+                          t_col=pool.t_col[lo:hi].contiguous(),
+                          t_val=pool.t_val[lo:hi].contiguous())
+    return dataclasses.replace(pool, **fields)

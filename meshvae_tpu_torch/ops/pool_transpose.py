@@ -30,8 +30,9 @@ from .graph import PoolOperator
 DTYPES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 MODES = tuple(DTYPES.values())
 
-# Launches of the CUDA kernel per mode, and per (mode, n_in, n_out, B * F),
-# counted where the wrapper launches it (never on the CPU twin path).
+# Launches of the CUDA kernel per mode, and per (mode, rows of dx, rows of
+# g, B * F): (n_in, n_out), or the row layout's (x_rows, g_rows). Counted
+# where the wrapper launches it (never on the CPU twin path).
 # Readers reset and read them around a run; train/graphs.py adds a CUDA
 # graph's captured launches at each replay.
 LAUNCHES = {mode: 0 for mode in MODES}
@@ -64,8 +65,8 @@ def _mode(pool: PoolOperator, g: torch.Tensor) -> str:
     if dtype not in DTYPES or g.dtype != dtype:
         raise TypeError(f"pool_transpose takes fp32 or bf16 values and g in "
                         f"their dtype, got {dtype} and {g.dtype}")
-    if g.dim() != 3 or g.shape[1] != pool.n_out:
-        raise ValueError(f"g must be [B, {pool.n_out}, F], got "
+    if g.dim() != 3 or g.shape[1] != pool.g_rows:
+        raise ValueError(f"g must be [B, {pool.g_rows}, F], got "
                          f"{tuple(g.shape)}")
     return DTYPES[dtype]
 
@@ -78,11 +79,12 @@ def pool_transpose_reference(pool: PoolOperator,
     _mode(pool, g)
     b, _, f = g.shape
     rows = torch.repeat_interleave(
-        torch.arange(pool.n_in, device=g.device),
+        torch.arange(pool.x_rows, device=g.device),
         torch.diff(pool.t_ptr.long()), output_size=pool.t_col.shape[0])
     terms = (pool.t_val.float()[None, :, None]
              * g.float()[:, pool.t_col.long()])
-    dx = torch.zeros((b, pool.n_in, f), dtype=torch.float32, device=g.device)
+    dx = torch.zeros((b, pool.x_rows, f), dtype=torch.float32,
+                     device=g.device)
     return dx.index_add_(1, rows, terms).to(g.dtype)
 
 
@@ -98,7 +100,7 @@ def _launch(pool: PoolOperator, g: torch.Tensor, mode: str) -> torch.Tensor:
     dev = g.device
     nnz = pool.t_col.shape[0]
     for name, t, shape, dtype in (
-            ("t_ptr", pool.t_ptr, (pool.n_in + 1,), torch.int32),
+            ("t_ptr", pool.t_ptr, (pool.x_rows + 1,), torch.int32),
             ("t_col", pool.t_col, (nnz,), torch.int32),
             ("t_val", pool.t_val, (nnz,), g.dtype)):
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
@@ -107,13 +109,13 @@ def _launch(pool: PoolOperator, g: torch.Tensor, mode: str) -> torch.Tensor:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     g = g.contiguous()
-    y = torch.empty((b, pool.n_in, f), dtype=g.dtype, device=dev)
+    y = torch.empty((b, pool.x_rows, f), dtype=g.dtype, device=dev)
     vec = _vec(f, g.element_size(), g.data_ptr(), y.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib().pool_transpose(
             pool.t_ptr.data_ptr(), pool.t_col.data_ptr(),
-            pool.t_val.data_ptr(), g.data_ptr(), y.data_ptr(), pool.n_in,
+            pool.t_val.data_ptr(), g.data_ptr(), y.data_ptr(), pool.x_rows,
             n_out, f, b, MODES.index(mode), vec, stream)
     if rc != 0:
         raise RuntimeError(f"pool_transpose[{mode}] launch failed: CUDA "
@@ -123,8 +125,10 @@ def _launch(pool: PoolOperator, g: torch.Tensor, mode: str) -> torch.Tensor:
 
 def pool_transpose(pool: PoolOperator, g: torch.Tensor) -> torch.Tensor:
     """dx [B, N_in, F] = P^T @ g for g [B, N_out, F], in the operator's
-    dtype (g must have it too). A CPU tensor runs the plain twin; a CUDA
-    tensor launches the kernel or raises."""
+    dtype (g must have it too). Under the row layout the CSR holds the
+    input level's row shard: dx is [B, pool.x_rows, F], this rank's rows,
+    and g the all-gathered [B, pool.g_rows, F]. A CPU tensor runs the
+    plain twin; a CUDA tensor launches the kernel or raises."""
     mode = _mode(pool, g)
     if g.device.type == "cpu":
         return pool_transpose_reference(pool, g)
@@ -132,6 +136,6 @@ def pool_transpose(pool: PoolOperator, g: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"unsupported device {g.device}")
     y = _launch(pool, g, mode)
     LAUNCHES[mode] += 1
-    key = (mode, pool.n_in, pool.n_out, g.shape[0] * g.shape[2])
+    key = (mode, pool.x_rows, pool.g_rows, g.shape[0] * g.shape[2])
     LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
     return y

@@ -14,17 +14,30 @@ axes ("dp", "sp"); the port runs one process per rank, PyTorch's idiom:
     whole world (train/loop.py) and outputs all-gathered over dp
     (``fetch``);
   * sp: ``shard_operators`` replaces every block-sparse Laplacian with the
-    rank's row shard (ops/bsr_shard.py), whose conv all-gathers the
-    recurrence state over the sp group. Outside the Chebyshev convs the
-    activations stay replicated over sp in this port (pools, dense
-    levels, heads, losses and Adam).
+    rank's row shard (ops/bsr_shard.py), whose products all-gather the
+    recurrence state over the sp group. With ``rows=True`` (the VAE's
+    train, eval and serve paths) the activations follow the JAX package's
+    P("dp", "sp") layout: a tensor at a level whose Laplacian is
+    row-sharded holds only the rank's rows of it (a RowShard: rows [row0,
+    row0 + rows_local) of the level padded to n_pad_global, the rows the
+    shard computes), ``shard_batch`` stages VERTEX_KEYS in those rows of
+    level 0, the pools keep the rank's rows (each PoolOperator cut once),
+    the loss and the pose error sum the rank's rows and then over sp, and
+    ``fetch`` all-gathers a vertex-shaped output over sp before it goes to
+    the host. Dense levels below BSR_MIN_N, heads, latents and scalars
+    stay whole on every rank. The JAX package places x by an even split
+    of N and lets GSPMD move it; the port stages it in the conv shard's
+    rows from the start ("staging in the consumer's layout",
+    meshvae_tpu/train/loop.py:122-130). crecon and the joint model keep
+    their activations whole over sp (``rows=False``): the convs cut the
+    rank's rows out and all-gather their outputs.
 
-The pool backward keeps its P^T kernel (pool_transpose) under any world: the
-JAX package drops it there (``_strip_pool_bsr``) because the TPU kernel has
-no sharding rule inside the GSPMD graph, and runs P^T as ELL gathers. The
-port's pools are not vertex-sharded, so that reason does not hold; the two
-compute the same products in another order, which the tests hold to the
-JAX package's mesh path at their stated bars.
+The pool backward keeps its P^T kernel (pool_transpose) under any world,
+on the input level's row shard of the CSR: the JAX package drops it there
+(``_strip_pool_bsr``) because the TPU kernel has no sharding rule inside
+the GSPMD graph, and runs P^T as ELL gathers. The two compute the same
+products in another order, which the tests hold to the JAX package's mesh
+path at their stated bars.
 
 Backend (``choose_backend``): NCCL when every rank has a card of its own;
 gloo on the CPU and when the ranks share one card (tests and the card's
@@ -218,16 +231,58 @@ def sync_processes(world: World | None) -> None:
         dist.barrier()
 
 
-def shard_batch(batch: dict, world: World | None) -> dict:
+VERTEX_KEYS = ("x", "original")  # batch arrays carrying a vertex dim
+
+
+def vertex_dim_shardable(ops, world: World | None) -> bool:
+    """True when a batch's vertex axis is staged as the rank's rows: sp > 1
+    and the level-0 activations are row-sharded (`ops` from
+    shard_operators(..., rows=True) with a block-sparse level 0)."""
+    return (world is not None and world.sp > 1
+            and ops.lap[0].rows is not None)
+
+
+def vertex_rows(ops, world: World | None):
+    """The level-0 RowShard that vertex-shaped arrays are staged in (None
+    when vertex_dim_shardable is false)."""
+    return ops.lap[0].rows if vertex_dim_shardable(ops, world) else None
+
+
+def vertex_mean(err: torch.Tensor, rows=None) -> torch.Tensor:
+    """[B, N] per-vertex values -> [B] means over the N vertices; with
+    `rows` (vertex_rows) err holds the rank's rows [B, rows_local]: those
+    below N are summed, then over sp."""
+    if rows is None:
+        return err.mean(dim=-1)
+    return rows.group.all_reduce_(err[:, :rows.count()].sum(dim=-1)) / rows.n
+
+
+def vertex_max(err: torch.Tensor, rows=None) -> torch.Tensor:
+    """[B] maxima over the N vertices of non-negative per-vertex values,
+    in vertex_mean's layout; a zero column keeps the maximum of a rank
+    without vertices defined."""
+    if rows is None:
+        return err.max(dim=-1).values
+    own = torch.cat([err[:, :rows.count()], err.new_zeros(err.shape[0], 1)],
+                    dim=1).amax(dim=-1)
+    return rows.group.all_gather(own[None]).amax(dim=0)
+
+
+def shard_batch(batch: dict, world: World | None, rows=None) -> dict:
     """The rank's rows of a global host batch: rows [dp_rank * B / dp,
-    (dp_rank + 1) * B / dp) of every array (B % dp == 0, validate.py)."""
-    if world is None or world.dp == 1:
+    (dp_rank + 1) * B / dp) of every array (B % dp == 0, validate.py) and,
+    with `rows` (vertex_rows), the rank's vertex rows of VERTEX_KEYS
+    ([B, N, 3] -> [B / dp, rows_local, 3], zero past N): staged in the
+    consumer's layout, as the JAX package's P("dp", "sp")."""
+    if world is None or (world.dp == 1 and rows is None):
         return batch
     out = {}
     for k, v in batch.items():
         v = np.asarray(v)
         b = v.shape[0] // world.dp
-        out[k] = v[world.dp_rank * b:(world.dp_rank + 1) * b]
+        v = v[world.dp_rank * b:(world.dp_rank + 1) * b]
+        out[k] = (rows.local(torch.from_numpy(v), dim=1).numpy()
+                  if rows is not None and k in VERTEX_KEYS else v)
     return out
 
 
@@ -239,22 +294,33 @@ def replicate(tensors, world: World | None) -> None:
         dist.broadcast(t.data, src=0)
 
 
-def fetch(t: torch.Tensor, world: World | None, dim: int = 0) -> np.ndarray:
+def fetch(t: torch.Tensor, world: World | None, dim: int = 0,
+          rows=None) -> np.ndarray:
     """A dp-sharded output (this rank's rows along `dim`) as the full host
     array: all-gathered over the dp group (each rank gets it; the primary
-    writes it)."""
+    writes it). With `rows` (a RowShard) the vertex dim, dim + 1, holds
+    the rank's vertex rows: they are all-gathered over sp first, to the
+    level's n."""
+    if rows is not None:
+        t = rows.gather(t, dim=dim + 1)
     if world is not None and world.dp > 1:
         t = world.dp_group.all_gather(t, dim=dim)
     return t.cpu().numpy()
 
 
-def shard_operators(ops, world: World | None):
+def shard_operators(ops, world: World | None, rows: bool = False):
     """ModelOperators with every block-sparse Laplacian (lap, lap_final)
     replaced by this rank's row shard when sp > 1 (the same operator object
-    is sharded once)."""
+    is sharded once). With `rows` (the row layout) the activations at
+    each such level are the rank's rows too: every sharded GraphOperator
+    is marked row_layout (the embedded lap_final holds level 0's
+    RowShard), and each
+    pool whose input or output level is row-sharded is cut once
+    (graph.shard_pool_operator)."""
     if world is None or world.sp == 1:
         return ops
     from ..ops.bsr_shard import shard_block_sparse
+    from ..ops.graph import shard_pool_operator
 
     done = {}
 
@@ -262,14 +328,26 @@ def shard_operators(ops, world: World | None):
         if op.bsr is None:
             return op
         if id(op) not in done:
+            sbsr = shard_block_sparse(op.bsr, world.sp, world.sp_rank)
             done[id(op)] = dataclasses.replace(
-                op, bsr=None,
-                bsr_sp=shard_block_sparse(op.bsr, world.sp, world.sp_rank),
-                sp_group=world.sp_group)
+                op, bsr=None, bsr_sp=sbsr, sp_group=world.sp_group,
+                row_layout=rows)
         return done[id(op)]
 
-    return dataclasses.replace(ops, lap=tuple(convert(o) for o in ops.lap),
-                               lap_final=convert(ops.lap_final))
+    lap = tuple(convert(o) for o in ops.lap)
+    final = convert(ops.lap_final)
+    if not rows:
+        return dataclasses.replace(ops, lap=lap, lap_final=final)
+    level = [op.rows for op in lap]
+    if final.active_n < final.n:
+        final = dataclasses.replace(final, row_layout=level[0] is not None,
+                                    embedded_rows=level[0])
+    return dataclasses.replace(
+        ops, lap=lap, lap_final=final,
+        down=tuple(shard_pool_operator(p, level[i], level[i + 1])
+                   for i, p in enumerate(ops.down)),
+        up=tuple(shard_pool_operator(p, level[i + 1], level[i])
+                 for i, p in enumerate(ops.up)))
 
 
 def free_port() -> int:

@@ -91,6 +91,9 @@ class CreconTrainer(Trainer):
     mask and no normalisation, and ``run_epoch`` is its epoch."""
 
     BATCH_KEYS = ("x", "label", "mask")
+    # the GCN's activations stay whole over sp (ROADMAP: the row layout
+    # for crecon)
+    vertex_sharded = False
 
     def __init__(self, gcn: ChebGCN, vae, ops, config: dict, device="cuda",
                  dist=None):

@@ -394,7 +394,8 @@ def _test_fold(trainer: Trainer, config: dict, log: RunLog, n: int,
         load_checkpoint(find_checkpoint(checkpoint_dir, n))["model"])
     if parse_bool(config.get("scan_epoch", True)):
         test_avg, errors, meshes = trainer.evaluate_scanned(
-            test_loader, mean, std, collect_meshes=True)
+            test_loader, *trainer.norm_to_device(mean, std),
+            collect_meshes=True)
     else:
         test_avg, errors, meshes = trainer.evaluate(test_loader, mean, std,
                                                     collect_meshes=True)

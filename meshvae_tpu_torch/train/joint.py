@@ -21,6 +21,9 @@ from .loop import Trainer
 
 class JointTrainer(Trainer):
     extra_scalar_names = ("sup_accuracy", "adv_accuracy")
+    # the GCN's activations stay whole over sp (ROADMAP: the row layout
+    # for the joint model)
+    vertex_sharded = False
 
     def _extra_scalars(self, aux: dict) -> list:
         return [aux["sup_correct"], aux["adv_correct"]]

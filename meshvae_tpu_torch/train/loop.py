@@ -18,8 +18,11 @@ the loss, the metrics and the pose error are float32.
 
 In a world (parallel/sharding.py), as the JAX package's GSPMD step under a
 mesh: each rank runs its dp rows of the global batch, with the operators
-row-sharded over sp; the loss and the packed metrics are masked means over
-the global batch (the mask sums are summed over dp before the division);
+row-sharded over sp and, in the row layout (the VAE's trainer), x and the
+activations at row-sharded levels as the rank's vertex rows, the NLL and
+the pose error summed over them and then over sp; the loss and the packed
+metrics are masked means over the global batch (the mask sums are summed
+over dp before the division);
 the dropout masks and the noise are drawn for the global batch and sliced
 (models/vae.py ``rows``); the gradients are summed over the whole world in
 one all-reduce and scaled by 1/sp (the sp ranks of a dp slice hold the
@@ -50,7 +53,8 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..mesh.procrustes import apply_inverse_similarity
 from ..models.losses import vae_loss
-from ..parallel.sharding import fetch, replicate, shard_batch, shard_operators
+from ..parallel.sharding import (VERTEX_KEYS, fetch, replicate, shard_batch,
+                                 shard_operators, vertex_mean, vertex_rows)
 from .graphs import HostCopy, StepGraph, map_tensors
 
 # order of the packed per-step metrics returned by the train step
@@ -89,16 +93,22 @@ def reshuffle_batches(batches: dict, perm) -> dict:
 
 
 def stage_batch_arrays(loader, device, keys: tuple,
-                       with_index: bool = False):
+                       with_index: bool = False, rows=None):
     """A loader's batches uploaded once as stacked [S, B, ...] tensors on
     `device` (None for an empty loader): "label" as int64, the rest as
     float32. "mask" is also kept on the host as the numpy "mask_host", and
-    with_index the dataset indices as a host "index" [S, B]."""
+    with_index the dataset indices as a host "index" [S, B]. With `rows`
+    (parallel.vertex_rows) VERTEX_KEYS are staged as the rank's vertex
+    rows [S, B, rows_local, 3], the consumer's layout (the JAX package's
+    P(None, "dp", "sp"))."""
     batch_list = list(loader)
     if not batch_list:
         return None
     stacked = {k: np.stack([b[k] for b in batch_list]) for k in keys
                if k in batch_list[0]}
+    if rows is not None:
+        stacked.update({k: rows.local(torch.from_numpy(v), dim=2)
+                        for k, v in stacked.items() if k in VERTEX_KEYS})
     staged = {k: torch.as_tensor(v).to(
         device, torch.long if k == "label" else torch.float32)
         for k, v in stacked.items()}
@@ -196,6 +206,10 @@ class _Scan:
         self.generator = None
 
 
+# the eval outputs with a vertex dim (the row layout gathers them over sp)
+_VERTEX_OUTS = ("errors", "recon_orig", "oppo_orig")
+
+
 class Trainer:
     """Owns one (model, operators, optimizer) triple on one device.
 
@@ -204,7 +218,11 @@ class Trainer:
     Randomness (dropout masks, the reparameterisation noise) comes from the
     torch.Generator the caller passes, which must live on the trainer's
     device. With ``dist`` (a parallel.World) the trainer runs on the
-    world's device and the operators are sharded for its sp group.
+    world's device and the operators are sharded for its sp group; with
+    ``vertex_sharded`` (the VAE's trainer) in the row layout, where x, the
+    normalisation, the activations at row-sharded levels, recon and the
+    per-vertex errors are the rank's rows (``vertex_shard``, the level-0
+    RowShard of parallel.vertex_rows; None outside the layout).
 
     ``graphs`` (True on a card in one process) makes the scanned epoch's
     steps CUDA graphs; set it False to run the same steps eagerly.
@@ -218,6 +236,9 @@ class Trainer:
 
     BATCH_KEYS = ("x", "label", "r", "s", "m", "mask")
     extra_scalar_names: tuple = ()
+    # the row layout of sp (parallel.sharding.shard_operators); the joint
+    # model and crecon keep their activations whole (ROADMAP)
+    vertex_sharded = True
 
     def _extra_scalars(self, aux: dict) -> list:
         return []
@@ -227,7 +248,8 @@ class Trainer:
         self.device = dist.device if dist is not None else resolve_device(
             device)
         self.model = model.to(self.device)
-        self.ops = shard_operators(ops, dist)
+        self.ops = shard_operators(ops, dist, rows=self.vertex_sharded)
+        self.vertex_shard = vertex_rows(self.ops, dist)
         self.config = config
         self.num_classes = int(config["num_classes"])
         self.optimizer = make_optimizer(self.model.parameters(),
@@ -278,7 +300,8 @@ class Trainer:
         return self.model.state_dict()
 
     def to_device(self, batch: dict) -> dict:
-        batch = shard_batch({k: batch[k] for k in self.BATCH_KEYS}, self.dist)
+        batch = shard_batch({k: batch[k] for k in self.BATCH_KEYS}, self.dist,
+                            self.vertex_shard)
         out = {}
         for k in self.BATCH_KEYS:
             t = torch.as_tensor(np.asarray(batch[k]))
@@ -287,10 +310,18 @@ class Trainer:
         return out
 
     def norm_to_device(self, norm_mean, norm_std):
-        """Normalisation statistics (numpy or tensors) on the device."""
-        return tuple(torch.as_tensor(a, dtype=torch.float32,
-                                     device=self.device)
-                     for a in (norm_mean, norm_std))
+        """Normalisation statistics [N, 3] (numpy or tensors) on the
+        device as the steps read them: the rank's vertex rows in the row
+        layout. The scanned epoch takes them in this form (the driver
+        converts them once per fold); train_epoch and evaluate convert
+        the [N, 3] statistics they are given."""
+        out = tuple(torch.as_tensor(a, dtype=torch.float32,
+                                    device=self.device)
+                    for a in (norm_mean, norm_std))
+        shard = self.vertex_shard
+        if shard is None:
+            return out
+        return tuple(shard.local(t, dim=0) for t in out)
 
     # ------------------------------------------------------------------
     def _dp_sum_(self, t: torch.Tensor) -> torch.Tensor:
@@ -321,7 +352,8 @@ class Trainer:
                          rows=self._rows(x, train))
         denom = self._denominator(batch["mask"])
         loss, aux = vae_loss(x, out["recon"], out["mu"], out["logvar"], y,
-                             out["y_hat"], mask=batch["mask"], denom=denom)
+                             out["y_hat"], mask=batch["mask"], denom=denom,
+                             shard=self.vertex_shard)
         return loss, out, aux, y, denom
 
     def _reduce_gradients(self) -> None:
@@ -380,7 +412,7 @@ class Trainer:
                 loss.detach(),
                 (aux["kld"] * mask).sum() / denom,
                 (aux["rec_loss"] * mask).sum() / denom,
-                (err.mean(dim=-1) * mask).sum() / denom,
+                (vertex_mean(err, self.vertex_shard) * mask).sum() / denom,
                 aux["correct"],
                 mask.sum(),
             ]))
@@ -412,7 +444,7 @@ class Trainer:
             aux["correct"],
             mask.sum(),
             sc_correct,
-            (err.mean(dim=-1) * mask).sum(),
+            (vertex_mean(err, self.vertex_shard) * mask).sum(),
             *(s.to(mask.dtype) for s in self._extra_scalars(aux)),
         ]))
         return {"scalars": scalars, "errors": err, "recon_orig": recon_orig,
@@ -449,7 +481,8 @@ class Trainer:
         counterfactuals, their predicted and target labels and the
         dataset indices, valid rows only (the test path's mesh dumps). In
         a world every rank gets all of them: the rows are all-gathered over
-        dp (parallel.fetch)."""
+        dp (parallel.fetch), the vertex rows first over sp in the row
+        layout."""
         totals = {"loss": 0.0, "kld": 0.0, "rec_loss": 0.0}
         correct = sc_correct = count = err_sum = 0.0
         extra = np.zeros(len(self.extra_scalar_names))
@@ -469,12 +502,16 @@ class Trainer:
             extra += sc[7:]
             count += n
             keep = np.asarray(batch["mask"]) > 0
-            errors.append(fetch(out["errors"], self.dist)[keep])
+            errors.append(fetch(out["errors"], self.dist,
+                                rows=self.vertex_shard)[keep])
             if collect_meshes:
                 for k, src in (("recon", "recon_orig"), ("oppo", "oppo_orig"),
                                ("oppo_pred", "oppo_pred"),
                                ("oppo_label", "oppo_label")):
-                    meshes[k].append(fetch(out[src], self.dist)[keep])
+                    rows = (self.vertex_shard if k in ("recon", "oppo")
+                            else None)
+                    meshes[k].append(fetch(out[src], self.dist,
+                                           rows=rows)[keep])
                 meshes["index"].append(np.asarray(batch["index"])[keep])
         avg = {k: v / max(count, 1.0) for k, v in totals.items()}
         avg["accuracy"] = correct / max(count, 1.0)
@@ -502,9 +539,11 @@ class Trainer:
         [S, B] (evaluate_scanned's mesh collection names files with them).
         "original" is not staged: _pose_error recomputes it from x. In a
         world every rank stages the whole grid, as the permutation moves
-        samples between dp slices; each step takes its rank's rows."""
+        samples between dp slices; each step takes its rank's rows. In the
+        row layout x is staged as the rank's vertex rows."""
         return stage_batch_arrays(loader, self.device, self.BATCH_KEYS,
-                                  with_index=with_index)
+                                  with_index=with_index,
+                                  rows=self.vertex_shard)
 
     def _scan_outs(self, kind: str, staged: dict) -> dict:
         """The [S, ...] rows a kind of step writes (this rank's rows of
@@ -574,7 +613,14 @@ class Trainer:
         if norm_mean is None:
             st.norm = ()
         else:
-            mean, std = self.norm_to_device(norm_mean, norm_std)
+            mean, std = (torch.as_tensor(a, dtype=torch.float32,
+                                         device=self.device)
+                         for a in (norm_mean, norm_std))
+            shard = self.vertex_shard
+            if shard is not None and mean.shape[0] != shard.rows_local:
+                raise ValueError(
+                    "a scanned epoch in the row layout takes the statistics "
+                    "as norm_to_device returns them (the rank's rows)")
             if not st.norm:
                 st.norm = (mean.clone(), std.clone())
             else:
@@ -613,7 +659,7 @@ class Trainer:
         per-step metrics as an in-flight HostCopy (None for an empty epoch)
         for finalize_train_metrics, so the next epoch can be queued before
         this one is read (the epoch pipeline, train/driver.py). The
-        epoch's order of the S * B samples is a permutation drawn on the
+        normalisation is norm_to_device's result. The epoch's order of the S * B samples is a permutation drawn on the
         device from shuffle_generator (identity without it); `perm` gives
         it explicitly."""
         if staged is not None and not isinstance(staged, dict):
@@ -665,7 +711,8 @@ class Trainer:
         its indices when collecting) without waiting; returns what
         finalize_eval_scanned reads (None for an empty split).
         with_errors=False runs the light variant, which writes no [S, B, N]
-        error rows (finalize it with with_errors=False too)."""
+        error rows (finalize it with with_errors=False too). The
+        normalisation is norm_to_device's result."""
         if staged is not None and not isinstance(staged, dict):
             staged = self.stage_batches(staged, with_index=collect_meshes)
         if staged is None:
@@ -679,6 +726,9 @@ class Trainer:
         st = self._scan_state(kind, staged, norm_mean, norm_std)
         self._run_scan(st)
         outs = st.outs
+        if self.vertex_shard is not None:   # vertex rows -> all N
+            outs = {k: self.vertex_shard.gather(v, dim=2)
+                    if k in _VERTEX_OUTS else v for k, v in outs.items()}
         if self.dist is not None and self.dist.dp > 1:
             outs = {k: v if k == "scalars"
                     else self.dist.dp_group.all_gather(v, dim=1)

@@ -102,12 +102,6 @@ REPLACED = {
     "parallel/sharding.py:replicate_tree": (
         "parallel/sharding.py:replicate",
         "a broadcast of the tensors from rank 0"),
-    **{f"parallel/sharding.py:{name}": (
-        "parallel/sharding.py:shard_batch",
-        "the batch's vertex dim stays whole on every sp rank; sp shards the "
-        "conv's recurrence rows (ops/bsr_shard.py), and sharding between "
-        "the convs is ROADMAP item 8's open part")
-       for name in ("VERTEX_KEYS", "vertex_dim_shardable")},
     "train/loop.py:call_synced": (
         "train/graphs.py:StepGraph",
         "JAX's compile-then-barrier for multi-process AOT; the port's steps "

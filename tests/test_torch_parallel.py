@@ -14,7 +14,8 @@ the CPU.
     tests/test_torch_bf16.py's bar); cheb_conv_bsr_sharded forward and
     gradients against cheb_conv_pallas_sharded with FUSED_SEED_DOT on and
     off (test_pallas.py:170-214), at tests/test_torch_seed_dot.py's bars;
-  * a dp=2 x sp=2 gloo world of four CPU ranks (one spawned run): Trainer
+  * a dp=2 x sp=2 gloo world of four CPU ranks (one spawned run) in the
+    row layout (x staged as each rank's level-0 shard rows): Trainer
     steps against the port's single-process step and against the JAX
     Trainer under make_device_mesh(dp=2, sp=2) (test_parallel.py's
     test_pallas_method_under_mesh: metrics rtol 1e-5, params rtol 1e-4 and
@@ -330,20 +331,6 @@ def test_sharded_conv_matches_jax(laplacians, monkeypatch, case):
 
 # --- a dp=2 x sp=2 gloo world of four CPU ranks --------------------------
 
-def _flax_tree(state: dict) -> dict:
-    """The port's state_dict as the JAX package's param tree (the inverse
-    of params_from_flax): Chebyshev weight and bias as they are, a Linear
-    weight [out, in] as a Dense kernel [in, out]."""
-    tree = {}
-    for name, v in state.items():
-        layer, leaf = name.rsplit(".", 1)
-        a = v.numpy()
-        if leaf == "weight" and not layer.startswith("cheb_"):
-            leaf, a = "kernel", a.T
-        tree.setdefault(layer, {})[leaf] = np.ascontiguousarray(a)
-    return {"params": tree}
-
-
 def _jax_hierarchy(h):
     return JaxHierarchy(h.vertices, h.faces, h.adjacency, h.downsample,
                         h.upsample)
@@ -359,7 +346,7 @@ def world(tmp_path_factory):
     state = MeshVAE(VAEConfig.from_config(
         W.CONFIG, coarse_verts=hier.levels[-1]),
         generator=torch.Generator().manual_seed(0)).state_dict()
-    params = _flax_tree(state)
+    params = W.flax_tree(state)
     assert all(torch.equal(v, state[k])
                for k, v in params_from_flax(params).items())
     params_path = os.path.join(root, "params.pt")
@@ -476,6 +463,25 @@ def test_world_kernel_calls_per_rank(world):
             n_glob = -(-n_pad // 256) * 256
             assert (rows, cols) == (n_glob // 2, n_glob)
         assert r["train"]["gathers_full"] >= len(got)
+
+
+def test_world_stages_x_as_the_level0_shard_rows(world):
+    """Each rank's staged x is its dp rows of the batch and, of those, the
+    rank's level-0 shard rows [row0, row0 + rows_local), zero past the
+    level's n (the 8 x 8 grid's 64 vertices in 256 padded rows: rank
+    sp 0 holds them all, sp 1 only padding)."""
+    n0 = world["hier"].levels[0]
+    host = W.step_batch(n0, False)["x"]
+    assert world["single"]["x_shard"] is None
+    np.testing.assert_array_equal(world["single"]["x_staged"], host)
+    for r in world["ranks"]:
+        row0, rows, n = r["train"]["x_shard"]
+        assert (row0, rows, n) == (r["sp_rank"] * 128, 128, n0)
+        b = host.shape[0] // 2
+        want = np.zeros((b, rows, 3), np.float32)
+        own = host[r["dp_rank"] * b:(r["dp_rank"] + 1) * b, row0:row0 + rows]
+        want[:, :own.shape[1]] = own
+        np.testing.assert_array_equal(r["train"]["x_staged"], want)
 
 
 def test_world_serve_matches_single_process(world):

@@ -103,6 +103,20 @@ def params_of(model) -> dict:
             for k, v in model.state_dict().items()}
 
 
+def flax_tree(state: dict) -> dict:
+    """The port's VAE state_dict as the JAX package's param tree (the
+    inverse of params_from_flax): Chebyshev weight and bias as they are, a
+    Linear weight [out, in] as a Dense kernel [in, out]."""
+    tree = {}
+    for name, v in state.items():
+        layer, leaf = name.rsplit(".", 1)
+        a = v.numpy()
+        if leaf == "weight" and not layer.startswith("cheb_"):
+            leaf, a = "kernel", a.T
+        tree.setdefault(layer, {})[leaf] = np.ascontiguousarray(a)
+    return {"params": tree}
+
+
 def train_scenario(dist, params_path: str) -> dict:
     """Deterministic steps (no dropout, z = mu) on a full and then a padded
     batch, one step with dropout 0.2 drawn from a seeded generator, and
@@ -124,6 +138,12 @@ def train_scenario(dist, params_path: str) -> dict:
                                  if dist is not None else 0)
         out[f"metrics_{tag}"] = unpack_metrics(packed)
         out[f"params_{tag}"] = params_of(trainer.model)
+    # the staged x: the rank's dp rows and, in the row layout, its level-0
+    # vertex rows
+    shard = trainer.vertex_shard
+    out["x_staged"] = trainer.to_device(step_batch(n0, False))["x"].numpy()
+    out["x_shard"] = (None if shard is None else
+                      (shard.row0, shard.rows_local, shard.n))
     loader = [step_batch(n0, False, seed=1), step_batch(n0, True, seed=2)]
     avg, errors, meshes = trainer.evaluate(loader, zeros, ones,
                                            collect_meshes=True)

@@ -133,13 +133,14 @@ def scan_scenario(dist, hier, ops, states) -> dict:
     model.load_state_dict(states["vae"])
     tr = Trainer(model, ops, config, device="cpu", dist=dist)
     staged = tr.stage_batches(epoch_batches(n0))
+    norm = tr.norm_to_device(zeros, ones)
     packed = tr.train_epoch_scanned_async(
-        staged, torch.Generator().manual_seed(SEEDS["dropout"]), zeros, ones,
+        staged, torch.Generator().manual_seed(SEEDS["dropout"]), *norm,
         shuffle_generator=torch.Generator().manual_seed(SEEDS["shuffle"]))
     out = {"train_avg": tr.finalize_train_metrics(packed),
            "params": W.params_of(tr.model)}
     out["eval_avg"], out["eval_errors"] = tr.finalize_eval_scanned(
-        tr.evaluate_scanned_async(staged, zeros, ones))
+        tr.evaluate_scanned_async(staged, *norm))
     return out
 
 

@@ -240,16 +240,29 @@ Phases, one block of output lines each; any failed check exits non-zero:
                step of the padded third batch, each train step held
                against one process on the card at b's bars, the eval loss
                within 1e-5 relative, every rank's params bit-equal,
-               launches per rank equal to one process's (its Laplacian
-               calls at the shard shapes under sp) and to CRECON_CALLS /
+               launches per rank equal to one process's (under sp, in the
+               row layout as every model: its Laplacian calls at the row
+               shards, its P^T at the pool shards) and to CRECON_CALLS /
                JOINT_CALLS (35 / 30 per train / eval step; 55 + 3 P^T /
-               50), each world's step times and collectives as in d;
+               50), each rank's step memory beside one process's (the
+               classifier_memory lines), each world's step times and
+               collectives as in d;
             f. the kernel against its twin (1e-5 of max|y|) at every
                (shape, C, call kind) rank 0 launched in e;
             g. the classifiers' calls per train step timed at rank 0's
                shapes (dp=2: B=8 per rank on the whole operators; sp=2:
-               B=16 on the row shards; the joint model's P^T unsharded)
-               beside the twin, torch.sparse and both bounds.
+               B=16 on the row shards, the joint model's up-pool 0-1 P^T
+               on rank 0's pool shards [640 x 5120] and [313 x 1280],
+               each held against its twin) beside the twin, torch.sparse
+               and the bounds;
+            h. sp=2 with cheb_method ell: the VAE at scaled80k bf16, full
+               width, every level of at least BSR_MIN_N vertices as the
+               rank's rows of its neighbour list: two train steps and an
+               eval step at c's bars, replicas bit-equal, launches per
+               rank (pool_transpose alone, at the pool shards) equal to
+               one process's, each rank's step memory beside one
+               process's (the ell_sp_memory line), step times and
+               collectives as in d.
 
 15. scan    the scanned epoch (train/loop.py, train/graphs.py): at config
             1 high and highest (B=16), scaled20k fp32 with FUSED_SEED_DOT
@@ -501,8 +514,8 @@ per sp=2 80k train step on rank 0's shards, with its shard shapes), with
 the launches of the main-path runs (each probe run's for #10; the sp=2
 world's per rank for _mapped_product), and phase 14g's crecon and joint
 train steps in the dp=2 and sp=2 worlds (rank 0's Laplacian calls, on its
-row shards under sp, and the joint model's unsharded P^T; launches of
-rank 0 over 14e's steps), and the train-step calls of phase
+row shards under sp, and the joint model's P^T, on its pool shards under
+sp; launches of rank 0 over 14e's steps), and the train-step calls of phase
 15's graphed epochs (config-1 Laplacian in both modes and its P^T, the 20k
 lazy seed, the 80k Laplacian: launches counted per replay, times as
 measured above),
@@ -1295,11 +1308,13 @@ def _per_step(torch, calls, operands, modes, gen, dev, rows):
 def _pool_calls(torch, acc, op, label, c, kinds, gen, dev, rows):
     """A P^T entry of a call table (PoolT): each call is one pool_transpose
     at B = C / f, added to acc, the sums of its mode (with old_ms, the
-    earlier bsr_grouped_spmm call's time, and err_abs, the worst absolute
-    error against the twin)."""
-    got = _pt_case(torch, op.pool, c // op.f, op.f, dev, gen, label)
+    earlier bsr_grouped_spmm call's time, where the pool is whole, and
+    err_abs, the worst absolute error against the twin); a pool shard
+    runs _pt_shard_case."""
+    case = _pt_case if op.pool.t_bsr is not None else _pt_shard_case
+    got = case(torch, op.pool, c // op.f, op.f, dev, gen, label)
     count = sum(kinds.values())
-    for k in ACC_KEYS + ("old_ms",):
+    for k in ACC_KEYS + (("old_ms",) if "old_ms" in got else ()):
         acc[k] = acc.get(k, 0.0) + count * got[k]
     acc["err_abs"] = max(acc.get("err_abs", 0.0), got["err_abs"])
     rows.append(dict(got["row"], per_step=count))
@@ -1308,9 +1323,11 @@ def _pool_calls(torch, acc, op, label, c, kinds, gen, dev, rows):
 def _acc_tail(acc: dict) -> str:
     """The end of a per-step sum's line: the stored-block bound of a
     bsr_grouped_spmm sum, the earlier call's time of a P^T (pool_transpose)
-    sum."""
+    sum on whole pools."""
     if "old_ms" in acc:
         return f"earlier bsr_grouped_spmm {acc['old_ms']:.3f} ms)"
+    if "err_abs" in acc:   # P^T on pool shards: no earlier call, no blocks
+        return "pool shards: no earlier call)"
     return f"{acc['stored_ms']:.3f} ms with the blocks as stored)"
 
 
@@ -1388,9 +1405,9 @@ def _operands(torch, ops, hier, dev) -> dict:
 
 def _operand_names(operands: dict) -> dict:
     """{shape: name} of an operand map: (n_pad, n_pad_cols) of each
-    block-sparse operand, (n_in, n_out) of each PoolT, as the launch
-    tables key them."""
-    return {((op.pool.n_in, op.pool.n_out) if isinstance(op, PoolT)
+    block-sparse operand, (x_rows, g_rows) of each PoolT (its (n_in,
+    n_out), or a pool shard's rows), as the launch tables key them."""
+    return {((op.pool.x_rows, op.pool.g_rows) if isinstance(op, PoolT)
              else (op[0].n_pad, op[0].n_pad_cols)): k
             for k, op in operands.items()}
 
@@ -2879,7 +2896,8 @@ def _world_ops(torch, spec, device):
         return _PREBUILT[spec["ops_key"]]
     hier = load_or_build_hierarchy(load_obj(spec["template"]),
                                    spec["factors"], cache_dir=spec["cache"])
-    return build_operators(hier, device, cheb_method="pallas",
+    return build_operators(hier, device,
+                           cheb_method=spec.get("cheb_method", "pallas"),
                            dtype=spec["dtype"])
 
 
@@ -3171,6 +3189,66 @@ def _world_report(label, out, batch):
            "device busy not measured"))
 
 
+def _at_shard_shapes(ops, single: dict) -> dict:
+    """One process's launch_shapes() as a rank of an sp=2 world launches
+    them: a Laplacian call (n_pad, n_pad) at its row shard's
+    [rows_local, n_pad_global], a P^T call (n_in, n_out) at its pool
+    shard's [x_rows, g_rows], where every level of at least
+    ops.bsr_min_n vertices is row-sharded, whatever its layout
+    (RowShard.for_level)."""
+    from meshvae_tpu_torch.ops.bsr_shard import RowShard
+
+    lap_of, rows_of = {}, {}
+    for op in ops.lap:
+        if op.bsr is not None or op.n >= ops.bsr_min_n:
+            rows = RowShard.for_level(op.n, 2, 0, None)
+            rows_of[op.n] = (rows.rows_local, rows.n_pad_global)
+            if op.bsr is not None:
+                lap_of[op.bsr.n_pad] = rows_of[op.n]
+    want = {}
+    for (mode, a, b), count in single.items():
+        if mode.startswith("pool"):
+            key = (mode, rows_of.get(a, (a,))[0],
+                   rows_of.get(b, (None, b))[1])
+        elif a == b and a in lap_of:
+            key = (mode, *lap_of[a])
+        else:
+            key = (mode, a, b)
+        want[key] = want.get(key, 0) + count
+    return want
+
+
+def _hold_eval80(torch, label, out, make80, host, norm_host):
+    """The world's eval step (after its train steps) against one process's
+    from the world's final state, at phase 8's bar: |world - single_bf16|
+    within |single_bf16 - single_fp32| plus one bf16 ulp of the scale, for
+    the loss and recon_orig."""
+    evs = {}
+    for side, tr in (("single16", make80()),
+                     ("single32", make80(torch.float32))):
+        tr.model.load_state_dict(out["steps"][-1]["params"])
+        ev = tr.eval_step(tr.to_device(host), *tr.norm_to_device(*norm_host))
+        evs[side] = {"loss": ev["scalars"][0].item(),
+                     "recon_orig": ev["recon_orig"].float().cpu()}
+    w_ev = out["eval"]
+    ulp = 2.0 ** -8
+    for name, w, s16, s32, scale in (
+            ("eval loss", torch.tensor(w_ev["loss"]),
+             torch.tensor(evs["single16"]["loss"]),
+             torch.tensor(evs["single32"]["loss"]),
+             abs(evs["single32"]["loss"])),
+            ("eval recon_orig", w_ev["recon_orig"].float(),
+             evs["single16"]["recon_orig"], evs["single32"]["recon_orig"],
+             float(evs["single32"]["recon_orig"].abs().max()))):
+        d_w = float((w - s16).abs().max())
+        d_b = float((s16 - s32).abs().max())
+        say(f"{label} {name}: |world - single_bf16| {d_w:.3e}, "
+            f"|single_bf16 - single_fp32| {d_b:.3e} (scale {scale:.3e})")
+        if not d_w <= d_b + ulp * scale:
+            fail(f"{label} {name}: {d_w:.3e} > {d_b:.3e} + one ulp of "
+                 f"{scale:.3e}")
+
+
 def phase_distribution(torch, dev, models, ops, hier, tmpl, norm, many_dir,
                        s20, s80, tmp, card):
     """Phase 14: the shard products (a), a dp=2 world at config 1 (b), an
@@ -3178,10 +3256,9 @@ def phase_distribution(torch, dev, models, ops, hier, tmpl, norm, many_dir,
     at the block-sparse levels are each rank's rows: its launches and each
     rank's memory beside one process's) and its MeshServer at config 1
     (c), the times of _mapped_product and of pool_transpose at the sp=2
-    80k shard shapes (d),
-    and crecon and the joint model in a dp=2 and an sp=2 world (e-g,
-    _classifier_worlds). Returns the kernels-line entry of d and those of
-    g."""
+    80k shard shapes (d), crecon and the joint model in a dp=2 and an sp=2
+    world (e-g, _classifier_worlds) and the sp=2 world with cheb_method ell
+    (h, _ell_world). Returns the kernels-line entry of d and those of g."""
     say("== phase 14: distribution (dp / sp over torch.distributed; "
         "_mapped_product = bsr_grouped_spmm on row shards)")
     import numpy as np
@@ -3299,55 +3376,14 @@ def phase_distribution(torch, dev, models, ops, hier, tmpl, norm, many_dir,
                            batches80, (ds80.mean, ds80.std), None,
                            float(config80["learning_rate"]),
                            yardstick=lambda: make80(torch.float32))
-    # the eval step, at phase 8's bar
-    # the world's eval step ran after its train steps: hold it against the
-    # single process from the world's final state
-    evs = {}
-    for side, tr in (("single16", make80()),
-                     ("single32", make80(torch.float32))):
-        tr.model.load_state_dict(out["steps"][-1]["params"])
-        ev = tr.eval_step(tr.to_device(batches80[0]),
-                          *tr.norm_to_device(ds80.mean, ds80.std))
-        evs[side] = {"loss": ev["scalars"][0].item(),
-                     "recon_orig": ev["recon_orig"].float().cpu()}
-    w_ev = out["eval"]
-    ulp = 2.0 ** -8
-    for name, w, s16, s32, scale in (
-            ("eval loss", torch.tensor(w_ev["loss"]),
-             torch.tensor(evs["single16"]["loss"]),
-             torch.tensor(evs["single32"]["loss"]),
-             abs(evs["single32"]["loss"])),
-            ("eval recon_orig", w_ev["recon_orig"].float(),
-             evs["single16"]["recon_orig"], evs["single32"]["recon_orig"],
-             float(evs["single32"]["recon_orig"].abs().max()))):
-        d_w = float((w - s16).abs().max())
-        d_b = float((s16 - s32).abs().max())
-        say(f"sp=2 {name}: |world - single_bf16| {d_w:.3e}, |single_bf16 "
-            f"- single_fp32| {d_b:.3e} (scale {scale:.3e})")
-        if not d_w <= d_b + ulp * scale:
-            fail(f"sp=2 {name}: {d_w:.3e} > {d_b:.3e} + one ulp of "
-                 f"{scale:.3e}")
+    _hold_eval80(torch, "sp=2", out, make80, batches80[0],
+                 (ds80.mean, ds80.std))
     # launches per rank: the single process's Laplacian calls at the shard
     # shapes, and its P^T calls at the pool shards' (the input level's
     # rows of P^T, the output level's gathered rows of g)
     single = _launches_of(torch, make80, batches80, (ds80.mean, ds80.std),
                           eval_batch=batches80[0])
-    shard_of, level_of = {}, {}
-    for i, op in enumerate(s80["ops"].lap):
-        if op.bsr is not None:
-            n_glob = -(-op.bsr.n_pad // 256) * 256
-            shard_of[op.bsr.n_pad] = (n_glob // 2, n_glob)
-            level_of[op.n] = (n_glob // 2, n_glob)
-    want = {}
-    for (mode, a, b), count in single.items():
-        if mode.startswith("pool"):
-            key = (mode, level_of.get(a, (a,))[0],
-                   level_of.get(b, (None, b))[1])
-        elif a == b and a in shard_of:
-            key = (mode, *shard_of[a])
-        else:
-            key = (mode, a, b)
-        want[key] = want.get(key, 0) + count
+    want = _at_shard_shapes(s80["ops"], single)
     for r, rank in enumerate(out["ranks"]):
         if rank["launches"] != want:
             fail(f"sp=2 rank {r} launched {rank['launches']}, expected the "
@@ -3364,18 +3400,9 @@ def phase_distribution(torch, dev, models, ops, hier, tmpl, norm, many_dir,
         f"P^T, gathered rows of g]: {pool_launches})")
     # each rank's memory over the main path's train steps, beside one
     # process's step from the same state (step 2: Adam's state exists)
-    mem_single = _single_memory(torch, make80, out["steps"][-1]["pre"],
-                                batches80[-1], (ds80.mean, ds80.std))
-    for r, rank in enumerate(out["ranks"]):
-        (peak, own) = rank["mem_mib"][-1]
-        say(f"sp=2 rank {r} memory, train step {SP_STEPS}: peak {peak:.1f} "
-            f"MiB of its process, the step's own {own:.1f} MiB; one "
-            f"process: peak {mem_single[0]:.1f} MiB, the step's own "
-            f"{mem_single[1]:.1f} MiB ({card}; rank 0 shares this "
-            f"process, whose earlier phases hold memory)")
-    say("sp_memory " + json.dumps({
-        "ranks": [rank["mem_mib"] for rank in out["ranks"]],
-        "single": mem_single, "unit": "MiB (peak, own) per train step"}))
+    _say_rank_memory("sp_memory", "sp=2", out, _single_memory(
+        torch, make80, out["steps"][-1]["pre"], batches80[-1],
+        (ds80.mean, ds80.std)), card)
     _world_report("sp=2 scaled80k bf16", out, SCALED_BATCH)
     # the sp=2 MeshServer against one process
     from meshvae_tpu_torch.infer.serve import MeshServer
@@ -3460,68 +3487,104 @@ def phase_distribution(torch, dev, models, ops, hier, tmpl, norm, many_dir,
                        for b in shard_ops.values()}))
     say(f"phase 14 worst: kernel vs twin {worst}; dp=2 worst gradient "
         f"delta {dp_worst}; sp=2 worst bf16 excess {sp_worst:.3e}")
-    return entry, _classifier_worlds(torch, dev, models, ops, hier, tmpl,
-                                     tmp, worst)
+    classifiers = _classifier_worlds(torch, dev, models, ops, hier, tmpl,
+                                     tmp, worst, card)
+    _ell_world(torch, dev, s80, config80, batches80, ds80, weights80, card)
+    return entry, classifiers
 
 
-def _pool_shard_times(torch, s80, dev, gen):
-    """pool_transpose on rank 0's sp=2 shard of each 80k up-pool's P^T
-    (the input level's rows of the CSR; g gathered to the output level's
-    n_pad_global rows): held against its twin at one bf16 ulp and timed
+def _pt_shard_case(torch, pool, b, f, dev, gen, tag):
+    """pool_transpose on a pool shard (the input level's rows of P^T's CSR;
+    g all-gathered to the output level's g_rows): held against its twin
+    within TOL_KERNEL (fp32) or one bf16 ulp (bf16) of max|y| and timed
     beside the twin and torch.sparse on the same CSR rows; the bound
     counts the CSR, y and the rows of g that the shard reads, once each.
-    Returns the rows."""
+    Returns the per-call dict of ACC_KEYS plus err_abs and row."""
     from meshvae_tpu_torch.ops import pool_transpose as pt
+
+    dt = pool.t_val.dtype
+    mode = pt.DTYPES[dt]
+    g = torch.randn(b, pool.g_rows, f, device=dev, generator=gen).to(dt)
+    y = pt.pool_transpose(pool, g)
+    twin = pt.pool_transpose_reference(pool, g)
+    scale = twin.float().abs().max().item()
+    err = (y.float() - twin.float()).abs().max().item()
+    bar = TOL_KERNEL if mode == "fp32" else TOL_BF16
+    if not err <= bar * scale:
+        fail(f"pool_transpose on the pool shard {tag} disagrees with its "
+             f"twin: {err / scale:.3e} of max|y|")
+    lib, lib_dtype = _pt_library(torch, pool, g.transpose(0, 1).reshape(
+        pool.g_rows, b * f).contiguous())
+    k_ms = time_ms(torch, lambda: pt.pool_transpose(pool, g))
+    p_ms = time_ms(torch, lambda: pt.pool_transpose_reference(pool, g))
+    l_ms = time_ms(torch, lib)
+    nnz, es = pool.t_col.shape[0], g.element_size()
+    g_read = int(torch.unique(pool.t_col).numel())
+    n_bytes = (es * b * f * (g_read + pool.x_rows)
+               + 4 * (pool.x_rows + 1) + (4 + es) * nnz)
+    bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * 2 * nnz * b * f / PEAK_OPS["fp32"]
+    bound = max(bytes_ms, ops_ms)
+    say(f"  {tag} [{pool.x_rows} x {pool.g_rows}, nnz {nnz}, g rows read "
+        f"{g_read}, B={b}, f={f}] {mode}: pool_transpose "
+        f"{1e3 * k_ms:.1f} us (max_err/max|y| {err / scale:.2e}), twin "
+        f"{1e3 * p_ms:.1f} us, torch.sparse[{lib_dtype}] {1e3 * l_ms:.1f} "
+        f"us, bound {1e3 * bound:.2f} us")
+    row = dict(shape=tag, x_rows=pool.x_rows, g_rows=pool.g_rows, nnz=nnz,
+               g_rows_read=g_read, B=b, f=f, mode=mode, kernel_us=1e3 * k_ms,
+               plain_us=1e3 * p_ms, library_us=1e3 * l_ms,
+               library_dtype=lib_dtype, bound_us=1e3 * bound,
+               err=err / scale)
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
+                bytes_ms=bytes_ms, ops_ms=ops_ms, stored_ms=bound,
+                err_abs=err, row=row)
+
+
+def _pool_shards(ops):
+    """Rank 0's sp=2 pool shards: every up-pool of `ops` cut at the row
+    shards of its block-sparse levels (graph.shard_pool_operator, as
+    shard_operators cuts them)."""
     from meshvae_tpu_torch.ops.bsr_shard import RowShard, shard_block_sparse
     from meshvae_tpu_torch.ops.graph import shard_pool_operator
 
     levels = [None if op.bsr is None else
               RowShard.of(shard_block_sparse(op.bsr, 2, 0), None)
-              for op in s80["ops"].lap]
-    rows = []
-    for i, up in enumerate(s80["ops"].up):
-        pool = shard_pool_operator(up, levels[i + 1], levels[i])
-        b, f = SCALED_BATCH, POOL_F[i]
-        g = torch.randn(b, pool.g_rows, f, device=dev, generator=gen).to(
-            pool.t_val.dtype)
-        y = pt.pool_transpose(pool, g)
-        twin = pt.pool_transpose_reference(pool, g)
-        scale = twin.float().abs().max().item()
-        err = (y.float() - twin.float()).abs().max().item()
-        if not err <= TOL_BF16 * scale:
-            fail(f"pool_transpose on the up-pool {i} shard disagrees with "
-                 f"its twin: {err / scale:.3e} of max|y|")
-        lib, lib_dtype = _pt_library(torch, pool, g.transpose(0, 1).reshape(
-            pool.g_rows, b * f).contiguous())
-        k_ms = time_ms(torch, lambda: pt.pool_transpose(pool, g))
-        p_ms = time_ms(torch, lambda: pt.pool_transpose_reference(pool, g))
-        l_ms = time_ms(torch, lib)
-        nnz, es = pool.t_col.shape[0], g.element_size()
-        g_read = int(torch.unique(pool.t_col).numel())
-        n_bytes = (es * b * f * (g_read + pool.x_rows)
-                   + 4 * (pool.x_rows + 1) + (4 + es) * nnz)
-        bound = max(1e3 * n_bytes / HBM_BYTES_PER_S,
-                    1e3 * 2 * nnz * b * f / PEAK_OPS["fp32"])
-        say(f"  up-pool {i} P^T shard 0 of 2 [{pool.x_rows} x {pool.g_rows},"
-            f" nnz {nnz}, g rows read {g_read}, B={b}, f={f}] bf16: "
-            f"pool_transpose {1e3 * k_ms:.1f} us (max_err/max|y| "
-            f"{err / scale:.2e}), twin {1e3 * p_ms:.1f} us, torch.sparse["
-            f"{lib_dtype}] {1e3 * l_ms:.1f} us, bound {1e3 * bound:.2f} us")
-        rows.append(dict(shape=f"up-pool {i} P^T sp=2 shard 0",
-                         x_rows=pool.x_rows, g_rows=pool.g_rows, nnz=nnz,
-                         g_rows_read=g_read, B=b, f=f, mode="bf16",
-                         kernel_us=1e3 * k_ms, plain_us=1e3 * p_ms,
-                         library_us=1e3 * l_ms, library_dtype=lib_dtype,
-                         bound_us=1e3 * bound, err=err / scale))
-    return rows
+              for op in ops.lap]
+    return [shard_pool_operator(up, levels[i + 1], levels[i])
+            for i, up in enumerate(ops.up)]
 
 
-def _single_memory(torch, make_trainer, pre, host, norm_host):
+def _pool_shard_times(torch, s80, dev, gen):
+    """pool_transpose on rank 0's sp=2 shard of each 80k up-pool's P^T in
+    bf16 (_pt_shard_case). Returns the rows."""
+    return [_pt_shard_case(torch, pool, SCALED_BATCH, POOL_F[i], dev, gen,
+                           f"up-pool {i} P^T sp=2 shard 0")["row"]
+            for i, pool in enumerate(_pool_shards(s80["ops"]))]
+
+
+def _say_rank_memory(tag, label, out, single, card, **extra):
+    """Each rank's memory over a world's last train step (the peak of its
+    process and the step's own, MiB) beside one process's step from the
+    same state, and the `tag` line of every step's, as JSON."""
+    steps = len(out["steps"])
+    for r, rank in enumerate(out["ranks"]):
+        peak, own = rank["mem_mib"][-1]
+        say(f"{label} rank {r} memory, train step {steps}: peak {peak:.1f} "
+            f"MiB of its process, the step's own {own:.1f} MiB; one "
+            f"process: peak {single[0]:.1f} MiB, the step's own "
+            f"{single[1]:.1f} MiB ({card}; rank 0 shares this process, "
+            f"whose earlier phases hold memory)")
+    say(f"{tag} " + json.dumps({
+        **extra, "ranks": [rank["mem_mib"] for rank in out["ranks"]],
+        "single": single, "unit": "MiB (peak, own) per train step"}))
+
+
+def _single_memory(torch, make_trainer, pre, host, norm_host, kind="vae"):
     """_step_memory of one process's deterministic train step from state
     `pre` (model and Adam)."""
     tr = _load_state(make_trainer(), pre)
     batch, norm = tr.to_device(host), tr.norm_to_device(*norm_host)
-    return _step_memory(torch, lambda: _train_call(tr, "vae", batch, norm))
+    return _step_memory(torch, lambda: _train_call(tr, kind, batch, norm))
 
 
 def _launches_of(torch, make_trainer, batches, norm_host, eval_batch=None,
@@ -3574,6 +3637,75 @@ def _classifier_trainer(spec, ops, device, dist=None):
     return CreconTrainer(gcn, vae, ops, config, device=device, dist=dist)
 
 
+def _ell_world(torch, dev, s80, config80, batches80, ds80, weights80, card):
+    """Phase 14h: the VAE's sp=2 world at scaled80k bf16 full width with
+    cheb_method ell, two gloo ranks on cuda:0: every level of at least
+    BSR_MIN_N vertices row-sharded as the rank's rows of its neighbour
+    list (the same rows as 14c's block-sparse shards). Its train steps
+    and eval step against one process at phase 8's bars, replicas
+    bit-equal, launches per rank (pool_transpose at the pool shards; the
+    ELL propagation is plain torch), each rank's step memory beside one
+    process's, collectives per step and their bytes."""
+    say("-- 14h: vertex sharding with cheb_method ell, 2 gloo ranks on "
+        "cuda:0, scaled80k bf16 full width (K=10, B=32)")
+    from meshvae_tpu_torch.models import MeshVAE, VAEConfig, build_operators
+    from meshvae_tpu_torch.parallel import spawn_local
+    from meshvae_tpu_torch.train import Trainer
+
+    config = dict(config80, cheb_method="ell")
+    hier = s80["hier"]
+    ops = {torch.bfloat16: build_operators(hier, dev, cheb_method="ell",
+                                           dtype=torch.bfloat16)}
+    _PREBUILT["s80ell"] = ops[torch.bfloat16]
+    norm = (ds80.mean, ds80.std)
+    spec = {"label": "sp=2 scaled80k bf16 ell", "config": config,
+            "coarse": hier.levels[-1], "weights": weights80, "norm": norm,
+            "batches": batches80, "eval_batch": batches80[0],
+            "batch_size": SCALED_BATCH, "ops_key": "s80ell",
+            "template": s80["path"], "factors": [4, 4, 4, 4],
+            "cache": s80["cache"], "dtype": torch.bfloat16,
+            "cheb_method": "ell"}
+    t0 = time.perf_counter()
+    [out] = spawn_local(_world_rank, 1, 2, "cuda:0", args=([spec],),
+                        timeout=900)
+    say(f"sp=2 ell: world of 2 ranks ran in {time.perf_counter() - t0:.1f}s "
+        f"(spawn and set-up included)")
+    cfg = VAEConfig.from_config(config, coarse_verts=hier.levels[-1])
+
+    def make(dtype=torch.bfloat16):
+        if dtype not in ops:
+            ops[dtype] = build_operators(hier, dev, cheb_method="ell",
+                                         dtype=dtype)
+        m = MeshVAE(cfg if dtype == torch.bfloat16 else
+                    dataclasses.replace(cfg, compute_dtype="float32",
+                                        precision="highest"))
+        m.load_state_dict(weights80)
+        return Trainer(m, ops[dtype], config, device=dev)
+
+    _hold_world(torch, "sp=2 ell [scaled80k bf16]", out, make, batches80,
+                norm, None, float(config["learning_rate"]),
+                yardstick=lambda: make(torch.float32))
+    _hold_eval80(torch, "sp=2 ell", out, make, batches80[0], norm)
+    single = _launches_of(torch, make, batches80, norm,
+                          eval_batch=batches80[0])
+    want = _at_shard_shapes(ops[torch.bfloat16], single)
+    for r, rank in enumerate(out["ranks"]):
+        if rank["launches"] != want:
+            fail(f"sp=2 ell rank {r} launched {rank['launches']}, expected "
+                 f"the single process's at the pool-shard shapes {want}")
+    if not want or any(not k[0].startswith("pool") for k in want):
+        fail(f"sp=2 ell: expected pool_transpose launches alone, {want}")
+    say(f"sp=2 ell: launches per rank {out['ranks'][0]['launches']} = one "
+        f"process's {single} at the pool-shard shapes [x_rows, g_rows] "
+        f"({SP_STEPS} train steps and one eval step)")
+    _say_rank_memory("ell_sp_memory", "sp=2 ell", out, _single_memory(
+        torch, make, out["steps"][-1]["pre"], batches80[-1], norm), card)
+    _world_report("sp=2 scaled80k bf16 ell", out, SCALED_BATCH)
+    _PREBUILT.pop("s80ell")
+    ops.clear()
+    torch.cuda.empty_cache()
+
+
 # --- phase 14e-g: crecon and the joint model in a world --------------------
 CLASSIFIER_WORLDS = {"dp=2": (2, 1), "sp=2": (1, 2)}
 WORLD_TRAIN_STEPS = 2   # then one eval step of the padded third batch
@@ -3581,8 +3713,10 @@ WORLD_TRAIN_STEPS = 2   # then one eval step of the padded third batch
 
 def _shard_operands(torch, ops, hier, dev):
     """_operands with L0 and L1 replaced by rank 0's sp=2 row shards, each
-    with the torch.sparse CSR of its rows (as 14d's); the P^T stay
-    unsharded, as in the world."""
+    with the torch.sparse CSR of its rows (as 14d's), and P0T-P2T by rank
+    0's pool shards, as in the world: up-pool 0's P^T [640 x 5120] and
+    up-pool 1's [313 x 1280] (level 2 is whole); up-pool 2's stays whole
+    (both its levels are)."""
     from meshvae_tpu_torch.ops.bsr_shard import shard_block_sparse_all
     from meshvae_tpu_torch.ops.graph import normalized_neg_adjacency
 
@@ -3593,6 +3727,8 @@ def _shard_operands(torch, ops, hier, dev):
         rows = mat[:min(shard.rows_local, mat.shape[0])]
         operands[f"L{i}"] = (shard.op, _csr(torch, rows, shard.rows_local,
                                             shard.n_pad_global, dev))
+    for i, pool in enumerate(_pool_shards(ops)[:3]):
+        operands[f"P{i}T"] = PoolT(pool, POOL_F[i])
     return operands
 
 
@@ -3607,18 +3743,20 @@ def _scaled_calls(calls: dict, div: int) -> dict:
             for part, table in calls.items()}
 
 
-def _classifier_worlds(torch, dev, models, ops, hier, tmpl, tmp, worst14):
+def _classifier_worlds(torch, dev, models, ops, hier, tmpl, tmp, worst14,
+                       card="card not read"):
     """Phases 14e-g: crecon (config 2: the frozen config-1 VAE, GCN K = 6,
     hidden 128) and the joint model (config 3, files/joint.cfg) at B = 16
     and high in the dp=2 and the sp=2 world (two gloo ranks on cuda:0):
     two deterministic train steps and one eval step of the padded third
     batch, each held against one process on the card at 14b's bars, the
     eval loss within 1e-5 relative, replicas bit-equal, launches per rank
-    against one process's (Laplacian ones at the shard shapes under sp)
-    and against CRECON_CALLS / JOINT_CALLS (35 / 30, 55 + 3 P^T / 50); the
-    kernel against its twin at every (shape, C, call kind) rank 0
-    launched, and its times at rank 0's shapes. Returns the kernels-line
-    entries."""
+    against one process's (under sp in the row layout: the Laplacian
+    calls at the row shards, the P^T at the pool shards) and against
+    CRECON_CALLS / JOINT_CALLS (35 / 30, 55 + 3 P^T / 50), each rank's
+    step memory beside one process's; the kernel against its twin at
+    every (shape, C, call kind) rank 0 launched, and its times at rank
+    0's shapes. Returns the kernels-line entries."""
     import numpy as np
 
     from meshvae_tpu_torch.data import (BatchIterator, MeshDataset,
@@ -3665,11 +3803,6 @@ def _classifier_worlds(torch, dev, models, ops, hier, tmpl, tmp, worst14):
     steps = {"train": WORLD_TRAIN_STEPS, "eval": 1}
     operands = {"dp=2": _operands(torch, ops, hier, dev),
                 "sp=2": _shard_operands(torch, ops, hier, dev)}
-    shard_of = {}
-    for op in ops.lap:
-        if op.bsr is not None:
-            n_glob = -(-op.bsr.n_pad // 256) * 256
-            shard_of[op.bsr.n_pad] = (n_glob // 2, n_glob)
     results = {}
     for world_tag, (dp, sp) in CLASSIFIER_WORLDS.items():
         t0 = time.perf_counter()
@@ -3705,18 +3838,19 @@ def _classifier_worlds(torch, dev, models, ops, hier, tmpl, tmp, worst14):
                                       for m in LAUNCH_KEYS}
             _hold_launches(f"{label} one process", by_mode(single), steps,
                            per_train[name], per_eval[name], pool=pools[name])
-            want = {}
-            for (mode, n_pad, cols), count in single.items():
-                key = ((mode, *shard_of[n_pad]) if sp > 1 and n_pad == cols
-                       and n_pad in shard_of else (mode, n_pad, cols))
-                want[key] = want.get(key, 0) + count
+            want = _at_shard_shapes(ops, single) if sp > 1 else single
             for r, rank in enumerate(out["ranks"]):
                 if rank["launches"] != want:
                     fail(f"{label} rank {r} launched {rank['launches']}, "
                          f"expected one process's {want}")
             say(f"{label}: launches per rank {out['ranks'][0]['launches']} "
                 f"= one process's {single}"
-                + (" at the shard shapes" if sp > 1 else ""))
+                + (" at the shard and pool-shard shapes" if sp > 1 else ""))
+            _say_rank_memory(
+                "classifier_memory", label, out, _single_memory(
+                    torch, make, out["steps"][-1]["pre"],
+                    spec["batches"][-1], spec["norm"], name), card,
+                world=world_tag, model=name)
             _world_report(label, out, BATCH)
             results[(world_tag, name)] = out
 
@@ -3749,7 +3883,8 @@ def _classifier_worlds(torch, dev, models, ops, hier, tmpl, tmp, worst14):
     # --- g. per-call times at rank 0's shapes, summed per train step ----
     say("-- 14g: the classifiers' kernel calls per train step at rank 0's "
         "shapes (dp=2: B=8 per rank on the whole operators; sp=2: B=16 on "
-        "the row shards), median of %d, CUDA events" % RUNS)
+        "the row shards and the pool shards), median of %d, CUDA events"
+        % RUNS)
     entries = []
     for world_tag, (dp, sp) in CLASSIFIER_WORLDS.items():
         rows = []
@@ -3780,16 +3915,19 @@ def _classifier_worlds(torch, dev, models, ops, hier, tmpl, tmp, worst14):
                 "meshvae_tpu/ops/pallas_shard.py:150" if sp > 1
                 else REPLACES["bf16x3"], lap_launches, lap_err, acc["lap"]))
             if name == "joint":
-                p_launch = {k: r0.get(("pool fp32", operands[world_tag][k]
-                                       .pool.n_in,
-                                       operands[world_tag][k].pool.n_out), 0)
-                            for k in ("P0T", "P1T", "P2T")}
+                pools = {k: operands[world_tag][k].pool
+                         for k in ("P0T", "P1T", "P2T")}
+                p_launch = {k: r0.get(("pool fp32", p.x_rows, p.g_rows), 0)
+                            for k, p in pools.items()}
                 p_err = max(acc["pool_colmajor"]["err_abs"],
                             acc["pool_grouped"]["err_abs"])
+                cut = ("rank 0's pool shards " + ", ".join(
+                    f"[{pools[k].x_rows} x {pools[k].g_rows}]"
+                    for k in ("P0T", "P1T")) if sp > 1 else "unsharded")
                 entries.append(kernel_entry(
                     f"pool_transpose[fp32] joint train step in the "
                     f"{world_tag} world (rank 0): up-pools 0-1 P^T, "
-                    "unsharded", REPLACES["colmajor"],
+                    f"{cut}", REPLACES["colmajor"],
                     p_launch["P0T"] + p_launch["P1T"], p_err,
                     acc["pool_colmajor"], source=SOURCE_POOL))
                 entries.append(kernel_entry(

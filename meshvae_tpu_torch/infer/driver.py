@@ -57,7 +57,7 @@ class InferenceEngine:
 
     def __init__(self, model, ops: ModelOperators, dist=None):
         self.model = model
-        self.ops = shard_operators(ops, dist, rows=True)
+        self.ops = shard_operators(ops, dist)
         self.dist = dist
         self.vertex_shard = vertex_rows(self.ops, dist)
         self.device = next(model.parameters()).device

@@ -34,6 +34,7 @@ import math
 import torch
 from torch import nn
 
+from ..ops.bsr_shard import from_rows
 from ..ops.pool import pool_apply
 from .operators import ModelOperators
 from .vae import COMPUTE_DTYPES, ChebConvLayer, dense, dtype_and_precision
@@ -109,11 +110,17 @@ class ChebGCN(nn.Module):
         return ChebGCN(self.cfg, generator=generator)
 
     def forward(self, x: torch.Tensor, ops: ModelOperators) -> torch.Tensor:
-        """x: [B, N, 2 F] difference features -> logits [B, C] (float32)."""
+        """x: [B, N, 2 F] difference features -> logits [B, C] (float32).
+        In sp's row layout x is the rank's rows of level 0, and so are the
+        activations at every row-sharded level; the flatten reads the
+        coarsest level whole."""
         dt = self.cfg.dtype
         x = x.to(dt)
         for i in range(self.cfg.n_layers):
             x = torch.relu(getattr(self, f"cheb_{i}")(x, ops.lap[i]))
             x = pool_apply(x, ops.down[i], self.cfg.pool_method)
+        coarse = ops.down[self.cfg.n_layers - 1].out_rows
+        if coarse is not None:
+            x = from_rows(x, coarse)
         x = torch.relu(dense(self.enc_lin, x.reshape(x.shape[0], -1), dt))
         return dense(self.cls_layer, x, dt).float()

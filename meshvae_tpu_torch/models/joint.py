@@ -111,7 +111,9 @@ class JointMeshVAE(nn.Module):
                 rows: tuple | None = None) -> dict:
         """MeshVAE's output dict (recon, y_hat, mu, logvar, z) plus
         sup_logits, adv_logits, cls_logits (float32) and recon_oppo. rows
-        = (start, total): see the module docstring."""
+        = (start, total): see the module docstring. In sp's row layout x,
+        recon, recon_oppo and the GCN's input diff are the rank's rows of
+        level 0."""
         vae, dt = self.vae, self.cfg.dtype
         h = vae.encode(x, ops, train, generator, rows)
         y_hat = vae.classify(h, train, generator, rows)
@@ -150,14 +152,16 @@ def masked_ce(logits: torch.Tensor, labels: torch.Tensor,
 
 def joint_loss(x, out: dict, y, labels, mask=None, sup_weight: float = 1.0,
                adv_weight: float = 0.1, cls_weight: float = 1.0,
-               denom: torch.Tensor | None = None):
+               denom: torch.Tensor | None = None, shard=None):
     """The VAE loss plus weighted cross entropies of the supervised slice,
     the adversarial free slice (reversed gradients) and the GCN. Returns
     (loss, aux): vae_loss's aux with correct = the GCN's correct count
     (this configuration's classifier), vae_correct the VAE head's, and
-    sup_loss, adv_loss, cls_loss, sup_correct, adv_correct."""
+    sup_loss, adv_loss, cls_loss, sup_correct, adv_correct. `shard`
+    (the level-0 RowShard) says that x and recon are the rank's rows, as
+    in vae_loss."""
     base, aux = vae_loss(x, out["recon"], out["mu"], out["logvar"], y,
-                         out["y_hat"], mask=mask, denom=denom)
+                         out["y_hat"], mask=mask, denom=denom, shard=shard)
     sup_loss, sup_correct = masked_ce(out["sup_logits"], labels, mask, denom)
     adv_loss, adv_correct = masked_ce(out["adv_logits"], labels, mask, denom)
     cls_loss, cls_correct = masked_ce(out["cls_logits"], labels, mask, denom)

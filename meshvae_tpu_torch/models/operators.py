@@ -22,6 +22,10 @@ class ModelOperators:
     up: tuple[PoolOperator, ...]       # L barycentric upsamplers
     lap_final: GraphOperator           # operator fed to the last decoder conv
     num_nodes: tuple[int, ...]
+    # the hybrid cutoff: under seq_parallel every level of at least this
+    # many vertices is row-sharded, whatever cheb_method stored it as
+    # (parallel.sharding.shard_operators)
+    bsr_min_n: int = BSR_MIN_N
 
 
 def build_operators(hier: MeshHierarchy, device="cuda",
@@ -37,6 +41,8 @@ def build_operators(hier: MeshHierarchy, device="cuda",
     list. pool_method "gather" or "dense" picks the pools' one layout
     (ops/graph.py pool_operator). `dtype` is the operands' storage type:
     float32, or bfloat16 for compute_dtype=bfloat16 (``VAEConfig.dtype``).
+    bsr_min_n is kept as ModelOperators.bsr_min_n for every method: the
+    levels that seq_parallel row-shards.
 
     final_conv_adjacency:
     - "reference_quirk": the last decoder conv sees the coarsest level's
@@ -66,4 +72,4 @@ def build_operators(hier: MeshHierarchy, device="cuda",
     else:
         raise ValueError(f"unknown final_conv_adjacency: {final_conv_adjacency}")
     return ModelOperators(lap=lap, down=down, up=up, lap_final=lap_final,
-                          num_nodes=tuple(hier.levels))
+                          num_nodes=tuple(hier.levels), bsr_min_n=bsr_min_n)

@@ -37,8 +37,8 @@ the logits, mu and logvar (so z), and recon go to float32, so the loss and
 the pose error are float32. The operators must be built in bf16
 (``build_operators(..., dtype=VAEConfig.dtype)``).
 
-Under seq_parallel's row layout (parallel.sharding.shard_operators(...,
-rows=True)) x, every activation at a row-sharded level and recon are the
+Under seq_parallel's row layout (parallel.sharding.shard_operators) x,
+every activation at a row-sharded level and recon are the
 rank's rows of their level (ops/bsr_shard.py RowShard): the convs and
 pools take and return them, the flatten into enc_lin all-gathers the
 coarsest level's rows when that level is row-sharded, and the decoder's

@@ -88,6 +88,14 @@ def row_order(tile_mask, g_idx, g_bcol, n_col_blocks: int) -> np.ndarray:
     return np.argsort(-chunks, kind="stable").astype(np.int32)
 
 
+def padded_rows(n: int, block: int = BLOCK) -> int:
+    """n_pad of an operator of n rows: whole blocks, their count rounded
+    up to a multiple of 8 when that adds at most 5%."""
+    nr = -(-n // block)
+    nr8 = -(-nr // 8) * 8
+    return (nr8 if nr8 > nr and (nr8 - nr) * 20 <= nr else nr) * block
+
+
 def block_sparse_arrays(mat: sp.spmatrix, block: int = BLOCK,
                         allow_rect: bool = False) -> dict:
     """The BSR layout of `mat` as numpy arrays (see the module docstring)."""
@@ -95,12 +103,7 @@ def block_sparse_arrays(mat: sp.spmatrix, block: int = BLOCK,
     n = coo.shape[0]
     if not allow_rect and coo.shape[0] != coo.shape[1]:
         raise ValueError(f"square operators only, got {coo.shape}")
-    n_pad = -(-n // block) * block
-    # pad the row count to a multiple of 8 when the overhead is <= 5%
-    nr = n_pad // block
-    nr8 = -(-nr // 8) * 8
-    if nr8 > nr and (nr8 - nr) * 20 <= nr:
-        n_pad = nr8 * block
+    n_pad = padded_rows(n, block)
 
     keys = {}
     for r, c, v in zip(coo.row, coo.col, coo.data):

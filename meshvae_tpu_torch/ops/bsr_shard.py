@@ -23,24 +23,23 @@ seed. The local column count is always whole (batch item, f_pad) pairs
 (the batch is not split inside a conv), so the JAX package's
 ``(c // dp) % f_pad`` condition (pallas_shard.py:328-329) always holds.
 
-Activations between the convs (``RowShard``): under the row layout
-(parallel.sharding.shard_operators(..., rows=True), the VAE's paths) a
-tensor at a row-sharded level holds only the rank's rows [row0, row0 +
-rows_local) of the level, the rows the Laplacian shard computes, and
-``cheb_conv_bsr_sharded`` takes and returns them: a product or a pool
-all-gathers its input for the call only, and nothing whole is kept. Where
-a row-sharded level meets a whole-tensor consumer ``from_rows``
-all-gathers its rows, and ``to_rows`` cuts a whole tensor's rows out
-again; their adjoints are each other's (a whole tensor's
-gradient is the same full gradient on every rank). A replicated parameter
-used on the rank's rows (dW of the basis mix, ``rows_matmul``,
-``add_bias_rows``) has its gradient contracted over the local rows and
-summed over the group in fp32, where the JAX package's partitioner sums it
-over "sp". Without the row layout (crecon and the joint model's GCN) the
-conv takes and returns activations whole on every rank, cutting the rank's
-rows out on the way in and all-gathering them on the way out. The JAX
-package pads each dp shard's columns to 128 (pallas_shard.py:368-372, TPU
-tuning); the port keeps its own ``pad_features``.
+Activations between the convs (``RowShard``): in an sp world
+(parallel.sharding.shard_operators) a tensor at a row-sharded level holds
+only the rank's rows [row0, row0 + rows_local) of the level, the rows the
+Laplacian shard computes, and ``cheb_conv_bsr_sharded`` takes and returns
+them: a product or a pool all-gathers its input for the call only, and
+nothing whole is kept. The same RowShard serves a level whose operator is
+an ELL or dense row shard (``RowShard.for_level``, ops/cheb.py). Where a
+row-sharded level meets a whole-tensor consumer (the flatten into a head,
+the final conv's embedded corner) ``from_rows`` all-gathers its rows, and
+``to_rows`` cuts a whole tensor's rows out again; their adjoints are each
+other's (a whole tensor's gradient is the same full gradient on every
+rank). A replicated parameter used on the rank's rows (dW of the basis
+mix, ``rows_matmul``, ``add_bias_rows``) has its gradient contracted over
+the local rows and summed over the group in fp32, where the JAX package's
+partitioner sums it over "sp". The JAX package pads each dp shard's
+columns to 128 (pallas_shard.py:368-372, TPU tuning); the port keeps its
+own ``pad_features``.
 """
 from __future__ import annotations
 
@@ -50,8 +49,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .block_sparse import (BLOCK, BlockSparseOperator, row_order,
-                           tile_mask)
+from .block_sparse import (BLOCK, BlockSparseOperator, padded_rows,
+                           row_order, tile_mask)
 from .bsr_spmm import bsr_grouped_spmm, pad_features
 
 
@@ -309,6 +308,17 @@ class RowShard:
                         row0=sbsr.row0, rows_local=sbsr.rows_local,
                         group=group)
 
+    @staticmethod
+    def for_level(n: int, sp: int, sp_rank: int, group) -> "RowShard":
+        """The rows of a level of n vertices on rank sp_rank of `sp`:
+        those of the level's block-sparse shard (shard_block_sparse:
+        n_pad_global = sp * 128 * ceil(n_pad / (sp * 128)), n_pad the
+        operator's padded rows), whatever layout its operator has."""
+        rows_local = -(-padded_rows(n) // (sp * BLOCK)) * BLOCK
+        return RowShard(n=n, n_pad_global=sp * rows_local,
+                        row0=sp_rank * rows_local, rows_local=rows_local,
+                        group=group)
+
     def count(self, n: int | None = None) -> int:
         """This rank's rows below n (default: the level's n)."""
         n = self.n if n is None else n
@@ -469,31 +479,24 @@ def cheb_conv_bsr_sharded(x: torch.Tensor, op, weight: torch.Tensor,
                           precision=None) -> torch.Tensor:
     """Chebyshev conv with the vertex-sharded kernel (the counterpart of
     pallas_shard.cheb_conv_pallas_sharded): `op` is a GraphOperator with
-    bsr_sp and sp_group set. With op.rows set (the row layout) x is this
-    rank's rows [B, rows_local, F_in], zero past the level's n, and so is
-    the result; bias is added to the rows below n only, and its gradient
-    summed over the group. Without it x [B, n, F_in] and the result are
-    whole on every rank: the rank's rows are cut out on the way in and
-    all-gathered on the way out (to_rows / from_rows). The recurrence
-    state, the seeds and the basis are row-sharded; bf16 blocks keep a
-    bf16 state."""
+    bsr_sp and sp_group set, and x this rank's rows [B, rows_local, F_in]
+    of its level (op.rows), zero past the level's n; so is the result.
+    bias is added to the rows below n only, and its gradient summed over
+    the group. The recurrence state, the seeds and the basis are
+    row-sharded; bf16 blocks keep a bf16 state."""
     from .cheb import _KERNEL_MODE, resolve_precision
 
     sbsr: ShardedBlockSparse = op.bsr_sp
     group = op.sp_group
     mode = _KERNEL_MODE[resolve_precision(precision, sbsr.op.blocks.dtype)]
     shard = op.rows
-    whole = shard is None
-    if whole:
-        shard = RowShard.of(sbsr, group)
-        x = to_rows(x, shard)
-    b, _, f_in = x.shape
+    b, rows, f_in = x.shape
+    if rows != shard.rows_local:
+        raise ValueError(f"the sharded conv takes the rank's "
+                         f"{shard.rows_local} rows of its level, got {rows}")
     f_pad = pad_features(b, f_in)
     xt = F.pad(x.transpose(0, 1), (0, f_pad - f_in))
     w = F.pad(weight, (0, 0, 0, f_pad - f_in))
     out = _BasisMixSharded.apply(xt, w, sbsr, group, mode).transpose(0, 1)
-    if whole:
-        out = from_rows(out, shard)
-        return out if bias is None else out + bias
     return out if bias is None else add_bias_rows(out, bias, shard.count(),
                                                   group)

@@ -6,10 +6,13 @@ out = sum_k T_k(L_hat) x @ W_k (+ bias), with T_0 = x, T_1 = L_hat x,
 T_k = 2 L_hat T_{k-1} - T_{k-2}; all K orders are mixed by one
 [.., K*F] @ [K*F, F_out] product. The operator's layout picks the
 propagation: the block-sparse kernel (``cheb_conv_bsr``, or its row shards
-under seq_parallel, whose row layout gives x and the result as the rank's
-rows too: ``cheb_conv_bsr_sharded``, ``_embedded_rows``), a dense product,
-or the neighbour-list gather ``propagate_ell`` (cheb_method ell; plain
-torch, autograd's backward, as the JAX package's ell path is plain XLA).
+under seq_parallel: ``cheb_conv_bsr_sharded``), a dense product, or the
+neighbour-list gather ``propagate_ell`` (cheb_method ell; plain torch,
+autograd's backward, as the JAX package's ell path is plain XLA). Under
+seq_parallel x and the result are the rank's rows of a row-sharded level
+whatever the layout: an ELL or dense row shard propagates through
+``propagate_rows`` (the all-gathered input, the rank's rows of L), the
+embedded final operator through ``_embedded_rows``.
 
 x: [B, N, F_in]; weight: [K, F_in, F_out]; bias: [F_out] or None.
 """
@@ -80,12 +83,49 @@ def propagate_ell(op: GraphOperator, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("nd,bndf->bnf", op.ell_w, gathered)
 
 
+class _PropagateRows(torch.autograd.Function):
+    """L @ x on a row-sharded level with an ELL or dense row shard of L:
+    the forward all-gathers x over the sp group and applies the rank's
+    rows of L. Its backward is the same sharded product on the
+    all-gathered cotangent (L symmetric: dx = L g, whose rank's rows are
+    the rank's rows of L on all of g), so each rank's dx holds every
+    rank's terms and the ELL backward runs no index_add."""
+
+    @staticmethod
+    def forward(ctx, x, op):
+        ctx.op = op
+        return _rows_product(op, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rows_product(ctx.op, g.contiguous()), None
+
+
+def _rows_product(op: GraphOperator, x: torch.Tensor) -> torch.Tensor:
+    """The rank's rows of L @ x from x's rows [B, rows_local, F]: the
+    gathered [B, n_pad_global, F] (ELL indices and dense columns stay
+    below n, so the padding rows are never read) through the rank's rows
+    of ell_idx / ell_w or dense."""
+    full = op.rows.group.all_gather(x, dim=1)
+    if op.ell_idx is not None:
+        return propagate_ell(op, full)
+    return torch.matmul(op.dense, full[:, :op.n])
+
+
+def propagate_rows(op: GraphOperator, x: torch.Tensor) -> torch.Tensor:
+    """L @ x on the rank's rows of an ELL or dense row shard
+    (shard_graph_operator); differentiable in x (_PropagateRows)."""
+    return _PropagateRows.apply(x, op)
+
+
 def cheb_conv(x: torch.Tensor, op: GraphOperator, weight: torch.Tensor,
               bias: torch.Tensor | None = None,
               precision=None) -> torch.Tensor:
     """x, weight and bias in the operator's dtype (the model casts them):
     float32, or bfloat16, where every product takes bf16 operands with
-    fp32 accumulation and a bf16 result, as the JAX package's bf16 mode."""
+    fp32 accumulation and a bf16 result, as the JAX package's bf16 mode.
+    Where op.rows is set (seq_parallel's row layout) x and the result are
+    the rank's rows [B, rows_local, F] of the level."""
     k = weight.shape[0]
     if op.active_n < op.n:
         # Rows/columns beyond active_n are empty (the embedded final-conv
@@ -112,7 +152,10 @@ def cheb_conv(x: torch.Tensor, op: GraphOperator, weight: torch.Tensor,
         return cheb_conv_bsr(x, op.bsr, weight, bias, precision=precision)
 
     resolve_precision(precision, op.dtype)  # validate; dense/ell run plain
-    if op.ell_idx is not None:
+    shard = op.rows
+    if shard is not None:
+        prop = lambda t: propagate_rows(op, t)
+    elif op.ell_idx is not None:
         prop = lambda t: propagate_ell(op, t)
     else:
         prop = lambda t: torch.matmul(op.dense, t)
@@ -122,8 +165,15 @@ def cheb_conv(x: torch.Tensor, op: GraphOperator, weight: torch.Tensor,
     for _ in range(2, k):
         txs.append(2.0 * prop(txs[-1]) - txs[-2])
     f_in = x.shape[-1]
-    out = torch.matmul(torch.cat(txs, dim=-1),
-                       weight.reshape(k * f_in, weight.shape[-1]))
+    basis = torch.cat(txs, dim=-1)
+    w = weight.reshape(k * f_in, weight.shape[-1])
+    if shard is not None:
+        # dW and the bias gradient are summed over the rank's rows, then
+        # over sp
+        out = rows_matmul(basis, w, shard.group)
+        return out if bias is None else add_bias_rows(
+            out, bias, shard.count(), shard.group)
+    out = torch.matmul(basis, w)
     if bias is not None:
         out = out + bias
     return out
@@ -135,16 +185,21 @@ def _embedded_rows(x: torch.Tensor, op: GraphOperator, weight: torch.Tensor,
     """The embedded operator on row-sharded level-0 activations (op.rows):
     the corner rows [0, active_n) all-gathered whole from the ranks that
     hold them (a few hundred rows, rank 0's alone at scaled80k), the
-    corner conv on that whole tensor in the corner's own layout (dense, or
-    its own row shard in the whole-tensor form, which cuts the corner's
-    n_pad into other rows than level 0's), and this rank's rows of its
-    result; the closed form on this rank's other rows, whose dW and bias
-    gradient are summed over the group."""
+    corner conv on them in the corner's own layout (a dense or ELL corner
+    on the whole tensor; a block-sparse corner in the row form, through
+    its own row shard, which cuts the corner's n_pad into other rows than
+    level 0's), and this rank's rows of its result; the closed form on
+    this rank's other rows, whose dW and bias gradient are summed over
+    the group."""
     shard, a = op.rows, op.active_n
-    corner = dataclasses.replace(op, n=a, row_layout=False,
-                                 embedded_rows=None)
-    inner = cheb_conv(from_rows(x, shard, n=a), corner, weight, bias,
-                      precision=precision)
+    corner = dataclasses.replace(op, n=a, row_shard=None)
+    whole = from_rows(x, shard, n=a)
+    if corner.bsr_sp is not None:
+        own = corner.rows
+        inner = from_rows(cheb_conv(to_rows(whole, own), corner, weight,
+                                    bias, precision=precision), own)
+    else:
+        inner = cheb_conv(whole, corner, weight, bias, precision=precision)
     c = shard.count(a)
     rest = rows_matmul(x[:, c:], w_eff, shard.group)
     if bias is not None:

@@ -73,10 +73,15 @@ class GraphOperator:
     `bsr_sp` is this rank's row shard of the block-sparse operator under
     seq_parallel > 1 (ops/bsr_shard.py; parallel.sharding.shard_operators
     sets it) and `sp_group` the communicator of the ranks that hold the
-    other shards. `row_layout` marks the row layout (shard_operators(...,
-    rows=True)): the activations at this level are this rank's rows,
-    ``rows``, those of bsr_sp; for the embedded operator those of level 0
-    (`embedded_rows`), whose corner keeps its own shard."""
+    other shards. In an sp world the activations at a row-sharded level
+    are this rank's rows of it, ``rows``: `row_shard`, which
+    shard_operators sets at every such level (the rows of bsr_sp; of an
+    ELL or dense operator cut to the rank's rows by
+    ``shard_graph_operator``, whose ell_idx / ell_w or dense hold rows
+    [row0, row0 + rows_local) of the level, a padding row gathering row 0
+    with weight 0; level 0's for the embedded operator, whose corner
+    keeps its own layout, a block-sparse corner its own shard), else the
+    rows of bsr_sp."""
 
     dense: torch.Tensor | None
     bsr: BlockSparseOperator | None
@@ -84,18 +89,19 @@ class GraphOperator:
     active_n: int
     bsr_sp: "ShardedBlockSparse | None" = None
     sp_group: object = None
-    row_layout: bool = False
-    embedded_rows: RowShard | None = None
+    row_shard: RowShard | None = None
     ell_idx: torch.Tensor | None = None   # int64, self-padded rows
     ell_w: torch.Tensor | None = None     # operator dtype, 0 on padding
 
     @property
     def rows(self) -> RowShard | None:
-        """The RowShard of the activations at this level (None outside the
-        row layout)."""
-        if not self.row_layout:
-            return None
-        return self.embedded_rows or RowShard.of(self.bsr_sp, self.sp_group)
+        """The RowShard of the activations at this level (None where they
+        are whole)."""
+        if self.row_shard is not None:
+            return self.row_shard
+        if self.bsr_sp is not None:
+            return RowShard.of(self.bsr_sp, self.sp_group)
+        return None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -104,6 +110,19 @@ class GraphOperator:
         if self.ell_w is not None:
             return self.ell_w.dtype
         return (self.dense if self.bsr is None else self.bsr.blocks).dtype
+
+
+def shard_graph_operator(op: GraphOperator, rows: RowShard) -> GraphOperator:
+    """An ELL or dense operator of a whole level (active_n == n) cut to
+    the rank's rows `rows` (RowShard.for_level): ell_idx / ell_w
+    [rows_local, D] or dense [rows_local, n]; a padding row gathers row 0
+    with weight 0 (a zero row of dense). The columns stay global."""
+    if op.ell_idx is not None:
+        return dataclasses.replace(op, ell_idx=rows.local(op.ell_idx, dim=0),
+                                   ell_w=rows.local(op.ell_w, dim=0),
+                                   row_shard=rows)
+    return dataclasses.replace(op, dense=rows.local(op.dense, dim=0),
+                               row_shard=rows)
 
 
 def _operator_from_laplacian(lap: sp.csr_matrix, device, n: int,

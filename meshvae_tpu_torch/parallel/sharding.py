@@ -13,24 +13,26 @@ axes ("dp", "sp"); the port runs one process per rank, PyTorch's idiom:
     (``replicate`` broadcasts rank 0's), the gradients are summed over the
     whole world (train/loop.py) and outputs all-gathered over dp
     (``fetch``);
-  * sp: ``shard_operators`` replaces every block-sparse Laplacian with the
-    rank's row shard (ops/bsr_shard.py), whose products all-gather the
-    recurrence state over the sp group. With ``rows=True`` (the VAE's
-    train, eval and serve paths) the activations follow the JAX package's
-    P("dp", "sp") layout: a tensor at a level whose Laplacian is
-    row-sharded holds only the rank's rows of it (a RowShard: rows [row0,
-    row0 + rows_local) of the level padded to n_pad_global, the rows the
-    shard computes), ``shard_batch`` stages VERTEX_KEYS in those rows of
-    level 0, the pools keep the rank's rows (each PoolOperator cut once),
-    the loss and the pose error sum the rank's rows and then over sp, and
-    ``fetch`` all-gathers a vertex-shaped output over sp before it goes to
-    the host. Dense levels below BSR_MIN_N, heads, latents and scalars
-    stay whole on every rank. The JAX package places x by an even split
-    of N and lets GSPMD move it; the port stages it in the conv shard's
-    rows from the start ("staging in the consumer's layout",
-    meshvae_tpu/train/loop.py:122-130). crecon and the joint model keep
-    their activations whole over sp (``rows=False``): the convs cut the
-    rank's rows out and all-gather their outputs.
+  * sp: ``shard_operators`` gives every model (the VAE, crecon's GCN
+    behind its frozen VAE, the joint model) and every cheb_method one
+    layout, the JAX package's P("dp", "sp"): each level of at least
+    ModelOperators.bsr_min_n vertices (the pallas hybrid's cutoff) is
+    row-sharded, a block-sparse Laplacian as the rank's row shard
+    (ops/bsr_shard.py, whose products all-gather the recurrence state
+    over the sp group), an ELL or dense one as the rank's rows of it
+    (ops/graph.py shard_graph_operator; ops/cheb.py propagates them the
+    same way). Either way the level's activations hold only the rank's
+    rows (a RowShard: rows [row0, row0 + rows_local) of the level padded
+    to n_pad_global, the rows of the level's block-sparse shard, so every
+    method places the same rows on a rank); ``shard_batch`` stages VERTEX_KEYS in those rows of level 0,
+    the pools keep the rank's rows (each PoolOperator cut once), the loss
+    and the pose error sum the rank's rows and then over sp, and
+    ``fetch`` all-gathers a vertex-shaped output over sp before it goes
+    to the host. Smaller levels, heads, latents and scalars stay whole on
+    every rank. The JAX package places x by an even split of N and lets
+    GSPMD move it; the port stages it in the conv shard's rows from the
+    start ("staging in the consumer's layout",
+    meshvae_tpu/train/loop.py:122-130).
 
 The pool backward keeps its P^T kernel (pool_transpose) under any world,
 on the input level's row shard of the CSR: the JAX package drops it there
@@ -236,8 +238,8 @@ VERTEX_KEYS = ("x", "original")  # batch arrays carrying a vertex dim
 
 def vertex_dim_shardable(ops, world: World | None) -> bool:
     """True when a batch's vertex axis is staged as the rank's rows: sp > 1
-    and the level-0 activations are row-sharded (`ops` from
-    shard_operators(..., rows=True) with a block-sparse level 0)."""
+    and level 0 is row-sharded (`ops` from shard_operators, level 0 at
+    least ops.bsr_min_n vertices)."""
     return (world is not None and world.sp > 1
             and ops.lap[0].rows is not None)
 
@@ -308,40 +310,48 @@ def fetch(t: torch.Tensor, world: World | None, dim: int = 0,
     return t.cpu().numpy()
 
 
-def shard_operators(ops, world: World | None, rows: bool = False):
-    """ModelOperators with every block-sparse Laplacian (lap, lap_final)
-    replaced by this rank's row shard when sp > 1 (the same operator object
-    is sharded once). With `rows` (the row layout) the activations at
-    each such level are the rank's rows too: every sharded GraphOperator
-    is marked row_layout (the embedded lap_final holds level 0's
-    RowShard), and each
-    pool whose input or output level is row-sharded is cut once
-    (graph.shard_pool_operator)."""
+def shard_operators(ops, world: World | None):
+    """ModelOperators in sp's row layout (module docstring) when sp > 1:
+    every level of at least ops.bsr_min_n vertices row-sharded, a
+    block-sparse Laplacian (lap, a finest lap_final) as this rank's row
+    shard, an ELL or dense one as the rank's rows of it (the same
+    operator object is sharded once); the embedded lap_final takes level
+    0's rows, its corner kept in its own layout (a block-sparse corner as
+    its own row shard, an ELL or dense one whole); each pool whose input or output level is
+    row-sharded is cut once (graph.shard_pool_operator)."""
     if world is None or world.sp == 1:
         return ops
-    from ..ops.bsr_shard import shard_block_sparse
-    from ..ops.graph import shard_pool_operator
+    from ..ops.bsr_shard import RowShard, shard_block_sparse
+    from ..ops.graph import shard_graph_operator, shard_pool_operator
 
+    sp, rank, group = world.sp, world.sp_rank, world.sp_group
     done = {}
 
     def convert(op):
-        if op.bsr is None:
-            return op
         if id(op) not in done:
-            sbsr = shard_block_sparse(op.bsr, world.sp, world.sp_rank)
-            done[id(op)] = dataclasses.replace(
-                op, bsr=None, bsr_sp=sbsr, sp_group=world.sp_group,
-                row_layout=rows)
+            if op.bsr is not None:
+                sbsr = shard_block_sparse(op.bsr, sp, rank)
+                done[id(op)] = dataclasses.replace(
+                    op, bsr=None, bsr_sp=sbsr, sp_group=group,
+                    row_shard=RowShard.of(sbsr, group))
+            elif op.active_n == op.n and op.n >= ops.bsr_min_n:
+                done[id(op)] = shard_graph_operator(
+                    op, RowShard.for_level(op.n, sp, rank, group))
+            else:
+                done[id(op)] = op
         return done[id(op)]
 
     lap = tuple(convert(o) for o in ops.lap)
-    final = convert(ops.lap_final)
-    if not rows:
-        return dataclasses.replace(ops, lap=lap, lap_final=final)
     level = [op.rows for op in lap]
-    if final.active_n < final.n:
-        final = dataclasses.replace(final, row_layout=level[0] is not None,
-                                    embedded_rows=level[0])
+    final = ops.lap_final
+    if final.active_n == final.n:
+        final = convert(final)
+    elif level[0] is not None:
+        if final.bsr is not None:
+            final = dataclasses.replace(
+                final, bsr=None, sp_group=group,
+                bsr_sp=shard_block_sparse(final.bsr, sp, rank))
+        final = dataclasses.replace(final, row_shard=level[0])
     return dataclasses.replace(
         ops, lap=lap, lap_final=final,
         down=tuple(shard_pool_operator(p, level[i], level[i + 1])

@@ -32,8 +32,11 @@ are float32.
 
 In a ("dp", "sp") world (``dist``, parallel/sharding.py), as the JAX
 package's CreconTrainer under a mesh and the VAE Trainer's world: each
-rank runs its dp rows with the frozen VAE's and the GCN's operators
-row-sharded over sp; the frozen VAE's weights are replicated from rank
+rank runs its dp rows in sp's row layout (x staged as the rank's level-0
+rows, per step and in the scanned epoch's staging, as the JAX package's
+stage_batches; the frozen VAE's decodes, diff and the GCN's activations
+at row-sharded levels the rank's rows); the frozen VAE's weights are
+replicated from rank
 0; the loss is the masked mean over the global batch, the GCN's gradients
 are reduced over the world (Trainer._reduce_gradients), and the packed
 [loss, correct, count] are summed over dp, so every rank reports the
@@ -70,7 +73,10 @@ def estimate_diff(vae, x: torch.Tensor, labels: torch.Tensor, ops,
                   train: bool):
     """Frozen-VAE difference features. x [B, N, 3] normalized, labels [B]
     -> (diff [B, N, 6], correct, pred [B]). The same-label and the
-    opposite-label decodes run as one decoder pass at 2B rows."""
+    opposite-label decodes run as one decoder pass at 2B rows. In sp's row
+    layout x, the two decodes and diff are the rank's rows [B,
+    rows_local, .] of level 0 (zero past N), as the GCN's first conv
+    takes them."""
     h = vae.encode(x, ops)
     y_hat = vae.classify(h)
     pred = torch.argmax(y_hat, dim=-1)
@@ -91,9 +97,6 @@ class CreconTrainer(Trainer):
     mask and no normalisation, and ``run_epoch`` is its epoch."""
 
     BATCH_KEYS = ("x", "label", "mask")
-    # the GCN's activations stay whole over sp (ROADMAP: the row layout
-    # for crecon)
-    vertex_sharded = False
 
     def __init__(self, gcn: ChebGCN, vae, ops, config: dict, device="cuda",
                  dist=None):

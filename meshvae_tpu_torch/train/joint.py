@@ -8,7 +8,9 @@ scanned epoch and CUDA graphs, checkpoints and sex-change counterfactual
 "accuracy" is the jointly trained GCN's, this configuration's classifier;
 the eval averages and history{fold}.json add ``sup_accuracy`` (the
 supervised latent slice's head) and ``adv_accuracy`` (the adversarial
-head on the free slice: lower is better scrubbed).
+head on the free slice: lower is better scrubbed). In an sp world x, the
+decodes, the GCN's difference features and its activations at
+row-sharded levels are the rank's rows, as the VAE's (train/loop.py).
 """
 from __future__ import annotations
 
@@ -21,9 +23,6 @@ from .loop import Trainer
 
 class JointTrainer(Trainer):
     extra_scalar_names = ("sup_accuracy", "adv_accuracy")
-    # the GCN's activations stay whole over sp (ROADMAP: the row layout
-    # for the joint model)
-    vertex_sharded = False
 
     def _extra_scalars(self, aux: dict) -> list:
         return [aux["sup_correct"], aux["adv_correct"]]
@@ -44,5 +43,6 @@ class JointTrainer(Trainer):
         loss, aux = joint_loss(x, out, y, labels, mask=mask,
                                sup_weight=self.sup_weight,
                                adv_weight=self.adv_weight,
-                               cls_weight=self.cls_weight, denom=denom)
+                               cls_weight=self.cls_weight, denom=denom,
+                               shard=self.vertex_shard)
         return loss, out, aux, y, denom

@@ -18,9 +18,10 @@ the loss, the metrics and the pose error are float32.
 
 In a world (parallel/sharding.py), as the JAX package's GSPMD step under a
 mesh: each rank runs its dp rows of the global batch, with the operators
-row-sharded over sp and, in the row layout (the VAE's trainer), x and the
-activations at row-sharded levels as the rank's vertex rows, the NLL and
-the pose error summed over them and then over sp; the loss and the packed
+row-sharded over sp in sp's one layout (parallel/sharding.py), with x
+and the activations at row-sharded levels as the rank's vertex rows, the
+NLL and the pose error summed over them and then over sp; the loss and the
+packed
 metrics are masked means over the global batch (the mask sums are summed
 over dp before the division);
 the dropout masks and the noise are drawn for the global batch and sliced
@@ -218,11 +219,12 @@ class Trainer:
     Randomness (dropout masks, the reparameterisation noise) comes from the
     torch.Generator the caller passes, which must live on the trainer's
     device. With ``dist`` (a parallel.World) the trainer runs on the
-    world's device and the operators are sharded for its sp group; with
-    ``vertex_sharded`` (the VAE's trainer) in the row layout, where x, the
-    normalisation, the activations at row-sharded levels, recon and the
-    per-vertex errors are the rank's rows (``vertex_shard``, the level-0
-    RowShard of parallel.vertex_rows; None outside the layout).
+    world's device and the operators are sharded for its sp group in sp's
+    row layout, where x, the normalisation, the activations at
+    row-sharded levels, recon (and the classifiers' difference features)
+    and the per-vertex errors are the rank's rows (``vertex_shard``, the
+    level-0 RowShard of parallel.vertex_rows; None when level 0 is
+    whole).
 
     ``graphs`` (True on a card in one process) makes the scanned epoch's
     steps CUDA graphs; set it False to run the same steps eagerly.
@@ -236,9 +238,6 @@ class Trainer:
 
     BATCH_KEYS = ("x", "label", "r", "s", "m", "mask")
     extra_scalar_names: tuple = ()
-    # the row layout of sp (parallel.sharding.shard_operators); the joint
-    # model and crecon keep their activations whole (ROADMAP)
-    vertex_sharded = True
 
     def _extra_scalars(self, aux: dict) -> list:
         return []
@@ -248,7 +247,7 @@ class Trainer:
         self.device = dist.device if dist is not None else resolve_device(
             device)
         self.model = model.to(self.device)
-        self.ops = shard_operators(ops, dist, rows=self.vertex_sharded)
+        self.ops = shard_operators(ops, dist)
         self.vertex_shard = vertex_rows(self.ops, dist)
         self.config = config
         self.num_classes = int(config["num_classes"])

@@ -12,7 +12,9 @@ before any process is started or any device is touched.
   * multihost with an explicit coordinator: num_processes = dp * sp;
   * cheb_method = ell on CUDA, once the level-0 vertex count and largest
     degree are known (``level0``): the level-0 convs' memory
-    (``ell_step_bytes``) must fit on the card. The JAX package's envelope
+    (``ell_step_bytes``, per card: under seq_parallel the rank's rows of
+    level 0 and the all-gathered operand) must fit on the card. The JAX
+    package's envelope
     (meshvae_tpu/validate.py:25-39) is a TPU crash boundary in
     batch-vertices; on the H100 the limit is memory, so the port holds a
     byte count instead. The count is a lower bound of the step's peak
@@ -64,28 +66,37 @@ def level0_convs(config: dict, num_features: int = 3) -> list[tuple]:
 
 
 def ell_step_bytes(batch: int, n: int, max_degree: int, convs: list,
-                   itemsize: int) -> dict:
-    """Bytes of one cheb_method = ell train step at level 0 (n vertices,
-    neighbour lists of max_degree), for `convs` as level0_convs gives them
-    and operands of `itemsize` bytes:
+                   itemsize: int, sp: int = 1) -> dict:
+    """Bytes on one card of one cheb_method = ell train step at level 0 (n
+    vertices, neighbour lists of max_degree), for `convs` as level0_convs
+    gives them, B = `batch` rows per card and operands of `itemsize`
+    bytes. Under seq_parallel (sp > 1) a card holds the rank's R rows of
+    level 0 (ops/bsr_shard.py RowShard.for_level: 128 * ceil(n_pad /
+    (sp * 128)), n_pad the block-padded row count), else R = N:
 
-      gather    = rows * B * N * D * F_in * s: one propagation's [B, N, D,
+      gather    = rows * B * R * D * F_in * s: one propagation's [B, R, D,
                   F] neighbour gather (ops/cheb.py propagate_ell);
-      transient = 2 * max gather: the gather and one copy of it for the
-                  reduction over D, in the forward, and the same two in
-                  the backward; one propagation's at a time, and nothing
-                  of them is kept: autograd keeps only the operator's own
-                  idx and w (no bytes of its own);
-      kept      = sum of rows * B * N * (K * F_in + F_out) * s: what each
+      transient = 2 * max gather (+ under sp the all-gathered [B, sp * R,
+                  F_in] operand of that propagation): the gather and one
+                  copy of it for the reduction over D, in the forward, and
+                  the same two in the backward; one propagation's at a
+                  time, and nothing of them is kept: autograd keeps only
+                  the operator's own idx and w (no bytes of its own);
+      kept      = sum of rows * B * R * (K * F_in + F_out) * s: what each
                   conv keeps for its backward, the concatenated basis
-                  [B, N, K * F_in] (for dW) and its output (for the ReLU).
+                  [B, R, K * F_in] (for dW) and its output (for the ReLU).
 
     total = kept + transient, the level-0 share of the step's peak."""
-    gathers = [r * batch * n * max_degree * f_in * itemsize
+    from .ops.bsr_shard import RowShard
+
+    local = n if sp == 1 else RowShard.for_level(n, sp, 0, None).rows_local
+    gathers = [r * batch * local * max_degree * f_in * itemsize
                for r, _, f_in, _ in convs]
-    kept = sum(r * batch * n * (k * f_in + f_out) * itemsize
+    operands = [0 if sp == 1 else r * batch * sp * local * f_in * itemsize
+                for r, _, f_in, _ in convs]
+    kept = sum(r * batch * local * (k * f_in + f_out) * itemsize
                for r, k, f_in, f_out in convs)
-    transient = 2 * max(gathers)
+    transient = max(2 * g + o for g, o in zip(gathers, operands))
     return {"gather": max(gathers), "transient": transient, "kept": kept,
             "total": kept + transient}
 
@@ -135,18 +146,18 @@ def validate_config(config: dict, device="cuda",
             f"--device cpu, or spread the ranks over hosts (multihost = "
             f"true).")
     if str(config.get("cheb_method", "dense")) == "ell" and level0:
-        _check_ell_memory(config, device, level0, num_features, dp,
+        _check_ell_memory(config, device, level0, num_features, dp, sp,
                           card_bytes)
 
 
-def _check_ell_memory(config, device, level0, num_features, dp,
+def _check_ell_memory(config, device, level0, num_features, dp, sp,
                       card_bytes):
     n, degree = level0
     batch = int(config.get("batch_size", 16)) // dp
     dtype = str(config.get("compute_dtype", "float32") or "float32")
     need = ell_step_bytes(batch, n, degree,
                           level0_convs(config, num_features),
-                          _DTYPE_BYTES[dtype])["total"]
+                          _DTYPE_BYTES[dtype], sp)["total"]
     if card_bytes is None:
         card_bytes = torch.cuda.get_device_properties(
             torch.device(device)).total_memory
@@ -154,11 +165,12 @@ def _check_ell_memory(config, device, level0, num_features, dp,
         fits = batch * card_bytes // need
         raise ConfigError(
             f"cheb_method = ell at batch {batch} per card x {n} vertices "
-            f"(largest degree {degree}, {dtype}) needs at least "
+            f"(seq_parallel {sp}, largest degree {degree}, {dtype}) needs "
+            f"at least "
             f"{need / 2**30:.1f} GiB at level 0 alone (validate."
             f"ell_step_bytes: the convs' kept bases and outputs plus the "
             f"transient [B, N, D, F] neighbour gather), more than the "
             f"card's {card_bytes / 2**30:.1f} GiB. Use cheb_method = pallas "
             f"(the block-sparse kernel keeps no gather), or lower "
-            f"batch_size to at most {fits} per card (raise data_parallel "
-            f"to spread it).")
+            f"batch_size to at most {fits} per card (raise data_parallel, "
+            f"or seq_parallel to split the vertices, to spread it).")

@@ -281,6 +281,41 @@ def test_validate_refuses_an_ell_config_that_cannot_fit():
                              level0=level0, card_bytes=card)
 
 
+def test_ell_memory_counts_the_rank_rows_under_sp():
+    """Under seq_parallel validate.ell_step_bytes counts a card's rows of
+    level 0 (R = 128 * ceil(N / (sp * 128))) for the kept bases and the
+    gather, plus the all-gathered [B, sp * R, F_in] operand; by hand at
+    B = 4, N = 256, D = 6, sp = 2 (R = 128). A config that does not fit
+    one card in one process is admitted over seq_parallel 4, where each
+    card holds a quarter of the rows."""
+    cfg = {"num_conv_filters": list(FILTERS), "polygon_order": list(ORDERS),
+           "n_layers": 4}
+    convs = validate.level0_convs(cfg)
+    got = validate.ell_step_bytes(4, 256, 6, convs, 4, sp=2)
+    gather = 4 * 128 * 6 * 8 * 4
+    operand = 4 * 256 * 8 * 4
+    kept = 4 * 128 * (3 * 3 + 8) * 4 + 4 * 128 * (3 * 8 + 8) * 4
+    assert got == {"gather": gather, "transient": 2 * gather + operand,
+                   "kept": kept, "total": kept + 2 * gather + operand}
+    assert validate.ell_step_bytes(4, 256, 6, convs, 4, sp=1) == \
+        validate.ell_step_bytes(4, 256, 6, convs, 4)
+    big = {"num_conv_filters": [16, 16, 16, 32, 32],
+           "polygon_order": [10] * 5, "n_layers": 4, "batch_size": 512,
+           "cheb_method": "ell", "compute_dtype": "float32"}
+    level0 = (79968, 12)
+    one = validate.ell_step_bytes(512, *level0, validate.level0_convs(big),
+                                  4)["total"]
+    four = validate.ell_step_bytes(512, *level0, validate.level0_convs(big),
+                                   4, sp=4)["total"]
+    card = (one + four) // 2
+    assert four < card < one
+    with pytest.raises(validate.ConfigError, match="seq_parallel 1"):
+        validate.validate_config(big, "cuda", n_devices=4, level0=level0,
+                                 card_bytes=card)
+    validate.validate_config(dict(big, seq_parallel=4), "cuda", n_devices=4,
+                             level0=level0, card_bytes=card)
+
+
 def test_driver_admits_both_methods_and_the_reference_hierarchy():
     """The drivers' preflight (validate_config) admits pool_method dense,
     cheb_method ell and hierarchy_mode reference, in one process and in a

@@ -267,8 +267,10 @@ def test_sharded_products_match_jax(laplacians, dtype):
 
 @pytest.mark.parametrize("case", ["fp32", "fp32-lazy", "bf16", "bf16-lazy"])
 def test_sharded_conv_matches_jax(laplacians, monkeypatch, case):
-    """cheb_conv_bsr_sharded (two thread ranks) forward and the gradients
-    of sum(conv * g) against cheb_conv_pallas_sharded on dp4 x sp2, with
+    """cheb_conv_bsr_sharded (two thread ranks; the whole x cut to the
+    rank's rows by to_rows, the rows gathered whole by from_rows) forward
+    and the gradients of sum(conv * g) against cheb_conv_pallas_sharded
+    on dp4 x sp2, with
     FUSED_SEED_DOT off and on in both packages (b = 32, f = 16: a square
     mix, so the lazy branch runs in both), K = 3;
     1e-5 of the max in fp32, one bf16 ulp in bf16 (no bias in bf16:
@@ -312,9 +314,10 @@ def test_sharded_conv_matches_jax(laplacians, monkeypatch, case):
         sop = _sharded_op(op, shards[r], comm)
         xt, wt, bt = (torch.from_numpy(a).requires_grad_(True)
                       for a in (x, w, bias))
-        out = port_cheb.cheb_conv(xt.to(tdt), sop, wt.to(tdt),
-                                  bt.to(tdt) if fp32 else None,
-                                  precision=precision)
+        rows = sop.rows
+        out = bsr_shard.from_rows(port_cheb.cheb_conv(
+            bsr_shard.to_rows(xt.to(tdt), rows), sop, wt.to(tdt),
+            bt.to(tdt) if fp32 else None, precision=precision), rows)
         (out.float() * torch.from_numpy(g)).sum().backward()
         return out.detach().float(), xt.grad, wt.grad, bt.grad
 

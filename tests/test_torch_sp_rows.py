@@ -1,6 +1,5 @@
-"""seq_parallel's row layout (parallel.sharding.shard_operators(...,
-rows=True)): activations at a row-sharded level hold only the rank's rows
-of it, on the CPU, with the sp ranks run as threads of one process
+"""seq_parallel's row layout (parallel.sharding.shard_operators):
+activations at a row-sharded level hold only the rank's rows of it, on the CPU, with the sp ranks run as threads of one process
 (torch_parallel_worker.ThreadComm) on a 24 x 24 grid at factors 4, 4
 (levels 576, 144, 36; at sp = 2 the level-0 rows split 384 / 192):
 
@@ -122,7 +121,7 @@ def _pool_case(hier, which, dt, method="gather"):
 def _pool_rows(ops, kind, i, x, g, method):
     """Every thread rank's (pool, output rows, input-gradient rows)."""
     def rank(r, comm):
-        sh = sharding.shard_operators(ops, thread_world(r, comm), rows=True)
+        sh = sharding.shard_operators(ops, thread_world(r, comm))
         p = getattr(sh, kind)[i]
         xl = (p.in_rows.local(x) if p.in_rows else x).requires_grad_(True)
         gl = p.out_rows.local(g) if p.out_rows else g
@@ -303,8 +302,7 @@ def test_row_conv_matches_whole_form_and_jax(monkeypatch, case):
         rows = bsr_shard.RowShard.of(s, comm)
         op = GraphOperator(dense=None, bsr=None, n=n, active_n=n, bsr_sp=s,
                            sp_group=comm)
-        new = run(rows.local(torch.from_numpy(x)),
-                  dataclasses.replace(op, row_layout=True),
+        new = run(rows.local(torch.from_numpy(x)), op,
                   rows.local(torch.from_numpy(g)), port_cheb.cheb_conv)
         old = run(torch.from_numpy(x), op, torch.from_numpy(g), _old_conv)
         return rows, new, old
@@ -368,7 +366,7 @@ def test_embedded_final_conv_rows(hier, corner, dtype):
     def rank(r, comm):
         rows = bsr_shard.RowShard.of(
             bsr_shard.shard_block_sparse(level0, SP, r), comm)
-        sop = dataclasses.replace(op, row_layout=True, embedded_rows=rows)
+        sop = dataclasses.replace(op, row_shard=rows)
         if op.bsr is not None:
             sop = dataclasses.replace(
                 sop, bsr=None, sp_group=comm,

@@ -117,7 +117,7 @@ def joint_scenario(dist, hier, ops, states) -> dict:
     out["params_dropout"] = W.params_of(tr.model)
     tr = _joint_trainer(dist, hier, ops, states)
     out["eval_avg"], out["eval_errors"] = tr.evaluate_scanned(
-        tr.stage_batches(batches), zeros, ones)
+        tr.stage_batches(batches), *tr.norm_to_device(zeros, ones))
     return out
 
 

@@ -6,9 +6,10 @@
 Phases, one block of output lines each; any failed check exits non-zero:
 
  1. device  the card's name and power limit (nvidia-smi).
- 2. build   compile the four CUDA kernels from ops/csrc (nvcc, sm_90a, one
+ 2. build   compile the five CUDA kernels from ops/csrc (nvcc, sm_90a, one
             process per source, started together; all but pool_transpose.cu
-            include the occupied-tile engine csrc/tile_engine.cuh) and
+            and phase_mark.cu include the occupied-tile engine
+            csrc/tile_engine.cuh) and
             print the build seconds and ptxas' registers, shared memory and
             spills for every instantiation.
  3. kernel  bsr_grouped_spmm in both modes (fp32, bf16x3) against its plain
@@ -24,7 +25,7 @@ Phases, one block of output lines each; any failed check exits non-zero:
             fp32 at the config-1 L0/L1 Laplacians (C = 256, f = 16; L0 also
             at f = 128) and the scaled20k L0/L1 (C = 1024, f = 16), alpha 1
             and 2, with and without t_prev; each call must take the kernel's
-            lazy seed (LAUNCHES_SEED_DOT).
+            lazy seed (launches_seed_dot()).
 3b. pool_transpose  the pool backward's P^T kernel (ops/csrc/
             pool_transpose.cu, a CSR row gather; TPU kernels #7, #5 and #4's
             P^T call) at every P^T shape of the model paths: config 1's
@@ -280,7 +281,9 @@ Phases, one block of output lines each; any failed check exits non-zero:
             gradients and moments 1e-4 / 1e-3 / one bf16 ulp of the layer's
             max, params 1e-2 lr per step, and printed), the same launches
             per step as the eager steps and as phases 6, 7 and 9 count
-            them; at lr 0 the params stay as they were and the replays
+            them, and one phase mark per slot and step (train/phases.py
+            LAUNCHES, a replay's counted from its capture; the evals' too);
+            at lr 0 the params stay as they were and the replays
             draw a new loss each; the light, errors and collect evals equal
             to the eager ones, and within 1e-5 (loss) and 1e-4 of the mesh
             scale of evaluate(); no host sync in an eager scanned epoch
@@ -298,6 +301,17 @@ Phases, one block of output lines each; any failed check exits non-zero:
             never the per-step loop, the history, checkpoints and .obj
             triples, epoch 2's trace holding bsr_grouped_spmm, and the log
             line naming the graphs.
+15b. marks  the phase mark kernel (ops/csrc/phase_mark.cu, train/phases.py
+            Marks) in a captured, replayed step (train/graphs.py StepGraph)
+            at the benchmark cells' stamps: [16, 5] and [4, 3] (vae80k train
+            and light eval), [32, 5] and [8, 3] (vae5k), filled with a
+            sentinel. After each replay the written cells are those the CPU
+            path (host clock, same Marks) has written after as many steps:
+            the replay's own row, every slot, and the earlier rows as they
+            were; the stamps never decrease; LAUNCHES counts one per slot and
+            replay. Then the device time of a mark and of the plain write of
+            the same cell (index_fill_ at the device step index), each
+            replayed as a graph of 100 (CUDA events).
 
 16. classifiers  the two classifier pipelines at config-1 width on the
             block-sparse path at high (BASELINE configs 2 and 3):
@@ -316,7 +330,7 @@ Phases, one block of output lines each; any failed check exits non-zero:
                enc_0) + 3 P^T at 2B width, 50 per eval step (with the
                counterfactual); sup_accuracy and adv_accuracy in every
                history epoch and test result, the P^T launches counted
-               per operator (LAUNCHES_BY_SHAPE): each once per train step;
+               per operator (launches_by_shape()): each once per train step;
             c. bsr_grouped_spmm against its twin at every (mode, operator,
                C, call kind) that a, b and d launched (LAUNCHES_BY_CALL) and
                phase 3 did not (GCN cheb_0's dx at C = 128, the 2B
@@ -530,7 +544,10 @@ step's Laplacian and P^T calls, the dense-pool step's Laplacian calls and
 the ELL step's P^T; launches of 18c-e), and phase 19's artifact steps at
 high, highest and bf16 (launches and kernel time from the profiler window
 of one step; the twin, library and bound of the same calls from phases 5
-and 17). Each pool_transpose entry also carries earlier_ms, the time of
+and 17), and phase_mark (train/phases.py) per mark: launches of phase 15's
+graphed config-1 high epochs (its train and eval marks), max_abs_err the
+cells phase 15b's replays wrote apart from the CPU path's, ms and plain_ms
+phase 15b's. Each pool_transpose entry also carries earlier_ms, the time of
 the bsr_grouped_spmm calls it replaced at the same shapes. The last line
 is {"ok": true, ...}.
 """
@@ -622,13 +639,15 @@ def say(msg: str):
 
 
 def reset_launches():
-    """Zero the launch counts of the model paths' two kernels,
-    bsr_grouped_spmm and pool_transpose (the pool backward's P^T), just
-    before a main-path run."""
+    """Zero the launch counts of the model paths' three kernels,
+    bsr_grouped_spmm, pool_transpose (the pool backward's P^T) and the
+    scanned steps' phase marks, just before a main-path run."""
     from meshvae_tpu_torch.ops import bsr_spmm, pool_transpose
+    from meshvae_tpu_torch.train import phases
 
     bsr_spmm.reset_launches()
     pool_transpose.reset_launches()
+    phases.reset_launches()
 
 
 def pt_counts() -> tuple[dict, dict]:
@@ -649,16 +668,16 @@ def launch_modes() -> dict:
     pool_transpose's (the P^T) per "pool " + mode."""
     from meshvae_tpu_torch.ops import bsr_spmm
 
-    return {**bsr_spmm.LAUNCHES,
+    return {**bsr_spmm.launches(),
             **{f"pool {m}": v for m, v in pt_counts()[0].items()}}
 
 
 def launch_shapes() -> dict:
-    """bsr_grouped_spmm's LAUNCHES_BY_SHAPE with pool_transpose's launches
+    """bsr_grouped_spmm's launches_by_shape() with pool_transpose's launches
     added under ("pool " + mode, n_in, n_out), summed over C."""
     from meshvae_tpu_torch.ops import bsr_spmm
 
-    out = dict(bsr_spmm.LAUNCHES_BY_SHAPE)
+    out = bsr_spmm.launches_by_shape()
     for (mode, n_in, n_out, _), v in pt_counts()[1].items():
         key = (f"pool {mode}", n_in, n_out)
         out[key] = out.get(key, 0) + v
@@ -720,7 +739,8 @@ def phase_build():
     say("== phase 2: build")
     from meshvae_tpu_torch.ops import _build
 
-    names = ["bsr_spmm", "cheb_fused", "emitted_spmm", "pool_transpose"]
+    names = ["bsr_spmm", "cheb_fused", "emitted_spmm", "pool_transpose",
+             "phase_mark"]
     t0 = time.perf_counter()
     logs = _build.build_libraries(names)
     for name in names:
@@ -767,15 +787,15 @@ def _seeds(torch, bsr, c, gen, dev, dtype=None, f=16):
 
 def _hold(torch, bsr, x, mode, kind, seeds, bar, tag):
     """One kernel call against its twin; with a lazy seed, the call must
-    have taken the kernel's (LAUNCHES_SEED_DOT). Returns (abs, rel) err."""
+    have taken the kernel's (launches_seed_dot()). Returns (abs, rel) err."""
     from meshvae_tpu_torch.ops import bsr_spmm
 
     alpha, kw = _seed_args(kind, seeds)
-    before = dict(bsr_spmm.LAUNCHES_SEED_DOT)
+    before = bsr_spmm.launches_seed_dot()
     y = bsr_spmm.bsr_grouped_spmm(bsr, x, mode, alpha, **kw)
     torch.cuda.synchronize()
     ref = bsr_spmm.bsr_grouped_spmm_reference(bsr, x, mode, alpha, **kw)
-    lazy = bsr_spmm.LAUNCHES_SEED_DOT[mode] - before[mode]
+    lazy = bsr_spmm.launches_seed_dot()[mode] - before[mode]
     if lazy != ("dot" in kind):
         fail(f"{tag}: {lazy} lazy-seed launches, expected "
              f"{int('dot' in kind)}")
@@ -1000,7 +1020,7 @@ def phase_serve(torch, dev, servers, models, ops, hier, single, many_dir,
         fout = io.StringIO()
         server.serve_forever(io.StringIO(request), fout)
         outs[p] = fout.getvalue()
-    launches = dict(bsr_spmm.LAUNCHES)
+    launches = bsr_spmm.launches()
     # --------------------------------------------------------------------
     for p, text in outs.items():
         lines = [json.loads(l) for l in text.splitlines()]
@@ -1534,7 +1554,7 @@ def phase_train(torch, dev, models, ops, hier, tmpl, tmp):
                   for _ in range(TRAIN_EPOCHS)]
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        launches[p] = dict(bsr_spmm.LAUNCHES)
+        launches[p] = bsr_spmm.launches()
         pt_launches[p], by_shape[p] = pt_counts()
         # ----------------------------------------------------------------
         after = tr.eval_step(fixed_dev, *norm)["scalars"][0].item()
@@ -1624,8 +1644,8 @@ def phase_train(torch, dev, models, ops, hier, tmpl, tmp):
             tr.train_step(tr.to_device(fixed), None,
                           *tr.norm_to_device(ds.mean, ds.std))
             torch.cuda.synchronize()
-            counts[side] = (bsr_spmm.LAUNCHES["fp32"],
-                            bsr_spmm.LAUNCHES_SEED_DOT["fp32"],
+            counts[side] = (bsr_spmm.launches()["fp32"],
+                            bsr_spmm.launches_seed_dot()["fp32"],
                             pt_counts()[0]["fp32"])
         finally:
             port_cheb.FUSED_SEED_DOT = False
@@ -1970,7 +1990,7 @@ def phase_scaled80k(torch, dev, s80, tmp):
         for _ in range(FLAG_STEPS):
             step()
         torch.cuda.synchronize()
-        on = (dict(bsr_spmm.LAUNCHES), dict(bsr_spmm.LAUNCHES_SEED_DOT),
+        on = (bsr_spmm.launches(), bsr_spmm.launches_seed_dot(),
               pt_counts()[0])
         ms_on = time_ms(torch, step, backlog=False)
     finally:
@@ -2065,7 +2085,7 @@ def _run_driver(torch, config, dev, vis=False, run=None):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = launch_modes()
-        seed_dot = dict(bsr_spmm.LAUNCHES_SEED_DOT)
+        seed_dot = bsr_spmm.launches_seed_dot()
         by_shape = launch_shapes()
         # -----------------------------------------------------------------
     finally:
@@ -4011,7 +4031,7 @@ def phase_infer(torch, dev, models, hier, tmpl, tmp):
         # --- the main path: counts reset just before, read just after ----
         reset_launches()
         secs, pass_secs, _ = cli(card_out, "cuda", p)
-        launches[p] = dict(bsr_spmm.LAUNCHES)
+        launches[p] = bsr_spmm.launches()
         # -----------------------------------------------------------------
         cpu_secs, _, _ = cli(os.path.join(root, f"cpu_{p}"), "cpu", p)
         (pred, inf, objs), (pred_c, inf_c, objs_c) = (
@@ -4227,7 +4247,7 @@ def _scan_case(torch, dev, label, model_cfg, ops, config, ds, batch, bar,
     from meshvae_tpu_torch.models import MeshVAE
     from meshvae_tpu_torch.ops import bsr_spmm
     from meshvae_tpu_torch.ops import cheb as port_cheb
-    from meshvae_tpu_torch.train import Trainer, set_learning_rate
+    from meshvae_tpu_torch.train import Trainer, phases, set_learning_rate
 
     say(f"-- 15 [{label}]: B={batch}, {SCAN_STEPS} steps per staged epoch")
     weights = MeshVAE(model_cfg, generator=torch.Generator().manual_seed(
@@ -4274,7 +4294,7 @@ def _scan_case(torch, dev, label, model_cfg, ops, config, ds, batch, bar,
             t.reset_optimizer()
 
         # --- three epochs: lr, lr / 2, then 0 on one batch each step ------
-        epochs, launches = {}, {}
+        epochs, launches, marks = {}, {}, {}
         for graphs, t in tr.items():
             gen = torch.Generator(device=dev).manual_seed(7)
             torch.cuda.synchronize()
@@ -4289,7 +4309,8 @@ def _scan_case(torch, dev, label, model_cfg, ops, config, ds, batch, bar,
                                        _scan_snapshot(t)))
             torch.cuda.synchronize()
             launches[graphs] = (launch_modes(),
-                                dict(bsr_spmm.LAUNCHES_SEED_DOT))
+                                bsr_spmm.launches_seed_dot())
+            marks[graphs] = dict(phases.LAUNCHES)
         for e in range(3):
             _scan_hold(label, f"epoch {e + 1} at lr {lrs[e]:g}",
                        _scan_delta(epochs[False][e][1], epochs[True][e][1],
@@ -4305,6 +4326,13 @@ def _scan_case(torch, dev, label, model_cfg, ops, config, ds, batch, bar,
                  f"{launches[True]} (per step {per_step}), eager "
                  f"{launches[False]}, expected {want['train']} per step")
         report["train_launches"] = launches[True]
+        want_marks = dict.fromkeys(phases.slots("train"), steps)
+        say(f"  phase marks over {steps} train steps: graphed "
+            f"{marks[True]}, eager {marks[False]}")
+        if marks != {False: want_marks, True: want_marks}:
+            fail(f"scanned epoch [{label}]: phase marks {marks}, expected "
+                 f"{want_marks} each")
+        report["mark_launches"] = {"train": marks[True]}
         params = [s["params"] for _, s in epochs[True]]
         same_params = all(params[2][k].equal(v) for k, v in params[1].items())
         moved = not all(params[1][k].equal(v) for k, v in params[0].items())
@@ -4324,16 +4352,18 @@ def _scan_case(torch, dev, label, model_cfg, ops, config, ds, batch, bar,
         # --- the eval variants, graphed vs eager vs evaluate() -------------
         evals = {}
         reset_launches()
-        ev_launches = {}
+        ev_launches, ev_marks = {}, {}
         for graphs, t in tr.items():
-            before = sum(bsr_spmm.LAUNCHES.values())
+            before = sum(bsr_spmm.launches().values())
+            phases.reset_launches()
             evals[graphs] = {v: t.finalize_eval_scanned(
                 t.evaluate_scanned_async(staged, *norm,
                                          collect_meshes=v == "collect",
                                          with_errors=v != "light"),
                 with_errors=v != "light")
                 for v in ("light", "errors", "collect")}
-            ev_launches[graphs] = sum(bsr_spmm.LAUNCHES.values()) - before
+            ev_launches[graphs] = sum(bsr_spmm.launches().values()) - before
+            ev_marks[graphs] = dict(phases.LAUNCHES)
         plain = tr[False].evaluate(host, ds.mean, ds.std,
                                    collect_meshes=True)
         scale = float(np.abs(ds.original).max())
@@ -4368,6 +4398,11 @@ def _scan_case(torch, dev, label, model_cfg, ops, config, ds, batch, bar,
         if ev_launches != {False: want_ev, True: want_ev}:
             fail(f"scanned epoch [{label}]: eval launches {ev_launches}, "
                  f"expected {want_ev} each")
+        want_marks = dict.fromkeys(phases.slots("light"), 3 * SCAN_STEPS)
+        if ev_marks != {False: want_marks, True: want_marks}:
+            fail(f"scanned epoch [{label}]: eval phase marks {ev_marks}, "
+                 f"expected {want_marks} each")
+        report["mark_launches"]["eval"] = ev_marks[True]
         report["capture_s"] = {k: round(st.graph.capture_seconds, 3)
                                for k, st in tr[True]._scans.items()}
         del one, epochs, evals, plain  # the copies compared above
@@ -4626,6 +4661,118 @@ JOINT_CALLS = {
     "pool_grouped": [("up-pool 2 P^T at 2B", "P2T", 1024, {"a1": 1})]}
 CRECON_EVAL_LAUNCHES = 30   # the train step's forward
 JOINT_EVAL_LAUNCHES = 50    # forward + the counterfactual's decode, encode
+
+
+# phase 15b: the stamps [S, P] of the benchmark cells' scanned epochs
+MARK_CELLS = (("vae80k train", 16, "train"), ("vae80k light", 4, "light"),
+              ("vae5k train", 32, "train"), ("vae5k light", 8, "light"))
+MARK_SENTINEL = -7
+MARKS_TIMED = 100  # marks (and plain writes) per timed graph
+
+
+def _mark_step(stamps, step, slots):
+    """A scanned step's marks alone: every slot of row ``step``, then the
+    step index moves on (as train/loop.py's _scan_*_step)."""
+    from meshvae_tpu_torch.train import phases
+
+    marks = phases.Marks(stamps, step, slots)
+
+    def run():
+        for name in slots:
+            marks(name)
+        step.add_(1)
+    return run
+
+
+def _graph_ms(torch, fn, n):
+    """Device ms per call of fn, captured n times in one CUDA graph."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(n):
+            fn()
+    return time_ms(torch, graph.replay) / n
+
+
+def phase_marks(torch, dev):
+    """Phase 15b (see the module docstring): the phase mark kernel in a
+    replayed step graph against the CPU path, and its time."""
+    import numpy as np
+
+    from meshvae_tpu_torch.train import phases
+    from meshvae_tpu_torch.train.graphs import StepGraph
+
+    say("== phase 15b: phase marks (ops/csrc/phase_mark.cu) replayed in a "
+        "step graph at the cells' stamps vs the CPU path")
+    wrong = 0
+    for label, steps, kind in MARK_CELLS:
+        slots = phases.slots(kind)
+        shape = (steps, len(slots))
+        # the CPU path's written cells after each step
+        cpu = torch.full(shape, MARK_SENTINEL, dtype=torch.int64)
+        cpu_step = _mark_step(cpu, torch.zeros(1, dtype=torch.long), slots)
+        want = []
+        for _ in range(steps):
+            cpu_step()
+            want.append(cpu.numpy() != MARK_SENTINEL)
+        stamps = torch.full(shape, MARK_SENTINEL, dtype=torch.int64,
+                            device=dev)
+        step = torch.zeros(1, dtype=torch.long, device=dev)
+        graph = StepGraph(_mark_step(stamps, step, slots),
+                          lambda: [stamps, step], name=kind)
+        graph()
+        graph()  # the warm-up, then the capture and its first replay
+        if graph.graph is None:
+            fail(f"phase marks [{label}]: the step was not captured")
+        stamps.fill_(MARK_SENTINEL)
+        step.zero_()
+        phases.reset_launches()
+        before = stamps.cpu().numpy()
+        bad, apart = [], 0
+        for i in range(steps):
+            graph()
+            got = stamps.cpu().numpy()
+            cells = int(((got != MARK_SENTINEL) != want[i]).sum())
+            row = got[i]
+            if (cells or not np.array_equal(got[:i], before[:i])
+                    or (row <= 0).any() or (np.diff(row) < 0).any()
+                    or (i and row[0] < got[i - 1, -1])):
+                bad.append((i, cells))
+            apart += cells
+            before = got
+        wrong += apart
+        flat = before.reshape(-1)
+        launches = dict(phases.LAUNCHES)
+        say(f"  [{label}] stamps {list(shape)}: {steps} replays, each wrote "
+            f"its own row and no other cell (cells apart from the CPU path: "
+            f"{apart}; steps at fault {bad or 'none'}); stamps from "
+            f"{int(flat[0])} ns over {(flat[-1] - flat[0]) * 1e-3:.1f} us, "
+            f"never decreasing: {bool((np.diff(flat) >= 0).all())}; "
+            f"launches counted {launches}")
+        if (bad or not (np.diff(flat) >= 0).all()
+                or launches != dict.fromkeys(slots, steps)
+                or int(step.item()) != steps):
+            fail(f"phase marks [{label}]: replays at fault {bad}, launches "
+                 f"{launches} (expected {steps} a slot), step index "
+                 f"{int(step.item())}")
+    # one mark, and the plain write of the same cell at the device index
+    # (no clock), each timed as a graph of MARKS_TIMED
+    slots = phases.slots("train")
+    stamps = torch.zeros((32, len(slots)), dtype=torch.int64, device=dev)
+    step = torch.zeros(1, dtype=torch.long, device=dev)
+    marks = phases.Marks(stamps, step, slots)
+    column = stamps[:, 1]
+    ms = _graph_ms(torch, lambda: marks("forward"), MARKS_TIMED)
+    plain_ms = _graph_ms(torch, lambda: column.index_fill_(0, step, 1),
+                         MARKS_TIMED)
+    say(f"  one mark {ms * 1e3:.2f} us, the plain write of its cell "
+        f"{plain_ms * 1e3:.2f} us (device time per call in a graph of "
+        f"{MARKS_TIMED}); bound: the launch (one thread, 16 bytes)")
+    return {"err": wrong, "ms": ms, "plain_ms": plain_ms}
 
 
 def _table_counts(calls: dict) -> dict:
@@ -5297,7 +5444,7 @@ def _p17_serve(torch, dev, ctx):
         reset_launches()
         fout = io.StringIO()
         server.serve_forever(io.StringIO(request), fout)
-        launches = dict(bsr_spmm.LAUNCHES)
+        launches = bsr_spmm.launches()
         by_call = dict(bsr_spmm.LAUNCHES_BY_CALL)
         # -----------------------------------------------------------------
         lines = [json.loads(l) for l in fout.getvalue().splitlines()]
@@ -5404,7 +5551,7 @@ def _p17_config4(torch, dev, ctx):
     reset_launches()
     secs, run_secs, dev_secs = _infer_cli(torch, argv(data_dir, "card", "cuda",
                                                       *bf16))
-    launches = dict(bsr_spmm.LAUNCHES)
+    launches = bsr_spmm.launches()
     by_call = dict(bsr_spmm.LAUNCHES_BY_CALL)
     # ---------------------------------------------------------------------
     batches = CONFIG4_MESHES // CONFIG4_BATCH
@@ -5480,7 +5627,7 @@ def _p17_config4(torch, dev, ctx):
     # --- the main path: counts reset just before, read just after --------
     reset_launches()
     secs80, run80, dev80 = _infer_cli(torch, argv80)
-    launches80 = dict(bsr_spmm.LAUNCHES)
+    launches80 = bsr_spmm.launches()
     by_call80 = dict(bsr_spmm.LAUNCHES_BY_CALL)
     # ---------------------------------------------------------------------
     batches80 = -(-SCALED_MESHES // SCALED_BATCH)
@@ -5548,7 +5695,7 @@ def _p17_joint_infer(torch, dev, ctx):
     # --- the main path: counts reset just before, read just after --------
     reset_launches()
     secs, _, _ = _infer_cli(torch, argv("card", "cuda"))
-    launches = dict(bsr_spmm.LAUNCHES)
+    launches = bsr_spmm.launches()
     keys = set(bsr_spmm.LAUNCHES_BY_CALL)
     # ---------------------------------------------------------------------
     batches = -(-INFER_MESHES // BATCH)
@@ -5881,7 +6028,7 @@ def _ref_serving(torch, dev, root, cfg_path, data_dir, scale, tmpl,
             "-c", cfg_path, "-d", data_dir, "-o", out, "-n", "1", "-p",
             "matmul_precision", "high", "--device", device])
         if device == "cuda":
-            launches["infer"] = dict(bsr_spmm.LAUNCHES)
+            launches["infer"] = bsr_spmm.launches()
             seen |= set(bsr_spmm.LAUNCHES_BY_CALL)
         outs[device] = _infer_outputs(out)
         say(f"  inference CLI [{device}]: {secs:.2f}s")
@@ -5927,7 +6074,7 @@ def _ref_serving(torch, dev, root, cfg_path, data_dir, scale, tmpl,
             reset_launches()
             server.serve_forever(io.StringIO(f"{many_dir}\n"), fout)
             torch.cuda.synchronize()
-            launches[f"serve_{p}"] = dict(bsr_spmm.LAUNCHES)
+            launches[f"serve_{p}"] = bsr_spmm.launches()
             seen |= set(bsr_spmm.LAUNCHES_BY_CALL)
             lines = [json.loads(l) for l in fout.getvalue().splitlines()]
             host = server.preprocess(many[:BATCH])
@@ -6427,7 +6574,7 @@ def profile_artifacts(spec_path: str) -> None:
         reset_launches()
         count, ms, names = _kernel_launches(torch, lambda: step(*args))
         out[label] = {"launches": count, "ms": ms, "names": sorted(names),
-                      "wrapper": dict(bsr_spmm.LAUNCHES)}
+                      "wrapper": bsr_spmm.launches()}
     prev, out["seconds"] = t0, {}
     for name, t in marks.items():
         out["seconds"][name] = round(t - prev, 3)
@@ -7134,7 +7281,7 @@ def phase_experimental(torch, dev, hier, tmpl, tmp, card, infer_json,
     from meshvae_tpu_torch.ops.graph import cheb_operator
 
     def counters():
-        return (dict(bsr_spmm.LAUNCHES), dict(bsr_spmm.LAUNCHES_SEED_DOT),
+        return (bsr_spmm.launches(), bsr_spmm.launches_seed_dot(),
                 sum(bsr_spmm.LAUNCHES_BY_CALL.values()),
                 dict(cheb_fused.LAUNCHES), dict(emitted_spmm.LAUNCHES),
                 pt_counts()[0])
@@ -7348,6 +7495,9 @@ def main() -> int:
                                      tmp)
         seconds["scan"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+        marked = phase_marks(torch, dev)
+        seconds["marks"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         classifiers = phase_classifiers(torch, dev, ops, hier, tmpl, tmp,
                                         covered, card)
         seconds["classifiers"] = time.perf_counter() - t0
@@ -7488,6 +7638,20 @@ def main() -> int:
         scan["config-1 high"][0]["pool fp32"], pt_err["fp32"],
         {k: per_step["train_pool_colmajor"][k]
          + per_step["train_pool_grouped"][k] for k in ACC_KEYS + ("old_ms",)}))
+    # phase 15's graphed config-1 high epochs: the steps' phase marks
+    # (train and eval), per mark; phase 15b's cells and times
+    marks15 = {r["case"]: r["mark_launches"] for r in scan_reports}[
+        "config-1 high"]
+    kernels.append(dict(
+        name="phase_mark per mark, config-1 high scanned train and eval "
+             "steps replayed in CUDA graphs", route="cuda",
+        source="meshvae_tpu_torch/ops/csrc/phase_mark.cu",
+        replaces="none (the JAX package's scanned epoch has no phase marks)",
+        launches=sum(marks15["train"].values()) + sum(
+            marks15["eval"].values()),
+        max_abs_err=marked["err"], ms=marked["ms"],
+        plain_ms=marked["plain_ms"], bound_ms=None, bound_by="launch",
+        library_ms=None, bound_stored_ms=None))
     # phase 16: the classifier pipelines' train steps. Launches at high
     # (bf16x3, and the joint model's fp32 P^T) from the run() of each; at
     # highest (fp32) from one counted epoch of SCAN_STEPS replayed steps

@@ -65,26 +65,42 @@ MODES = ("fp32", "bf16x3", "bf16")
 MODE_DTYPE = {"fp32": torch.float32, "bf16x3": torch.float32,
               "bf16": torch.bfloat16}
 
-# Launches of the CUDA kernel per mode, and per (mode, n_pad, n_pad_cols)
-# of the operator, counted where the wrapper launches it (never on the CPU
-# twin path). Readers reset and read them around a run. Inside a CUDA
-# graph the wrapper runs once, at capture; train/graphs.py takes that
-# count back and adds it at each replay.
-LAUNCHES = {mode: 0 for mode in MODES}
-LAUNCHES_BY_SHAPE: dict[tuple[str, int, int], int] = {}
-# and per (mode, n_pad, n_pad_cols, C, call kind): the kind is "a1" or "a2"
-# (alpha), then " plus", " dot" (the lazy seed) and " prev" for the seeds
-# the call takes, e.g. "a2 plus prev"
+# Launches of the CUDA kernel per (mode, n_pad, n_pad_cols, C, call kind),
+# counted where the wrapper launches it (never on the CPU twin path): the
+# kind is "a1" or "a2" (alpha), then " plus", " dot" (the lazy seed) and
+# " prev" for the seeds the call takes, e.g. "a2 plus prev". Readers reset
+# and read it around a run, or read differences. Inside a CUDA graph the
+# wrapper runs once, at capture; train/graphs.py takes that count back and
+# adds it at each replay.
 LAUNCHES_BY_CALL: dict[tuple[str, int, int, int, str], int] = {}
-# the launches among LAUNCHES that computed the lazy seed in the kernel
-LAUNCHES_SEED_DOT = {mode: 0 for mode in MODES}
+
+
+def launches() -> dict[str, int]:
+    """Launches per mode (every mode present)."""
+    out = dict.fromkeys(MODES, 0)
+    for key, n in LAUNCHES_BY_CALL.items():
+        out[key[0]] += n
+    return out
+
+
+def launches_by_shape() -> dict[tuple[str, int, int], int]:
+    """Launches per (mode, n_pad, n_pad_cols) of the operator."""
+    out: dict[tuple[str, int, int], int] = {}
+    for key, n in LAUNCHES_BY_CALL.items():
+        out[key[:3]] = out.get(key[:3], 0) + n
+    return out
+
+
+def launches_seed_dot() -> dict[str, int]:
+    """The launches per mode that computed the lazy seed in the kernel."""
+    out = dict.fromkeys(MODES, 0)
+    for key, n in LAUNCHES_BY_CALL.items():
+        if " dot" in key[4]:
+            out[key[0]] += n
+    return out
 
 
 def reset_launches() -> None:
-    for mode in MODES:
-        LAUNCHES[mode] = 0
-        LAUNCHES_SEED_DOT[mode] = 0
-    LAUNCHES_BY_SHAPE.clear()
     LAUNCHES_BY_CALL.clear()
 
 
@@ -340,14 +356,9 @@ def bsr_grouped_spmm(bsr: BlockSparseOperator, x: torch.Tensor,
     t_plus, t_plus_dot = _lazy_or_eager(mode, t_plus, t_plus_dot)
     gm, wt = t_plus_dot if t_plus_dot is not None else (None, None)
     y = _launch(bsr, x, mode, alpha, t_plus, t_prev, gm, wt)
-    LAUNCHES[mode] += 1
-    if gm is not None:
-        LAUNCHES_SEED_DOT[mode] += 1
-    key = (mode, bsr.n_pad, bsr.n_pad_cols)
-    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
     kind = f"a{alpha:g}" + "".join(
         f" {name}" for name, seed in (("plus", t_plus), ("dot", gm),
                                       ("prev", t_prev)) if seed is not None)
-    key = key + (x.shape[1], kind)
+    key = (mode, bsr.n_pad, bsr.n_pad_cols, x.shape[1], kind)
     LAUNCHES_BY_CALL[key] = LAUNCHES_BY_CALL.get(key, 0) + 1
     return y

@@ -118,10 +118,12 @@ class CreconTrainer(Trainer):
         return self._dp_sum_(torch.stack([loss.detach(), correct,
                                           mask.sum()]))
 
-    def train_step(self, batch: dict, generator=None) -> torch.Tensor:
+    def train_step(self, batch: dict, generator=None,
+                   mark=None) -> torch.Tensor:
         """One Adam update of the GCN from a device batch; returns the
         packed [loss, correct, count]. The frozen VAE draws nothing, so
-        the generator is unused."""
+        the generator is unused; so is `mark` (the scanned epoch's phase
+        marks): crecon's epochs stage no stamps (_scan_outs)."""
         self.optimizer.zero_grad(set_to_none=True)
         diff, _, _ = estimate_diff(self.vae, batch["x"], batch["label"],
                                    self.ops, train=True)
@@ -133,13 +135,15 @@ class CreconTrainer(Trainer):
             return self._packed(loss, logits, batch)
 
     @torch.no_grad()
-    def eval_step(self, batch: dict) -> dict:
+    def eval_step(self, batch: dict, mark=None) -> dict:
         diff, _, _ = estimate_diff(self.vae, batch["x"], batch["label"],
                                    self.ops, train=False)
         loss, logits = self._loss(diff, batch["label"], batch["mask"])
         return {"scalars": self._packed(loss, logits, batch)}
 
     def _scan_outs(self, kind: str, staged: dict) -> dict:
+        """The [S, 3] rows of the packed scalars; crecon's epochs, read by
+        run_epoch without the finalizers, stage no phase stamps."""
         rows = staged["mask"].shape[0]
         return {"metrics" if kind == "train" else "scalars":
                 torch.zeros((rows, 3), device=self.device)}

@@ -24,7 +24,9 @@ the body of ``python -m meshvae_tpu_torch.train``.
     epoch's steps) and the history run one epoch late; a profiled epoch
     is read inside its trace. The test path runs evaluate_scanned.
     ``scan_epoch = False`` runs the per-step loop (train_epoch,
-    evaluate);
+    evaluate). The log gains one line per scanned epoch: the median ms
+    per step of each phase of the train and eval steps and the mean gap
+    between steps (train/phases.py);
   * resume of the first fold from ``checkpoint_file`` (the port's ``.pt``
     or the JAX package's ``.msgpack``);
   * the test path, with the sex-change .obj triples under ``vis``;
@@ -66,6 +68,7 @@ from ..tools.make_scaled_template import ensure_template
 from ..validate import level0_shape, validate_config
 from .checkpoint import (checkpoint_path, find_checkpoint, load_checkpoint,
                          load_params, save_checkpoint, save_params)
+from . import phases
 from .graphs import HostCopy
 from .joint import JointTrainer
 from .loop import Trainer, lr_for_epoch, set_learning_rate
@@ -299,10 +302,14 @@ def _train_fold(trainer: Trainer, config: dict, log: RunLog, n: int,
             return
         p, pending = pending, None
         epoch = p["epoch"]
+        count = phases.recorded()
         train_avg, (valid_avg, mean_val_error) = (p["train"](), p["valid"]())
         # after the pull, so it covers the epoch's device work; pipelined
         # epochs overlap by the next epoch's dispatch
         duration = time.time() - p["begin"]
+        line = phases.epoch_line(epoch, phases.since(count))
+        if line is not None:
+            log.print(line)
         record = history_record(epoch, p["begin"], duration, train_avg,
                                 valid_avg, mean_val_error)
         if not (np.isfinite(train_avg["loss"])

@@ -23,8 +23,12 @@ needs no host work besides ``replay()``:
     CUDA graph there invalidates the capture;
   * the kernel wrappers count their launches in Python, which runs once, at
     capture. The capture's counts are taken back (nothing ran then) and
-    each replay adds them, so ``ops.bsr_spmm.LAUNCHES`` and the other
-    counters count the launches that ran.
+    each replay adds them, so ``ops.bsr_spmm.LAUNCHES_BY_CALL`` and the
+    other counters (the phase marks' ``phases.LAUNCHES`` among them) count
+    the launches that ran;
+  * under a profiler the warm-up and the capture are host spans
+    ``meshvae.warm_up.<name>`` and ``meshvae.capture.<name>``
+    (train/phases.py).
 
 A graph holds the addresses of the tensors it captured. ``deps`` names the
 tensors whose identity it depends on (parameters, Adam's state and lr, the
@@ -34,7 +38,9 @@ warms up and captures again. A capture or replay that fails raises with
 its cause; nothing falls back to the eager step.
 
 ``HostCopy`` is the epoch's one device-to-host pull, started without
-waiting so that it overlaps the next epoch's replays.
+waiting so that it overlaps the next epoch's replays; it can carry a second
+tree ``beside`` the one ``wait()`` returns (the epoch's phase stamps),
+under the same event.
 """
 from __future__ import annotations
 
@@ -44,13 +50,13 @@ import time
 import torch
 
 from ..ops import bsr_spmm, cheb_fused, emitted_spmm, pool_transpose
+from . import phases
 
 
 def _counters() -> tuple[dict, ...]:
-    return (bsr_spmm.LAUNCHES, bsr_spmm.LAUNCHES_SEED_DOT,
-            bsr_spmm.LAUNCHES_BY_SHAPE, bsr_spmm.LAUNCHES_BY_CALL,
-            cheb_fused.LAUNCHES, emitted_spmm.LAUNCHES,
-            pool_transpose.LAUNCHES, pool_transpose.LAUNCHES_BY_SHAPE)
+    return (bsr_spmm.LAUNCHES_BY_CALL, cheb_fused.LAUNCHES,
+            emitted_spmm.LAUNCHES, pool_transpose.LAUNCHES,
+            pool_transpose.LAUNCHES_BY_SHAPE, phases.LAUNCHES)
 
 
 def _read_counters() -> list[dict]:
@@ -66,7 +72,8 @@ def _set_counters(values: list[dict]) -> None:
 class StepGraph:
     """One step, run eagerly once, then captured and replayed (see the
     module docstring). ``step()`` takes no arguments and returns nothing;
-    ``deps()`` returns the tensors (and generator) the graph is bound to."""
+    ``deps()`` returns the tensors (and generator) the graph is bound to;
+    ``name`` is the kind of step ("train", "light", ...)."""
 
     def __init__(self, step, deps, generator: torch.Generator | None = None,
                  name: str = "step"):
@@ -103,7 +110,8 @@ class StepGraph:
     def _warm_up(self) -> None:
         self._stream = torch.cuda.Stream()
         self._stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(self._stream):
+        with phases.span(f"warm_up.{self.name}"), \
+                torch.cuda.stream(self._stream):
             self.step()
         torch.cuda.current_stream().wait_stream(self._stream)
         self.key = self._key()
@@ -117,11 +125,12 @@ class StepGraph:
         try:
             if self.generator is not None:
                 graph.register_generator_state(self.generator)
-            with torch.cuda.graph(graph, stream=self._stream):
+            with phases.span(f"capture.{self.name}"), \
+                    torch.cuda.graph(graph, stream=self._stream):
                 self.step()
         except Exception as exc:
             raise RuntimeError(f"CUDA graph capture of the {self.name} "
-                               f"failed: {exc}") from exc
+                               f"step failed: {exc}") from exc
         finally:
             if collecting:
                 gc.enable()
@@ -137,8 +146,8 @@ class StepGraph:
         try:
             self.graph.replay()
         except Exception as exc:
-            raise RuntimeError(f"replay of the {self.name} graph failed: "
-                               f"{exc}") from exc
+            raise RuntimeError(f"replay of the {self.name} step's graph "
+                               f"failed: {exc}") from exc
         for counter, delta in zip(_counters(), self.per_replay):
             for k, n in delta.items():
                 counter[k] = counter.get(k, 0) + n
@@ -159,9 +168,11 @@ class HostCopy:
     tensors go to pinned memory without waiting (non_blocking, in stream
     order after the work that wrote them) and one event marks the end;
     ``wait()`` waits for that event only, not for work queued later, and
-    returns the tree of host tensors. CPU tensors are cloned."""
+    returns the tree of host tensors. CPU tensors are cloned. A second
+    tree ``beside`` (its leaves that are not tensors kept as they are) is
+    copied under the same event and read as ``.beside`` after ``wait()``."""
 
-    def __init__(self, tree):
+    def __init__(self, tree, beside=None):
         self._event = None
 
         def copy(t):
@@ -174,10 +185,12 @@ class HostCopy:
             return host
 
         self._tree = map_tensors(copy, tree)
+        self.beside = map_tensors(copy, beside)
         if self._event is not None:
             self._event.record()
 
     def wait(self):
-        if self._event is not None:
-            self._event.synchronize()
+        with phases.span("pull"):
+            if self._event is not None:
+                self._event.synchronize()
         return self._tree

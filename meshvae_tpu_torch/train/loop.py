@@ -43,7 +43,11 @@ the test path's meshes). On a card with one process the steps are CUDA
 graphs (train/graphs.py) replayed with no host work in between; on the CPU
 and in a world (whose collectives are not captured) the same step
 functions run eagerly. Adam on CUDA is capturable with a device-tensor lr
-(``make_optimizer``), which ``set_learning_rate`` fills in place.
+(``make_optimizer``), which ``set_learning_rate`` fills in place. Each
+scanned step stamps the boundaries of its phases into an [S, P] buffer
+pulled with the epoch's outputs, and each finalized epoch leaves a record
+in ``phases.RECORDS``; under a profiler the loop's calls are host spans
+(train/phases.py).
 """
 from __future__ import annotations
 
@@ -56,6 +60,7 @@ from ..mesh.procrustes import apply_inverse_similarity
 from ..models.losses import vae_loss
 from ..parallel.sharding import (VERTEX_KEYS, fetch, replicate, shard_batch,
                                  shard_operators, vertex_mean, vertex_rows)
+from . import phases
 from .graphs import HostCopy, StepGraph, map_tensors
 
 # order of the packed per-step metrics returned by the train step
@@ -189,10 +194,13 @@ class _Scan:
     [S, B, ...] tensors flattened to [S * B, ...], the epoch's sample
     order ``perm`` [S * B] (step i takes rows perm[i * B:(i + 1) * B]),
     the step index [1], the normalisation, the [S, ...] output rows
-    ``outs``, the step function and its graph (None when steps run
+    ``outs``, the phase marks over ``outs["stamps"]`` (phases.unmarked
+    without them), the step function and its graph (None when steps run
     eagerly). Built once per staged epoch and kind of step."""
 
-    def __init__(self, staged: dict, outs: dict, device, keys: tuple):
+    def __init__(self, kind: str, staged: dict, outs: dict, device,
+                 keys: tuple):
+        self.kind = kind
         self.staged = staged
         self.steps, self.batch = staged["mask"].shape[:2]
         n = self.steps * self.batch
@@ -202,6 +210,9 @@ class _Scan:
         self.step = torch.zeros(1, dtype=torch.long, device=device)
         self.norm = None
         self.outs = outs
+        self.mark = (phases.Marks(outs["stamps"], self.step,
+                                  phases.slots(kind)) if "stamps" in outs
+                     else phases.unmarked)
         self.run = None
         self.graph = None
         self.generator = None
@@ -227,7 +238,8 @@ class Trainer:
     whole).
 
     ``graphs`` (True on a card in one process) makes the scanned epoch's
-    steps CUDA graphs; set it False to run the same steps eagerly.
+    steps CUDA graphs; set it False to run the same steps eagerly. The
+    scanned steps stamp their phases (train/phases.py).
 
     Subclasses (train/joint.py) swap the objective by overriding
     ``_forward_loss`` and surface model-specific eval metrics through
@@ -391,18 +403,23 @@ class Trainer:
         return recon_orig, err
 
     def train_step(self, batch: dict, generator: torch.Generator | None,
-                   norm_mean: torch.Tensor,
-                   norm_std: torch.Tensor) -> torch.Tensor:
+                   norm_mean: torch.Tensor, norm_std: torch.Tensor,
+                   mark=phases.unmarked) -> torch.Tensor:
         """One update from a device batch; returns the packed metrics
         [6] (METRIC_NAMES) on the device. The parameters' .grad hold this
         step's gradients afterwards. generator None makes the step
-        deterministic (no dropout, z = mu), for gradient checks."""
+        deterministic (no dropout, z = mu), for gradient checks. `mark`
+        (the scanned epoch's phases.Marks) is called after the loss, the
+        backward and the update."""
         self.optimizer.zero_grad(set_to_none=True)
         loss, out, aux, _, denom = self._forward_loss(
             batch, generator is not None, generator)
+        mark("forward")
         loss.backward()
         self._reduce_gradients()
+        mark("backward")
         self.optimizer.step()
+        mark("optimizer")
         with torch.no_grad():
             mask = batch["mask"]
             _, err = self._pose_error(out["recon"], batch, norm_mean,
@@ -418,17 +435,19 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, batch: dict, norm_mean: torch.Tensor,
-                  norm_std: torch.Tensor) -> dict:
+                  norm_std: torch.Tensor, mark=phases.unmarked) -> dict:
         """Eval forward, loss, pose error and the sex-change
         counterfactual. ``scalars`` [7 + extras] is loss, kld, rec_loss,
         correct, count, sc_correct, the masked sum of per-mesh mean errors
         and the _extra_scalars counts (over the global batch in a world;
-        the other outputs are the rank's rows)."""
+        the other outputs are the rank's rows). `mark` is called after
+        the loss and the pose error."""
         model, ops = self.model, self.ops
         loss, out, aux, y, denom = self._forward_loss(batch, False, None)
         mask = batch["mask"]
         recon_orig, err = self._pose_error(out["recon"], batch, norm_mean,
                                            norm_std)
+        mark("eval_forward")
         oppo = 1.0 - y
         x_oppo = model.sample(oppo, out["z"], ops)
         y_hat2 = model.classify(model.encode(x_oppo, ops))
@@ -540,18 +559,22 @@ class Trainer:
         world every rank stages the whole grid, as the permutation moves
         samples between dp slices; each step takes its rank's rows. In the
         row layout x is staged as the rank's vertex rows."""
-        return stage_batch_arrays(loader, self.device, self.BATCH_KEYS,
-                                  with_index=with_index,
-                                  rows=self.vertex_shard)
+        with phases.span("stage"):
+            return stage_batch_arrays(loader, self.device, self.BATCH_KEYS,
+                                      with_index=with_index,
+                                      rows=self.vertex_shard)
 
     def _scan_outs(self, kind: str, staged: dict) -> dict:
         """The [S, ...] rows a kind of step writes (this rank's rows of
-        each batch in a world)."""
+        each batch in a world) and the int64 phase stamps [S, P]
+        (train/phases.py)."""
         s, b = staged["mask"].shape[:2]
         dev = self.device
+        stamps = torch.zeros((s, len(phases.slots(kind))),
+                             dtype=torch.int64, device=dev)
         if kind == "train":
             return {"metrics": torch.zeros((s, len(METRIC_NAMES)),
-                                           device=dev)}
+                                           device=dev), "stamps": stamps}
         b //= self.dist.dp if self.dist is not None else 1
         n = staged["x"].shape[2]
         outs = {"scalars": torch.zeros(
@@ -563,6 +586,7 @@ class Trainer:
                 outs[k] = torch.zeros((s, b, n, 3), device=dev)
             for k in ("oppo_pred", "oppo_label"):
                 outs[k] = torch.zeros((s, b), dtype=torch.long, device=dev)
+        outs["stamps"] = stamps
         return outs
 
     def _scan_batch(self, st: _Scan) -> dict:
@@ -576,14 +600,20 @@ class Trainer:
         return {k: v.index_select(0, idx) for k, v in st.flat.items()}
 
     def _scan_train_step(self, st: _Scan, generator) -> None:
-        packed = self.train_step(self._scan_batch(st), generator, *st.norm)
+        st.mark("start")
+        packed = self.train_step(self._scan_batch(st), generator, *st.norm,
+                                 mark=st.mark)
         st.outs["metrics"].index_copy_(0, st.step, packed[None])
+        st.mark("metrics")
         st.step.add_(1)
 
     def _scan_eval_step(self, st: _Scan) -> None:
-        out = self.eval_step(self._scan_batch(st), *st.norm)
+        st.mark("start")
+        out = self.eval_step(self._scan_batch(st), *st.norm, mark=st.mark)
         for k, rows in st.outs.items():
-            rows.index_copy_(0, st.step, out[k][None])
+            if k != "stamps":
+                rows.index_copy_(0, st.step, out[k][None])
+        st.mark("eval_counterfactual")
         st.step.add_(1)
 
     def _train_deps(self) -> list:
@@ -606,8 +636,8 @@ class Trainer:
         (train/graphs.py)."""
         st = self._scans.get(kind)
         if st is None or st.staged is not staged:
-            st = _Scan(staged, self._scan_outs(kind, staged), self.device,
-                       self.BATCH_KEYS)
+            st = _Scan(kind, staged, self._scan_outs(kind, staged),
+                       self.device, self.BATCH_KEYS)
             self._scans[kind] = st
         if norm_mean is None:
             st.norm = ()
@@ -635,20 +665,26 @@ class Trainer:
         if self.graphs and st.graph is None:
             deps = (self._train_deps if kind == "train"
                     else lambda: list(self.model.parameters()))
-            st.graph = StepGraph(st.run, deps, generator,
-                                 name=f"{kind} step")
+            st.graph = StepGraph(st.run, deps, generator, name=kind)
         elif self.graphs:
             st.graph.check()
         return st
 
-    def _run_scan(self, st: _Scan) -> None:
+    def _run_scan(self, st: _Scan) -> dict | None:
         """The epoch's steps: replays of the graph (eager calls with
         ``graphs`` off; a graph already captured is kept for later), with
-        no host work in between."""
+        no host work in between. Returns what the epoch's phase record
+        needs (phases.pending; None without stamps)."""
         st.step.zero_()
+        replayed = self.graphs and st.graph.graph is not None
         step = st.graph if self.graphs else st.run
+        name = "step." + st.kind
         for _ in range(st.steps):
-            step()
+            with phases.span(name):
+                step()
+        stamps = st.outs.get("stamps")
+        return (None if stamps is None
+                else phases.pending(st.kind, stamps, replayed))
 
     def train_epoch_scanned_async(self, staged, generator, norm_mean,
                                   norm_std, shuffle_generator=None,
@@ -657,10 +693,12 @@ class Trainer:
         or a loader staged here) without waiting for it: returns the [S, 6]
         per-step metrics as an in-flight HostCopy (None for an empty epoch)
         for finalize_train_metrics, so the next epoch can be queued before
-        this one is read (the epoch pipeline, train/driver.py). The
-        normalisation is norm_to_device's result. The epoch's order of the S * B samples is a permutation drawn on the
-        device from shuffle_generator (identity without it); `perm` gives
-        it explicitly."""
+        this one is read (the epoch pipeline, train/driver.py); it carries
+        the epoch's phase stamps ``beside``.
+        The normalisation is norm_to_device's result. The epoch's order of
+        the S * B samples is a permutation drawn on the device from
+        shuffle_generator (identity without it); `perm` gives it
+        explicitly."""
         if staged is not None and not isinstance(staged, dict):
             staged = self.stage_batches(staged)
         if staged is None:
@@ -668,24 +706,28 @@ class Trainer:
         st = self._scan_state("train", staged, norm_mean, norm_std,
                               generator)
         n = st.steps * st.batch
-        if perm is not None:
-            st.perm.copy_(torch.as_tensor(np.asarray(perm), dtype=torch.long))
-        elif shuffle_generator is not None:
-            torch.randperm(n, generator=shuffle_generator, out=st.perm)
-        else:
-            torch.arange(n, out=st.perm)
-        self._run_scan(st)
-        return HostCopy(st.outs["metrics"])
+        with phases.span("shuffle"):
+            if perm is not None:
+                st.perm.copy_(torch.as_tensor(np.asarray(perm),
+                                              dtype=torch.long))
+            elif shuffle_generator is not None:
+                torch.randperm(n, generator=shuffle_generator, out=st.perm)
+            else:
+                torch.arange(n, out=st.perm)
+        return HostCopy(st.outs["metrics"], beside=self._run_scan(st))
 
     @staticmethod
     def finalize_train_metrics(packed) -> dict:
         """Read and reduce a scanned epoch's [S, 6] metrics (its one
         device-to-host pull): count-weighted means of loss, kld, rec_loss
-        and error, accuracy = correct / count."""
+        and error, accuracy = correct / count. The epoch's phase stamps,
+        when its HostCopy carries them, become a phases.RECORDS record."""
         if packed is None:
             return {"loss": 0.0, "kld": 0.0, "rec_loss": 0.0, "error": 0.0,
                     "accuracy": 0.0, "count": 0.0}
-        arr = _host(packed).astype(np.float64)
+        with phases.span("finalize.train"):
+            arr = _host(packed).astype(np.float64)
+            phases.record(getattr(packed, "beside", None))
         metrics = {k: arr[:, i] for i, k in enumerate(METRIC_NAMES)}
         counts = metrics["count"]
         total = float(counts.sum())
@@ -723,8 +765,8 @@ class Trainer:
         kind = ("collect" if collect_meshes else "errors" if with_errors
                 else "light")
         st = self._scan_state(kind, staged, norm_mean, norm_std)
-        self._run_scan(st)
-        outs = st.outs
+        marks = self._run_scan(st)
+        outs = {k: v for k, v in st.outs.items() if k != "stamps"}
         if self.vertex_shard is not None:   # vertex rows -> all N
             outs = {k: self.vertex_shard.gather(v, dim=2)
                     if k in _VERTEX_OUTS else v for k, v in outs.items()}
@@ -732,7 +774,7 @@ class Trainer:
             outs = {k: v if k == "scalars"
                     else self.dist.dp_group.all_gather(v, dim=1)
                     for k, v in outs.items()}
-        return {"outs": HostCopy(outs), "index": index,
+        return {"outs": HostCopy(outs, beside=marks), "index": index,
                 "collect": collect_meshes, "mask_host": staged["mask_host"]}
 
     _EVAL_EMPTY = {"loss": 0.0, "kld": 0.0, "rec_loss": 0.0, "error": 0.0,
@@ -742,12 +784,21 @@ class Trainer:
     def finalize_eval_scanned(self, pending, with_errors: bool = True):
         """Read and reduce a scanned evaluation: the averages of evaluate()
         and, with_errors, the [valid, N] per-vertex errors (and with
-        collection the meshes, as evaluate(collect_meshes=True))."""
+        collection the meshes, as evaluate(collect_meshes=True)). The
+        epoch's phase stamps, when it carries them (``pending["outs"]
+        .beside``), become a phases.RECORDS record."""
         if pending is None:
             avg = dict(self._EVAL_EMPTY, **dict.fromkeys(
                 self.extra_scalar_names, 0.0))
             return (avg, np.zeros((0, 1))) if with_errors else (avg, None)
+        kind = ("collect" if pending["collect"] else "errors" if with_errors
+                else "light")
+        with phases.span("finalize." + kind):
+            return self._finalize_eval(pending, with_errors)
+
+    def _finalize_eval(self, pending, with_errors: bool):
         outs = pending["outs"].wait()
+        phases.record(pending["outs"].beside)
         if with_errors and "errors" not in outs:
             raise ValueError(
                 "eval scan was dispatched with with_errors=False (light "

@@ -633,7 +633,7 @@ def test_cuda_train_step_matches_the_cpu(env):
             packed = tr.train_step(tr.to_device(batch)).cpu()
             out[side] = (packed, {k: p.grad.cpu() for k, p in
                                   tr.model.named_parameters()},
-                         sum(bsr_spmm.LAUNCHES.values()))
+                         sum(bsr_spmm.launches().values()))
         assert out["cuda"][2] == 14, out["cuda"][2]
         loss = out["cpu"][0][0]
         assert abs(out["cuda"][0][0] - loss) <= 1e-5 * abs(loss)

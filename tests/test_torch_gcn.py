@@ -311,7 +311,7 @@ def test_cuda_gcn_matches_the_cpu(hier):
             logits.square().sum().backward()
             out[side] = (logits.detach().cpu(), {
                 k: v.grad.cpu() for k, v in model.named_parameters()},
-                xt.grad.cpu(), sum(bsr_spmm.LAUNCHES.values()))
+                xt.grad.cpu(), sum(bsr_spmm.launches().values()))
         assert out["cuda"][3] == 4 * 2, out["cuda"][3]
         want = out["cpu"][0]
         assert (out["cuda"][0] - want).abs().max() <= 1e-5 * want.abs().max()

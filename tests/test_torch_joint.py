@@ -563,7 +563,7 @@ def test_cuda_train_step_matches_the_cpu(env):
                                    *tr.norm_to_device(mean, std)).cpu()
             out[side] = (packed, {k: p.grad.cpu() for k, p in
                                   tr.model.named_parameters()},
-                         (dict(bsr_spmm.LAUNCHES),
+                         (bsr_spmm.launches(),
                           dict(pool_transpose.LAUNCHES)))
         mode = "fp32" if precision == "highest" else "bf16x3"
         lap, pool = out["cuda"][2]

@@ -540,7 +540,7 @@ def test_cuda_graphed_steps_match_eager(tmp_path):
             out[f"metrics{epoch}"] = tr.train_epoch_scanned_async(
                 staged, gen, *norm, perm=perm).wait().clone()
             out[f"state{epoch}"] = _state(tr)
-        out["launches"] = sum(bsr_spmm.LAUNCHES.values())
+        out["launches"] = sum(bsr_spmm.launches().values())
         set_learning_rate(tr.optimizer, 0.0)
         out["lr0"] = tr.train_epoch_scanned_async(
             staged, gen, *norm, perm=same).wait().clone()

@@ -265,8 +265,9 @@ def test_cuda_kernel_matches_twin(env, mode):
     import scipy.sparse as sp
 
     from meshvae_tpu_torch.ops.block_sparse import to_block_sparse
-    from meshvae_tpu_torch.ops.bsr_spmm import (LAUNCHES, bsr_grouped_spmm,
-                                                bsr_grouped_spmm_reference)
+    from meshvae_tpu_torch.ops.bsr_spmm import (bsr_grouped_spmm,
+                                                bsr_grouped_spmm_reference,
+                                                launches)
 
     rng = np.random.default_rng(0)
     rows = np.repeat(np.arange(1000), 6)
@@ -280,10 +281,10 @@ def test_cuda_kernel_matches_twin(env, mode):
             x = torch.randn(bsr.n_pad_cols, c, device="cuda")
             tp, tm = (torch.randn(bsr.n_pad, c, device="cuda")
                       for _ in range(2))
-            before = LAUNCHES[mode]
+            before = launches()[mode]
             y = bsr_grouped_spmm(bsr, x, mode, 2.0, t_plus=tp, t_prev=tm)
             torch.cuda.synchronize()
-            assert LAUNCHES[mode] == before + 1
+            assert launches()[mode] == before + 1
             ref = bsr_grouped_spmm_reference(bsr, x, mode, 2.0, t_plus=tp,
                                              t_prev=tm)
             assert ((y - ref).abs().max() / ref.abs().max()).item() < 1e-5

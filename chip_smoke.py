@@ -6,10 +6,10 @@
 Phases, one block of output lines each; any failed check exits non-zero:
 
  1. device  the card's name and power limit (nvidia-smi).
- 2. build   compile the five CUDA kernels from ops/csrc (nvcc, sm_90a, one
-            process per source, started together; all but pool_transpose.cu
-            and phase_mark.cu include the occupied-tile engine
-            csrc/tile_engine.cuh) and
+ 2. build   compile the six CUDA kernel sources from ops/csrc (nvcc,
+            sm_90a, one process per source, started together; all but
+            pool_transpose.cu, phase_mark.cu and cheb_mix.cu include the
+            occupied-tile engine csrc/tile_engine.cuh) and
             print the build seconds and ptxas' registers, shared memory and
             spills for every instantiation.
  3. kernel  bsr_grouped_spmm in both modes (fp32, bf16x3) against its plain
@@ -39,6 +39,18 @@ Phases, one block of output lines each; any failed check exits non-zero:
             CSR once each), after the events' own floor (a zero_ of 16
             floats). Every later P^T time comes from the same
             check-and-time (_pt_case) at that phase's shapes.
+3c. cheb_mix  the basis mix and its weight gradient over the K orders
+            as they lie (ops/csrc/cheb_mix.cu; no TPU kernel: the JAX
+            package concatenates and leaves both to XLA) at every shape
+            the cells' block-sparse convs give them: scaled80k bf16 levels
+            0-3 (B = 32, K = 10) and config-1 / vae5k fp32 levels 0-1
+            (B = 16, K = 6). Each within one bf16 ulp (bf16) or 1e-5 (fp32)
+            of max |y| of its twin on the card, two dW launches bit-equal;
+            per call and per train step (CUDA events, median of 25): the
+            kernels, their twin, the torch.cat + cuBLAS pair they replace
+            (library), the cuBLAS products alone and the byte bound at
+            3.35 TB/s. Phase 7 holds the launches per train and eval step
+            (8 mix and 8 dW per 80k train step, 16 mix per eval step).
  4. serve   BASELINE config 1 at full width (template5k, factors 4,4,4,4,
             K=6, filters 16/16/16/32/32, hidden 512, latent 16, batch 16,
             cheb_method pallas), weights from a fixed seed. The main path:
@@ -587,6 +599,7 @@ TRAIN_POOL_LAUNCHES = 3
 SOURCE = "meshvae_tpu_torch/ops/csrc/bsr_spmm.cu"
 SOURCE_FUSED = "meshvae_tpu_torch/ops/csrc/cheb_fused.cu"
 SOURCE_EMITTED = "meshvae_tpu_torch/ops/csrc/emitted_spmm.cu"
+SOURCE_MIX = "meshvae_tpu_torch/ops/csrc/cheb_mix.cu"
 REPLACES = {"fp32": "meshvae_tpu/ops/pallas_cheb.py:434",
             "bf16x3": "meshvae_tpu/ops/pallas_cheb.py:462",
             "colmajor": "meshvae_tpu/ops/pallas_cheb.py:208",
@@ -614,6 +627,21 @@ SCALED_EVAL_LAUNCHES = 144   # 72 forward + the counterfactual's 36 + 36
 # cheb_enc_3 (16 -> 32) and cheb_dec_1 (32 -> 16) stay eager
 SCALED_SEED_DOT = 45
 FLAG_STEPS = 3
+# the block-sparse convs' basis mixes: (level, n_pad, F_pad, F_out, calls
+# per train step) of each cell, each call a mix and a dW
+MIX_CELLS = {
+    "scaled80k bf16": (SCALED_BATCH, 10, "bfloat16", (
+        ("L0", 80000, 4, 16, 1), ("L0", 80000, 16, 16, 1),
+        ("L1", 20096, 16, 16, 2), ("L2", 5120, 16, 16, 1),
+        ("L2", 5120, 32, 16, 1), ("L3", 1280, 16, 32, 1),
+        ("L3", 1280, 32, 32, 1))),
+    "config-1 fp32": (BATCH, 6, "float32", (
+        ("L0", 5120, 8, 16, 1), ("L0", 5120, 16, 16, 1),
+        ("L1", 1280, 16, 16, 2))),
+}
+# one mix per block-sparse conv call (K - 1 = 9 launches of the kernel):
+# 8 a train step, each with its dW, and 16 an eval step
+SCALED_MIX_TRAIN, SCALED_MIX_EVAL = 8, SCALED_EVAL_LAUNCHES // 9
 # files/scaled20k.cfg: fp32 at highest, B = 64, K = 10; levels 0-2 are
 # block-sparse (bsr_min_n 1024), 3-4 dense
 SCALED20_CFG = os.path.join("files", "scaled20k.cfg")
@@ -639,14 +667,16 @@ def say(msg: str):
 
 
 def reset_launches():
-    """Zero the launch counts of the model paths' three kernels,
-    bsr_grouped_spmm, pool_transpose (the pool backward's P^T) and the
-    scanned steps' phase marks, just before a main-path run."""
-    from meshvae_tpu_torch.ops import bsr_spmm, pool_transpose
+    """Zero the launch counts of the model paths' kernels,
+    bsr_grouped_spmm, pool_transpose (the pool backward's P^T), cheb_mix
+    (the basis mix and dW) and the scanned steps' phase marks, just before
+    a main-path run."""
+    from meshvae_tpu_torch.ops import bsr_spmm, cheb_mix, pool_transpose
     from meshvae_tpu_torch.train import phases
 
     bsr_spmm.reset_launches()
     pool_transpose.reset_launches()
+    cheb_mix.reset_launches()
     phases.reset_launches()
 
 
@@ -740,7 +770,7 @@ def phase_build():
     from meshvae_tpu_torch.ops import _build
 
     names = ["bsr_spmm", "cheb_fused", "emitted_spmm", "pool_transpose",
-             "phase_mark"]
+             "phase_mark", "cheb_mix"]
     t0 = time.perf_counter()
     logs = _build.build_libraries(names)
     for name in names:
@@ -921,6 +951,114 @@ def phase_pool_transpose(torch, ops, s20, s80, dev):
     say(f"checked pool_transpose at {len(rows)} shapes: worst abs error "
         f"{worst}; fp32 bit-equal to bsr_grouped_spmm at every shape")
     return worst
+
+
+def _bf16_ulp(scale: float) -> float:
+    """One bf16 ulp at `scale` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+def _mix_case(torch, cm, k, m, f, f_out, dtype, gen, dev, tag):
+    """One shape's mix and dW against the twin on the card, then per call
+    times: kernel (mix, dW), twin, library (torch.cat and the two cuBLAS
+    products), cuBLAS alone, the byte bound."""
+    txs = [torch.randn(m, f, device=dev, generator=gen).to(dtype)
+           for _ in range(k)]
+    w = (0.3 * torch.randn(k, f, f_out, device=dev, generator=gen)).to(dtype)
+    g = torch.randn(m, f_out, device=dev, generator=gen).to(dtype)
+    before = dict(cm.LAUNCHES)
+    out, dw, dw2 = cm.cheb_mix(txs, w), cm.cheb_mix_dw(txs, g), \
+        cm.cheb_mix_dw(txs, g)
+    torch.cuda.synchronize()
+    mode = cm.DTYPES[dtype]
+    for kind, n in (("fwd", 1), ("dw", 2)):
+        key = (kind, mode, k, f, f_out)
+        if cm.LAUNCHES.get(key, 0) - before.get(key, 0) != n:
+            fail(f"{tag}: cheb_mix {kind} was not launched {n} times")
+    if not torch.equal(dw, dw2):
+        fail(f"{tag}: two dW launches differ")
+    err = {}
+    for name, got, want in (("mix", out, cm.cheb_mix_reference(txs, w)),
+                            ("dW", dw, cm.cheb_mix_dw_reference(txs, g))):
+        scale = want.float().abs().max().item()
+        bar = (TOL_KERNEL * scale if dtype == torch.float32
+               else _bf16_ulp(scale))
+        err[name] = (got.float() - want.float()).abs().max().item()
+        if not err[name] <= bar:
+            fail(f"cheb_mix disagrees with its twin: {tag} {name} "
+                 f"{err[name]:.3e} > {bar:.3e}")
+    txcat = torch.cat(txs, dim=-1)
+    w2 = w.reshape(k * f, f_out)
+
+    def library():
+        cat = torch.cat(txs, dim=-1)
+        torch.matmul(cat, w2)
+        torch.matmul(cat.t(), g)
+
+    size = txs[0].element_size()
+    bound = 1e3 * (k * m * f + m * f_out + k * f * f_out) * size \
+        / HBM_BYTES_PER_S
+    row = dict(
+        shape=tag, mode=mode, k=k, m=m, f_pad=f, f_out=f_out,
+        mix_ms=time_ms(torch, lambda: cm.cheb_mix(txs, w)),
+        dw_ms=time_ms(torch, lambda: cm.cheb_mix_dw(txs, g)),
+        plain_ms=time_ms(torch, lambda: (cm.cheb_mix_reference(txs, w),
+                                         cm.cheb_mix_dw_reference(txs, g))),
+        library_ms=time_ms(torch, library),
+        cublas_ms=time_ms(torch, lambda: (torch.matmul(txcat, w2),
+                                          torch.matmul(txcat.t(), g))),
+        mix_bound_ms=bound, dw_bound_ms=bound,
+        err_mix=err["mix"], err_dw=err["dW"])
+    say(f"  {tag}: mix {row['mix_ms']:.4f} ms ({bound / row['mix_ms']:.1%} "
+        f"of the byte bound {bound:.4f}), dW {row['dw_ms']:.4f} ms "
+        f"({bound / row['dw_ms']:.1%}); twin {row['plain_ms']:.4f}, cat + "
+        f"cuBLAS {row['library_ms']:.4f}, cuBLAS alone "
+        f"{row['cublas_ms']:.4f}; max err mix {err['mix']:.2e}, dW "
+        f"{err['dW']:.2e}")
+    return row
+
+
+def phase_mix(torch, dev):
+    """Phase 3c: cheb_mix at the cells' shapes (MIX_CELLS), held against
+    its twin and timed beside it, the torch.cat + cuBLAS pair it replaces,
+    the cuBLAS products alone and the byte bound. Returns, per cell, the
+    per-train-step sums (ms = mix + dW) and the worst absolute error."""
+    say("== phase 3c: cheb_mix (the basis mix and dW over the K orders) vs "
+        "its twin, torch.cat + cuBLAS and the byte bound, per call (median "
+        "of %d, CUDA events)" % RUNS)
+    from meshvae_tpu_torch.ops import cheb_mix as cm
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+    out, rows = {}, []
+    for cell, (b, k, dtype_name, shapes) in MIX_CELLS.items():
+        dtype = getattr(torch, dtype_name)
+        acc = dict.fromkeys(("ms", "mix_ms", "dw_ms", "plain_ms",
+                             "library_ms", "cublas_ms", "bound_ms"), 0.0)
+        worst, calls = 0.0, 0
+        for level, n_pad, f, f_out, count in shapes:
+            row = _mix_case(torch, cm, k, n_pad * b, f, f_out, dtype, gen,
+                            dev, f"{cell} {level} {f}->{f_out}")
+            row["per_step"] = count
+            rows.append(row)
+            for key in ("mix_ms", "dw_ms", "plain_ms", "library_ms",
+                        "cublas_ms"):
+                acc[key] += count * row[key]
+            acc["bound_ms"] += count * (row["mix_bound_ms"]
+                                        + row["dw_bound_ms"])
+            worst = max(worst, row["err_mix"], row["err_dw"])
+            calls += count
+        acc["ms"] = acc["mix_ms"] + acc["dw_ms"]
+        acc["bytes_ms"], acc["ops_ms"] = acc["bound_ms"], 0.0
+        say(f"per {cell} train step ({calls} mix + {calls} dW calls): "
+            f"kernels {acc['ms']:.3f} ms (mix {acc['mix_ms']:.3f}, dW "
+            f"{acc['dw_ms']:.3f}), twin {acc['plain_ms']:.3f}, cat + cuBLAS "
+            f"{acc['library_ms']:.3f}, cuBLAS alone {acc['cublas_ms']:.3f}, "
+            f"byte bound {acc['bound_ms']:.3f} ms "
+            f"({acc['bound_ms'] / acc['ms']:.1%} of it); no slower than "
+            f"cuBLAS alone: {acc['ms'] <= acc['cublas_ms']}")
+        out[cell] = {"acc": acc, "worst": worst, "calls": 2 * calls}
+    say("shape_rows_cheb_mix " + json.dumps(rows))
+    return out
 
 
 def config_1(tmp: str) -> dict:
@@ -1967,6 +2105,20 @@ def phase_scaled80k(torch, dev, s80, tmp):
     if steps["train"] < 1 or launches != want:
         fail(f"scaled80k launched {launches}, expected {want} "
              f"({steps['train']} train, {steps['eval']} eval steps)")
+    from meshvae_tpu_torch.ops import cheb_mix
+
+    mixes = {kind: sum(n for key, n in cheb_mix.LAUNCHES.items()
+                       if key[:2] == (kind, "bf16")) for kind in ("fwd", "dw")}
+    want_mix = {"fwd": SCALED_MIX_TRAIN * steps["train"]
+                + SCALED_MIX_EVAL * steps["eval"],
+                "dw": SCALED_MIX_TRAIN * steps["train"]}
+    if mixes != want_mix or sum(cheb_mix.LAUNCHES.values()) != sum(
+            mixes.values()):
+        fail(f"scaled80k launched cheb_mix {dict(cheb_mix.LAUNCHES)}, "
+             f"expected {want_mix} in bf16")
+    say(f"cheb_mix launches: {SCALED_MIX_TRAIN} mix + {SCALED_MIX_TRAIN} dW "
+        f"per train step, {SCALED_MIX_EVAL} mix per eval step ({mixes} over "
+        f"{steps['train']} train and {steps['eval']} eval steps)")
     pool_keys = [("pool bf16", up.n_in, up.n_out) for up in s80["ops"].up]
     for key in pool_keys:
         if by_shape.get(key) != steps["train"]:
@@ -7277,14 +7429,15 @@ def phase_experimental(torch, dev, hier, tmpl, tmp, card, infer_json,
     import numpy as np
 
     from meshvae_tpu_torch.models import experimental as exp
-    from meshvae_tpu_torch.ops import bsr_spmm, cheb_fused, emitted_spmm
+    from meshvae_tpu_torch.ops import (bsr_spmm, cheb_fused, cheb_mix,
+                                       emitted_spmm)
     from meshvae_tpu_torch.ops.graph import cheb_operator
 
     def counters():
         return (bsr_spmm.launches(), bsr_spmm.launches_seed_dot(),
                 sum(bsr_spmm.LAUNCHES_BY_CALL.values()),
                 dict(cheb_fused.LAUNCHES), dict(emitted_spmm.LAUNCHES),
-                pt_counts()[0])
+                pt_counts()[0], dict(cheb_mix.LAUNCHES))
 
     t0 = time.perf_counter()
     before = counters()
@@ -7441,6 +7594,7 @@ def main() -> int:
         worst80 = phase_kernel_bf16(torch, s80["ops"], dev)
         covered = set(bsr_spmm.LAUNCHES_BY_CALL)  # phase 16 holds the rest
         pt_err = phase_pool_transpose(torch, ops, s20, s80, dev)
+        mixed = phase_mix(torch, dev)
         seconds["kernel"] = time.perf_counter() - t0
         servers = {p: MeshServer(m, ops, mean, std, template=tmpl.v,
                                  faces=tmpl.f, batch_size=BATCH,
@@ -7607,6 +7761,16 @@ def main() -> int:
             ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
             bound_by=e["bound_by"], library_ms=e["library_ms"],
             bound_stored_ms=e["stored_ms"]))
+    # phase 3c: cheb_mix's mix and dW per train step at the cells' shapes;
+    # phase 7's launches per 80k train step
+    for cell, got in mixed.items():
+        kernels.append(dict(
+            kernel_entry(f"cheb_mix[{cell.split()[-1]}] {cell} train step: "
+                         "basis mix and dW", "none (pallas_cheb.py:826 "
+                         "_basis_mix: concatenation and XLA dot_general)",
+                         got["calls"], got["worst"], got["acc"],
+                         source=SOURCE_MIX),
+            cublas_ms=got["acc"]["cublas_ms"]))
     # _mapped_product (pallas_shard.py:150): the sp=2 world's kernel calls
     kernels.append(mapped)
     # phase 14g: crecon's and the joint model's train steps in the dp=2 and

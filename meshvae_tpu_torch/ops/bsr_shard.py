@@ -52,6 +52,7 @@ import torch.nn.functional as F
 from .block_sparse import (BLOCK, BlockSparseOperator, padded_rows,
                            row_order, tile_mask)
 from .bsr_spmm import bsr_grouped_spmm, pad_features
+from .cheb_mix import cheb_mix, cheb_mix_dw_fp32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,10 +225,12 @@ def cheb_step_sharded(sbsr: ShardedBlockSparse, t1: torch.Tensor,
 class _BasisMixSharded(torch.autograd.Function):
     """_BasisMix on the rank's rows [rows_local, B, F_pad]: the basis
     T_0..T_{K-1} as sharded products (each all-gathers its input over sp),
-    the mix on the local rows. Backward: dW contracts the local basis and
-    is summed over the group; dx runs the two-seed adjoint recurrence as
-    sharded products, with the lazy seed under FUSED_SEED_DOT
-    (pallas_shard._basis_mix_sharded)."""
+    the mix on the local rows (ops/cheb_mix.py, as _BasisMix: a row's mix
+    is the same on a shard as on the whole level). Backward: dW contracts
+    the local orders with g in fp32 (cheb_mix_dw_fp32, the twin's
+    contraction before its rounding) and is summed over the group; dx runs
+    the two-seed adjoint recurrence as sharded products, with the lazy
+    seed under FUSED_SEED_DOT (pallas_shard._basis_mix_sharded)."""
 
     @staticmethod
     def forward(ctx, xt, w, sbsr, group, mode):
@@ -245,26 +248,25 @@ class _BasisMixSharded(torch.autograd.Function):
             txs.append(mm(txs[0], 1.0))
         for _ in range(2, k):
             txs.append(mm(txs[-1], 2.0, txs[-2]))
-        txcat = torch.cat(txs, dim=-1)
-        ctx.save_for_backward(txcat, w)
+        ctx.save_for_backward(w, *txs)
         ctx.args = (sbsr, group, mode)
-        return torch.matmul(txcat, w.reshape(k * f_pad, f_out))
+        return cheb_mix([t.view(rows * b, f_pad) for t in txs],
+                        w).view(rows, b, f_out)
 
     @staticmethod
     def backward(ctx, g):
         from . import cheb
 
-        txcat, w = ctx.saved_tensors
+        w, *txs = ctx.saved_tensors
         sbsr, group, mode = ctx.args
-        rows, b, kf = txcat.shape
+        rows, b, _ = txs[0].shape
         k, f_pad, f_out = w.shape
         c = b * f_pad
         gm = g.reshape(rows * b, f_out)
         # the partial contractions over the rows, summed over the group in
         # fp32 and rounded to w's dtype once (as the JAX partitioner sums
         # the fp32 dot before its cast)
-        dw = torch.matmul(txcat.reshape(rows * b, kf).t().float(),
-                          gm.float()).reshape(k, f_pad, f_out)
+        dw = cheb_mix_dw_fp32([t.view(rows * b, f_pad) for t in txs], gm)
         dw = group.all_reduce_(dw).to(w.dtype)
         if not ctx.needs_input_grad[0]:
             return None, dw, None, None, None

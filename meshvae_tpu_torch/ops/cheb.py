@@ -3,16 +3,18 @@ meshvae_tpu/ops/cheb.py and of ``cheb_conv_pallas`` / ``_basis_mix`` in
 meshvae_tpu/ops/pallas_cheb.py).
 
 out = sum_k T_k(L_hat) x @ W_k (+ bias), with T_0 = x, T_1 = L_hat x,
-T_k = 2 L_hat T_{k-1} - T_{k-2}; all K orders are mixed by one
-[.., K*F] @ [K*F, F_out] product. The operator's layout picks the
-propagation: the block-sparse kernel (``cheb_conv_bsr``, or its row shards
-under seq_parallel: ``cheb_conv_bsr_sharded``), a dense product, or the
-neighbour-list gather ``propagate_ell`` (cheb_method ell; plain torch,
-autograd's backward, as the JAX package's ell path is plain XLA). Under
-seq_parallel x and the result are the rank's rows of a row-sharded level
-whatever the layout: an ELL or dense row shard propagates through
-``propagate_rows`` (the all-gathered input, the rank's rows of L), the
-embedded final operator through ``_embedded_rows``.
+T_k = 2 L_hat T_{k-1} - T_{k-2}. The dense and ELL paths mix the K orders
+by one [.., K*F] @ [K*F, F_out] product of their concatenation; the
+block-sparse path by ops/cheb_mix.py, which reads the orders where they
+lie. The operator's layout picks the propagation: the block-sparse kernel
+(``cheb_conv_bsr``, or its row shards under seq_parallel:
+``cheb_conv_bsr_sharded``), a dense product, or the neighbour-list gather
+``propagate_ell`` (cheb_method ell; plain torch, autograd's backward, as
+the JAX package's ell path is plain XLA). Under seq_parallel x and the
+result are the rank's rows of a row-sharded level whatever the layout: an
+ELL or dense row shard propagates through ``propagate_rows`` (the
+all-gathered input, the rank's rows of L), the embedded final operator
+through ``_embedded_rows``.
 
 x: [B, N, F_in]; weight: [K, F_in, F_out]; bias: [F_out] or None.
 """
@@ -28,6 +30,7 @@ from .block_sparse import BlockSparseOperator
 from .bsr_shard import (add_bias_rows, cheb_conv_bsr_sharded, from_rows,
                         rows_matmul, to_rows)
 from .bsr_spmm import bsr_grouped_spmm, pad_features
+from .cheb_mix import cheb_mix, cheb_mix_dw
 from .graph import GraphOperator
 
 # matmul_precision -> block-sparse kernel mode on float32 operators; bf16
@@ -208,18 +211,20 @@ def _embedded_rows(x: torch.Tensor, op: GraphOperator, weight: torch.Tensor,
 
 
 class _BasisMix(torch.autograd.Function):
-    """Chebyshev basis + stacked mix on the padded [n_pad, B, F_pad] layout
-    with a fused backward (counterpart of pallas_cheb._basis_mix). Every
-    tensor is in the operator's dtype: in bf16 the recurrence state, the
-    basis, the mix output, the cotangents c_j and dx, and dW are bf16, each
-    product accumulated in fp32 and rounded once (BF16_STATE).
+    """Chebyshev basis + mix on the padded [n_pad, B, F_pad] layout with a
+    fused backward (counterpart of pallas_cheb._basis_mix). Every tensor is
+    in the operator's dtype: in bf16 the recurrence state, the basis, the
+    mix output, the cotangents c_j and dx, and dW are bf16, each product
+    accumulated in fp32 and rounded once (BF16_STATE).
 
     Forward: T_0 = x, T_1 = L x, T_k = 2 L T_{k-1} - T_{k-2} (the seed
-    folds into the kernel), then one [.., K*F_pad] @ [K*F_pad, F_out] mix.
+    folds into the kernel), then the mix sum_k T_k @ W_k read from the K
+    orders where they lie (ops/cheb_mix.py; the orders are never
+    concatenated). The K orders are saved for the backward.
 
-    Backward, with c_j = g @ W_j^T the mix cotangent of T_j: dW is one
-    contraction of the saved basis with g over (rows, batch); dx runs the
-    reverse recurrence u_{j-1} = 2 L u_j + c_{j-1} - u_{j+1} (L symmetric)
+    Backward, with c_j = g @ W_j^T the mix cotangent of T_j: dW_k = T_k^T g
+    over (rows, batch), one cheb_mix_dw call on the saved orders; dx runs
+    the reverse recurrence u_{j-1} = 2 L u_j + c_{j-1} - u_{j+1} (L symmetric)
     as two-seed kernel calls, ending with dx = L u_1 + c_0 - u_2. It is
     skipped when x needs no gradient (the first encoder conv on data).
     With FUSED_SEED_DOT on a square mix outside mode bf16x3, only
@@ -242,21 +247,20 @@ class _BasisMix(torch.autograd.Function):
             txs.append(mm(txs[0], 1.0))
         for _ in range(2, k):
             txs.append(mm(txs[-1], 2.0, txs[-2]))
-        txcat = torch.cat(txs, dim=-1)  # [n_pad, B, K * F_pad]
-        ctx.save_for_backward(txcat, w)
+        ctx.save_for_backward(w, *txs)
         ctx.bsr, ctx.mode = bsr, mode
-        return torch.matmul(txcat, w.reshape(k * f_pad, f_out))
+        rows = [t.view(n_pad * b, f_pad) for t in txs]
+        return cheb_mix(rows, w).view(n_pad, b, f_out)
 
     @staticmethod
     def backward(ctx, g):
-        txcat, w = ctx.saved_tensors
+        w, *txs = ctx.saved_tensors
         bsr, mode = ctx.bsr, ctx.mode
-        n_pad, b, kf = txcat.shape
+        n_pad, b, _ = txs[0].shape
         k, f_pad, f_out = w.shape
         c = b * f_pad
         gm = g.reshape(n_pad * b, f_out)
-        dw = torch.matmul(txcat.reshape(n_pad * b, kf).t(), gm).reshape(
-            k, f_pad, f_out)
+        dw = cheb_mix_dw([t.view(n_pad * b, f_pad) for t in txs], gm)
         if not ctx.needs_input_grad[0]:
             return None, dw, None, None
         c_of = lambda j: torch.matmul(gm, w[j].t()).reshape(n_pad, c)

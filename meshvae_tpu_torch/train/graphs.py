@@ -49,14 +49,16 @@ import time
 
 import torch
 
-from ..ops import bsr_spmm, cheb_fused, emitted_spmm, pool_transpose
+from ..ops import (bsr_spmm, cheb_fused, cheb_mix, emitted_spmm,
+                   pool_transpose)
 from . import phases
 
 
 def _counters() -> tuple[dict, ...]:
     return (bsr_spmm.LAUNCHES_BY_CALL, cheb_fused.LAUNCHES,
             emitted_spmm.LAUNCHES, pool_transpose.LAUNCHES,
-            pool_transpose.LAUNCHES_BY_SHAPE, phases.LAUNCHES)
+            pool_transpose.LAUNCHES_BY_SHAPE, cheb_mix.LAUNCHES,
+            phases.LAUNCHES)
 
 
 def _read_counters() -> list[dict]:

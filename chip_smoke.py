@@ -25,7 +25,11 @@ Phases, one block of output lines each; any failed check exits non-zero:
             fp32 at the config-1 L0/L1 Laplacians (C = 256, f = 16; L0 also
             at f = 128) and the scaled20k L0/L1 (C = 1024, f = 16), alpha 1
             and 2, with and without t_prev; each call must take the kernel's
-            lazy seed (launches_seed_dot()).
+            lazy seed (launches_seed_dot()). Mode bf16 on the 80k operators
+            (phase_kernel_bf16) at every Laplacian shape of the vae80k and
+            joint80k train steps (C 128 to 2048) and every call kind: within
+            2^-8 of max |y| of the twin, or, element by element, equal to
+            the exact (float64) sum rounded once to bf16.
 3b. pool_transpose  the pool backward's P^T kernel (ops/csrc/
             pool_transpose.cu, a CSR row gather; TPU kernels #7, #5 and #4's
             P^T call) at every P^T shape of the model paths: config 1's
@@ -43,8 +47,10 @@ Phases, one block of output lines each; any failed check exits non-zero:
             as they lie (ops/csrc/cheb_mix.cu; no TPU kernel: the JAX
             package concatenates and leaves both to XLA) at every shape
             the cells' block-sparse convs give them: scaled80k bf16 levels
-            0-3 (B = 32, K = 10) and config-1 / vae5k fp32 levels 0-1
-            (B = 16, K = 6). Each within one bf16 ulp (bf16) or 1e-5 (fp32)
+            0-3 (B = 32, K = 10), the joint80k train step's (its GCN's
+            first conv 6 -> 16 packed at F_pad 8 at B = 32 on level 0,
+            the decodes at 2B = 64 on levels 0-3) and config-1 / vae5k
+            fp32 levels 0-1 (B = 16, K = 6). Each within one bf16 ulp (bf16) or 1e-5 (fp32)
             of max |y| of its twin on the card, two dW launches bit-equal;
             per call and per train step (CUDA events, median of 25): the
             kernels, their twin, the torch.cat + cuBLAS pair they replace
@@ -119,6 +125,23 @@ Phases, one block of output lines each; any failed check exits non-zero:
             beside its twin, torch.sparse on the same operator in CSR (bf16
             where cuSPARSE takes it; plus the c_j GEMM for a lazy seed) and
             its byte bound.
+7b. joint80k  the joint80k cell's model (meshbench/configs/joint80k.json's
+            program: the joint VAE + GCN, K=10, batch 32, bf16, full width)
+            on phase 7's 80k template, built by train/driver.py's
+            build_model_and_ops and make_trainer as the k-fold driver
+            builds it. One train step and one eval step on phase 7's
+            meshes, the counts zeroed just before each: bsr_grouped_spmm
+            per (operand, C, call kind) equal to JOINT80_CALLS (207 bf16
+            launches: the 2B decode at C 1024 and 2048, the GCN's first
+            conv at C 256 with its dx recurrence) and JOINT80_EVAL_CALLS
+            (180), cheb_mix's mix and dW per (F_pad, F_out) equal to
+            JOINT80_MIX_TRAIN (12 + 12) and JOINT80_MIX_EVAL (20 mixes),
+            pool_transpose once per up-pool at 2B in the train step and
+            never in the eval step; no fp32 or bf16x3 launch. Then the
+            bf16 kernel per call kind at the train step's shapes beside
+            its twin, torch.sparse and its bounds, summed per step, as
+            phase 7's. (Phases 3, 3b and 3c hold the kernels against their
+            twins at these shapes.)
  8. bf16    card vs CPU in bf16 at config-1 size (template5k, K=6, B=16,
             compute_dtype bfloat16): one deterministic train step (no
             dropout, z = mu) and one eval step from the same weights; the
@@ -628,7 +651,8 @@ SCALED_EVAL_LAUNCHES = 144   # 72 forward + the counterfactual's 36 + 36
 SCALED_SEED_DOT = 45
 FLAG_STEPS = 3
 # the block-sparse convs' basis mixes: (level, n_pad, F_pad, F_out, calls
-# per train step) of each cell, each call a mix and a dW
+# per train step[, rows per mesh batch where not the cell's B]) of each
+# cell, each call a mix and a dW
 MIX_CELLS = {
     "scaled80k bf16": (SCALED_BATCH, 10, "bfloat16", (
         ("L0", 80000, 4, 16, 1), ("L0", 80000, 16, 16, 1),
@@ -638,6 +662,18 @@ MIX_CELLS = {
     "config-1 fp32": (BATCH, 6, "float32", (
         ("L0", 5120, 8, 16, 1), ("L0", 5120, 16, 16, 1),
         ("L1", 1280, 16, 16, 2))),
+    # the encoder and the GCN at B (cheb_0: 6 -> 16 packed at F_pad 8),
+    # the two decodes as one pass at 2B; last, so the cells above keep
+    # their inputs
+    "joint80k bf16": (SCALED_BATCH, 10, "bfloat16", (
+        ("L0", 80000, 4, 16, 1), ("L0", 80000, 8, 16, 1),
+        ("L0 2B", 80000, 16, 16, 1, 2 * SCALED_BATCH),
+        ("L1", 20096, 16, 16, 2),
+        ("L1 2B", 20096, 16, 16, 1, 2 * SCALED_BATCH),
+        ("L2", 5120, 16, 16, 2),
+        ("L2 2B", 5120, 32, 16, 1, 2 * SCALED_BATCH),
+        ("L3", 1280, 16, 32, 2),
+        ("L3 2B", 1280, 32, 32, 1, 2 * SCALED_BATCH))),
 }
 # one mix per block-sparse conv call (K - 1 = 9 launches of the kernel):
 # 8 a train step, each with its dW, and 16 an eval step
@@ -919,7 +955,8 @@ def phase_kernel(torch, ops, ops20, dev):
 def phase_pool_transpose(torch, ops, s20, s80, dev):
     """Phase 3b: pool_transpose at every P^T shape of the model paths: the
     config-1 train step (B=16: C = 256, 256, 512), the joint model at 2B
-    (B=32), scaled20k fp32 (B=64) and scaled80k bf16 (B=32); each held
+    (B=32), scaled20k fp32 (B=64), scaled80k bf16 (B=32) and the joint80k
+    decode's at 2B (B=64); each held
     (bit-equal to bsr_grouped_spmm on t_bsr in fp32, one bf16 ulp of the
     twin in bf16) and timed beside its twin, the earlier
     bsr_grouped_spmm call, torch.sparse and the byte bound (_pt_case),
@@ -936,6 +973,8 @@ def phase_pool_transpose(torch, ops, s20, s80, dev):
     cases += [(f"scaled20k up-pool {i} P^T", up, SCALED20_BATCH)
               for i, up in enumerate(s20["ops"].up) if up.t_ptr is not None]
     cases += [(f"scaled80k up-pool {i} P^T", up, SCALED_BATCH)
+              for i, up in enumerate(s80["ops"].up)]
+    cases += [(f"joint80k 2B up-pool {i} P^T", up, 2 * SCALED_BATCH)
               for i, up in enumerate(s80["ops"].up)]
     tiny = torch.zeros(16, device=dev)
     say(f"  the timing's floor: one zero_ of 16 floats "
@@ -1035,9 +1074,10 @@ def phase_mix(torch, dev):
         acc = dict.fromkeys(("ms", "mix_ms", "dw_ms", "plain_ms",
                              "library_ms", "cublas_ms", "bound_ms"), 0.0)
         worst, calls = 0.0, 0
-        for level, n_pad, f, f_out, count in shapes:
-            row = _mix_case(torch, cm, k, n_pad * b, f, f_out, dtype, gen,
-                            dev, f"{cell} {level} {f}->{f_out}")
+        for level, n_pad, f, f_out, count, *rows_b in shapes:
+            row = _mix_case(torch, cm, k, n_pad * (rows_b or [b])[0], f,
+                            f_out, dtype, gen, dev,
+                            f"{cell} {level} {f}->{f_out}")
             row["per_step"] = count
             rows.append(row)
             for key in ("mix_ms", "dw_ms", "plain_ms", "library_ms",
@@ -1917,6 +1957,55 @@ SCALED_DOT_CALLS = [("enc_1+dec_2 L1", "L1", 512,
                     ("dec_3 L0", "L0", 512, _DOT, 16)]
 
 
+# the joint80k cell's train step (meshbench/configs/joint80k.json: the
+# joint VAE + GCN at 80k, B = 32, K = 10, bf16): the encoder's convs at B,
+# the true- and opposite-label decodes as one decoder pass at 2B and the
+# GCN's four convs (cheb_0 6 -> 16 at f_pad 8, then 16 -> 16, 16 -> 16,
+# 16 -> 32) at B on the differences; the backward of every conv but
+# enc_0, cheb_0's dx recurrence included; each up-pool's P^T at 2B
+JOINT80_CALLS = {
+    "lap": [("enc_0 L0", "L0", 128, _FWD80),
+            ("cheb_0 L0", "L0", 256, _BOTH80),
+            ("2B dec_3 L0", "L0", 1024, _BOTH80),
+            ("enc_1+cheb_1 L1", "L1", 512,
+             {k: 2 * v for k, v in _BOTH80.items()}),
+            ("2B dec_2 L1", "L1", 1024, _BOTH80),
+            ("enc_2+cheb_2 L2", "L2", 512,
+             {k: 2 * v for k, v in _BOTH80.items()}),
+            ("2B dec_1 L2", "L2", 2048, _BOTH80),
+            ("enc_3+cheb_3 L3", "L3", 512,
+             {k: 2 * v for k, v in _BOTH80.items()}),
+            ("2B dec_0 L3", "L3", 2048, _BOTH80)],
+    "pool_perblock": [("up-pool 0 P^T at 2B", "P0T", 1024, {"a1": 1})],
+    "pool_colmajor": [("up-pool 1 P^T at 2B", "P1T", 1024, {"a1": 1}),
+                      ("up-pool 2 P^T at 2B", "P2T", 2048, {"a1": 1}),
+                      ("up-pool 3 P^T at 2B", "P3T", 2048, {"a1": 1})]}
+# its eval step, forward calls only: the train step's forward, then the
+# counterfactual's decode at B and its re-encode
+_FWD80_X = lambda n: {k: n * v for k, v in _FWD80.items()}
+JOINT80_EVAL_CALLS = {
+    "lap": [("enc_0, re-encode enc_0 L0", "L0", 128, _FWD80_X(2)),
+            ("cheb_0 L0", "L0", 256, _FWD80),
+            ("counterfactual dec_3 L0", "L0", 512, _FWD80),
+            ("2B dec_3 L0", "L0", 1024, _FWD80),
+            ("enc_1, cheb_1, re-encode enc_1, counterfactual dec_2 L1",
+             "L1", 512, _FWD80_X(4)),
+            ("2B dec_2 L1", "L1", 1024, _FWD80),
+            ("enc_2, cheb_2, re-encode enc_2 L2", "L2", 512, _FWD80_X(3)),
+            ("counterfactual dec_1 L2", "L2", 1024, _FWD80),
+            ("2B dec_1 L2", "L2", 2048, _FWD80),
+            ("enc_3, cheb_3, re-encode enc_3 L3", "L3", 512, _FWD80_X(3)),
+            ("counterfactual dec_0 L3", "L3", 1024, _FWD80),
+            ("2B dec_0 L3", "L3", 2048, _FWD80)]}
+# cheb_mix per (F_pad, F_out): one mix per block-sparse conv call, and a
+# dW per conv in the train step's backward
+JOINT80_MIX_TRAIN = {(4, 16): 1, (8, 16): 1, (16, 16): 6, (16, 32): 2,
+                     (32, 16): 1, (32, 32): 1}
+JOINT80_MIX_EVAL = {(4, 16): 2, (8, 16): 1, (16, 16): 10, (16, 32): 3,
+                    (32, 16): 2, (32, 32): 2}
+JOINT80_CFG = os.path.join("meshbench", "configs", "joint80k.json")
+
+
 def _operands80(ops):
     out = {f"L{i}": op.bsr for i, op in enumerate(ops.lap)
            if op.bsr is not None}
@@ -1925,12 +2014,50 @@ def _operands80(ops):
     return out
 
 
+def _round_bf16(torch, v):
+    """float64 v rounded once to bf16's 8 significant bits, to nearest,
+    ties to even (a cast through float32 could round twice)."""
+    _, e = torch.frexp(v)
+    ulp = torch.ldexp(torch.ones_like(v), e - 8)
+    return torch.where(v == 0, v, torch.round(v / ulp) * ulp)
+
+
+def _exact_bsr_rows(torch, bsr, x, alpha, kw, at):
+    """alpha * (L @ x) + t_plus - t_prev in float64 at the elements `at`
+    [n, 2] (row, column): the sum the kernel and its twin round to bf16,
+    as bsr_grouped_spmm_reference forms it, over the block rows that
+    hold them."""
+    from meshvae_tpu_torch.ops.bsr_spmm import BLOCK, masked_blocks
+
+    n_rows, g = bsr.g_idx.shape
+    rows = torch.unique(at[:, 0] // BLOCK)
+    zero = bsr.blocks.new_zeros((1, BLOCK, BLOCK))
+    lg = torch.cat([masked_blocks(bsr), zero])[
+        bsr.g_idx[rows].long()].double()
+    xg = x.reshape(-1, BLOCK, x.shape[1])[
+        bsr.g_bcol.reshape(n_rows, g)[rows].long()].double()
+    y = alpha * torch.matmul(lg, xg).sum(dim=1).reshape(-1, x.shape[1])
+    local = (torch.searchsorted(rows, at[:, 0] // BLOCK) * BLOCK
+             + at[:, 0] % BLOCK)
+    out = y[local, at[:, 1]]
+    if kw.get("t_plus") is not None:
+        out = out + kw["t_plus"][at[:, 0], at[:, 1]].double()
+    if kw.get("t_prev") is not None:
+        out = out - kw["t_prev"][at[:, 0], at[:, 1]].double()
+    return out
+
+
 def phase_kernel_bf16(torch, ops80, dev):
     """The bf16 mode against its twin at every 80k Laplacian shape of the
-    train step (alpha 1 and 2, no seed, t_prev, t_plus, both), the four
-    P^T (as called, plus one both-seed case on the widest) and the lazy
-    seed at the square convs' shapes (and L2 at C = 1024, f = 32). Returns
-    the worst absolute error, "lap", "pool" and "seed"."""
+    vae80k and joint80k train steps (alpha 1 and 2, no seed, t_prev,
+    t_plus, both), the four P^T at B (as called, plus one both-seed case
+    on the widest) and the lazy
+    seed at the square convs' shapes (and L2 at C = 1024, f = 32). An
+    element more than TOL_BF16 of max|y| from the twin passes only where
+    the kernel holds the exact (float64) sum rounded to bf16: the twin's
+    fp32 sum can round the other way near a tie, one ulp, which in the
+    top binade exceeds TOL_BF16 of max|y|. Returns the worst absolute
+    error of the rest, "lap", "pool" and "seed"."""
     from meshvae_tpu_torch.ops.bsr_spmm import (bsr_grouped_spmm,
                                                 bsr_grouped_spmm_reference)
 
@@ -1941,15 +2068,22 @@ def phase_kernel_bf16(torch, ops80, dev):
              "a1 plus prev", "a2 plus prev")
     cases = sorted({(key, c) for calls in SCALED_CALLS.values()
                     for _, key, c, _ in calls})
+    # the joint80k step's other shapes draw from a generator of their own,
+    # so the vae80k shapes and the lazy seed keep their inputs
+    gen_joint = torch.Generator(device=dev).manual_seed(23)
+    joint = sorted({(key, c) for _, key, c, _ in JOINT80_CALLS["lap"]}
+                   - set(cases))
     worst = {"lap": 0.0, "pool": 0.0}
     rel_worst, equal = 0.0, []
-    for key, c in cases:
+    for key, c, draw in ([(*case, gen) for case in cases]
+                         + [(*case, gen_joint) for case in joint]):
         bsr = operands[key]
         kinds = every if key.startswith("L") else (
             ("a1", "a2 plus prev") if key == "P0T" else ("a1",))
-        x = torch.randn(bsr.n_pad_cols, c, device=dev, generator=gen).to(bf)
+        x = torch.randn(bsr.n_pad_cols, c, device=dev,
+                        generator=draw).to(bf)
         seeds = {k: torch.randn(bsr.n_pad, c, device=dev,
-                                generator=gen).to(bf)
+                                generator=draw).to(bf)
                  for k in ("t_plus", "t_prev")}
         for kind in kinds:
             alpha, kw = _seed_args(kind, seeds)
@@ -1958,18 +2092,31 @@ def phase_kernel_bf16(torch, ops80, dev):
             ref = bsr_grouped_spmm_reference(bsr, x, "bf16", alpha, **kw)
             if y.dtype != bf or ref.dtype != bf:
                 fail(f"bf16 mode returned {y.dtype} / {ref.dtype}")
-            err_abs = (y.float() - ref.float()).abs().max().item()
-            err = err_abs / ref.float().abs().max().item()
+            scale = ref.float().abs().max().item()
+            gap = (y.float() - ref.float()).abs()
+            over = (gap > TOL_BF16 * scale).nonzero()
+            tie = ""
+            if len(over):   # the twin's fp32 sum may round the other way
+                exact = _exact_bsr_rows(torch, bsr, x, alpha, kw, over)
+                if not torch.equal(y[over[:, 0], over[:, 1]].double(),
+                                   _round_bf16(torch, exact)):
+                    fail(f"bf16 kernel disagrees with its twin: {key} "
+                         f"C={c} {kind} {gap.max().item() / scale:.3e} > "
+                         f"{TOL_BF16:.3e}, and is not the exact sum "
+                         f"rounded there")
+                gap[over[:, 0], over[:, 1]] = 0.0
+                tie = (f"; {len(over)} element(s) over the bar, each the "
+                       f"exact sum rounded (the twin's rounds the other "
+                       f"way)")
+            err_abs = gap.max().item()
+            err = err_abs / scale
             eq = (y == ref).float().mean().item()
             equal.append(eq)
             group = "lap" if key.startswith("L") else "pool"
             worst[group] = max(worst[group], err_abs)
             rel_worst = max(rel_worst, err)
             say(f"  80k {key} C={c} bf16 {kind}: max_err/max|y| {err:.3e} "
-                f"(bar {TOL_BF16:.3e}), bit-equal {eq:.5f}")
-            if not err <= TOL_BF16:
-                fail(f"bf16 kernel disagrees with its twin: {key} C={c} "
-                     f"{kind} {err:.3e} > {TOL_BF16:.3e}")
+                f"(bar {TOL_BF16:.3e}), bit-equal {eq:.5f}{tie}")
     worst["seed"] = 0.0
     for key, c, f in (("L0", 512, 16), ("L1", 512, 16), ("L2", 512, 16),
                       ("L2", 1024, 32), ("L3", 1024, 32)):
@@ -2159,42 +2306,166 @@ def phase_scaled80k(torch, dev, s80, tmp):
         fail(f"scaled80k with the lazy seed launched {on}, expected {want}")
 
     # --- the bf16 kernel per 80k shape and call kind --------------------
-    say("80k bf16 train step, per call (median of %d, CUDA events):" % RUNS)
-    csr = _csr80(torch, s80, dev)
-    operands = _operands80(s80["ops"])
-    pools = {f"P{i}T": PoolT(up, POOL_F[i])
-             for i, up in enumerate(s80["ops"].up)}
-    gen = torch.Generator(device=dev).manual_seed(3)
-    rows, per_step = [], {}
-    for name, calls in {**SCALED_CALLS,
-                        "lap_seed_dot": SCALED_DOT_CALLS}.items():
-        acc = dict.fromkeys(ACC_KEYS, 0.0)
-        for label, key, c, kinds, *f in calls:
-            if key in pools:
-                _pool_calls(torch, acc, pools[key], label, c, kinds, gen,
-                            dev, rows)
-                continue
-            bsr = operands[key]
-            say(f" {label} ({key}, n_pad {bsr.n_pad} x {bsr.n_pad_cols}, "
-                f"G {bsr.g_width}):")
-            for kind, count in kinds.items():
-                got = _time_kind_bf16(torch, bsr, csr[key], c, kind, gen,
-                                      dev, *f)
-                for k in ACC_KEYS:
-                    acc[k] += count * got[k]
-                rows.append(dict(got["row"], shape=label, per_step=count))
-        per_step[name] = acc
-        say(f"per 80k train step {name}: kernel {acc['ms']:.3f} ms, twin "
-            f"{acc['plain_ms']:.3f} ms, torch.sparse {acc['library_ms']:.3f}"
-            f" ms, bound {acc['bound_ms']:.3f} ms ({_bound_by(acc)}; "
-            + _acc_tail(acc))
-    say("shape_rows_80k " + json.dumps(rows))
+    per_step = _per_step80(torch, s80, dev, "80k", {
+        **SCALED_CALLS, "lap_seed_dot": SCALED_DOT_CALLS})
     counts = {"lap": launches["bf16"],
               "pool_perblock": by_shape.get(pool_keys[0], 0),
               "pool_colmajor": sum(by_shape.get(k, 0)
                                    for k in pool_keys[1:]),
               "seed_dot": on[1]["bf16"]}
     return per_step, counts
+
+
+def _per_step80(torch, s80, dev, label, tables):
+    """The bf16 kernel per call kind at the 80k shapes of each call table
+    (kernel, twin, torch.sparse, bounds; a P^T entry is pool_transpose's),
+    summed per step: {table name: sums}."""
+    say(f"{label} bf16 train step, per call (median of {RUNS}, CUDA "
+        f"events):")
+    csr = _csr80(torch, s80, dev)
+    operands = _operands80(s80["ops"])
+    pools = {f"P{i}T": PoolT(up, POOL_F[i])
+             for i, up in enumerate(s80["ops"].up)}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows, per_step = [], {}
+    for name, calls in tables.items():
+        acc = dict.fromkeys(ACC_KEYS, 0.0)
+        for call, key, c, kinds, *f in calls:
+            if key in pools:
+                _pool_calls(torch, acc, pools[key], call, c, kinds, gen,
+                            dev, rows)
+                continue
+            bsr = operands[key]
+            say(f" {call} ({key}, n_pad {bsr.n_pad} x {bsr.n_pad_cols}, "
+                f"G {bsr.g_width}):")
+            for kind, count in kinds.items():
+                got = _time_kind_bf16(torch, bsr, csr[key], c, kind, gen,
+                                      dev, *f)
+                for k in ACC_KEYS:
+                    acc[k] += count * got[k]
+                rows.append(dict(got["row"], shape=call, per_step=count))
+        per_step[name] = acc
+        say(f"per {label} train step {name}: kernel {acc['ms']:.3f} ms, "
+            f"twin {acc['plain_ms']:.3f} ms, torch.sparse "
+            f"{acc['library_ms']:.3f} ms, bound {acc['bound_ms']:.3f} ms "
+            f"({_bound_by(acc)}; " + _acc_tail(acc))
+    say(f"shape_rows_{label} " + json.dumps(rows))
+    return per_step
+
+
+def _joint80_counts(torch, step, names: dict) -> dict:
+    """One step's launches, the counts zeroed just before: per
+    LAUNCH_KEYS entry, per (operand, C, kind) of the block-sparse calls
+    and the P^T (launch_calls, named by `names`), and cheb_mix's per
+    (kind, F_pad, F_out) in bf16."""
+    from meshvae_tpu_torch.ops import cheb_mix
+
+    torch.cuda.synchronize()
+    reset_launches()
+    step()
+    torch.cuda.synchronize()
+    mixes = {}
+    for (kind, mode, _, f, f_out), n in cheb_mix.LAUNCHES.items():
+        key = (kind if mode == "bf16" else f"{kind} {mode}", f, f_out)
+        mixes[key] = mixes.get(key, 0) + n
+    return {"modes": launch_modes(),
+            "calls": _launch_table(launch_calls(), names, 1),
+            "mixes": mixes}
+
+
+def phase_joint80k(torch, dev, s80, tmp):
+    """Phase 7b: the joint80k cell's model at 80k, built as the k-fold
+    driver builds it; its launches in one train step and one eval step
+    against JOINT80_CALLS, JOINT80_EVAL_CALLS and the mix tables, then the
+    train step's calls timed. Returns (per-step sums, launches per train
+    step of each JOINT80_CALLS table)."""
+    say("== phase 7b: joint80k (the joint VAE + GCN of "
+        f"{JOINT80_CFG}, B={SCALED_BATCH}, K=10, bf16) at 80k")
+    from meshvae_tpu_torch.config import default_config
+    from meshvae_tpu_torch.data import (BatchIterator, MeshDataset,
+                                        generate_synthetic_dataset,
+                                        list_meshes)
+    from meshvae_tpu_torch.train.driver import (build_model_and_ops,
+                                                make_trainer)
+
+    with open(os.path.join(ROOT, JOINT80_CFG)) as fp:
+        program = json.load(fp)["program"]
+    config = default_config()
+    config.update(program)
+    config.update({"template": s80["path"],     # paths only
+                   "hierarchy_cache_dir": s80["cache"]})
+    if (config["type"], config["compute_dtype"], config["batch_size"],
+            config["polygon_order"]) != ("joint_VAE", "bfloat16",
+                                         SCALED_BATCH, [10] * 5):
+        fail(f"{JOINT80_CFG} no longer is joint_VAE, bf16, B=32, K=10")
+    model, ops, hier, _ = build_model_and_ops(
+        config, dev, generator=torch.Generator().manual_seed(71))
+    if hier.levels != SCALED_LEVELS:
+        fail(f"joint80k hierarchy levels {hier.levels}")
+    tr = make_trainer(config, model, ops, dev)
+    if type(tr).__name__ != "JointTrainer":
+        fail(f"joint80k built a {type(tr).__name__}, not a JointTrainer")
+    data_dir = os.path.join(tmp, "data80k")   # phase 7's meshes
+    if not os.path.isdir(data_dir):
+        generate_synthetic_dataset(s80["tmpl"], data_dir,
+                                   n_samples=SCALED_BATCH, seed=21)
+    index, labels = list_meshes({"root_dir": data_dir})
+    ds = MeshDataset(index[:SCALED_BATCH],
+                     {"root_dir": data_dir,
+                      "checkpoint_dir": os.path.join(tmp, "norm_joint80k")},
+                     labels, s80["tmpl"].v)
+    batch = tr.to_device(next(iter(BatchIterator(ds, SCALED_BATCH))))
+    norm = tr.norm_to_device(ds.mean, ds.std)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    names = {(op.bsr.n_pad, op.bsr.n_pad_cols): f"L{i}"
+             for i, op in enumerate(ops.lap) if op.bsr is not None}
+    names.update({(up.x_rows, up.g_rows): f"P{i}T"
+                  for i, up in enumerate(ops.up)})
+    if sorted(names.values()) != ["L0", "L1", "L2", "L3", "P0T", "P1T",
+                                  "P2T", "P3T"]:
+        fail(f"joint80k operators {names}: expected L0-L3 block-sparse "
+             f"and four up-pools")
+    tr.train_step(batch, gen, *norm)   # first call: kernels load
+    got = {"train": _joint80_counts(
+               torch, lambda: tr.train_step(batch, gen, *norm), names),
+           "eval": _joint80_counts(
+               torch, lambda: tr.eval_step(batch, *norm), names)}
+    for kind, calls, mix in (
+            ("train", JOINT80_CALLS, {("fwd",) + k: v for k, v in
+                                      JOINT80_MIX_TRAIN.items()}
+             | {("dw",) + k: v for k, v in JOINT80_MIX_TRAIN.items()}),
+            ("eval", JOINT80_EVAL_CALLS, {("fwd",) + k: v for k, v in
+                                          JOINT80_MIX_EVAL.items()})):
+        want_calls = _table_counts(calls)
+        lap = sum(v for (key, _, _), v in want_calls.items()
+                  if key.startswith("L"))
+        want_modes = {**dict.fromkeys(LAUNCH_KEYS, 0), "bf16": lap,
+                      "pool bf16": sum(want_calls.values()) - lap}
+        seen = got[kind]
+        if seen["modes"] != want_modes:
+            fail(f"joint80k {kind} step launched {seen['modes']}, expected "
+                 f"{want_modes}")
+        if seen["calls"] != want_calls:
+            fail(f"joint80k {kind} step calls {seen['calls']}, expected "
+                 f"{want_calls}")
+        if seen["mixes"] != mix:
+            fail(f"joint80k {kind} step launched cheb_mix {seen['mixes']}, "
+                 f"expected {mix}")
+        say(f"joint80k {kind} step launches (counts zeroed just before): "
+            f"{want_modes['bf16']} bsr_grouped_spmm[bf16] at "
+            f"{len(want_calls)} (operand, C, kind) keys as "
+            f"JOINT80{'_EVAL' if kind == 'eval' else ''}_CALLS, "
+            f"{want_modes['pool bf16']} pool_transpose[bf16], cheb_mix "
+            + json.dumps({f"{k[0]} {k[1]}->{k[2]}": v
+                          for k, v in sorted(mix.items())}))
+    del tr, model, ops
+    torch.cuda.empty_cache()
+    per_step = _per_step80(torch, s80, dev, "joint80k", JOINT80_CALLS)
+    train = got["train"]["calls"]
+    return per_step, {
+        name: int(sum(train.get((key, c, kind), 0) for _, key, c, kinds in calls
+                      for kind in kinds))
+        for name, calls in JOINT80_CALLS.items()}
 
 
 def _run_driver(torch, config, dev, vis=False, run=None):
@@ -7620,6 +7891,9 @@ def main() -> int:
         per_step80, launches80 = phase_scaled80k(torch, dev, s80, tmp)
         seconds["scaled80k"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+        per_step_j80, launches_j80 = phase_joint80k(torch, dev, s80, tmp)
+        seconds["joint80k"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         phase_bf16_card_vs_cpu(torch, dev, hier, tmpl, tmp)
         seconds["bf16_card_vs_cpu"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -7727,6 +8001,17 @@ def main() -> int:
               "both-seed shape, off the main path)",
               REPLACES["perblock_bf16x3"], launches["bf16x3"],
               worst_abs["pool_bf16x3"], per_step["pool_bf16x3_perblock"]),
+        entry("bsr_grouped_spmm[bf16] joint80k train step: Laplacian",
+              REPLACES["fp32"], launches_j80["lap"], worst80["lap"],
+              per_step_j80["lap"]),
+        pool_entry("bf16] joint80k train step: up-pool 0 P^T at 2B (#5's "
+                   "call)", REPLACES["perblock"],
+                   launches_j80["pool_perblock"], pt_err["bf16"],
+                   per_step_j80["pool_perblock"]),
+        pool_entry("bf16] joint80k train step: up-pools 1-3 P^T at 2B (#7's "
+                   "calls)", REPLACES["colmajor"],
+                   launches_j80["pool_colmajor"], pt_err["bf16"],
+                   per_step_j80["pool_colmajor"]),
         entry("bsr_grouped_spmm[fp32] scaled20k train step: Laplacian",
               REPLACES["fp32"], launches20["lap"], worst_abs["fp32"],
               per_step20["lap"]),

@@ -24,6 +24,13 @@ across. With compute_dtype=bfloat16 the posterior heads and the two
 latent-split heads follow flax's Dense(dtype) rule (``vae.dense``), as the
 VAE's and the GCN's layers do; build_joint_model gives both configs the
 config's compute dtype.
+
+``mark`` (a callable of a slot name, the scanned train step's phase marks,
+train/phases.py) stamps ``gcn`` once the two decodes have ended and the
+GCN is about to start on diff, and ``gcn_grad`` from the backward of an
+identity on diff, when the gradient has come back through the GCN to its
+input: on the step's stream, so a captured step stamps both at each
+replay.
 """
 from __future__ import annotations
 
@@ -47,6 +54,21 @@ class _GradReverse(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return -g
+
+
+class _MarkGrad(torch.autograd.Function):
+    """Identity forward; its backward stamps ``gcn_grad`` and passes the
+    gradient on unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, mark):
+        ctx.mark = mark
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.mark("gcn_grad")
+        return g, None
 
 
 def grad_reverse(x: torch.Tensor) -> torch.Tensor:
@@ -108,12 +130,12 @@ class JointMeshVAE(nn.Module):
     def forward(self, x: torch.Tensor, y: torch.Tensor, ops: ModelOperators,
                 train: bool = False,
                 generator: torch.Generator | None = None,
-                rows: tuple | None = None) -> dict:
+                rows: tuple | None = None, mark=None) -> dict:
         """MeshVAE's output dict (recon, y_hat, mu, logvar, z) plus
         sup_logits, adv_logits, cls_logits (float32) and recon_oppo. rows
-        = (start, total): see the module docstring. In sp's row layout x,
-        recon, recon_oppo and the GCN's input diff are the rank's rows of
-        level 0."""
+        = (start, total), mark: see the module docstring. In sp's row
+        layout x, recon, recon_oppo and the GCN's input diff are the
+        rank's rows of level 0."""
         vae, dt = self.vae, self.cfg.dtype
         h = vae.encode(x, ops, train, generator, rows)
         y_hat = vae.classify(h, train, generator, rows)
@@ -131,6 +153,9 @@ class JointMeshVAE(nn.Module):
                           else ((rows[0], rows[1] + rows[0]), 2 * rows[1]))
         recon, recon_oppo = both[:b], both[b:]
         diff = torch.cat([x - recon_oppo, x - recon], dim=-1)
+        if mark is not None:
+            mark("gcn")
+            diff = _MarkGrad.apply(diff, mark)
         cls_logits = self.gcn(diff, ops)
         return {"recon": recon, "y_hat": y_hat, "mu": mu, "logvar": logvar,
                 "z": z, "sup_logits": sup_logits, "adv_logits": adv_logits,

@@ -11,6 +11,14 @@ supervised latent slice's head) and ``adv_accuracy`` (the adversarial
 head on the free slice: lower is better scrubbed). In an sp world x, the
 decodes, the GCN's difference features and its activations at
 row-sharded levels are the rank's rows, as the VAE's (train/loop.py).
+
+The scanned train step times two sub-phases (``sub_phases``,
+train/phases.py) by two marks of its own: ``gcn`` where the two decodes
+have ended and the GCN starts, ``gcn_grad`` where the backward's gradient
+reaches the GCN's input (models/joint.py). ``gcn_forward`` (gcn ->
+forward) is the GCN's forward and the joint loss inside the ``forward``
+phase, ``gcn_backward`` (forward -> gcn_grad) the loss's and the GCN's
+backward inside ``backward``.
 """
 from __future__ import annotations
 
@@ -18,11 +26,14 @@ import torch
 import torch.nn.functional as F
 
 from ..models.joint import joint_loss
+from . import phases
 from .loop import Trainer
 
 
 class JointTrainer(Trainer):
     extra_scalar_names = ("sup_accuracy", "adv_accuracy")
+    sub_phases = {"gcn_forward": ("gcn", "forward"),
+                  "gcn_backward": ("forward", "gcn_grad")}
 
     def _extra_scalars(self, aux: dict) -> list:
         return [aux["sup_correct"], aux["adv_correct"]]
@@ -34,11 +45,12 @@ class JointTrainer(Trainer):
         self.cls_weight = float(config.get("cls_weight", 1.0))
 
     def _forward_loss(self, batch: dict, train: bool,
-                      generator: torch.Generator | None):
+                      generator: torch.Generator | None,
+                      mark=phases.unmarked):
         x, labels, mask = batch["x"], batch["label"], batch["mask"]
         y = F.one_hot(labels, self.num_classes).to(x.dtype)
         out = self.model(x, y, self.ops, train=train, generator=generator,
-                         rows=self._rows(x, train))
+                         rows=self._rows(x, train), mark=mark)
         denom = self._denominator(mask)
         loss, aux = joint_loss(x, out, y, labels, mask=mask,
                                sup_weight=self.sup_weight,

@@ -199,7 +199,7 @@ class _Scan:
     eagerly). Built once per staged epoch and kind of step."""
 
     def __init__(self, kind: str, staged: dict, outs: dict, device,
-                 keys: tuple):
+                 keys: tuple, slots: tuple):
         self.kind = kind
         self.staged = staged
         self.steps, self.batch = staged["mask"].shape[:2]
@@ -210,9 +210,8 @@ class _Scan:
         self.step = torch.zeros(1, dtype=torch.long, device=device)
         self.norm = None
         self.outs = outs
-        self.mark = (phases.Marks(outs["stamps"], self.step,
-                                  phases.slots(kind)) if "stamps" in outs
-                     else phases.unmarked)
+        self.mark = (phases.Marks(outs["stamps"], self.step, slots)
+                     if "stamps" in outs else phases.unmarked)
         self.run = None
         self.graph = None
         self.generator = None
@@ -246,10 +245,14 @@ class Trainer:
     ``extra_scalar_names`` (rate names) and ``_extra_scalars(aux)`` (the
     matching correct counts): they follow the packed eval scalars and come
     back as name = count / total in the eval averages, and so in
-    history{fold}.json."""
+    history{fold}.json. ``sub_phases`` (name -> (first mark, last mark),
+    train/phases.py) times parts of the train step's phases by marks that
+    a subclass's objective stamps: ``_forward_loss`` gets the step's mark
+    to stamp those that are no slot."""
 
     BATCH_KEYS = ("x", "label", "r", "s", "m", "mask")
     extra_scalar_names: tuple = ()
+    sub_phases: dict = {}
 
     def _extra_scalars(self, aux: dict) -> list:
         return []
@@ -354,9 +357,11 @@ class Trainer:
         return None
 
     def _forward_loss(self, batch: dict, train: bool,
-                      generator: torch.Generator | None):
+                      generator: torch.Generator | None,
+                      mark=phases.unmarked):
         """(loss, out, aux, y, denom) of the model on a device batch: the
-        objective the steps differentiate and report."""
+        objective the steps differentiate and report. `mark` is the train
+        step's, for the marks of a subclass's ``sub_phases``."""
         x = batch["x"]
         y = F.one_hot(batch["label"], self.num_classes).to(x.dtype)
         out = self.model(x, y, self.ops, train=train, generator=generator,
@@ -410,10 +415,11 @@ class Trainer:
         step's gradients afterwards. generator None makes the step
         deterministic (no dropout, z = mu), for gradient checks. `mark`
         (the scanned epoch's phases.Marks) is called after the loss, the
-        backward and the update."""
+        backward and the update, and by the objective for the marks of
+        its ``sub_phases``."""
         self.optimizer.zero_grad(set_to_none=True)
         loss, out, aux, _, denom = self._forward_loss(
-            batch, generator is not None, generator)
+            batch, generator is not None, generator, mark)
         mark("forward")
         loss.backward()
         self._reduce_gradients()
@@ -564,13 +570,23 @@ class Trainer:
                                       with_index=with_index,
                                       rows=self.vertex_shard)
 
+    def _sub_phases(self, kind: str) -> dict:
+        """The sub-phases a kind of scanned step times: the train step's
+        ``sub_phases``, none in an evaluation."""
+        return self.sub_phases if kind == "train" else {}
+
+    def _mark_slots(self, kind: str) -> tuple:
+        """The phase marks a kind of scanned step stamps: the kind's slots,
+        then the marks its sub-phases add."""
+        return phases.columns(kind, self._sub_phases(kind))
+
     def _scan_outs(self, kind: str, staged: dict) -> dict:
         """The [S, ...] rows a kind of step writes (this rank's rows of
         each batch in a world) and the int64 phase stamps [S, P]
         (train/phases.py)."""
         s, b = staged["mask"].shape[:2]
         dev = self.device
-        stamps = torch.zeros((s, len(phases.slots(kind))),
+        stamps = torch.zeros((s, len(self._mark_slots(kind))),
                              dtype=torch.int64, device=dev)
         if kind == "train":
             return {"metrics": torch.zeros((s, len(METRIC_NAMES)),
@@ -637,7 +653,7 @@ class Trainer:
         st = self._scans.get(kind)
         if st is None or st.staged is not staged:
             st = _Scan(kind, staged, self._scan_outs(kind, staged),
-                       self.device, self.BATCH_KEYS)
+                       self.device, self.BATCH_KEYS, self._mark_slots(kind))
             self._scans[kind] = st
         if norm_mean is None:
             st.norm = ()
@@ -684,7 +700,8 @@ class Trainer:
                 step()
         stamps = st.outs.get("stamps")
         return (None if stamps is None
-                else phases.pending(st.kind, stamps, replayed))
+                else phases.pending(st.kind, stamps, replayed,
+                                    self._sub_phases(st.kind)))
 
     def train_epoch_scanned_async(self, staged, generator, norm_mean,
                                   norm_std, shuffle_generator=None,

@@ -17,13 +17,21 @@ writes a new row at each replay; on the CPU the host writes
          eval_counterfactual (the sex-change decode, its re-encode and
          pose error, and the rows written)
 
+A trainer may time parts of its train step's phases without changing
+them: it declares sub-phases (``Trainer.sub_phases``, name -> (first
+mark, last mark)), and each mark they name that no slot is becomes one
+more column of the same buffer, after the slots (columns), stamped by the
+trainer's objective. The sub-phases travel with the stamps, so this
+module names no model.
+
 The stamps come back in the epoch's one pull (graphs.HostCopy ``beside``
 the outputs). Finalizing the epoch appends one record to RECORDS: the
 kind ("train", "light", "errors", "collect"), the step count, whether a
 profiler ran when the epoch was queued, whether every step replayed an
-already captured graph, each phase's ms per step and the gap in ms from
-each step's last mark to the next step's start. LAUNCHES counts the marks
-per slot, a replayed graph's included (train/graphs.py).
+already captured graph, each phase's ms per step, each sub-phase's ms per
+step and the gap in ms from each step's last slot mark to the next step's
+start. LAUNCHES counts the marks per column, a replayed graph's included
+(train/graphs.py).
 
 Host spans. ``span(name)`` is a torch.profiler range "meshvae.<name>"
 while a profiler runs and a shared no-op otherwise, so the step path
@@ -61,6 +69,16 @@ _NO_SPAN = contextlib.nullcontext()
 def slots(kind: str) -> tuple:
     """The mark slots of a kind of scanned step ("train" or an eval kind)."""
     return SLOTS["train" if kind == "train" else "eval"]
+
+
+def columns(kind: str, sub_phases: dict) -> tuple:
+    """The stamps' columns of a kind of scanned step: the kind's slots,
+    then each mark of `sub_phases` (name -> (first, last)) that no slot
+    is, in the order they are named."""
+    out = slots(kind)
+    for pair in sub_phases.values():
+        out += tuple(name for name in pair if name not in out)
+    return out
 
 
 def span(name: str):
@@ -116,12 +134,16 @@ class Marks:
             raise RuntimeError(f"phase_mark launch failed: CUDA error {rc}")
 
 
-def pending(kind: str, stamps: torch.Tensor, replayed: bool) -> dict:
+def pending(kind: str, stamps: torch.Tensor, replayed: bool,
+            sub_phases: dict) -> dict:
     """What an epoch's record needs, for HostCopy's ``beside``: the kind,
-    the stamps, whether every step replayed a captured graph and whether
-    a profiler runs now, as the epoch is queued."""
+    the stamps, the names of their columns, the sub-phases they time,
+    whether every step replayed a captured graph and whether a profiler
+    runs now, as the epoch is queued."""
     return {"kind": kind, "stamps": stamps, "replayed": replayed,
-            "profiled": torch.autograd._profiler_enabled()}
+            "profiled": torch.autograd._profiler_enabled(),
+            "columns": columns(kind, sub_phases),
+            "sub_phases": dict(sub_phases)}
 
 
 def record(beside) -> dict | None:
@@ -131,13 +153,17 @@ def record(beside) -> dict | None:
     if beside is None:
         return None
     stamps = np.asarray(beside["stamps"], dtype=np.int64)
-    ms = np.diff(stamps, axis=1) * 1e-6
+    main = slots(beside["kind"])
+    col = {name: i for i, name in enumerate(beside["columns"])}
+    at = lambda name: stamps[:, col[name]]
     rec = {"kind": beside["kind"], "steps": int(stamps.shape[0]),
            "profiled": bool(beside["profiled"]),
            "replayed": bool(beside["replayed"]),
-           "phases": {name: ms[:, i] for i, name in
-                      enumerate(slots(beside["kind"])[1:])},
-           "gap": (stamps[1:, 0] - stamps[:-1, -1]) * 1e-6}
+           "phases": {b: (at(b) - at(a)) * 1e-6
+                      for a, b in zip(main, main[1:])},
+           "sub_phases": {name: (at(b) - at(a)) * 1e-6
+                          for name, (a, b) in beside["sub_phases"].items()},
+           "gap": (at(main[0])[1:] - at(main[-1])[:-1]) * 1e-6}
     RECORDS.append(rec)
     _recorded += 1
     return rec
@@ -156,14 +182,15 @@ def since(count: int) -> list[dict]:
 
 def epoch_line(epoch: int, records: list[dict]) -> str | None:
     """The run log's line of one epoch's records: the median ms per step
-    of each phase of each kind, and the mean gap between steps."""
+    of each phase and sub-phase of each kind, and the mean gap between
+    steps."""
     if not records:
         return None
     parts = []
     for rec in records:
+        timed = {**rec["phases"], **rec["sub_phases"]}
         parts.append(f"{rec['kind']} " + " ".join(
-            f"{name} {np.median(ms):.3f}" for name, ms in
-            rec["phases"].items()))
+            f"{name} {np.median(ms):.3f}" for name, ms in timed.items()))
     gaps = np.concatenate([rec["gap"] for rec in records])
     gap = f"{gaps.mean():.3f}" if gaps.size else "-"
     return (f"phases of epoch {epoch}, median ms per step: "

@@ -21,9 +21,10 @@ from meshvae_tpu_torch.config import default_config
 from meshvae_tpu_torch.data import (BatchIterator, MeshDataset,
                                     generate_synthetic_dataset, list_meshes)
 from meshvae_tpu_torch.mesh import TriMesh, build_hierarchy, save_obj
-from meshvae_tpu_torch.models import MeshVAE, VAEConfig, build_operators
+from meshvae_tpu_torch.models import (GCNConfig, JointMeshVAE, MeshVAE,
+                                      VAEConfig, build_operators)
 import meshvae_tpu_torch.train as train_package
-from meshvae_tpu_torch.train import Trainer, driver, phases
+from meshvae_tpu_torch.train import JointTrainer, Trainer, driver, phases
 
 from conftest import make_grid_mesh
 
@@ -32,6 +33,9 @@ BATCH = 4
 CONFIG = {"num_classes": 2, "learning_rate": 1e-3, "weight_decay": 5e-4}
 TRAIN_SLOTS = phases.SLOTS["train"]
 EVAL_SLOTS = phases.SLOTS["eval"]
+JOINT_MARKS = ("gcn", "gcn_grad")
+JOINT_SUB_PHASES = {"gcn_forward": ("gcn", "forward"),
+                    "gcn_backward": ("forward", "gcn_grad")}
 
 
 def _data(root, grid: int, n: int):
@@ -64,6 +68,22 @@ def _trainer(hier, device="cpu", bsr_min_n=1024):
                           bsr_min_n=bsr_min_n)
     model = MeshVAE(cfg, generator=torch.Generator().manual_seed(0))
     return Trainer(model, ops, dict(CONFIG), device=device)
+
+
+def _joint_trainer(hier, device="cpu", bsr_min_n=1024):
+    """The joint VAE + GCN at _trainer's widths, split 2 of latent 4."""
+    vae = VAEConfig(num_features=3, filters=(8, 16, 16),
+                    polygon_order=(3, 3, 3), n_layers=2, num_hidden=16,
+                    latent=4, num_classes=2, dropout=0.2,
+                    coarse_verts=hier.levels[-1], precision="highest")
+    gcn = GCNConfig(num_features=6, filters=(8, 16, 16),
+                    polygon_order=(3, 3, 3), n_layers=2, num_classes=2,
+                    coarse_verts=hier.levels[-1], precision="highest")
+    ops = build_operators(hier, device, cheb_method="pallas",
+                          bsr_min_n=bsr_min_n)
+    model = JointMeshVAE(vae, gcn, 2,
+                         generator=torch.Generator().manual_seed(0))
+    return JointTrainer(model, ops, dict(CONFIG), device=device)
 
 
 def _unmarked(monkeypatch):
@@ -150,6 +170,103 @@ def test_scanned_epochs_stamp_their_phases_and_leave_one_record(
     assert on[2] == off[2] and on[3] == off[3]
 
 
+def test_joint_epoch_times_its_gcn_inside_its_phases(data, monkeypatch):
+    """The joint trainer's train stamps carry two more columns, gcn and
+    gcn_grad, stamped once a step each (LAUNCHES) with start <= gcn <=
+    forward <= gcn_grad <= backward in every row; its record keeps the
+    train phases as the slots' differences, the gap from the metrics mark,
+    and adds the sub-phases gcn_forward (gcn -> forward) and gcn_backward
+    (forward -> gcn_grad), each inside its parent phase; the eval record
+    has none and the run log's line names them. With the marks taken out
+    the packed metrics and the eval scalars are bit-equal."""
+    hier, ds, batches = data
+    steps = len(batches)
+    read = {}
+    for marks in (True, False):
+        with monkeypatch.context() as m:
+            if not marks:
+                _unmarked(m)
+            tr = _joint_trainer(hier)
+            staged = tr.stage_batches(batches)
+            norm = tr.norm_to_device(ds.mean, ds.std)
+            phases.reset_launches()
+            packed, pending = _epoch(tr, staged, norm)
+            launches = dict(phases.LAUNCHES)
+            count = phases.recorded()
+            tr.finalize_train_metrics(packed)
+            tr.finalize_eval_scanned(pending, with_errors=False)
+        read[marks] = (packed.wait(), pending["outs"].wait()["scalars"])
+        if not marks:
+            assert launches == {} and phases.since(count) == []
+            continue
+        assert launches == {
+            slot: steps * ((slot in TRAIN_SLOTS) + (slot in EVAL_SLOTS)
+                           + (slot in JOINT_MARKS))
+            for slot in TRAIN_SLOTS + EVAL_SLOTS + JOINT_MARKS}
+        beside = packed.beside
+        assert beside["columns"] == TRAIN_SLOTS + JOINT_MARKS
+        stamps = beside["stamps"].numpy()
+        assert stamps.shape == (steps, len(TRAIN_SLOTS) + 2)
+        col = {name: stamps[:, i]
+               for i, name in enumerate(beside["columns"])}
+        order = ("start", "gcn", "forward", "gcn_grad", "backward",
+                 "optimizer", "metrics")
+        for a, b in zip(order, order[1:]):
+            assert (col[b] >= col[a]).all(), (a, b)
+        train, light = phases.since(count)
+        assert (train["kind"], light["kind"]) == ("train", "light")
+        assert list(train["phases"]) == list(TRAIN_SLOTS[1:])
+        for a, b in zip(TRAIN_SLOTS, TRAIN_SLOTS[1:]):
+            np.testing.assert_allclose(train["phases"][b],
+                                       (col[b] - col[a]) * 1e-6)
+        np.testing.assert_allclose(
+            train["gap"], (col["start"][1:] - col["metrics"][:-1]) * 1e-6)
+        sub = train["sub_phases"]
+        assert set(sub) == {"gcn_forward", "gcn_backward"}
+        np.testing.assert_allclose(sub["gcn_forward"],
+                                   (col["forward"] - col["gcn"]) * 1e-6)
+        np.testing.assert_allclose(sub["gcn_backward"],
+                                   (col["gcn_grad"] - col["forward"]) * 1e-6)
+        for name, parent in (("gcn_forward", "forward"),
+                             ("gcn_backward", "backward")):
+            assert sub[name].shape == (steps,) and (sub[name] > 0).all()
+            assert (sub[name] <= train["phases"][parent]).all()
+        assert light["sub_phases"] == {}
+        assert pending["outs"].beside["columns"] == EVAL_SLOTS
+        line = phases.epoch_line(1, [train, light])
+        assert " gcn_forward " in line and " gcn_backward " in line
+    on, off = read[True], read[False]
+    torch.testing.assert_close(on[0], off[0], rtol=0, atol=0)
+    torch.testing.assert_close(on[1], off[1], rtol=0, atol=0)
+
+
+def test_a_vae_trainer_keeps_its_slots_and_stamps_nothing_new(data):
+    """A MeshVAE trainer stamps the kinds' slots alone: no train marks of
+    its own, [S, 5] train stamps named by the slots, no sub-phase in its
+    records and no joint mark counted."""
+    hier, ds, batches = data
+    tr = _trainer(hier)
+    assert Trainer.sub_phases == {} and tr.sub_phases == {}
+    assert tr._mark_slots("train") == TRAIN_SLOTS
+    assert tr._mark_slots("light") == EVAL_SLOTS
+    assert JointTrainer.sub_phases == JOINT_SUB_PHASES
+    assert phases.columns("train", JOINT_SUB_PHASES) == (TRAIN_SLOTS
+                                                         + JOINT_MARKS)
+    assert phases.columns("light", {}) == EVAL_SLOTS
+    staged = tr.stage_batches(batches)
+    norm = tr.norm_to_device(ds.mean, ds.std)
+    phases.reset_launches()
+    count = phases.recorded()
+    packed, pending = _epoch(tr, staged, norm)
+    tr.finalize_train_metrics(packed)
+    tr.finalize_eval_scanned(pending, with_errors=False)
+    assert packed.beside["columns"] == TRAIN_SLOTS
+    assert packed.beside["sub_phases"] == {}
+    assert packed.beside["stamps"].shape == (len(batches), len(TRAIN_SLOTS))
+    assert not set(JOINT_MARKS) & set(phases.LAUNCHES)
+    assert [r["sub_phases"] for r in phases.since(count)] == [{}, {}]
+
+
 def test_records_are_bounded_and_read_back_by_count(monkeypatch):
     """RECORDS keeps at least 2048 records, dropping the oldest; since()
     returns the records appended after a recorded() count, also once the
@@ -159,6 +276,7 @@ def test_records_are_bounded_and_read_back_by_count(monkeypatch):
     stamps = np.array([[1, 2, 4], [5, 7, 8]], dtype=np.int64)
     first = phases.recorded()
     recs = [phases.record({"kind": "light", "stamps": stamps + i,
+                           "columns": EVAL_SLOTS, "sub_phases": {},
                            "profiled": False, "replayed": True})
             for i in range(5)]
     assert phases.recorded() == first + 5
@@ -245,6 +363,7 @@ def _stamps(steps: int, durations: list, gap: float, start: int = 10**9):
 def _record(kind, steps, durations, gap, profiled=False, replayed=True):
     return phases.record({"kind": kind, "stamps": _stamps(steps, durations,
                                                          gap),
+                          "columns": phases.slots(kind), "sub_phases": {},
                           "profiled": profiled, "replayed": replayed})
 
 
@@ -311,6 +430,79 @@ def test_phase_readers_read_the_window_records(base, monkeypatch):
     _record("train", 1, [1.0] * 4, 1.0)
     _record("light", 1, [1.0] * 2, 1.0)
     assert read(ctx) is None
+
+
+def _joint_stamps(steps: int, forward: float, gcn_forward: float,
+                  backward: float, gcn_backward: float) -> np.ndarray:
+    """[steps, 7] joint train stamps (the slots, then gcn and gcn_grad):
+    the GCN takes the last gcn_forward ms of the forward phase and the
+    first gcn_backward ms of the backward; optimizer and metrics 0.5 ms,
+    0.125 ms between steps."""
+    main = _stamps(steps, [forward, backward, 0.5, 0.5], 0.125)
+    ns = lambda ms: int(round(ms * 1e6))
+    gcn = main[:, 1] - ns(gcn_forward)
+    grad = main[:, 1] + ns(gcn_backward)
+    return np.concatenate([main, gcn[:, None], grad[:, None]], axis=1)
+
+
+def _joint_window(monkeypatch):
+    """Three joint train epochs whose GCN takes 1, 2 and 4 ms of the
+    forward and 3, 5 and 6 ms of the backward (medians 2 and 5), one light
+    evaluation, and joint records the readers must pass over (profiled,
+    not replayed, another step count)."""
+    monkeypatch.setattr(phases, "RECORDS", collections.deque(maxlen=64))
+    columns = TRAIN_SLOTS + JOINT_MARKS
+
+    def joint(gcn_fwd, gcn_bwd, steps=4, profiled=False, replayed=True):
+        phases.record({"kind": "train", "columns": columns,
+                       "sub_phases": JOINT_SUB_PHASES,
+                       "stamps": _joint_stamps(steps, 10.0, gcn_fwd, 12.0,
+                                               gcn_bwd),
+                       "profiled": profiled, "replayed": replayed})
+
+    for gcn_fwd, gcn_bwd in ((1.0, 3.0), (2.0, 5.0), (4.0, 6.0)):
+        joint(gcn_fwd, gcn_bwd)
+    _record("light", 2, [3.0, 2.0], 0.25)
+    joint(9.0, 9.0, profiled=True)
+    joint(9.0, 9.0, replayed=False)
+    joint(9.0, 9.0, steps=5)
+    return {"steps_per_epoch": (4, 2)}
+
+
+GCN_READINGS = {"gcn_forward_ms": 2.0, "gcn_backward_ms": 5.0}
+
+
+@pytest.mark.parametrize("base", sorted(GCN_READINGS))
+def test_gcn_readers_read_the_joint_window_records(base, monkeypatch):
+    """gcn_forward_ms and gcn_backward_ms, found by their names in the
+    joint cell, read the median over the window's joint train epochs of
+    each one's mean sub-phase, inside forward_ms and backward_ms of the
+    same records (10 and 12 ms); None for the VAE's records (no
+    sub-phases), for no window, and for a program without phases (an
+    older checkout)."""
+    monkeypatch.syspath_prepend(ROOT)
+    from meshbench.registry import Registry
+
+    reg = Registry()
+    name = f"{base}.joint80k"
+    (entry,) = [m for m in reg.bench["per_layer"] if m["name"] == name]
+    assert entry["workloads"] == ["joint80k.train"]
+    assert entry["moves"] == "train_meshes_per_s.vae80k"
+    assert (entry["source"], entry["layer"]) == ("device_trace", "model")
+    read = reg.metric_reader(name)
+    ctx = _joint_window(monkeypatch)
+    assert read(ctx) == pytest.approx(GCN_READINGS[base], rel=1e-9)
+    parent = reg.metric_reader(("forward_ms" if base == "gcn_forward_ms"
+                                else "backward_ms") + ".joint80k")
+    assert read(ctx) <= parent(ctx) == pytest.approx(
+        10.0 if base == "gcn_forward_ms" else 12.0, rel=1e-9)
+    assert read({}) is None
+    with monkeypatch.context() as m:   # a checkout without the marks
+        m.delattr(train_package, "phases")
+        m.setitem(sys.modules, "meshvae_tpu_torch.train.phases", None)
+        assert read(ctx) is None
+    vae = _window_records(monkeypatch)   # the VAE's records: no sub-phase
+    assert read(vae) is None
 
 
 # --- the driver -------------------------------------------------------------
@@ -435,3 +627,40 @@ def test_captured_steps_mark_a_row_per_replay(tmp_path, monkeypatch):
         assert graphs[False][kind][marks_at] == {}
         assert graphs[True][kind][:marks_at] == graphs[False][kind][:marks_at]
     assert sum(sum(d.values()) for d in graphs[True]["train"][:-1]) > 0
+
+
+@pytest.mark.cuda
+def test_captured_joint_steps_mark_the_gcn_at_each_replay(tmp_path):
+    """On the card, the joint trainer's captured train step stamps gcn in
+    the forward and gcn_grad from the backward (on the capture's stream)
+    at each replay: every row inside its phases, one launch of each per
+    replay in the graph's counts, and LAUNCHES counting both once a step
+    over warm-up, capture and replays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the mark kernel has no CPU mode")
+    hier, ds, batches = _data(tmp_path, 16, 12)
+    tr = _joint_trainer(hier, "cuda", bsr_min_n=128)
+    assert tr.graphs
+    staged = tr.stage_batches(batches)
+    norm = tr.norm_to_device(ds.mean, ds.std)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    phases.reset_launches()
+    count = phases.recorded()
+    for _ in range(3):  # warm-up and capture, then replays
+        packed, pending = _epoch(tr, staged, norm, gen)
+        tr.finalize_train_metrics(packed)
+        tr.finalize_eval_scanned(pending, with_errors=False)
+    steps = len(batches)
+    assert phases.LAUNCHES["gcn"] == phases.LAUNCHES["gcn_grad"] == 3 * steps
+    per_replay = tr._scans["train"].graph.per_replay[-1]
+    assert per_replay == dict.fromkeys(TRAIN_SLOTS + JOINT_MARKS, 1)
+    assert tr._scans["light"].graph.per_replay[-1] == dict.fromkeys(
+        EVAL_SLOTS, 1)
+    trains = [r for r in phases.since(count) if r["kind"] == "train"]
+    assert [r["replayed"] for r in trains] == [False, True, True]
+    for rec in trains:
+        sub = rec["sub_phases"]
+        assert (sub["gcn_forward"] > 0).all()
+        assert (sub["gcn_backward"] > 0).all()
+        assert (sub["gcn_forward"] <= rec["phases"]["forward"]).all()
+        assert (sub["gcn_backward"] <= rec["phases"]["backward"]).all()
